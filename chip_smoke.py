@@ -18,7 +18,17 @@ which raises (and so exits non-zero) on failure:
    main path's launches);
 5. card against CPU inside the port: one fitted state featurized and solved
    on both devices;
-6. one JSON line per the kernels, the card line, and the final JSON line.
+6. the VOCSIFTFisher main path at full width (dense SIFT step 3, 4 scales;
+   PCA to 80; a 256-component GMM; 40,960-wide Fisher vectors; 20 classes)
+   on seeded synthetic VOC-shaped images, 512 train and 512 test at
+   500x375 and 375x500, through
+   ``keystone_tpu_torch.workloads.voc_sift_fisher.run``, then its servable
+   chain in batches of 1, 4 and 16, which must reproduce the offline test
+   scores (counted with the run as the path's launches);
+7. card against CPU inside the port: one fitted VOC state, four images
+   through SIFT, and from identical descriptors through PCA -> Fisher
+   statistics -> features, on both devices;
+8. one JSON line per the kernels, the card line, and the final JSON line.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -39,11 +49,18 @@ import torch
 
 from keystone_tpu_torch import _build, convert
 from keystone_tpu_torch.loaders.cifar import cifar_loader
+from keystone_tpu_torch.loaders.image_loaders import VOC_NUM_CLASSES, MultiLabeledImages
+from keystone_tpu_torch.ops import fv_stats as fs
 from keystone_tpu_torch.ops import rect_pool as rp
+from keystone_tpu_torch.ops.fisher import _fv_from_stats
+from keystone_tpu_torch.ops.sift import SIFTExtractor
 from keystone_tpu_torch.ops.stats import StandardScaler
+from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
 from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
 from keystone_tpu_torch.workloads import cifar_random_patch as cifar
+from keystone_tpu_torch.workloads import voc_sift_fisher as voc
+from keystone_tpu_torch.workloads.fv_common import fisher_feature_pipeline, grayscale
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
 # the f32 rate outside the tensor cores.
@@ -61,6 +78,19 @@ MAIN_FLAGS = [
 # multiple of 32, truncated edge windows, odd pool size, max_val != 0).
 PROD = (2048, 27, 27, 100, 13, 14, 0.25, 0.0)
 ODD = [(64, 20, 24, 7, 4, 6, 0.25, 0.0), (64, 16, 16, 3, 5, 5, 0.1, 0.05)]
+
+# fv_stats (n, d, D, k, ragged): 32 images of the VOC production shape (a
+# 500x375 image gives 73,866 descriptors of 80 dims after PCA, k=256; 32
+# because the plain version holds [n, k, D] f32 posteriors, 2.4 GB here),
+# then ragged counts and a D that is not a multiple of the kernel's tile.
+FV_PROD = (32, 80, 73866, 256, False)
+FV_ODD = [(3, 24, 700, 8, True), (3, 24, 333, 8, False)]
+
+# VOCSIFTFisher: VOC 2007's two common image sizes (H, W), images per split.
+VOC_SHAPES = {(375, 500): 384, (500, 375): 128}
+VOC_CONF = dict(desc_dim=80, vocab_size=256, sift_step_size=3, scale_step=0,
+                lam=0.5, num_pca_samples=int(1e6), num_gmm_samples=int(1e6),
+                seed=42, device="cuda")
 
 
 def log(msg: str) -> None:
@@ -123,6 +153,102 @@ def check_rect_pool(shape, dtype, gen, timed: bool) -> dict:
     return rec
 
 
+def fv_stats_bound(n: int, d: int, cols: int, k: int) -> tuple[float, str]:
+    """Least time for the statistics: x read once and s0/s1/s2 written once,
+    against the 8*k*d*D f32 operations of the four contractions per image
+    (the k*D exps are left out, in the bound's favour)."""
+    bytes_ms = (n * d * cols * 4 + n * (k + 2 * d * k) * 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 8 * k * d * cols * n / F32_FLOPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def fv_stats_f64(args, n_valid, chunk: int = 8) -> torch.Tensor:
+    """The plain version's Fisher vectors on the same inputs in f64, a few
+    images at a time (the [n, k, D] posteriors are 1.2 GB per 8 images)."""
+    x, counts, means, variances, weights = (
+        None if a is None else (a.double() if a.is_floating_point() else a) for a in args
+    )
+    gmm = (means, variances, weights)
+    return torch.cat([
+        _fv_from_stats(
+            *fs.fv_stats_reference(x[i : i + chunk], None if counts is None else counts[i : i + chunk], *gmm),
+            *gmm, n_valid[i : i + chunk].double(),
+        )
+        for i in range(0, x.shape[0], chunk)
+    ])
+
+
+def check_fv_stats(shape, gen, timed: bool) -> dict:
+    n, d, cols, k, ragged = shape
+    x = torch.randn((n, d, cols), generator=gen, device="cuda")
+    means = torch.randn((d, k), generator=gen, device="cuda")
+    variances = 0.5 + 1.5 * torch.rand((d, k), generator=gen, device="cuda")
+    weights = 0.5 + torch.rand((k,), generator=gen, device="cuda")
+    weights /= weights.sum()
+    counts = (torch.randint(cols // 2, cols + 1, (n,), generator=gen, device="cuda")
+              .to(torch.int32) if ragged else None)
+    n_valid = (counts.to(torch.float32) if ragged
+               else torch.full((n,), float(cols), device="cuda"))
+    args = (x, counts, means, variances, weights)
+    got = _fv_from_stats(*fs.fv_stats(*args), means, variances, weights, n_valid)
+    plain = _fv_from_stats(*fs.fv_stats_reference(*args), means, variances, weights, n_valid)
+    torch.cuda.synchronize()
+    # Oracle: the plain version in f64 on the same inputs.  The plain f32
+    # version sums each of its D-long contractions in one f32 chain and at
+    # D = 73,866 drifts past the bar itself; the kernel sums in tiles and
+    # stays 10x closer to f64.  Bar: rtol 2e-4, atol 2e-5 * max (the JAX
+    # kernel's bar, scaled by the output's largest value).
+    ref = fv_stats_f64(args, n_valid)
+    scale = ref.abs().max().item()
+    torch.testing.assert_close(got.double(), ref, rtol=2e-4, atol=2e-5 * scale)
+    rec = {"shape": [n, d, cols], "k": k, "ragged": ragged,
+           "max_abs_err": (got.double() - ref).abs().max().item(),
+           "plain_f32_max_abs_err": (plain.double() - ref).abs().max().item(),
+           "kernel_vs_plain_f32": (got - plain).abs().max().item(),
+           "max_abs": scale}
+    del ref, got, plain
+    if timed:
+        rec["ms"] = cuda_ms(lambda: fs.fv_stats(*args), reps=10)
+        rec["plain_ms"] = cuda_ms(lambda: fs.fv_stats_reference(*args), reps=5, warmup=1)
+        rec["bound_ms"], rec["bound_by"] = fv_stats_bound(n, d, cols, k)
+    log(f"fv_stats {rec}")
+    return rec
+
+
+def voc_images(rng, shapes: dict, num_classes: int = VOC_NUM_CLASSES) -> MultiLabeledImages:
+    """Seeded VOC-shaped images: BGR f32 in [0, 255].  Each image has a
+    primary class and, with probability 0.25, a second one.  A class is a
+    colour plus an oriented grating with its own orientation and period;
+    the second class's grating covers a random half of the image.  Noise
+    and random phases and amplitudes make every image different."""
+    palette = np.random.default_rng(1).uniform(50, 205, (num_classes, 3))
+    angles = np.pi * np.arange(num_classes) / num_classes
+    periods = 6.0 + 3.0 * (np.arange(num_classes) % 5)
+    images, labels = [], []
+    for (h, w), count in shapes.items():
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        for _ in range(count):
+            classes = [int(rng.integers(num_classes))]
+            if rng.random() < 0.25:
+                classes.append(int((classes[0] + rng.integers(1, num_classes)) % num_classes))
+            img = rng.standard_normal((h, w, 3), dtype=np.float32) * 20.0
+            img += palette[classes[0]].astype(np.float32)
+            for i, c in enumerate(classes):
+                wave = np.float32(rng.uniform(40, 70)) * np.sin(
+                    (xx * np.cos(angles[c]) + yy * np.sin(angles[c])) * (2 * np.pi / periods[c])
+                    + rng.uniform(0, 2 * np.pi)
+                )
+                if i == 1:  # the second class fills one random half
+                    half = (xx < w / 2) if rng.random() < 0.5 else (yy < h / 2)
+                    wave *= half ^ bool(rng.random() < 0.5)
+                img += wave[:, :, None]
+            images.append(np.clip(img, 0, 255))
+            labels.append(classes)
+    order = rng.permutation(len(images))
+    return MultiLabeledImages([images[i] for i in order], [labels[i] for i in order],
+                              [f"synthetic/{i:06d}.jpg" for i in range(len(images))])
+
+
 def write_cifar(path: Path, n: int, rng, palette) -> None:
     """CIFAR-binary records of separable synthetic images: a class colour
     from ``palette`` (shared between splits) plus noise, and a class-
@@ -160,6 +286,98 @@ def featurize_breakdown(featurizer, images: np.ndarray) -> dict:
     }
 
 
+def run_voc(card: str) -> int:
+    """Phases 6 and 7: the VOCSIFTFisher main path, its servable apply, and
+    card against CPU.  Returns the fv_stats launches of the path."""
+    rng = np.random.default_rng(7)
+    t = time.perf_counter()
+    train = voc_images(rng, VOC_SHAPES)
+    test = voc_images(rng, VOC_SHAPES)
+    log(f"VOC data: {len(train)} train / {len(test)} test images in "
+        f"{time.perf_counter() - t:.1f} s")
+    conf = voc.SIFTFisherConfig(**VOC_CONF)
+
+    torch.cuda.reset_peak_memory_stats()
+    fs.launches = 0
+    res = voc.run(conf, train, test)
+    fit_launches = fs.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    servable = voc.servable_pipeline(conf, res["bundle"])
+    land = [i for i, img in enumerate(test.images) if img.shape[:2] == (375, 500)][:16]
+    batch = np.stack([test.images[i] for i in land])
+    offline = res["test_scores"][land]
+    for chunk in (1, 4, 16):
+        served = np.concatenate([
+            servable(torch.from_numpy(batch[i : i + chunk]).cuda()).cpu().numpy()
+            for i in range(0, len(batch), chunk)
+        ])
+        err = np.abs(served - offline).max()
+        if not err <= 1e-4 * np.abs(offline).max():
+            raise AssertionError(f"servable apply at batch {chunk} differs from the "
+                                 f"offline scores by {err}")
+    main_launches = fs.launches
+    need = 2 * len(VOC_SHAPES)  # one FV call per shape bucket per split
+    if fit_launches < need:
+        raise AssertionError(f"fv_stats launched {fit_launches} times, expected >= {need}")
+    if not res["map"] >= 0.5:  # chance is the class prevalence, about 0.06
+        raise AssertionError(f"VOC MAP {res['map']} is below 0.5")
+    log(json.dumps({
+        "main_path": "VOCSIFTFisher", "card": card,
+        "train_images": len(train), "test_images": len(test),
+        "feature_dim": 2 * conf.desc_dim * conf.vocab_size,
+        "map": res["map"], "seconds": res["seconds"],
+        **{k: res[k] for k in ("sift_seconds", "pca_seconds", "gmm_seconds",
+                               "fisher_seconds", "solve_seconds", "eval_seconds",
+                               "featurize_images_per_sec")},
+        "peak_memory_gb": peak_gb,
+        "fv_stats_launches_fit": fit_launches,
+        "fv_stats_launches_serve": main_launches - fit_launches,
+    }))
+
+    # 7. Card against CPU inside the port, on one fitted state.
+    arrays = convert.voc_to_arrays(servable)
+    x = torch.from_numpy(batch[:4])
+    fitted = {dev: convert.voc_from_arrays(**arrays, device=dev) for dev in ("cuda", "cpu")}
+    f32_sift = SIFTExtractor(step_size=conf.sift_step_size, scale_step=conf.scale_step)
+    within, cpu_descs = {}, {}
+    for name, sift in (("f32", f32_sift), ("bf16", voc.make_sift(conf))):
+        on_card = sift(grayscale(x.cuda())).cpu()
+        cpu_descs[name] = sift(grayscale(x))
+        within[name] = (on_card - cpu_descs[name]).abs().le(1.0).float().mean().item()
+    # From identical (the CPU's f32) descriptors: the statistics, kernel on
+    # the card against the plain version on the CPU, at the JAX kernel's bar
+    # scaled by each statistic's largest value; then the features of both
+    # sides against the f64 chain.  Two f32 chains cannot be held to 1e-3 of
+    # each other here: PCA-projected SIFT descriptors are not centred, so the
+    # Fisher vector's s2 - 2 mu s1 + (mu^2 - var) s0 cancels, and the signed
+    # square root magnifies the near-zero entries; the card must be no
+    # further from f64 than the CPU's plain chain (plus 1e-3 * max).
+    gmm = {dev: fitted[dev].gmm for dev in fitted}
+    pca_desc = {dev: fitted[dev].pca(cpu_descs["f32"].to(dev)) for dev in fitted}
+    stats = {dev: [t.cpu() for t in fs.fv_stats(pca_desc[dev], None, gmm[dev].means,
+                                                gmm[dev].variances, gmm[dev].weights)]
+             for dev in fitted}
+    stat_errs = [((a - b).abs().max() / b.abs().max()).item()
+                 for a, b in zip(stats["cuda"], stats["cpu"])]
+    feats = {dev: fisher_feature_pipeline(gmm[dev])(pca_desc[dev]).cpu() for dev in fitted}
+    g64 = [t.double() for t in (gmm["cpu"].means, gmm["cpu"].variances, gmm["cpu"].weights)]
+    exact = fisher_feature_pipeline(GaussianMixtureModel(*g64))(pca_desc["cpu"].double())
+    scale = exact.abs().max().item()
+    card_err = (feats["cuda"].double() - exact).abs().max().item() / scale
+    cpu_err = (feats["cpu"].double() - exact).abs().max().item() / scale
+    log(f"VOC card vs cpu: SIFT descriptors within +-1: f32 {within['f32']:.6f}, bf16 "
+        f"{within['bf16']:.6f} (bound 0.995); FV statistics s0/s1/s2 max rel err "
+        f"{stat_errs} (bound 2e-5 + 2e-4); features from f64, max rel err card "
+        f"{card_err:.3e}, cpu {cpu_err:.3e}")
+    if not min(within.values()) >= 0.995:
+        raise AssertionError(f"SIFT descriptors card vs cpu within +-1: {within}")
+    for a, b in zip(stats["cuda"], stats["cpu"]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5 * b.abs().max().item())
+    if not card_err <= cpu_err + 1e-3:
+        raise AssertionError(f"card features {card_err} further from f64 than the cpu's {cpu_err}")
+    return main_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -170,7 +388,7 @@ def main() -> int:
 
     # 1. Build every kernel from the checkout's sources.
     t = time.perf_counter()
-    libs = _build.build("rect_pool")
+    libs = _build.build("rect_pool", "fv_stats")
     log(f"built {sorted(libs)} in {time.perf_counter() - t:.2f} s")
 
     # 2. Kernel against its plain version on the card.
@@ -181,6 +399,11 @@ def main() -> int:
            for s in ODD for dt in (torch.float32, torch.bfloat16)]
     log("rect_pool library_ms: null (no single PyTorch call rectifies and "
         "sum-pools both signs)")
+    fv_prod = check_fv_stats(FV_PROD, gen, timed=True)
+    fv_odd = [check_fv_stats(s, gen, timed=False) for s in FV_ODD]
+    torch.cuda.empty_cache()
+    log("fv_stats library_ms: null (no single PyTorch call computes GMM "
+        "posteriors and their weighted moments)")
 
     # The synthetic data lives under the checkout's git-ignored build/.
     _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
@@ -251,7 +474,9 @@ def main() -> int:
     if not (w_err <= 1e-3 and s_err <= 1e-3):
         raise AssertionError("the solve differs between card and CPU beyond 1e-3")
 
-    # 6. The kernels line, the card line, the result line.
+    voc_launches = run_voc(card)
+
+    # 8. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
         "name": "rect_pool",
         "route": "cuda",
@@ -265,6 +490,18 @@ def main() -> int:
         "bound_by": prod["bound_by"],
         "library_ms": None,
         "f32": {k: prod_f32[k] for k in ("ms", "plain_ms", "bound_ms")},
+    }, {
+        "name": "fv_stats",
+        "route": "cuda",
+        "source": "keystone_tpu_torch/csrc/fv_stats.cu",
+        "replaces": "keystone_tpu/ops/fv_pallas.py:95",
+        "launches": voc_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd]),
+        "ms": fv_prod["ms"],
+        "plain_ms": fv_prod["plain_ms"],
+        "bound_ms": fv_prod["bound_ms"],
+        "bound_by": fv_prod["bound_by"],
+        "library_ms": None,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

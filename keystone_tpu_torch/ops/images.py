@@ -187,3 +187,27 @@ class Convolver(Transformer):
         if self.filter_means_dot is not None:
             out = out - self.filter_means_dot
         return out
+
+
+class PixelScaler(Transformer):
+    """Rescale [0..255] -> [0..1]."""
+
+    def __call__(self, batch):
+        return batch / 255.0
+
+
+class GrayScaler(Transformer):
+    """NTSC grayscale.  3-channel input is BGR:
+    ``0.2989*R + 0.5870*G + 0.1140*B``; any other channel count takes the
+    root of the mean of squares.  Output keeps a trailing singleton channel.
+
+    The weighted sum is elementwise, not a contraction: a matrix-vector
+    product's kernel (and so its rounding) can change with the batch size,
+    and one ulp here can flip a bf16 rounding in SIFT downstream."""
+
+    def __call__(self, batch):
+        if batch.shape[-1] == 3:
+            out = batch[..., 0] * 0.1140 + batch[..., 1] * 0.5870 + batch[..., 2] * 0.2989
+        else:
+            out = torch.sqrt(torch.mean(batch * batch, dim=-1))
+        return out[..., None]

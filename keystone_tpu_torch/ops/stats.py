@@ -58,3 +58,18 @@ class Sampler:
         gen = torch.Generator().manual_seed(self.seed)
         idx = torch.randperm(n, generator=gen)[: self.size]
         return data[idx.to(data.device)]
+
+
+class NormalizeRows(Transformer):
+    """L2-normalise each row, the norm floored at 2.2e-16."""
+
+    def __call__(self, batch):
+        norm = torch.linalg.vector_norm(batch, dim=-1, keepdim=True)
+        return batch / torch.clamp_min(norm, 2.2e-16)
+
+
+class SignedHellingerMapper(Transformer):
+    """Signed square root ``sign(x) * sqrt(|x|)``, elementwise."""
+
+    def __call__(self, batch):
+        return torch.sign(batch) * torch.sqrt(torch.abs(batch))

@@ -1,0 +1,244 @@
+"""VOCSIFTFisher on PyTorch/CUDA (counterpart of
+keystone_tpu/workloads/voc_sift_fisher.py, eager single-device path).
+
+Flow: VOC load -> grayscale -> dense SIFT (bf16 intermediates) -> [PCA fit
+or load] -> BatchPCA -> [GMM fit or load] -> FisherVector (the sufficient
+statistics through the fv_stats CUDA kernel) -> vectorize / normalise /
+signed sqrt / normalise -> BlockLeastSquares(4096, 1, lambda) -> per-class
+scores -> 11-point MAP.  The fitted chain ``grayscale -> SIFT -> PCA ->
+Fisher features -> model`` is the servable pipeline.
+
+Run: ``python -m keystone_tpu_torch.workloads.voc_sift_fisher
+--trainLocation train.tar --testLocation test.tar --labelPath labels.csv
+[--device cpu]``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core.pipeline import FunctionTransformer, Pipeline
+from ..evaluation.map import MeanAveragePrecisionEvaluator
+from ..loaders.image_loaders import VOC_NUM_CLASSES, MultiLabeledImages, voc_loader
+from ..ops.sift import SIFTExtractor
+from ..ops.util import ClassLabelIndicatorsFromIntArrayLabels
+from ..solvers.block import BlockLeastSquaresEstimator
+from ..solvers.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
+from ..solvers.pca import BatchPCATransformer, compute_pca
+from ..utils.platform import resolve_device, synchronize
+from .fv_common import (
+    bucket_by_shape,
+    fisher_feature_pipeline,
+    grayscale,
+    sample_columns,
+    scatter_features,
+)
+
+_log = logging.getLogger(__name__)
+
+#: Images per SIFT call.  It bounds the [n, 8, Fy*4, W] intermediates (about
+#: 7.5 MB per 500x375 image in f32); the descriptors do not depend on it.
+SIFT_CHUNK = 32
+
+
+@dataclass
+class SIFTFisherConfig:
+    train_location: str = ""
+    test_location: str = ""
+    label_path: str = ""
+    lam: float = 0.5
+    desc_dim: int = 80
+    vocab_size: int = 256
+    scale_step: int = 0
+    pca_file: str | None = None
+    gmm_mean_file: str | None = None
+    gmm_var_file: str | None = None
+    gmm_wts_file: str | None = None
+    num_pca_samples: int = int(1e6)
+    num_gmm_samples: int = int(1e6)
+    sift_step_size: int = 3
+    seed: int = 42
+    device: str = "cuda"
+
+
+def make_sift(conf: SIFTFisherConfig) -> SIFTExtractor:
+    """The workload's SIFT node: bf16 intermediates, as in the JAX package."""
+    return SIFTExtractor(
+        step_size=conf.sift_step_size, scale_step=conf.scale_step,
+        compute_dtype=torch.bfloat16,
+    )
+
+
+def extract_sift_buckets(conf: SIFTFisherConfig, images: list) -> dict:
+    """Per shape bucket: grayscale + dense SIFT -> (indices, [n, 128, cols])
+    on the configured device, in chunks of ``SIFT_CHUNK`` images."""
+    dev = resolve_device(conf.device)
+    sift = make_sift(conf)
+    out = {}
+    for shape, (idx, batch) in bucket_by_shape(images).items():
+        descs = None
+        for i in range(0, len(idx), SIFT_CHUNK):
+            part = sift(grayscale(torch.from_numpy(batch[i : i + SIFT_CHUNK]).to(dev)))
+            if descs is None:
+                descs = torch.empty((len(idx), *part.shape[1:]), dtype=part.dtype, device=dev)
+            descs[i : i + part.shape[0]] = part
+        out[shape] = (idx, descs)
+    return out
+
+
+def _check_finite(name: str, *tensors: torch.Tensor) -> None:
+    if not all(bool(torch.isfinite(t).all()) for t in tensors):
+        raise FloatingPointError(f"{name} has non-finite values")
+
+
+def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledImages) -> dict:
+    """Fit on ``train``, score ``test``.  The results carry the fitted
+    ``{pca, gmm, model}`` under ``"bundle"`` and the test scores under
+    ``"test_scores"``."""
+    dev = resolve_device(conf.device)
+    feat_dim = 2 * conf.desc_dim * conf.vocab_size
+    t0 = time.perf_counter()
+
+    def lap(start: float) -> float:
+        synchronize(dev)
+        return time.perf_counter() - start
+
+    t = time.perf_counter()
+    train_desc = extract_sift_buckets(conf, train.images)
+    sift_secs = lap(t)
+    train_labels = ClassLabelIndicatorsFromIntArrayLabels(VOC_NUM_CLASSES)(train.labels).to(dev)
+
+    t = time.perf_counter()
+    if conf.pca_file is not None:
+        pca_mat = np.loadtxt(conf.pca_file, delimiter=",", ndmin=2).T
+        pca_mat = torch.as_tensor(np.asarray(pca_mat, np.float32), device=dev)
+    else:
+        samples = sample_columns(train_desc, conf.num_pca_samples, conf.seed)
+        pca_mat = compute_pca(samples.T, conf.desc_dim)
+        del samples
+    batch_pca = BatchPCATransformer(pca_mat)
+    t_proj = time.perf_counter()
+    pca_desc = {shape: (idx, batch_pca(descs)) for shape, (idx, descs) in train_desc.items()}
+    project_secs = lap(t_proj)
+    pca_secs = lap(t)
+    del train_desc
+
+    t = time.perf_counter()
+    if conf.gmm_mean_file is not None:
+        gmm = GaussianMixtureModel.load(
+            conf.gmm_mean_file, conf.gmm_var_file, conf.gmm_wts_file, device=dev
+        )
+    else:
+        gmm_samples = sample_columns(pca_desc, conf.num_gmm_samples, conf.seed + 1)
+        gmm = GaussianMixtureModelEstimator(conf.vocab_size).fit(gmm_samples.T)
+        del gmm_samples
+    _check_finite("VOC GMM fit", gmm.means, gmm.variances, gmm.weights)
+    gmm_secs = lap(t)
+
+    t = time.perf_counter()
+    fisher = fisher_feature_pipeline(gmm)
+    train_features = scatter_features(pca_desc, fisher, len(train), feat_dim)
+    fisher_secs = lap(t)
+    del pca_desc  # the training descriptors are no longer needed
+
+    t = time.perf_counter()
+    model = BlockLeastSquaresEstimator(4096, 1, conf.lam).fit(
+        train_features, train_labels, num_features=feat_dim
+    )
+    _check_finite("VOC block least-squares fit", *model.xs, model.b)
+    solve_secs = lap(t)
+
+    t = time.perf_counter()
+    test_desc = extract_sift_buckets(conf, test.images)
+    test_features = scatter_features(
+        test_desc, lambda d: fisher(batch_pca(d)), len(test), feat_dim
+    )
+    del test_desc
+    scores = model(test_features).cpu().numpy()
+    eval_secs = lap(t)
+
+    aps = MeanAveragePrecisionEvaluator(test.labels, scores, VOC_NUM_CLASSES)
+    results = {
+        "aps": aps,
+        "map": float(np.mean(aps)),
+        "seconds": time.perf_counter() - t0,
+        "sift_seconds": sift_secs,
+        "pca_seconds": pca_secs,
+        "gmm_seconds": gmm_secs,
+        "fisher_seconds": fisher_secs,
+        "solve_seconds": solve_secs,
+        "eval_seconds": eval_secs,
+        # SIFT -> PCA projection -> Fisher features of the training split.
+        "featurize_images_per_sec": len(train) / (sift_secs + project_secs + fisher_secs),
+        "test_scores": scores,
+        "bundle": {"pca": batch_pca, "gmm": gmm, "model": model},
+    }
+    _log.info("TEST APs are: %s", ",".join(str(a) for a in aps))
+    _log.info("TEST MAP is: %s", results["map"])
+    _log.info("Pipeline took %.3f s", results["seconds"])
+    return results
+
+
+def servable_pipeline(conf: SIFTFisherConfig, bundle: dict) -> Pipeline:
+    """The fitted apply chain: grayscale -> dense SIFT -> BatchPCA -> Fisher
+    features -> per-class scores, over [n, H, W, 3] BGR images on the
+    bundle's device."""
+    return Pipeline([
+        FunctionTransformer(grayscale, name="grayscale"),
+        make_sift(conf),
+        bundle["pca"],
+        fisher_feature_pipeline(bundle["gmm"]),
+        bundle["model"],
+    ])
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser("VOCSIFTFisher")
+    p.add_argument("--trainLocation", required=True)
+    p.add_argument("--testLocation", required=True)
+    p.add_argument("--labelPath", required=True)
+    p.add_argument("--lambda", dest="lam", type=float, default=0.5)
+    p.add_argument("--descDim", type=int, default=80)
+    p.add_argument("--vocabSize", type=int, default=256)
+    p.add_argument("--scaleStep", type=int, default=0)
+    p.add_argument("--pcaFile", default=None)
+    p.add_argument("--gmmMeanFile", default=None)
+    p.add_argument("--gmmVarFile", default=None)
+    p.add_argument("--gmmWtsFile", default=None)
+    p.add_argument("--numPcaSamples", type=int, default=int(1e6))
+    p.add_argument("--numGmmSamples", type=int, default=int(1e6))
+    p.add_argument(
+        "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
+    )
+    a = p.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    conf = SIFTFisherConfig(
+        train_location=a.trainLocation,
+        test_location=a.testLocation,
+        label_path=a.labelPath,
+        lam=a.lam,
+        desc_dim=a.descDim,
+        vocab_size=a.vocabSize,
+        scale_step=a.scaleStep,
+        pca_file=a.pcaFile,
+        gmm_mean_file=a.gmmMeanFile,
+        gmm_var_file=a.gmmVarFile,
+        gmm_wts_file=a.gmmWtsFile,
+        num_pca_samples=a.numPcaSamples,
+        num_gmm_samples=a.numGmmSamples,
+        device=a.device,
+    )
+    resolve_device(conf.device)
+    train = voc_loader(conf.train_location, conf.label_path)
+    test = voc_loader(conf.test_location, conf.label_path)
+    return run(conf, train, test)
+
+
+if __name__ == "__main__":
+    main()

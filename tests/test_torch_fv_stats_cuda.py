@@ -1,0 +1,124 @@
+"""The Fisher-vector statistics CUDA kernel (keystone_tpu_torch/csrc/fv_stats.cu)
+against its plain PyTorch version on the card, and the wrapper's checks.
+
+This file imports neither JAX nor the JAX package, so the card tests run on
+a machine without them:
+``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_fv_stats_cuda.py``.
+Tests that need the card carry the ``cuda`` marker and skip without one.
+
+Tolerance on the card: the Fisher vectors from the kernel's statistics
+agree with those of the plain version run in f64 on the same inputs to
+rtol 2e-4, atol 2e-5·max (the JAX kernel's bar against its XLA twin).  The
+f64 oracle keeps the bar about the kernel: the plain f32 version sums each
+D-long contraction in one chain and drifts at large D."""
+
+import numpy as np
+import pytest
+import torch
+
+from keystone_tpu_torch.ops import fv_stats as fs
+from keystone_tpu_torch.ops.fisher import FisherVector, _fv_from_stats
+from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (and nvcc) to build and launch the kernel")
+    return torch.device("cuda")
+
+
+def _case(n, cols, d, k, ragged, device, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d, cols)).astype(np.float32)
+    means = rng.normal(size=(d, k)).astype(np.float32)
+    variances = rng.uniform(0.5, 2.0, (d, k)).astype(np.float32)
+    weights = rng.dirichlet(np.ones(k)).astype(np.float32)
+    counts = rng.integers(cols // 2, cols + 1, size=n).astype(np.int32) if ragged else None
+
+    def t(a):
+        return None if a is None else torch.from_numpy(a).to(device)
+
+    return t(x), t(counts), t(means), t(variances), t(weights)
+
+
+def _fv(stats, counts, cols, means, variances, weights):
+    s0, s1, s2 = stats
+    n_valid = (
+        counts.to(s0.dtype) if counts is not None
+        else torch.full((s0.shape[0],), float(cols), dtype=s0.dtype, device=s0.device)
+    )
+    return _fv_from_stats(s0, s1, s2, means, variances, weights, n_valid)
+
+
+def test_wrapper_rejects_other_devices():
+    x = torch.empty((2, 4, 10), device="meta")
+    p = torch.empty((4, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fs.fv_stats(x, None, p, p, torch.empty(3, device="meta"))
+
+
+def test_masked_fisher_vector_off_the_cpu_raises():
+    p = torch.ones((4, 3), device="meta")
+    fv = FisherVector(GaussianMixtureModel(p, p, torch.ones(3, device="meta")))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fv(torch.empty((2, 4, 10), device="meta"), torch.ones((2, 10), device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,cols,d,k,ragged",
+    [
+        (3, 700, 24, 8, True),  # ragged counts
+        (3, 333, 24, 8, False),  # D not a multiple of the tile
+        (2, 1000, 16, 8, True),
+        (4, 2000, 64, 16, False),  # the bench shape's widths
+        (2, 5000, 80, 256, True),  # the VOC widths
+        (1, 31, 3, 5, False),  # odd d and k, one partial tile
+    ],
+)
+def test_kernel_matches_reference_on_card(cuda_device, n, cols, d, k, ragged):
+    x, counts, means, variances, weights = _case(n, cols, d, k, ragged, cuda_device)
+    before = fs.launches
+    got = fs.fv_stats(x, counts, means, variances, weights)
+    torch.cuda.synchronize()
+    assert fs.launches == before + 1
+    gmm64 = (means.double(), variances.double(), weights.double())
+    ref = fs.fv_stats_reference(x.double(), counts, *gmm64)
+    got_fv = _fv(got, counts, cols, means, variances, weights).double()
+    ref_fv = _fv(ref, counts, cols, *gmm64)
+    torch.testing.assert_close(
+        got_fv, ref_fv, rtol=2e-4, atol=2e-5 * ref_fv.abs().max().item()
+    )
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic(cuda_device):
+    x, counts, means, variances, weights = _case(2, 3000, 24, 8, True, cuda_device)
+    a = fs.fv_stats(x, counts, means, variances, weights)
+    b = fs.fv_stats(x, counts, means, variances, weights)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_wrapper_raises_on_card(cuda_device):
+    x, counts, means, variances, weights = _case(2, 100, 8, 4, True, cuda_device)
+    with pytest.raises(TypeError):
+        fs.fv_stats(x.double(), None, means, variances, weights)
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.fv_stats(x.transpose(1, 2).contiguous().transpose(1, 2), None, means, variances, weights)
+    with pytest.raises(ValueError, match="counts"):
+        fs.fv_stats(x, counts + 1000, means, variances, weights)
+    big = _case(1, 64, 8, 300, False, cuda_device)
+    with pytest.raises(ValueError, match="envelope"):
+        fs.fv_stats(*big)
+
+
+@pytest.mark.cuda
+def test_fisher_vector_card_matches_cpu(cuda_device):
+    x, _, means, variances, weights = _case(3, 1500, 16, 8, False, cuda_device)
+    on_card = FisherVector(GaussianMixtureModel(means, variances, weights))(x).cpu()
+    cpu = [t.cpu() for t in (x, means, variances, weights)]
+    on_cpu = FisherVector(GaussianMixtureModel(*cpu[1:]))(cpu[0])
+    torch.testing.assert_close(on_card, on_cpu, rtol=2e-4, atol=2e-5 * on_cpu.abs().max().item())
