@@ -6,9 +6,11 @@ Run from the repository root: ``python3 chip_smoke.py``.  Phases, each of
 which raises (and so exits non-zero) on failure:
 
 1. card and build: the card's name and power limit, the CUDA version, and
-   the ``nvcc`` build of every kernel under ``keystone_tpu_torch/csrc``;
+   the build of every kernel under ``keystone_tpu_torch/csrc`` (``nvcc``)
+   and of the native entropy loop (``g++``), all started together;
 2. every kernel against its plain PyTorch version on the card, at the main
-   path's shape and at the odd shapes, timed with CUDA events;
+   path's shape and at the odd shapes, timed with CUDA events (the IDCT
+   also beside one ``torch.einsum`` call, its library yardstick);
 3. the RandomPatchCifar main path at full width (100 filters of 6x6x3,
    pool 14 / stride 13) on seeded synthetic CIFAR-shaped data, 50,000 train
    and 10,000 test images, through
@@ -28,29 +30,48 @@ which raises (and so exits non-zero) on failure:
 7. card against CPU inside the port: one fitted VOC state, four images
    through SIFT, and from identical descriptors through PCA -> Fisher
    statistics -> features, on both devices;
-8. one JSON line per the kernels, the card line, and the final JSON line.
+8. VOCSIFTFisher from JPEG tars with device decode: phase 6's images are
+   encoded as baseline JPEGs (q90, 4:2:0) by the numpy encoder of
+   ``keystone_tpu_torch.testing.jpeg_encode`` (this machine may have no
+   image library) into train/test tars, then run through
+   ``voc_sift_fisher.main([... "--streamIngest", "--deviceDecode"])``: the
+   native entropy pass on the host, the IDCT kernel and the rest of the
+   decode on the card.  Checks: the native backend ran with no fallback or
+   skip; one chunk's entropy decode equals the encoder's coefficients
+   exactly; its card decode is within 1 level of the CPU decode with
+   >= 99.9 % of pixels equal; MAP >= 0.5 and within 0.05 of phase 6; the
+   kernels' launch counts; and ``fused_apply`` of the servable chain at
+   batches 1, 4 and 16 reproduces the offline test scores;
+9. one JSON line per the kernels, the card line, and the final JSON line.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tarfile
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from keystone_tpu_torch import _build, convert
+from keystone_tpu_torch.core import ingest
+from keystone_tpu_torch.loaders import image_loaders
 from keystone_tpu_torch.loaders.cifar import cifar_loader
 from keystone_tpu_torch.loaders.image_loaders import VOC_NUM_CLASSES, MultiLabeledImages
 from keystone_tpu_torch.ops import fv_stats as fs
+from keystone_tpu_torch.ops import jpeg_device as jd
+from keystone_tpu_torch.ops import native_entropy
 from keystone_tpu_torch.ops import rect_pool as rp
 from keystone_tpu_torch.ops.fisher import _fv_from_stats
 from keystone_tpu_torch.ops.sift import SIFTExtractor
@@ -58,6 +79,8 @@ from keystone_tpu_torch.ops.stats import StandardScaler
 from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
 from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
+from keystone_tpu_torch.testing.jpeg_encode import encode_jpeg
+from keystone_tpu_torch.utils.platform import resolve_device
 from keystone_tpu_torch.workloads import cifar_random_patch as cifar
 from keystone_tpu_torch.workloads import voc_sift_fisher as voc
 from keystone_tpu_torch.workloads.fv_common import fisher_feature_pipeline, grayscale
@@ -85,6 +108,11 @@ ODD = [(64, 20, 24, 7, 4, 6, 0.25, 0.0), (64, 16, 16, 3, 5, 5, 0.1, 0.05)]
 # then ragged counts and a D that is not a multiple of the kernel's tile.
 FV_PROD = (32, 80, 73866, 256, False)
 FV_ODD = [(3, 24, 700, 8, True), (3, 24, 333, 8, False)]
+
+# idct: the main path's luma launch (a 64-image chunk of 375x500 4:2:0 JPEGs
+# is [64, 48, 64, 8, 8]), then one block, a ragged count and leading dims.
+IDCT_PROD = (64 * 48 * 64, 8, 8)
+IDCT_ODD = [(1, 8, 8), (37, 8, 8), (3, 2, 5, 8, 8)]
 
 # VOCSIFTFisher: VOC 2007's two common image sizes (H, W), images per split.
 VOC_SHAPES = {(375, 500): 384, (500, 375): 128}
@@ -215,6 +243,37 @@ def check_fv_stats(shape, gen, timed: bool) -> dict:
     return rec
 
 
+def idct_bound(n_blocks: int) -> tuple[float, str]:
+    """Least time for the IDCT: each f32 block read once and written once,
+    against two 8x8x8 products (2 * 512 FMAs = 2048 f32 flops) per block."""
+    bytes_ms = n_blocks * 64 * 4 * 2 / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_blocks * 2048 / F32_FLOPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def check_idct(shape, gen, timed: bool) -> dict:
+    # Dequantised coefficients of a 90-quality JPEG lie within about +-1000.
+    x = 200.0 * torch.randn(shape, generator=gen, device="cuda")
+    got = jd.idct_blocks(x)
+    torch.cuda.synchronize()
+    # Oracle: the plain version in f64 on the same inputs (the basis is the
+    # same f32 constants).  Bar: rtol 1e-6, atol 2e-6 * max: two 8-term f32
+    # sums of terms up to max|x| keep about 16 ulps.
+    ref = jd.idct_blocks_reference(x.double())
+    scale = ref.abs().max().item()
+    torch.testing.assert_close(got.double(), ref, rtol=1e-6, atol=2e-6 * scale)
+    rec = {"shape": list(shape), "max_abs_err": (got.double() - ref).abs().max().item(),
+           "max_abs": scale}
+    if timed:
+        a = jd._basis(x.device, torch.float32)
+        rec["ms"] = cuda_ms(lambda: jd.idct_blocks(x), reps=50)
+        rec["plain_ms"] = cuda_ms(lambda: jd.idct_blocks_reference(x), reps=50)
+        rec["library_ms"] = cuda_ms(lambda: torch.einsum("ij,njk,kl->nil", a.T, x, a), reps=50)
+        rec["bound_ms"], rec["bound_by"] = idct_bound(x.numel() // 64)
+    log(f"idct {rec}")
+    return rec
+
+
 def voc_images(rng, shapes: dict, num_classes: int = VOC_NUM_CLASSES) -> MultiLabeledImages:
     """Seeded VOC-shaped images: BGR f32 in [0, 255].  Each image has a
     primary class and, with probability 0.25, a second one.  A class is a
@@ -286,9 +345,10 @@ def featurize_breakdown(featurizer, images: np.ndarray) -> dict:
     }
 
 
-def run_voc(card: str) -> int:
+def run_voc(card: str) -> tuple:
     """Phases 6 and 7: the VOCSIFTFisher main path, its servable apply, and
-    card against CPU.  Returns the fv_stats launches of the path."""
+    card against CPU.  Returns the fv_stats launches of the path, the two
+    splits and the MAP."""
     rng = np.random.default_rng(7)
     t = time.perf_counter()
     train = voc_images(rng, VOC_SHAPES)
@@ -375,7 +435,139 @@ def run_voc(card: str) -> int:
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5 * b.abs().max().item())
     if not card_err <= cpu_err + 1e-3:
         raise AssertionError(f"card features {card_err} further from f64 than the cpu's {cpu_err}")
-    return main_launches
+    return main_launches, train, test, res["map"]
+
+
+JPEG_PREFIX = "VOCdevkit/VOC2007/JPEGImages/"
+
+
+def write_voc_tars(root: Path, splits: dict) -> dict:
+    """Encode each split's images as baseline JPEGs (q90, 4:2:0) into
+    ``root/<split>.tar`` under ``JPEG_PREFIX``, with one labels CSV in the
+    format ``voc_labels_map`` parses.  Returns member name -> (JPEG bytes,
+    encoder coefficients, source image) for the test split."""
+    rows = ['"id","class","classname","traintesteval","filename"']
+    test_members = {}
+    with ThreadPoolExecutor(8) as pool:
+        for split, data in splits.items():
+            encoded = pool.map(lambda img: encode_jpeg(img, 90, "4:2:0"), data.images)
+            with tarfile.open(root / f"{split}.tar", "w") as tf:
+                for i, ((jpeg, coeffs), labels) in enumerate(zip(encoded, data.labels)):
+                    name = f"{JPEG_PREFIX}{split}_{i:06d}.jpg"
+                    info = tarfile.TarInfo(name)
+                    info.size = len(jpeg)
+                    tf.addfile(info, io.BytesIO(jpeg))
+                    rows.extend(f'{len(rows)},{c + 1},"c{c}",1,"{name}"' for c in labels)
+                    if split == "test":
+                        test_members[name] = (jpeg, coeffs, data.images[i])
+    (root / "labels.csv").write_text("\n".join(rows) + "\n")
+    return test_members
+
+
+def run_voc_tar(card: str, train, test, memory_map: float) -> tuple[int, int]:
+    """Phase 8: VOCSIFTFisher from JPEG tars through ``--streamIngest
+    --deviceDecode``.  Returns the idct and fv_stats launches of the path."""
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        members = write_voc_tars(root, {"train": train, "test": test})
+        encode_secs = time.perf_counter() - t
+        jpeg_bytes = (root / "test.tar").stat().st_size / len(test)
+        log(f"VOC JPEG tars: {len(train)} + {len(test)} images encoded in {encode_secs:.1f} s")
+
+        for counter in (ingest.counters, native_entropy.counters, image_loaders.skipped):
+            counter.clear()
+        torch.cuda.reset_peak_memory_stats()
+        jd.launches = fs.launches = 0
+        res = voc.main([
+            "--trainLocation", str(root / "train.tar"), "--testLocation", str(root / "test.tar"),
+            "--labelPath", str(root / "labels.csv"), "--streamIngest", "--deviceDecode",
+            "--streamBatchSize", "64", "--device", "cuda",
+        ])
+        fit_idct, fit_fv = jd.launches, fs.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # (f) the servable chain fed coefficient batches of one geometry.
+        conf = voc.SIFTFisherConfig(device="cuda")
+        servable = voc.servable_pipeline(conf, res["bundle"])
+        order = {name: i for i, name in enumerate(res["test_filenames"])}
+        chunk = [n for n in res["test_filenames"] if members[n][2].shape[:2] == (375, 500)][:64]
+        images = [jd.entropy_decode(members[n][0], backend="native") for n in chunk]
+        coeffs, qt = jd.stack_coeff_images(images)
+        geom = images[0].geom
+        offline = res["test_scores"][[order[n] for n in chunk[:16]]]
+        for b in (1, 4, 16):
+            served = np.concatenate([
+                jd.fused_apply(servable, geom, [c[i : i + b] for c in coeffs], qt[i : i + b],
+                               "cuda").cpu().numpy()
+                for i in range(0, 16, b)
+            ])
+            err = np.abs(served - offline).max()
+            if not err <= 1e-4 * np.abs(offline).max():
+                raise AssertionError(f"fused_apply at batch {b} differs from the offline "
+                                     f"scores by {err}")
+        idct_launches, fv_launches = jd.launches, fs.launches
+
+    stats = res["ingest"]
+    chunks = sum(s["batches"] for s in stats.values())
+    # (a) the native entropy pass ran, with nothing skipped or routed away.
+    for split, st in stats.items():
+        if st["entropy_backend"] != "native":
+            raise AssertionError(f"{split}: entropy backend {st['entropy_backend']!r}")
+        if st["skipped"] or st["device_fallbacks"] or st["entropy_corrupt"]:
+            raise AssertionError(f"{split}: skips or fallbacks in the stream: {st}")
+    if ingest.counters or native_entropy.counters or image_loaders.skipped:
+        raise AssertionError(f"counted events: {ingest.counters} {native_entropy.counters} "
+                             f"{image_loaders.skipped}")
+    # (b) one chunk's entropy decode against the encoder's coefficients.
+    for name, img in zip(chunk, images):
+        if not all(np.array_equal(a, b) for a, b in zip(img.coeffs, members[name][1])):
+            raise AssertionError(f"{name}: entropy decode != the encoder's coefficients")
+    # (c) that chunk decoded on the card against the port's CPU decode.
+    on_card = jd.decode_batch(geom, coeffs, qt, "cuda").cpu()
+    on_cpu = jd.decode_batch(geom, coeffs, qt, "cpu")
+    diff = (on_card - on_cpu).abs()
+    equal = diff.eq(0).float().mean().item()
+    if not (diff.max().item() <= 1.0 and equal >= 0.999):
+        raise AssertionError(f"card decode vs cpu: max {diff.max().item()}, equal {equal}")
+    source = torch.from_numpy(np.stack([members[n][2] for n in chunk]))
+    source_err = (on_card - source).abs().mean().item()
+    # (d) accuracy, against the in-memory run of phase 6 on the same images.
+    if not (res["map"] >= 0.5 and abs(res["map"] - memory_map) <= 0.05):
+        raise AssertionError(f"VOC MAP from JPEG tars {res['map']} (in memory {memory_map})")
+    # (e) the path went through both kernels.
+    if not (fit_idct >= 3 * chunks and fv_launches >= chunks):
+        raise AssertionError(f"launches: idct {fit_idct}, fv_stats {fv_launches}, "
+                             f"{chunks} chunks")
+    # Device decode time of one production chunk, coefficients already on
+    # the card (these launches are measurements, not the path's).
+    dev_coeffs = [torch.from_numpy(c).cuda() for c in coeffs]
+    dev_qt = torch.from_numpy(qt).cuda()
+    decode_ms = cuda_ms(lambda: jd.decode_batch(geom, dev_coeffs, dev_qt), reps=10)
+    h2d_ms = cuda_ms(lambda: [torch.from_numpy(c).cuda() for c in coeffs], reps=10)
+    log(json.dumps({
+        "main_path": "VOCSIFTFisher from JPEG tars, --streamIngest --deviceDecode",
+        "card": card, "train_images": len(train), "test_images": len(test),
+        "map": res["map"], "map_in_memory": memory_map, "seconds": res["seconds"],
+        **{k: res[k] for k in ("sift_seconds", "pca_seconds", "gmm_seconds",
+                               "fisher_seconds", "solve_seconds", "eval_seconds",
+                               "featurize_images_per_sec")},
+        "peak_memory_gb": peak_gb, "encode_seconds": encode_secs,
+        "jpeg_bytes_per_image": jpeg_bytes,
+        "entropy_backend": stats["train"]["entropy_backend"],
+        "host_entropy_thread_seconds": {k: s["decode_seconds"] for k, s in stats.items()},
+        "chunks": chunks, "device_decode_ms_per_chunk": decode_ms,
+        "device_decode_seconds_est": decode_ms * chunks / 1e3,
+        "coeff_h2d_ms_per_chunk": h2d_ms,
+        "coeff_bytes_per_image": geom.coeff_bytes(),
+        "pixel_bytes_per_image": geom.height * geom.width * 3 * 4,
+        "idct_launches_fit": fit_idct, "idct_launches_serve": idct_launches - fit_idct,
+        "fv_stats_launches_fit": fit_fv, "fv_stats_launches_serve": fv_launches - fit_fv,
+        "card_vs_cpu_decode_max_abs": diff.max().item(), "card_vs_cpu_decode_equal": equal,
+        "decoded_vs_source_mean_abs": source_err,
+    }))
+    return idct_launches, fv_launches
 
 
 def main() -> int:
@@ -384,11 +576,12 @@ def main() -> int:
         return 1
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    resolve_device("cuda")  # full f32, no TF32, for every plain version timed below
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. Build every kernel from the checkout's sources.
     t = time.perf_counter()
-    libs = _build.build("rect_pool", "fv_stats")
+    libs = _build.build("rect_pool", "fv_stats", "idct", "entropy")
     log(f"built {sorted(libs)} in {time.perf_counter() - t:.2f} s")
 
     # 2. Kernel against its plain version on the card.
@@ -404,6 +597,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("fv_stats library_ms: null (no single PyTorch call computes GMM "
         "posteriors and their weighted moments)")
+    idct_prod = check_idct(IDCT_PROD, gen, timed=True)
+    idct_odd = [check_idct(s, gen, timed=False) for s in IDCT_ODD]
 
     # The synthetic data lives under the checkout's git-ignored build/.
     _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
@@ -474,9 +669,10 @@ def main() -> int:
     if not (w_err <= 1e-3 and s_err <= 1e-3):
         raise AssertionError("the solve differs between card and CPU beyond 1e-3")
 
-    voc_launches = run_voc(card)
+    voc_launches, voc_train, voc_test, voc_map = run_voc(card)
+    idct_launches, tar_fv_launches = run_voc_tar(card, voc_train, voc_test, voc_map)
 
-    # 8. The kernels line, the card line, the result line.
+    # 9. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
         "name": "rect_pool",
         "route": "cuda",
@@ -495,13 +691,26 @@ def main() -> int:
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/fv_stats.cu",
         "replaces": "keystone_tpu/ops/fv_pallas.py:95",
-        "launches": voc_launches,
+        "launches": voc_launches + tar_fv_launches,
+        "launches_by_path": {"voc_in_memory": voc_launches, "voc_jpeg_tars": tar_fv_launches},
         "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd]),
         "ms": fv_prod["ms"],
         "plain_ms": fv_prod["plain_ms"],
         "bound_ms": fv_prod["bound_ms"],
         "bound_by": fv_prod["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "idct",
+        "route": "cuda",
+        "source": "keystone_tpu_torch/csrc/idct.cu",
+        "replaces": "keystone_tpu/ops/jpeg_device.py:743",
+        "launches": idct_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in [idct_prod, *idct_odd]),
+        "ms": idct_prod["ms"],
+        "plain_ms": idct_prod["plain_ms"],
+        "bound_ms": idct_prod["bound_ms"],
+        "bound_by": idct_prod["bound_by"],
+        "library_ms": idct_prod["library_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

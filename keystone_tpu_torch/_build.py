@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native code.
 
 Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by
-``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so`` at
-the repository root, keyed by a hash of the source and the flags, then
+``nvcc`` for Hopper (``sm_90a``); each ``csrc/<name>.cpp`` is host C++
+compiled by ``g++``.  Either becomes ``build/kernels/<name>-<hash>.so`` at
+the repository root, keyed by a hash of the source and the flags, and is
 loaded with ``ctypes``.  No PyTorch headers are involved, so a build takes
-seconds.  Nothing here runs at import: kernels build at their first launch
-(or when :func:`build` is called ahead of time).
+seconds.  Nothing here runs at import: libraries build at their first use
+(or when :func:`build` is called ahead of time), never next to the source.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -23,8 +25,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+GXX_FLAGS = ("-O2", "-shared", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -38,25 +42,43 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build kernels")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: a host C++ compiler is needed to build host code")
+    return found
+
+
+def _source(name: str) -> tuple[Path, tuple[str, ...]]:
+    """The source of ``name`` and its compiler flags: ``.cu`` for nvcc,
+    ``.cpp`` for the host compiler."""
+    cu = _CSRC / f"{name}.cu"
+    if cu.exists():
+        return cu, NVCC_FLAGS
+    return _CSRC / f"{name}.cpp", GXX_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src, flags = _source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def build(*names: str) -> dict[str, Path]:
-    """Compile every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns name -> shared library path."""
+    """Compile every named library that is not built yet, one compiler
+    process per source, all started together.  Returns name -> shared
+    library path."""
     paths = {name: library_path(name) for name in names}
     todo = {name: p for name, p in paths.items() if not p.exists()}
     if not todo:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for name, out in todo.items():
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        src, flags = _source(name)
+        compiler = _nvcc() if src.suffix == ".cu" else _gxx()
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [compiler, *flags, "-o", str(tmp), str(src)]
         procs[name] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -67,7 +89,7 @@ def build(*names: str) -> dict[str, Path]:
     for name, (proc, tmp) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
+            errors.append(f"build failed for {name} (rc {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, todo[name])
@@ -77,13 +99,17 @@ def build(*names: str) -> dict[str, Path]:
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """Build (if needed) and load kernel ``name``; ``signatures`` maps each
-    C function to ``(restype, [argtypes])``."""
+    """Build (if needed) and load library ``name``; ``signatures`` maps each
+    C function to ``(restype, [argtypes])``.  Safe to call from several
+    threads: the first caller builds, the others wait for it."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)[name]))
-        for fn, (restype, argtypes) in signatures.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _loaded[name] = lib
+        with _lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build(name)[name]))
+                for fn, (restype, argtypes) in signatures.items():
+                    getattr(lib, fn).restype = restype
+                    getattr(lib, fn).argtypes = argtypes
+                _loaded[name] = lib
     return lib

@@ -21,8 +21,26 @@ import numpy as np
 VOC_NUM_CLASSES = 20
 MIN_DIM = 36
 
+#: Decodes a stream keeps in flight beyond the pool width: a small constant
+#: of finished results buffered behind a slow head-of-line decode.
+_DECODE_AHEAD = 8
+
 #: Members skipped by the loaders, by reason.
 skipped: collections.Counter = collections.Counter()
+
+
+def decode_threads() -> int:
+    """Decoder pool width: the host cores this process may run on."""
+    try:  # affinity-aware (cgroup/container limits), not the raw core count
+        return len(os.sched_getaffinity(0)) or 1
+    except AttributeError:  # platforms without sched_getaffinity
+        return os.cpu_count() or 1
+
+
+def decode_ahead() -> int:
+    """Decode-ahead slots beyond the pool width: in-flight decodes per
+    stream = ``decode_threads() + decode_ahead()``."""
+    return _DECODE_AHEAD
 
 
 @dataclass

@@ -3,6 +3,7 @@ keystone_tpu/workloads/fv_common.py, eager single-device subset).
 
 Images of one shape are stacked into a bucket and featurized together; the
 fixed-width feature rows are scattered back to the original image order.
+The streaming helpers build the same buckets from a ``core.ingest`` stream.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.ingest import StreamConfig
 from ..core.pipeline import Pipeline
 from ..ops.fisher import FisherVector
 from ..ops.images import GrayScaler, PixelScaler
@@ -79,3 +81,72 @@ def scatter_features(buckets: dict, transform, n_total: int, feature_dim: int) -
             out = torch.zeros((n_total, feature_dim), dtype=feats.dtype, device=feats.device)
         out[torch.from_numpy(np.asarray(idx)).to(feats.device)] = feats[: len(idx)]
     return out
+
+
+def stream_config_from_flags(*, device_decode: bool = False) -> StreamConfig:
+    """The ``StreamConfig`` of a workload's streams: the defaults, with
+    ``--deviceDecode`` selecting ``decode_mode="device"`` (the entropy pass
+    on the host, the pixels born on the card)."""
+    return StreamConfig(decode_mode="device" if device_decode else "host")
+
+
+def _ordered_names(pairs: list, n: int) -> list:
+    names = [None] * n
+    for i, name in pairs:
+        names[i] = name
+    return names
+
+
+def _scatter_parts(parts: list, name_pairs: list, n: int, feature_dim: int | None = None):
+    """Scatter accumulated ``(indices, [b, D] features)`` parts back to
+    stream-ordinal (decode-survival) order -> (``[n, D]`` f32 numpy, names).
+    ``feature_dim`` is inferred from the first part when omitted."""
+    if feature_dim is None:
+        feature_dim = parts[0][1].shape[1] if parts else 0
+    out = np.zeros((n, feature_dim), np.float32)
+    for idx, feats in parts:
+        out[np.asarray(idx)] = feats[: len(idx)]
+    return out, _ordered_names(name_pairs, n)
+
+
+def stream_descriptor_buckets(stream, per_batch) -> tuple[dict, list]:
+    """The ``bucket_by_shape``-shaped descriptor dict built from a
+    ``core.ingest`` stream: ``per_batch`` ([b, H, W, C] pixels on the
+    device -> per-image descriptors) runs on each chunk while the producer
+    decodes the next ones, and the chunks of a shape are concatenated at the
+    end.  Returns the buckets and the member names in stream-ordinal order.
+
+    The buckets are ordered by each shape's FIRST image ordinal, as the
+    eager ``bucket_by_shape`` orders them: ``sample_columns`` draws from one
+    rng bucket after bucket, so emission order (first full chunk first)
+    would pick other PCA/GMM samples than the eager path."""
+    parts: dict = {}
+    name_pairs: list = []
+    n = 0
+    for batch in stream:
+        descs = batch.apply(per_batch)
+        parts.setdefault(batch.shape, []).append((batch.indices, descs))
+        name_pairs.extend(zip(batch.indices.tolist(), batch.names))
+        n += len(batch)
+    buckets = {}
+    for shape, chunks in sorted(parts.items(), key=lambda kv: kv[1][0][0][0]):
+        idx = np.concatenate([c[0] for c in chunks])
+        descs = chunks[0][1] if len(chunks) == 1 else torch.cat([c[1] for c in chunks])
+        buckets[shape] = (idx, descs)
+    return buckets, _ordered_names(name_pairs, n)
+
+
+def scatter_features_streaming(stream, transform, feature_dim: int) -> tuple[np.ndarray, list]:
+    """Streaming :func:`scatter_features`: ``transform`` ([b, H, W, C]
+    pixels on the device -> [b, D] features) per chunk of a ``core.ingest``
+    stream, rows scattered back to stream-ordinal order.  Returns
+    ``(features [n, D] f32 numpy, names)``."""
+    parts: list = []
+    name_pairs: list = []
+    n = 0
+    for batch in stream:
+        feats = batch.apply(transform)
+        parts.append((batch.indices, feats.to(torch.float32).cpu().numpy()))
+        name_pairs.extend(zip(batch.indices.tolist(), batch.names))
+        n += len(batch)
+    return _scatter_parts(parts, name_pairs, n, feature_dim)

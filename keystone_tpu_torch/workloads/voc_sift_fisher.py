@@ -10,7 +10,12 @@ Fisher features -> model`` is the servable pipeline.
 
 Run: ``python -m keystone_tpu_torch.workloads.voc_sift_fisher
 --trainLocation train.tar --testLocation test.tar --labelPath labels.csv
-[--device cpu]``.
+[--streamIngest [--deviceDecode] [--streamBatchSize 64]] [--device cpu]``.
+
+``--streamIngest`` streams each tar through ``core.ingest`` (decode of the
+next chunks overlaps SIFT of this one); with ``--deviceDecode`` the host
+runs only the JPEG entropy pass and the pixels are decoded on the card
+(``ops.jpeg_device``, the IDCT through the idct CUDA kernel).
 """
 
 from __future__ import annotations
@@ -18,14 +23,20 @@ from __future__ import annotations
 import argparse
 import logging
 import time
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import numpy as np
 import torch
 
+from ..core.ingest import stream_batches
 from ..core.pipeline import FunctionTransformer, Pipeline
 from ..evaluation.map import MeanAveragePrecisionEvaluator
-from ..loaders.image_loaders import VOC_NUM_CLASSES, MultiLabeledImages, voc_loader
+from ..loaders.image_loaders import (
+    VOC_NUM_CLASSES,
+    MultiLabeledImages,
+    voc_labels_map,
+    voc_loader,
+)
 from ..ops.sift import SIFTExtractor
 from ..ops.util import ClassLabelIndicatorsFromIntArrayLabels
 from ..solvers.block import BlockLeastSquaresEstimator
@@ -38,6 +49,8 @@ from .fv_common import (
     grayscale,
     sample_columns,
     scatter_features,
+    stream_config_from_flags,
+    stream_descriptor_buckets,
 )
 
 _log = logging.getLogger(__name__)
@@ -45,6 +58,58 @@ _log = logging.getLogger(__name__)
 #: Images per SIFT call.  It bounds the [n, 8, Fy*4, W] intermediates (about
 #: 7.5 MB per 500x375 image in f32); the descriptors do not depend on it.
 SIFT_CHUNK = 32
+
+
+@dataclass
+class VOCStreamSource:
+    """Streaming stand-in for :class:`MultiLabeledImages` (``core.ingest``):
+    the tar is decoded while the device runs SIFT, instead of all of it
+    first.  ``labels``, ``filenames`` and ``len`` become available after the
+    descriptor pass has recorded the decode-survival order."""
+
+    data_path: str
+    labels_path: str
+    name_prefix: str = "VOCdevkit/VOC2007/JPEGImages/"
+    batch_size: int = 64
+    #: ``--deviceDecode``: entropy pass on the host, pixels born on the card
+    device_decode: bool = False
+
+    def __post_init__(self):
+        self._names: list | None = None
+        self._labels_map: dict | None = None
+        #: the ``core.ingest.StreamStats`` of the last descriptor pass
+        self.stream_stats = None
+
+    @property
+    def images(self) -> "VOCStreamSource":
+        # The workload passes ``data.images`` to the descriptor extractor;
+        # for a stream source the "images" are the source.
+        return self
+
+    def labels_map(self) -> dict:
+        if self._labels_map is None:
+            self._labels_map = voc_labels_map(self.labels_path)
+        return self._labels_map
+
+    def record_names(self, names: list) -> None:
+        self._names = names
+
+    @property
+    def filenames(self) -> list:
+        if self._names is None:
+            raise RuntimeError(
+                "VOCStreamSource.filenames before the descriptor pass — the "
+                "streaming extract must run first (it records image order)"
+            )
+        return self._names
+
+    @property
+    def labels(self) -> list:
+        lm = self.labels_map()
+        return [lm[n] for n in self.filenames]
+
+    def __len__(self) -> int:
+        return len(self.filenames)
 
 
 @dataclass
@@ -75,11 +140,35 @@ def make_sift(conf: SIFTFisherConfig) -> SIFTExtractor:
     )
 
 
-def extract_sift_buckets(conf: SIFTFisherConfig, images: list) -> dict:
+def extract_sift_buckets(conf: SIFTFisherConfig, images) -> dict:
     """Per shape bucket: grayscale + dense SIFT -> (indices, [n, 128, cols])
-    on the configured device, in chunks of ``SIFT_CHUNK`` images."""
+    on the configured device, in chunks of ``SIFT_CHUNK`` images.
+    ``images`` is a list of arrays, or a :class:`VOCStreamSource` whose tar
+    is streamed (and, with ``device_decode``, decoded on the device)."""
     dev = resolve_device(conf.device)
     sift = make_sift(conf)
+    if isinstance(images, VOCStreamSource):
+        src = images
+        lm = src.labels_map()
+
+        def keep(name: str) -> bool:
+            return name.startswith(src.name_prefix) and name in lm
+
+        def featurize(pixels: torch.Tensor) -> torch.Tensor:
+            # A stream chunk may hold more images than SIFT_CHUNK: run SIFT
+            # on sub-chunks so its intermediates stay bounded.
+            return torch.cat([
+                sift(grayscale(pixels[i : i + SIFT_CHUNK]))
+                for i in range(0, pixels.shape[0], SIFT_CHUNK)
+            ])
+
+        cfg = stream_config_from_flags(device_decode=src.device_decode)
+        with stream_batches(src.data_path, src.batch_size, keep=keep, config=cfg,
+                            device=dev) as st:
+            buckets, names = stream_descriptor_buckets(st, featurize)
+        src.record_names(names)
+        src.stream_stats = st.stats
+        return buckets
     out = {}
     for shape, (idx, batch) in bucket_by_shape(images).items():
         descs = None
@@ -164,6 +253,11 @@ def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledIma
     eval_secs = lap(t)
 
     aps = MeanAveragePrecisionEvaluator(test.labels, scores, VOC_NUM_CLASSES)
+    ingest_stats = {
+        split: asdict(src.stream_stats)
+        for split, src in (("train", train), ("test", test))
+        if isinstance(src, VOCStreamSource)
+    }
     results = {
         "aps": aps,
         "map": float(np.mean(aps)),
@@ -177,8 +271,11 @@ def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledIma
         # SIFT -> PCA projection -> Fisher features of the training split.
         "featurize_images_per_sec": len(train) / (sift_secs + project_secs + fisher_secs),
         "test_scores": scores,
+        "test_filenames": list(test.filenames),
         "bundle": {"pca": batch_pca, "gmm": gmm, "model": model},
     }
+    if ingest_stats:
+        results["ingest"] = ingest_stats
     _log.info("TEST APs are: %s", ",".join(str(a) for a in aps))
     _log.info("TEST MAP is: %s", results["map"])
     _log.info("Pipeline took %.3f s", results["seconds"])
@@ -214,9 +311,23 @@ def main(argv=None) -> dict:
     p.add_argument("--numPcaSamples", type=int, default=int(1e6))
     p.add_argument("--numGmmSamples", type=int, default=int(1e6))
     p.add_argument(
+        "--streamIngest", action="store_true",
+        help="stream each tar through core.ingest: decode WHILE the device runs SIFT",
+    )
+    p.add_argument(
+        "--streamBatchSize", type=int, default=64,
+        help="images per streamed chunk (--streamIngest only)",
+    )
+    p.add_argument(
+        "--deviceDecode", action="store_true",
+        help="with --streamIngest: host entropy pass only, pixels decoded on the device",
+    )
+    p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
     a = p.parse_args(argv)
+    if a.deviceDecode and not a.streamIngest:
+        p.error("--deviceDecode needs --streamIngest")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     conf = SIFTFisherConfig(
         train_location=a.trainLocation,
@@ -235,8 +346,15 @@ def main(argv=None) -> dict:
         device=a.device,
     )
     resolve_device(conf.device)
-    train = voc_loader(conf.train_location, conf.label_path)
-    test = voc_loader(conf.test_location, conf.label_path)
+    if a.streamIngest:
+        train, test = (
+            VOCStreamSource(path, conf.label_path, batch_size=a.streamBatchSize,
+                            device_decode=a.deviceDecode)
+            for path in (conf.train_location, conf.test_location)
+        )
+    else:
+        train = voc_loader(conf.train_location, conf.label_path)
+        test = voc_loader(conf.test_location, conf.label_path)
     return run(conf, train, test)
 
 

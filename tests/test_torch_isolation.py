@@ -51,7 +51,9 @@ def _jax_package(name: str) -> bool:
 def test_port_and_smoke_import_no_jax():
     rec = _run(_IMPORT_ALL)
     for name in ("workloads.cifar_random_patch", "ops.rect_pool", "workloads.voc_sift_fisher",
-                 "ops.fv_stats", "ops.sift", "solvers.gmm", "loaders.image_loaders"):
+                 "ops.fv_stats", "ops.sift", "solvers.gmm", "loaders.image_loaders",
+                 "ops.jpeg_device", "ops.native_entropy", "core.ingest",
+                 "testing.jpeg_encode"):
         assert f"keystone_tpu_torch.{name}" in rec["imported"]
     mods = rec["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]

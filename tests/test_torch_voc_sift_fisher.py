@@ -13,7 +13,16 @@ centred (values in the hundreds), so ``s2 - 2 mu s1 + (mu^2 - var) s0``
 cancels and any f32 chain lands a few 1e-3·max from f64 (measured: port
 4.3e-3, JAX 2.4e-3 at most), the signed square root magnifying the
 near-zero entries.  On well-conditioned data ``test_torch_fisher.py``
-holds the Fisher vectors of the two packages to 2e-4 / 2e-5."""
+holds the Fisher vectors of the two packages to 2e-4 / 2e-5.
+
+The streamed CLI (``--streamIngest``) is held to the eager CLI on the same
+pixels within that 1e-2·max bar: host decode against the eager loader's
+PIL pixels, device decode against the port's own CPU decode of the same
+JPEGs.  Device-decoded pixels differ from PIL's by IDCT rounding (within
+the golden bounds of ``test_torch_jpeg_device.py``), and at this size (24
+images, λ 0.05) that alone moves a fitted model's scores far past the bar,
+so the two decoders are compared by the APs of the present classes, not by
+scores."""
 
 import jax
 import jax.numpy as jnp
@@ -37,7 +46,9 @@ from keystone_tpu.workloads import fv_common as jfv
 from keystone_tpu_torch import convert
 from keystone_tpu_torch.evaluation.map import mean_average_precision
 from keystone_tpu_torch.loaders import image_loaders as ploaders
+from keystone_tpu_torch.loaders.image_loaders import MultiLabeledImages
 from keystone_tpu_torch.ops import fv_stats as fs
+from keystone_tpu_torch.ops import jpeg_device as jd
 from keystone_tpu_torch.ops import images as pimages
 from keystone_tpu_torch.ops import stats as pstats
 from keystone_tpu_torch.ops import util as putil
@@ -100,6 +111,60 @@ def test_cli_loads_pca_and_gmm_files(voc_tar, tmp_path):
     loaded = pvoc.main([*base, "--pcaFile", files["pca"], "--gmmMeanFile", files["means"],
                         "--gmmVarFile", files["vars"], "--gmmWtsFile", files["wts"]])
     np.testing.assert_array_equal(loaded["test_scores"], fitted["test_scores"])
+
+
+def _device_decoded(tar, labels) -> MultiLabeledImages:
+    """The VOC split as the port's CPU decode of each JPEG's coefficients."""
+    eager = ploaders.voc_loader(tar, labels)
+    members = dict(ploaders._iter_tar_members(tar))
+    images = []
+    for name in eager.filenames:
+        ci = jd.entropy_decode(members[name])
+        images.append(jd.decode_batch(ci.geom, *jd.stack_coeff_images([ci]), "cpu")[0].numpy())
+    return MultiLabeledImages(images, eager.labels, eager.filenames)
+
+
+def test_port_cli_streams_jpeg_tars(voc_tar, monkeypatch):
+    monkeypatch.setattr(fs, "launches", 0)
+    monkeypatch.setattr(jd, "launches", 0)
+    tar, labels = voc_tar
+    base = ["--trainLocation", tar, "--testLocation", tar, "--labelPath", labels,
+            "--scaleStep", "0", *SMALL, "--device", "cpu", "--streamIngest",
+            "--streamBatchSize", "5"]
+    device = pvoc.main([*base, "--deviceDecode"])
+    assert np.all(device["aps"][:4] > 0.9), device["aps"]
+    assert fs.launches == 0 and jd.launches == 0  # the CPU path runs the plain versions
+    for split in ("train", "test"):
+        stats = device["ingest"][split]
+        assert stats["entropy_decoded"] == stats["decoded"] == 24
+        assert stats["skipped"] == stats["device_fallbacks"] == 0
+        assert stats["batches"] == 5  # 24 images of one shape: four chunks of 5, a tail of 4
+
+    conf = pvoc.SIFTFisherConfig(lam=0.05, desc_dim=16, vocab_size=8, num_pca_samples=6000,
+                                 num_gmm_samples=6000, scale_step=0, device="cpu")
+    same_pixels = _device_decoded(tar, labels)
+    eager = pvoc.run(conf, same_pixels, same_pixels)
+    assert device["test_filenames"] == eager["test_filenames"]
+    bar = 1e-2 * np.abs(eager["test_scores"]).max()
+    assert np.abs(device["test_scores"] - eager["test_scores"]).max() <= bar
+
+    host = pvoc.main(base)
+    eager_pil = pvoc.main(base[: base.index("--streamIngest")])
+    assert host["test_filenames"] == eager_pil["test_filenames"]
+    bar = 1e-2 * np.abs(eager_pil["test_scores"]).max()
+    assert np.abs(host["test_scores"] - eager_pil["test_scores"]).max() <= bar
+    np.testing.assert_array_equal(host["aps"][:4], device["aps"][:4])
+
+
+@pytest.mark.parametrize("flags", [["--autoTune"], ["--decodeBackend", "thread"],
+                                   ["--snapshotDir", "snaps"], ["--deviceDecode"]])
+def test_cli_rejects_unported_stream_flags(voc_tar, flags):
+    tar, labels = voc_tar
+    base = ["--trainLocation", tar, "--testLocation", tar, "--labelPath", labels,
+            "--device", "cpu"]
+    stream = [] if flags == ["--deviceDecode"] else ["--streamIngest"]
+    with pytest.raises(SystemExit):
+        pvoc.main([*base, *stream, *flags])
 
 
 def test_cli_rejects_unported_flags_and_needs_a_card(voc_tar, monkeypatch):
