@@ -10,7 +10,9 @@ which raises (and so exits non-zero) on failure:
    and of the native entropy loop (``g++``), all started together;
 2. every kernel against its plain PyTorch version on the card, at the main
    path's shape and at the odd shapes, timed with CUDA events (the IDCT
-   also beside one ``torch.einsum`` call, its library yardstick);
+   also beside one ``torch.einsum`` call, its library yardstick; the
+   Fisher statistics also at served batches of 1 and 16 images, each as a
+   share of its bound);
 3. the RandomPatchCifar main path at full width (100 filters of 6x6x3,
    pool 14 / stride 13) on seeded synthetic CIFAR-shaped data, 50,000 train
    and 10,000 test images, through
@@ -108,6 +110,8 @@ ODD = [(64, 20, 24, 7, 4, 6, 0.25, 0.0), (64, 16, 16, 3, 5, 5, 0.1, 0.05)]
 # then ragged counts and a D that is not a multiple of the kernel's tile.
 FV_PROD = (32, 80, 73866, 256, False)
 FV_ODD = [(3, 24, 700, 8, True), (3, 24, 333, 8, False)]
+# fv_stats is also timed at served batches of one and 16 such images.
+FV_SERVED = (1, 16)
 
 # idct: the main path's luma launch (a 64-image chunk of 375x500 4:2:0 JPEGs
 # is [64, 48, 64, 8, 8]), then one block, a ragged count and leading dims.
@@ -206,6 +210,23 @@ def fv_stats_f64(args, n_valid, chunk: int = 8) -> torch.Tensor:
     ])
 
 
+def time_fv_stats(n: int, gen) -> dict:
+    """The kernel's time on ``n`` images of the production shape, and its
+    share of the bound."""
+    _, d, cols, k, _ = FV_PROD
+    x = torch.randn((n, d, cols), generator=gen, device="cuda")
+    means = torch.randn((d, k), generator=gen, device="cuda")
+    variances = 0.5 + 1.5 * torch.rand((d, k), generator=gen, device="cuda")
+    weights = torch.full((k,), 1.0 / k, device="cuda")
+    ms = cuda_ms(lambda: fs.fv_stats(x, None, means, variances, weights), reps=10)
+    bound_ms, _ = fv_stats_bound(n, d, cols, k)
+    rec = {"shape": [n, d, cols], "k": k, "ms": ms, "bound_ms": bound_ms,
+           "bound_share": bound_ms / ms}
+    log(f"fv_stats at batch {n}: {ms:.4f} ms, {100 * bound_ms / ms:.1f} % of its "
+        f"{bound_ms:.4f} ms bound")
+    return rec
+
+
 def check_fv_stats(shape, gen, timed: bool) -> dict:
     n, d, cols, k, ragged = shape
     x = torch.randn((n, d, cols), generator=gen, device="cuda")
@@ -239,6 +260,7 @@ def check_fv_stats(shape, gen, timed: bool) -> dict:
         rec["ms"] = cuda_ms(lambda: fs.fv_stats(*args), reps=10)
         rec["plain_ms"] = cuda_ms(lambda: fs.fv_stats_reference(*args), reps=5, warmup=1)
         rec["bound_ms"], rec["bound_by"] = fv_stats_bound(n, d, cols, k)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     log(f"fv_stats {rec}")
     return rec
 
@@ -595,6 +617,8 @@ def main() -> int:
     fv_prod = check_fv_stats(FV_PROD, gen, timed=True)
     fv_odd = [check_fv_stats(s, gen, timed=False) for s in FV_ODD]
     torch.cuda.empty_cache()
+    fv_served = {n: time_fv_stats(n, gen) for n in FV_SERVED}
+    torch.cuda.empty_cache()
     log("fv_stats library_ms: null (no single PyTorch call computes GMM "
         "posteriors and their weighted moments)")
     idct_prod = check_idct(IDCT_PROD, gen, timed=True)
@@ -699,6 +723,10 @@ def main() -> int:
         "bound_ms": fv_prod["bound_ms"],
         "bound_by": fv_prod["bound_by"],
         "library_ms": None,
+        "ms_by_batch": {**{str(n): r["ms"] for n, r in fv_served.items()},
+                        str(FV_PROD[0]): fv_prod["ms"]},
+        "bound_share": {**{str(n): r["bound_share"] for n, r in fv_served.items()},
+                        str(FV_PROD[0]): fv_prod["bound_share"]},
     }, {
         "name": "idct",
         "route": "cuda",

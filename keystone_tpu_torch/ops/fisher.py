@@ -9,9 +9,9 @@ with no power or L2 normalisation inside the encoder.  The output is
 ``[d, 2K]`` per image: columns 0..K-1 the mean gradients, K..2K-1 the
 variance gradients.
 
-``FisherVector`` gets the sufficient statistics from :func:`fv_stats`, which
-launches the CUDA kernel on a CUDA tensor and runs its plain version on a
-CPU tensor.
+``FisherVector`` gets the sufficient statistics of an unmasked batch from
+:func:`fv_stats`, which launches the CUDA kernel on a CUDA tensor and runs
+its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -71,16 +71,12 @@ class FisherVector(Transformer):
         return self.num_dims * self.num_centroids * 2
 
     def __call__(self, batch, mask=None):
-        """``mask``: optional [N, cols] validity for ragged descriptor counts;
-        only the CPU takes it (per image, through :func:`fisher_vector`)."""
+        """``mask``: optional [N, cols] validity for ragged descriptor counts.
+        As in the JAX package, a masked call takes the plain path per image
+        (:func:`fisher_vector`) on any device and never reaches the kernel,
+        whose raggedness is a prefix count, not an arbitrary mask."""
         gmm = self.gmm
         if mask is not None:
-            if batch.device.type != "cpu":
-                raise NotImplementedError(
-                    "FisherVector with a mask runs on the CPU only; on CUDA, "
-                    "prefix masks as fv_stats counts are ROADMAP Queue 1 "
-                    "item 6 (masked/prefix FisherVector)"
-                )
             return torch.stack([
                 fisher_vector(mat.T, gmm.means, gmm.variances, gmm.weights, m)
                 for mat, m in zip(batch, mask)

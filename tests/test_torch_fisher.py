@@ -5,7 +5,8 @@
   with a descriptor count that is not a multiple of the chunk: rtol 2e-4,
   atol 2e-5 on the assembled Fisher vectors (tests/test_gmm_fisher.py's bar).
 - ``fisher_vector`` and ``FisherVector`` against JAX's, the same bar.
-- On the CPU the wrapper runs the plain version and launches nothing."""
+- On the CPU the wrapper runs the plain version and launches nothing; a
+  masked ``FisherVector`` takes the plain path on any device."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -92,13 +93,17 @@ def test_fisher_vector_node_matches_jax_and_launches_nothing(rng, masked, monkey
     assert fs.launches == 0  # the CPU takes the plain version
 
 
-def test_masked_fisher_vector_on_cuda_raises():
-    # A tensor off the CPU stands in for a CUDA one: the masked path never
-    # reaches the kernel there.
+def test_masked_fisher_vector_on_cuda_raises(monkeypatch):
+    # The name is historical: a masked call off the CPU no longer raises.  As
+    # in the JAX package it takes the plain per-image path on any device; a
+    # tensor off the CPU (here on "meta") stands in for a CUDA one, and no
+    # kernel is launched.
+    monkeypatch.setattr(fs, "launches", 0)
     p = torch.ones((4, 3), device="meta")
     fv = pfisher.FisherVector(GaussianMixtureModel(p, p, torch.ones(3, device="meta")))
-    with pytest.raises(NotImplementedError, match="masked/prefix FisherVector"):
-        fv(torch.empty((2, 4, 10), device="meta"), torch.ones((2, 10), device="meta"))
+    out = fv(torch.empty((2, 4, 10), device="meta"), torch.ones((2, 10), device="meta"))
+    assert out.device.type == "meta" and out.shape == (2, 4, 6)
+    assert fs.launches == 0
 
 
 def test_gmm_load_on_cuda_without_card_raises(tmp_path, monkeypatch):

@@ -59,10 +59,14 @@ def test_wrapper_rejects_other_devices():
 
 
 def test_masked_fisher_vector_off_the_cpu_raises():
+    # The name is historical: a masked call off the CPU takes the plain
+    # per-image path, as in the JAX package, and launches no kernel.
     p = torch.ones((4, 3), device="meta")
     fv = FisherVector(GaussianMixtureModel(p, p, torch.ones(3, device="meta")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fv(torch.empty((2, 4, 10), device="meta"), torch.ones((2, 10), device="meta"))
+    before = fs.launches
+    out = fv(torch.empty((2, 4, 10), device="meta"), torch.ones((2, 10), device="meta"))
+    assert out.device.type == "meta" and out.shape == (2, 4, 6)
+    assert fs.launches == before
 
 
 @pytest.mark.cuda
@@ -75,6 +79,10 @@ def test_masked_fisher_vector_off_the_cpu_raises():
         (4, 2000, 64, 16, False),  # the bench shape's widths
         (2, 5000, 80, 256, True),  # the VOC widths
         (1, 31, 3, 5, False),  # odd d and k, one partial tile
+        (2, 2 * fs.SPLIT_COLS + 77, 64, 16, False),  # the bench widths over three splits
+        (2, 2 * fs.SPLIT_COLS + 77, 80, 256, True),  # the VOC widths over three splits
+        (2, fs.SPLIT_COLS + 1, 80, 256, False),  # one column past a split boundary
+        (3, fs.SPLIT_COLS, 24, 8, False),  # exactly one split
     ],
 )
 def test_kernel_matches_reference_on_card(cuda_device, n, cols, d, k, ragged):
@@ -90,6 +98,45 @@ def test_kernel_matches_reference_on_card(cuda_device, n, cols, d, k, ragged):
     torch.testing.assert_close(
         got_fv, ref_fv, rtol=2e-4, atol=2e-5 * ref_fv.abs().max().item()
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [fs.SPLIT_COLS, 2 * fs.SPLIT_COLS + 5])
+def test_counts_of_zero_and_of_one_split(cuda_device, cols):
+    x, _, means, variances, weights = _case(4, cols, 24, 8, False, cuda_device)
+    counts = torch.tensor([0, fs.SPLIT_COLS, 1, cols], dtype=torch.int32, device=cuda_device)
+    got = fs.fv_stats(x, counts, means, variances, weights)
+    ref = fs.fv_stats_reference(x.double(), counts, means.double(), variances.double(),
+                                weights.double())
+    for g, r in zip(got, ref):
+        assert torch.all(g[0] == 0)  # no valid descriptor, no mass
+        torch.testing.assert_close(g.double(), r, rtol=2e-4, atol=2e-5 * r.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_kernel_is_batch_invariant(cuda_device):
+    # Each image's statistics from a batch of 16 are the bits of that image
+    # run alone: the split length is fixed, the sums are ordered.
+    x, counts, means, variances, weights = _case(16, 2 * fs.SPLIT_COLS + 100, 80, 256, True,
+                                                 cuda_device, seed=3)
+    batch = fs.fv_stats(x, counts, means, variances, weights)
+    for i in range(16):
+        alone = fs.fv_stats(x[i : i + 1].contiguous(), counts[i : i + 1], means, variances,
+                            weights)
+        for b, a in zip(batch, alone):
+            assert torch.equal(b[i], a[0])
+
+
+@pytest.mark.cuda
+def test_masked_fisher_vector_card_matches_cpu(cuda_device):
+    x, counts, means, variances, weights = _case(3, 900, 16, 8, True, cuda_device)
+    mask = (torch.arange(900, device=cuda_device)[None] < counts[:, None]).float()
+    before = fs.launches
+    on_card = FisherVector(GaussianMixtureModel(means, variances, weights))(x, mask).cpu()
+    assert fs.launches == before
+    cpu = [t.cpu() for t in (x, mask, means, variances, weights)]
+    on_cpu = FisherVector(GaussianMixtureModel(*cpu[2:]))(cpu[0], cpu[1])
+    torch.testing.assert_close(on_card, on_cpu, rtol=2e-4, atol=2e-5 * on_cpu.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -113,6 +160,9 @@ def test_wrapper_raises_on_card(cuda_device):
     big = _case(1, 64, 8, 300, False, cuda_device)
     with pytest.raises(ValueError, match="envelope"):
         fs.fv_stats(*big)
+    wide = _case(1, 64, fs.MAX_D + 1, 8, False, cuda_device)
+    with pytest.raises(ValueError, match="envelope"):
+        fs.fv_stats(*wide)
 
 
 @pytest.mark.cuda
