@@ -8,15 +8,23 @@ which raises (and so exits non-zero) on failure:
 1. card and build: the card's name and power limit, the CUDA version, and
    the build of every kernel under ``keystone_tpu_torch/csrc`` (``nvcc``)
    and of the native entropy loop (``g++``), all started together;
-2. every kernel against its plain PyTorch version on the card, at the main
-   path's shape and at the odd shapes, timed with CUDA events (the IDCT
-   also beside one ``torch.einsum`` call, its library yardstick; the
-   Fisher statistics also at served batches of 1 and 16 images, each as a
-   share of its bound);
+2. every kernel entry against its plain PyTorch version on the card, at
+   the main path's shape and at the odd shapes, timed with CUDA events:
+   rect+pool on activations and fused with the Convolver's epilogue (the
+   fused entry with every flag on and off, and also at served batches of 1
+   and 64 images), the Fisher statistics (also at served batches of 1 and
+   16 images, each as a share of its bound), the IDCT (also beside one
+   ``torch.einsum`` call, its library yardstick) and the whole pixel decode
+   (``torch.equal`` to the PyTorch composition with the IDCT kernel in it,
+   for 4:2:0, 4:2:2, 4:4:4 and grayscale at odd sizes);
 3. the RandomPatchCifar main path at full width (100 filters of 6x6x3,
    pool 14 / stride 13) on seeded synthetic CIFAR-shaped data, 50,000 train
    and 10,000 test images, through
-   ``keystone_tpu_torch.workloads.cifar_random_patch.main``;
+   ``keystone_tpu_torch.workloads.cifar_random_patch.main`` (the fused
+   rect+pool entry must carry it, the unfused one must not run), then one
+   2048-image chunk's stage times: host preparation, the pageable host ->
+   card copy, the cuDNN convolution, the mu/sigma terms, the fused kernel,
+   and the unfused chain (epilogue, bf16 cast, rect+pool) as its yardstick;
 4. the fitted servable chain applied in batches of 1, 4, 16 and 64, which
    must reproduce the offline test predictions (counted with phase 3 as the
    main path's launches);
@@ -37,13 +45,16 @@ which raises (and so exits non-zero) on failure:
    ``keystone_tpu_torch.testing.jpeg_encode`` (this machine may have no
    image library) into train/test tars, then run through
    ``voc_sift_fisher.main([... "--streamIngest", "--deviceDecode"])``: the
-   native entropy pass on the host, the IDCT kernel and the rest of the
-   decode on the card.  Checks: the native backend ran with no fallback or
-   skip; one chunk's entropy decode equals the encoder's coefficients
-   exactly; its card decode is within 1 level of the CPU decode with
-   >= 99.9 % of pixels equal; MAP >= 0.5 and within 0.05 of phase 6; the
-   kernels' launch counts; and ``fused_apply`` of the servable chain at
-   batches 1, 4 and 16 reproduces the offline test scores;
+   native entropy pass on the host, the whole pixel decode on the card in
+   two launches of the decode kernel.  Checks: the native backend ran with
+   no fallback or skip; one chunk's entropy decode equals the encoder's
+   coefficients exactly; its card decode equals the unfused PyTorch
+   composition on the card bit for bit and is within 1 level of the CPU
+   decode with >= 99.9 % of pixels equal; MAP >= 0.5 and within 0.05 of
+   phase 6; the kernels' launch counts (the fused decode ran, the IDCT
+   entry did not); ``fused_apply`` of the servable chain at batches 1, 4
+   and 16 reproduces the offline test scores; and the decode's time at
+   batches 1 and 64 beside the unfused composition's and its bound;
 9. one JSON line per the kernels, the card line, and the final JSON line.
 
 Without a CUDA card it exits with code 1 and prints no result.
@@ -76,6 +87,7 @@ from keystone_tpu_torch.ops import jpeg_device as jd
 from keystone_tpu_torch.ops import native_entropy
 from keystone_tpu_torch.ops import rect_pool as rp
 from keystone_tpu_torch.ops.fisher import _fv_from_stats
+from keystone_tpu_torch.ops.images import convolver_epilogue
 from keystone_tpu_torch.ops.sift import SIFTExtractor
 from keystone_tpu_torch.ops.stats import StandardScaler
 from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
@@ -103,6 +115,10 @@ MAIN_FLAGS = [
 # multiple of 32, truncated edge windows, odd pool size, max_val != 0).
 PROD = (2048, 27, 27, 100, 13, 14, 0.25, 0.0)
 ODD = [(64, 20, 24, 7, 4, 6, 0.25, 0.0), (64, 16, 16, 3, 5, 5, 0.1, 0.05)]
+# The fused entry's flags (normalize_patches, whitener means), and the
+# served batches it is also timed at.
+FUSED_FLAGS = [(True, True), (True, False), (False, True), (False, False)]
+K1_SERVED = (1, 64)
 
 # fv_stats (n, d, D, k, ragged): 32 images of the VOC production shape (a
 # 500x375 image gives 73,866 descriptors of 80 dims after PCA, k=256; 32
@@ -117,6 +133,15 @@ FV_SERVED = (1, 16)
 # is [64, 48, 64, 8, 8]), then one block, a ragged count and leading dims.
 IDCT_PROD = (64 * 48 * 64, 8, 8)
 IDCT_ODD = [(1, 8, 8), (37, 8, 8), (3, 2, 5, 8, 8)]
+# The whole decode: (batch, height, width, sampling) -- the main path's
+# 64-image 375x500 4:2:0 chunk, then 4:2:2, 4:4:4 and grayscale at odd sizes.
+DECODE_CASES = [
+    (64, 375, 500, ((2, 2), (1, 1), (1, 1))),
+    (3, 45, 61, ((2, 1), (1, 1), (1, 1))),
+    (3, 33, 47, ((1, 1), (1, 1), (1, 1))),
+    (3, 33, 47, ((1, 1),)),
+    (5, 45, 61, ((2, 2), (1, 1), (1, 1))),
+]
 
 # VOCSIFTFisher: VOC 2007's two common image sizes (H, W), images per split.
 VOC_SHAPES = {(375, 500): 384, (500, 375): 128}
@@ -183,6 +208,68 @@ def check_rect_pool(shape, dtype, gen, timed: bool) -> dict:
         rec["bound_ms"], rec["bound_by"] = rect_pool_bound(z, got.numel())
     log(f"rect_pool {rec}")
     return rec
+
+
+def conv_terms(n, oh, ow, f, gen, normalize=True, means=True):
+    """Seeded Convolver terms at RandomPatchCifar's scale: conv of 0-255
+    patches with unit-norm filters, patch means and deviations."""
+    conv = 300.0 * torch.randn((n, oh, ow, f), generator=gen, device="cuda")
+    mu = 255.0 * torch.rand((n, oh, ow), generator=gen, device="cuda") if normalize else None
+    sigma = (5.0 + 75.0 * torch.rand((n, oh, ow), generator=gen, device="cuda")
+             if normalize else None)
+    fsum = torch.randn((f,), generator=gen, device="cuda")
+    fmd = torch.randn((f,), generator=gen, device="cuda") if means else None
+    return conv, mu, sigma, fsum, fmd
+
+
+def conv_rect_pool_bound(terms, out_numel: int) -> tuple[float, str]:
+    """Least time for the fused step: conv (and mu, sigma, fsum, fmd) read
+    once, the f32 output written once, against 10 f32 operations per conv
+    element (the epilogue's product, two subtractions and division, then
+    the rect+pool's six)."""
+    read = sum(t.numel() * t.element_size() for t in terms if t is not None)
+    bytes_ms = (read + out_numel * 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 10 * terms[0].numel() / F32_FLOPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def check_conv_rect_pool(shape, dtype, flags, gen, timed: bool) -> dict:
+    n, oh, ow, f, stride, size, alpha, max_val = shape
+    terms = conv_terms(n, oh, ow, f, gen, *flags)
+    kw = dict(pool_stride=stride, pool_size=size, alpha=alpha, max_val=max_val,
+              activation_dtype=dtype)
+    got = rp.conv_rect_pool(*terms, **kw)
+    torch.cuda.synchronize()
+    ref = rp.conv_rect_pool_reference(*terms, **kw)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    # Both sides compute each activation with the same bits (the kernel in
+    # the plain epilogue's order, IEEE round-to-nearest) and sum in f32 in
+    # another order: rtol 1e-5, atol 1e-4 * max (the JAX kernel's bar).
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4 * scale)
+    rec = {"shape": [n, oh, ow, f], "dtype": str(dtype).replace("torch.", ""),
+           "normalize_patches": flags[0], "whitener_means": flags[1],
+           "max_abs_err": (got - ref).abs().max().item()}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: rp.conv_rect_pool(*terms, **kw))
+        rec["plain_ms"] = cuda_ms(lambda: rp.conv_rect_pool_reference(*terms, **kw))
+        rec["bound_ms"], rec["bound_by"] = conv_rect_pool_bound(terms, got.numel())
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    log(f"conv_rect_pool {rec}")
+    return rec
+
+
+def time_conv_rect_pool(n: int, gen) -> dict:
+    """The fused entry's time on ``n`` images of the production shape (bf16
+    activations, every term), and its share of the bound."""
+    _, oh, ow, f, stride, size, alpha, max_val = PROD
+    terms = conv_terms(n, oh, ow, f, gen)
+    kw = dict(pool_stride=stride, pool_size=size, alpha=alpha, max_val=max_val)
+    ms = cuda_ms(lambda: rp.conv_rect_pool(*terms, **kw), reps=50)
+    bound_ms, _ = conv_rect_pool_bound(terms, n * 4 * 2 * f)
+    log(f"conv_rect_pool at batch {n}: {ms:.4f} ms, {100 * bound_ms / ms:.1f} % of its "
+        f"{bound_ms:.4f} ms bound")
+    return {"ms": ms, "bound_ms": bound_ms, "bound_share": bound_ms / ms}
 
 
 def fv_stats_bound(n: int, d: int, cols: int, k: int) -> tuple[float, str]:
@@ -296,6 +383,61 @@ def check_idct(shape, gen, timed: bool) -> dict:
     return rec
 
 
+def decode_bound(coeffs, out: torch.Tensor) -> tuple[float, str]:
+    """Least time for the whole decode: the int16 coefficients (and the quant
+    tables) read once and the f32 BGR pixels written once.  The operations
+    (an IDCT's 2048 flops per block, a few dozen per pixel) sit far below."""
+    read = sum(c.numel() * c.element_size() for c in coeffs)
+    return (read + out.numel() * 4) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def random_coeff_batch(case, gen):
+    """Seeded quantised coefficients of one geometry on the card, scaled as
+    a quality-90 encoder leaves them (larger at low frequencies), with a
+    quant table per image."""
+    b, h, w, sampling = case
+    hmax = max(s[0] for s in sampling)
+    vmax = max(s[1] for s in sampling)
+    block_shape = tuple((-(-h // (8 * vmax)) * v, -(-w // (8 * hmax)) * hh)
+                        for hh, v in sampling)
+    geom = jd.JpegGeometry(h, w, sampling, block_shape)
+    freq = torch.arange(8, device="cuda")
+    scale = 40.0 / (1.0 + freq[:, None] + freq[None, :])
+    coeffs = [(torch.randn((b, by, bx, 8, 8), generator=gen, device="cuda") * scale)
+              .round().to(torch.int16) for by, bx in block_shape]
+    qt = torch.randint(1, 9, (b, len(sampling), 8, 8), generator=gen, device="cuda").float()
+    return geom, coeffs, qt
+
+
+def check_decode(case, gen) -> dict:
+    geom, coeffs, qt = random_coeff_batch(case, gen)
+    got = jd.decode_pixels(geom, coeffs, qt)
+    torch.cuda.synchronize()
+    ref = jd.decode_pixels_reference(geom, coeffs, qt)
+    # Bar: bit equality with the composition on the card (the IDCT kernel
+    # in it); every step of the kernel rounds as there.
+    if not torch.equal(got, ref):
+        raise AssertionError(f"decode {case[:3]} {geom.sampling}: {int((got != ref).sum())} "
+                             f"pixels differ from the composition")
+    rec = {"batch": case[0], "size": [geom.height, geom.width],
+           "sampling": [list(s) for s in geom.sampling], "max_abs_err": 0.0}
+    log(f"decode {rec}")
+    return rec
+
+
+def time_decode(geom, coeffs, qt) -> dict:
+    """The fused decode and the unfused composition on the card, each timed
+    alone, and the decode's bound (coefficients already on the card)."""
+    out = jd.decode_pixels(geom, coeffs, qt)
+    rec = {"batch": int(qt.shape[0]),
+           "ms": cuda_ms(lambda: jd.decode_pixels(geom, coeffs, qt), reps=50),
+           "plain_ms": cuda_ms(lambda: jd.decode_pixels_reference(geom, coeffs, qt), reps=20)}
+    rec["bound_ms"], rec["bound_by"] = decode_bound(coeffs, out)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    log(f"decode timing {rec}")
+    return rec
+
+
 def voc_images(rng, shapes: dict, num_classes: int = VOC_NUM_CLASSES) -> MultiLabeledImages:
     """Seeded VOC-shaped images: BGR f32 in [0, 255].  Each image has a
     primary class and, with probability 0.25, a second one.  A class is a
@@ -352,18 +494,58 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def featurize_breakdown(featurizer, images: np.ndarray) -> dict:
-    """CUDA-event times of one production chunk's featurize stages."""
-    batch = torch.from_numpy(images).cuda()
-    conv = featurizer.conv(batch)
-    z = conv.to(featurizer.activation_dtype)
+    """One production chunk's featurize stages: the host's share (preparing
+    the numpy block, the pageable host -> card copy, as
+    ``cifar_random_patch._chunks`` makes them; host clock around each, ending
+    in a synchronize) and the card's (CUDA events): the cuDNN convolution,
+    the mu/sigma terms, the fused kernel, the featurizer as the path calls
+    it, and the unfused chain of the parent as its yardstick (the Convolver's
+    epilogue, the bf16 cast, rect+pool)."""
+    conv = featurizer.conv
     kw = dict(pool_stride=featurizer.pool_stride, pool_size=featurizer.pool_size,
               alpha=featurizer.alpha, max_val=featurizer.max_val)
+    dtype = featurizer.activation_dtype
+
+    def host_ms(fn, reps=10):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    block = np.ascontiguousarray(images, np.float32)
+    batch = torch.from_numpy(block).cuda()
+    x = conv._images(batch)
+    terms = conv.terms(batch)
+
+    def unfused():
+        z = convolver_epilogue(*conv.terms(batch), conv.fsum, conv.filter_means_dot)
+        return rp.rect_pool(z.to(dtype), **kw)
+
+    z = convolver_epilogue(*terms, conv.fsum, conv.filter_means_dot)
+    fused, plain = featurizer(batch), unfused()
+    torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-4 * plain.abs().max().item())
     return {
         "chunk": int(batch.shape[0]),
-        "convolver_ms": cuda_ms(lambda: featurizer.conv(batch), reps=10),
-        "cast_ms": cuda_ms(lambda: conv.to(featurizer.activation_dtype), reps=10),
-        "rect_pool_ms": cuda_ms(lambda: rp.rect_pool(z, **kw), reps=10),
+        "host_prepare_ms": host_ms(lambda: np.ascontiguousarray(images, np.float32)),
+        "h2d_pageable_ms": host_ms(lambda: torch.from_numpy(block).to("cuda")),
+        "h2d_bytes": block.nbytes,
+        "cudnn_conv_ms": cuda_ms(lambda: torch.nn.functional.conv2d(x, conv._weight), reps=10),
+        "mu_sigma_ms": cuda_ms(lambda: conv.patch_stats(x), reps=10),
+        "terms_ms": cuda_ms(lambda: conv.terms(batch), reps=10),
+        "fused_kernel_ms": cuda_ms(lambda: rp.conv_rect_pool(
+            *terms, conv.fsum, conv.filter_means_dot, activation_dtype=dtype, **kw), reps=10),
         "featurizer_ms": cuda_ms(lambda: featurizer(batch), reps=10),
+        "unfused_epilogue_ms": cuda_ms(lambda: convolver_epilogue(
+            *terms, conv.fsum, conv.filter_means_dot), reps=10),
+        "unfused_cast_ms": cuda_ms(lambda: z.to(dtype), reps=10),
+        "unfused_rect_pool_ms": cuda_ms(lambda: rp.rect_pool(z.to(dtype), **kw), reps=10),
+        "unfused_featurizer_ms": cuda_ms(unfused, reps=10),
+        "featurize_chunk_host_ms": host_ms(
+            lambda: cifar.featurize_chunked(featurizer, images, len(images), "cuda"), reps=5),
     }
 
 
@@ -486,9 +668,10 @@ def write_voc_tars(root: Path, splits: dict) -> dict:
     return test_members
 
 
-def run_voc_tar(card: str, train, test, memory_map: float) -> tuple[int, int]:
+def run_voc_tar(card: str, train, test, memory_map: float) -> tuple[int, int, dict]:
     """Phase 8: VOCSIFTFisher from JPEG tars through ``--streamIngest
-    --deviceDecode``.  Returns the idct and fv_stats launches of the path."""
+    --deviceDecode``.  Returns the decode and fv_stats launches of the path
+    and the decode's timings at batches 1 and 64."""
     _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
         root = Path(tmp)
@@ -501,13 +684,13 @@ def run_voc_tar(card: str, train, test, memory_map: float) -> tuple[int, int]:
         for counter in (ingest.counters, native_entropy.counters, image_loaders.skipped):
             counter.clear()
         torch.cuda.reset_peak_memory_stats()
-        jd.launches = fs.launches = 0
+        jd.launches = jd.decode_launches = fs.launches = 0
         res = voc.main([
             "--trainLocation", str(root / "train.tar"), "--testLocation", str(root / "test.tar"),
             "--labelPath", str(root / "labels.csv"), "--streamIngest", "--deviceDecode",
             "--streamBatchSize", "64", "--device", "cuda",
         ])
-        fit_idct, fit_fv = jd.launches, fs.launches
+        fit_decode, fit_fv = jd.decode_launches, fs.launches
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
         # (f) the servable chain fed coefficient batches of one geometry.
@@ -529,7 +712,7 @@ def run_voc_tar(card: str, train, test, memory_map: float) -> tuple[int, int]:
             if not err <= 1e-4 * np.abs(offline).max():
                 raise AssertionError(f"fused_apply at batch {b} differs from the offline "
                                      f"scores by {err}")
-        idct_launches, fv_launches = jd.launches, fs.launches
+        decode_launches, fv_launches, idct_launches = jd.decode_launches, fs.launches, jd.launches
 
     stats = res["ingest"]
     chunks = sum(s["batches"] for s in stats.values())
@@ -546,7 +729,13 @@ def run_voc_tar(card: str, train, test, memory_map: float) -> tuple[int, int]:
     for name, img in zip(chunk, images):
         if not all(np.array_equal(a, b) for a, b in zip(img.coeffs, members[name][1])):
             raise AssertionError(f"{name}: entropy decode != the encoder's coefficients")
-    # (c) that chunk decoded on the card against the port's CPU decode.
+    # (c) that chunk decoded on the card: bit for bit the unfused composition
+    # on the card, and against the port's CPU decode.
+    dev_coeffs = [torch.from_numpy(c).cuda() for c in coeffs]
+    dev_qt = torch.from_numpy(qt).cuda()
+    fused = jd.decode_pixels(geom, dev_coeffs, dev_qt)
+    if not torch.equal(fused, jd.decode_pixels_reference(geom, dev_coeffs, dev_qt)):
+        raise AssertionError("card decode of the chunk differs from the unfused composition")
     on_card = jd.decode_batch(geom, coeffs, qt, "cuda").cpu()
     on_cpu = jd.decode_batch(geom, coeffs, qt, "cpu")
     diff = (on_card - on_cpu).abs()
@@ -558,15 +747,16 @@ def run_voc_tar(card: str, train, test, memory_map: float) -> tuple[int, int]:
     # (d) accuracy, against the in-memory run of phase 6 on the same images.
     if not (res["map"] >= 0.5 and abs(res["map"] - memory_map) <= 0.05):
         raise AssertionError(f"VOC MAP from JPEG tars {res['map']} (in memory {memory_map})")
-    # (e) the path went through both kernels.
-    if not (fit_idct >= 3 * chunks and fv_launches >= chunks):
-        raise AssertionError(f"launches: idct {fit_idct}, fv_stats {fv_launches}, "
-                             f"{chunks} chunks")
-    # Device decode time of one production chunk, coefficients already on
-    # the card (these launches are measurements, not the path's).
-    dev_coeffs = [torch.from_numpy(c).cuda() for c in coeffs]
-    dev_qt = torch.from_numpy(qt).cuda()
-    decode_ms = cuda_ms(lambda: jd.decode_batch(geom, dev_coeffs, dev_qt), reps=10)
+    # (e) the path went through the fused decode (two launches a chunk) and
+    # the statistics kernel, and never through the IDCT entry on its own.
+    if not (fit_decode >= 2 * chunks and fv_launches >= chunks and idct_launches == 0):
+        raise AssertionError(f"launches: decode {fit_decode}, fv_stats {fv_launches}, "
+                             f"idct {idct_launches}, {chunks} chunks")
+    # Device decode of one production chunk and of one image, coefficients
+    # already on the card (these launches are measurements, not the path's).
+    decode_times = {b: time_decode(geom, [c[:b] for c in dev_coeffs], dev_qt[:b])
+                    for b in (1, len(chunk))}
+    decode_ms = decode_times[len(chunk)]["ms"]
     h2d_ms = cuda_ms(lambda: [torch.from_numpy(c).cuda() for c in coeffs], reps=10)
     log(json.dumps({
         "main_path": "VOCSIFTFisher from JPEG tars, --streamIngest --deviceDecode",
@@ -580,16 +770,18 @@ def run_voc_tar(card: str, train, test, memory_map: float) -> tuple[int, int]:
         "entropy_backend": stats["train"]["entropy_backend"],
         "host_entropy_thread_seconds": {k: s["decode_seconds"] for k, s in stats.items()},
         "chunks": chunks, "device_decode_ms_per_chunk": decode_ms,
+        "unfused_decode_ms_per_chunk": decode_times[len(chunk)]["plain_ms"],
         "device_decode_seconds_est": decode_ms * chunks / 1e3,
         "coeff_h2d_ms_per_chunk": h2d_ms,
         "coeff_bytes_per_image": geom.coeff_bytes(),
         "pixel_bytes_per_image": geom.height * geom.width * 3 * 4,
-        "idct_launches_fit": fit_idct, "idct_launches_serve": idct_launches - fit_idct,
+        "decode_launches_fit": fit_decode, "decode_launches_serve": decode_launches - fit_decode,
+        "idct_launches": idct_launches,
         "fv_stats_launches_fit": fit_fv, "fv_stats_launches_serve": fv_launches - fit_fv,
         "card_vs_cpu_decode_max_abs": diff.max().item(), "card_vs_cpu_decode_equal": equal,
         "decoded_vs_source_mean_abs": source_err,
     }))
-    return idct_launches, fv_launches
+    return decode_launches, fv_launches, decode_times
 
 
 def main() -> int:
@@ -614,6 +806,15 @@ def main() -> int:
            for s in ODD for dt in (torch.float32, torch.bfloat16)]
     log("rect_pool library_ms: null (no single PyTorch call rectifies and "
         "sum-pools both signs)")
+    fused_prod = check_conv_rect_pool(PROD, torch.bfloat16, (True, True), gen, timed=True)
+    fused_prod_f32 = check_conv_rect_pool(PROD, torch.float32, (True, True), gen, timed=True)
+    fused_odd = [check_conv_rect_pool(s, dt, fl, gen, timed=False)
+                 for s in ODD for dt in (torch.float32, torch.bfloat16) for fl in FUSED_FLAGS]
+    fused_odd += [check_conv_rect_pool((64, *PROD[1:]), torch.bfloat16, fl, gen, timed=False)
+                  for fl in FUSED_FLAGS[1:]]
+    fused_served = {n: time_conv_rect_pool(n, gen) for n in K1_SERVED}
+    log("conv_rect_pool library_ms: null (no single PyTorch call applies the "
+        "Convolver's epilogue, rectifies and sum-pools both signs)")
     fv_prod = check_fv_stats(FV_PROD, gen, timed=True)
     fv_odd = [check_fv_stats(s, gen, timed=False) for s in FV_ODD]
     torch.cuda.empty_cache()
@@ -623,6 +824,10 @@ def main() -> int:
         "posteriors and their weighted moments)")
     idct_prod = check_idct(IDCT_PROD, gen, timed=True)
     idct_odd = [check_idct(s, gen, timed=False) for s in IDCT_ODD]
+    decode_checks = [check_decode(case, gen) for case in DECODE_CASES]
+    torch.cuda.empty_cache()
+    log("decode_pixels library_ms: null (no single PyTorch call decodes JPEG "
+        "coefficients to pixels; the IDCT entry's yardstick is torch.einsum)")
 
     # The synthetic data lives under the checkout's git-ignored build/.
     _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
@@ -636,19 +841,20 @@ def main() -> int:
         test_images = test.images
 
         # 3. + 4. The main path: fit, eval, then the servable apply.
-        rp.launches = 0
+        rp.launches = rp.fused_launches = 0
         res = cifar.main(["--trainLocation", str(train_path),
                           "--testLocation", str(test_path), *MAIN_FLAGS])
-        fit_launches = rp.launches
+        fit_launches = rp.fused_launches
         servable = res["servable"]
         for chunk in (1, 4, 16, 64):
             served = cifar.apply_servable_chunked(servable, test_images[:256], chunk)
             if not np.array_equal(served, res["test_predictions"][:256]):
                 raise AssertionError(f"servable apply at batch {chunk} != offline predictions")
-        main_launches = rp.launches
+        main_launches, unfused_launches = rp.fused_launches, rp.launches
     need = math.ceil(N_TRAIN / 2048) + math.ceil(N_TEST / 2048)
-    if fit_launches < need:
-        raise AssertionError(f"rect_pool launched {fit_launches} times, expected >= {need}")
+    if fit_launches < need or unfused_launches:
+        raise AssertionError(f"conv_rect_pool launched {fit_launches} times, expected >= "
+                             f"{need}; rect_pool {unfused_launches} times, expected 0")
     if not res["test_error"] < 45.0:  # chance is 90%
         raise AssertionError(f"test error {res['test_error']}% is not well under chance")
     log(json.dumps({
@@ -659,8 +865,9 @@ def main() -> int:
         "featurize_seconds": res["featurize_seconds"],
         "learn_seconds": res["learn_seconds"],
         "solve_seconds": res["solve_seconds"], "seconds": res["seconds"],
-        "rect_pool_launches_fit": fit_launches,
-        "rect_pool_launches_serve": main_launches - fit_launches,
+        "conv_rect_pool_launches_fit": fit_launches,
+        "conv_rect_pool_launches_serve": main_launches - fit_launches,
+        "rect_pool_launches": unfused_launches,
     }))
     log("featurize breakdown " + json.dumps(
         {"card": card, **featurize_breakdown(servable.nodes[0], test_images[:2048])}
@@ -694,22 +901,33 @@ def main() -> int:
         raise AssertionError("the solve differs between card and CPU beyond 1e-3")
 
     voc_launches, voc_train, voc_test, voc_map = run_voc(card)
-    idct_launches, tar_fv_launches = run_voc_tar(card, voc_train, voc_test, voc_map)
+    decode_launches, tar_fv_launches, decode_times = run_voc_tar(card, voc_train, voc_test,
+                                                                 voc_map)
 
     # 9. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
-        "name": "rect_pool",
+        "name": "conv_rect_pool",
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/rect_pool.cu",
         "replaces": "keystone_tpu/ops/rect_pool_pallas.py:78",
         "launches": main_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in [prod, prod_f32, *odd]),
-        "ms": prod["ms"],
-        "plain_ms": prod["plain_ms"],
-        "bound_ms": prod["bound_ms"],
-        "bound_by": prod["bound_by"],
+        "max_abs_err": max(r["max_abs_err"] for r in [fused_prod, fused_prod_f32, *fused_odd]),
+        "ms": fused_prod["ms"],
+        "plain_ms": fused_prod["plain_ms"],
+        "bound_ms": fused_prod["bound_ms"],
+        "bound_by": fused_prod["bound_by"],
         "library_ms": None,
-        "f32": {k: prod_f32[k] for k in ("ms", "plain_ms", "bound_ms")},
+        "f32": {k: fused_prod_f32[k] for k in ("ms", "plain_ms", "bound_ms")},
+        "ms_by_batch": {**{str(n): r["ms"] for n, r in fused_served.items()},
+                        str(PROD[0]): fused_prod["ms"]},
+        "bound_share": {**{str(n): r["bound_share"] for n, r in fused_served.items()},
+                        str(PROD[0]): fused_prod["bound_share"]},
+        "rect_pool_entry": {
+            "max_abs_err": max(r["max_abs_err"] for r in [prod, prod_f32, *odd]),
+            "launches": unfused_launches,
+            **{k: prod[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "f32": {k: prod_f32[k] for k in ("ms", "plain_ms", "bound_ms")},
+        },
     }, {
         "name": "fv_stats",
         "route": "cuda",
@@ -728,17 +946,25 @@ def main() -> int:
         "bound_share": {**{str(n): r["bound_share"] for n, r in fv_served.items()},
                         str(FV_PROD[0]): fv_prod["bound_share"]},
     }, {
-        "name": "idct",
+        "name": "decode_pixels",
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/idct.cu",
         "replaces": "keystone_tpu/ops/jpeg_device.py:743",
-        "launches": idct_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in [idct_prod, *idct_odd]),
-        "ms": idct_prod["ms"],
-        "plain_ms": idct_prod["plain_ms"],
-        "bound_ms": idct_prod["bound_ms"],
-        "bound_by": idct_prod["bound_by"],
-        "library_ms": idct_prod["library_ms"],
+        "launches": decode_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in decode_checks),
+        "ms": decode_times[64]["ms"],
+        "plain_ms": decode_times[64]["plain_ms"],
+        "bound_ms": decode_times[64]["bound_ms"],
+        "bound_by": decode_times[64]["bound_by"],
+        "library_ms": None,
+        "ms_by_batch": {str(b): r["ms"] for b, r in decode_times.items()},
+        "plain_ms_by_batch": {str(b): r["plain_ms"] for b, r in decode_times.items()},
+        "bound_share": {str(b): r["bound_share"] for b, r in decode_times.items()},
+        "idct_entry": {
+            "max_abs_err": max(r["max_abs_err"] for r in [idct_prod, *idct_odd]),
+            **{k: idct_prod[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")},
+        },
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

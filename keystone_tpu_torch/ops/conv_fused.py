@@ -1,10 +1,12 @@
 """Fused conv -> rectify -> pool featurizer with compact activations
 (counterpart of keystone_tpu/ops/conv_fused.py).
 
-The normalized conv activations are stored in ``activation_dtype`` (bf16 by
-default, f32 exact) and both pooled signs come from one pass of the
-rect+pool kernel (:mod:`.rect_pool`), so the [oh, ow, 2F] rectified tensor
-never exists.  The convolutions themselves are cuDNN's, in full f32.
+The normalized conv activations are rounded to ``activation_dtype`` (bf16 by
+default, f32 exact) and both pooled signs come from one pass of the fused
+rect+pool kernel (:func:`.rect_pool.conv_rect_pool`), which computes each
+activation from the Convolver's raw terms: neither the activations nor the
+[oh, ow, 2F] rectified tensor is ever written.  The convolutions themselves
+are cuDNN's, in full f32.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 
 from ..core.pipeline import Transformer
 from .images import Convolver
-from .rect_pool import rect_pool
+from .rect_pool import conv_rect_pool
 
 
 class FusedConvFeaturizer(Transformer):
@@ -58,8 +60,10 @@ class FusedConvFeaturizer(Transformer):
         return self.conv.device
 
     def __call__(self, batch):
-        z = self.conv(batch).to(self.activation_dtype)
-        return rect_pool(
-            z, pool_stride=self.pool_stride, pool_size=self.pool_size,
+        conv = self.conv
+        return conv_rect_pool(
+            *conv.terms(batch), conv.fsum, conv.filter_means_dot,
+            pool_stride=self.pool_stride, pool_size=self.pool_size,
             alpha=self.alpha, max_val=self.max_val,
+            activation_dtype=self.activation_dtype,
         )

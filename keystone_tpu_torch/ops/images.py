@@ -106,6 +106,20 @@ class Pooler(Transformer):
         return pooled
 
 
+def convolver_epilogue(conv_fp, mu, sigma, fsum, filter_means_dot):
+    """The Convolver's per-element epilogue on its raw terms:
+    ``((conv_fp - mu*fsum) / sigma) - filter_means_dot``, each step one
+    rounded f32 op in this order.  ``mu``/``sigma`` are [N, oh, ow] (both
+    None without patch normalisation); ``fsum`` and ``filter_means_dot`` are
+    [F] (the latter None without whitener means)."""
+    out = conv_fp
+    if mu is not None:
+        out = (out - mu[..., None] * fsum) / sigma[..., None]
+    if filter_means_dot is not None:
+        out = out - filter_means_dot
+    return out
+
+
 class Convolver(Transformer):
     """Convolve a filter bank over images with optional per-patch
     normalization.
@@ -118,7 +132,8 @@ class Convolver(Transformer):
     over the image and its square.
 
     ``filters``: [F, ws, ws, C] (HWC patch layout) or [F, ws*ws*C] flat.
-    ``__call__`` maps [N, H, W, C] to [N, oh, ow, F], contiguous in NHWC.
+    ``__call__`` maps [N, H, W, C] to [N, oh, ow, F], contiguous in NHWC: it
+    is :func:`convolver_epilogue` applied to :meth:`terms`.
     """
 
     def __init__(
@@ -159,34 +174,49 @@ class Convolver(Transformer):
         self._ones = torch.ones(
             (1, c, ws, ws), dtype=torch.float32, device=self.device
         ).contiguous(memory_format=cl)
-        self._fsum = filters.sum(dim=(1, 2, 3))
+        #: [F] sum of each filter's weights (the epilogue's ``fsum``).
+        self.fsum = filters.sum(dim=(1, 2, 3))
 
     @property
     def conv_size(self) -> int:
         return self.filters.shape[1]
 
-    def __call__(self, batch):
-        _, ws, _, c = self.filters.shape
+    def _images(self, batch):
+        """[N, H, W, C] images as the [N, C, H, W] channels_last view."""
+        c = self.filters.shape[3]
         batch = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
         if batch.shape[-1] != c:
             raise ValueError(
                 f"image channels {batch.shape[-1]} != filter channels {c}"
             )
-        x = batch.contiguous().permute(0, 3, 1, 2)  # channels_last view
+        return batch.contiguous().permute(0, 3, 1, 2)
+
+    def patch_stats(self, x):
+        """Per-pixel patch mean and deviation ``(mu, sigma)``, each
+        [N, oh, ow], of the channels_last view ``x`` (:meth:`_images`)."""
+        _, ws, _, c = self.filters.shape
+        d = ws * ws * c
+        psum = F.conv2d(x, self._ones)[:, 0]
+        psumsq = F.conv2d(x * x, self._ones)[:, 0]
+        mu = psum / d
+        var = (psumsq - d * mu * mu) / (d - 1.0)
+        return mu, torch.sqrt(var + self.var_constant)
+
+    def terms(self, batch):
+        """The raw terms of the epilogue: ``(conv_fp, mu, sigma)``, with
+        ``conv_fp`` [N, oh, ow, F] contiguous (cuDNN's channels_last output)
+        and ``mu``/``sigma`` [N, oh, ow], or None without patch
+        normalisation."""
+        x = self._images(batch)
         conv_fp = F.conv2d(x, self._weight).permute(0, 2, 3, 1)
-        if self.normalize_patches:
-            d = ws * ws * c
-            psum = F.conv2d(x, self._ones).permute(0, 2, 3, 1)
-            psumsq = F.conv2d(x * x, self._ones).permute(0, 2, 3, 1)
-            mu = psum / d
-            var = (psumsq - d * mu * mu) / (d - 1.0)
-            sigma = torch.sqrt(var + self.var_constant)
-            out = (conv_fp - mu * self._fsum) / sigma
-        else:
-            out = conv_fp
-        if self.filter_means_dot is not None:
-            out = out - self.filter_means_dot
-        return out
+        if not self.normalize_patches:
+            return conv_fp, None, None
+        return (conv_fp, *self.patch_stats(x))
+
+    def __call__(self, batch):
+        return convolver_epilogue(
+            *self.terms(batch), self.fsum, self.filter_means_dot
+        )
 
 
 class PixelScaler(Transformer):

@@ -10,12 +10,14 @@ Baseline JPEG is split at the entropy boundary:
   tables.  This half is a copy of the JAX package's host code (numpy
   only); error messages and ``reason`` slugs are the same word for word.
 * **device batch pass** (:func:`decode_batch`): the int16 coefficients go to
-  the card, where each batch is dequantised, inverse-DCT'd (:func:`idct_blocks`,
-  the hand-written CUDA kernel ``csrc/idct.cu`` on a CUDA tensor),
-  fancy-upsampled (libjpeg's triangular filter), converted YCbCr -> BGR,
-  rounded half-to-even and clamped: pixels are born on the card in the BGR
-  f32 layout of :func:`~..loaders.image_loaders.decode_image`.
-  :func:`fused_apply` runs a featurizer straight on them.
+  the card, where each batch is dequantised, inverse-DCT'd, fancy-upsampled
+  (libjpeg's triangular filter), converted YCbCr -> BGR, rounded
+  half-to-even and clamped: pixels are born on the card in the BGR f32
+  layout of :func:`~..loaders.image_loaders.decode_image`.  On a CUDA
+  tensor all of it is two launches of the hand-written kernel
+  ``csrc/idct.cu`` (:func:`decode_pixels`); on a CPU tensor it is the plain
+  composition :func:`decode_pixels_reference`.  :func:`fused_apply` runs a
+  featurizer straight on the pixels.
 
 Scope is the baseline subset (sequential DCT, Huffman, 8-bit, grayscale or
 YCbCr with 4:4:4 / 4:2:2 / 4:2:0 sampling, restart markers): everything else
@@ -56,6 +58,9 @@ GOLDEN_MEAN_ABS = 1.0
 
 #: Kernel launches made by :func:`idct_blocks` (never by the plain version).
 launches = 0
+#: Kernel launches made by :func:`decode_pixels` (two per decoded batch;
+#: never by the plain version).
+decode_launches = 0
 
 
 def _zigzag_order() -> np.ndarray:
@@ -693,7 +698,23 @@ _SIGNATURES = {
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, a, out
             ctypes.c_longlong, ctypes.c_void_p,  # n blocks, stream
         ],
-    )
+    ),
+    "decode_planes_launch": (
+        ctypes.c_int,
+        [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),  # coeffs, planes
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,  # dims, ncomp, batch
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qt, basis, stream
+        ],
+    ),
+    "decode_pixels_launch": (
+        ctypes.c_int,
+        [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),  # planes, dims
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # ncomp batch H W
+            ctypes.c_void_p, ctypes.c_void_p,  # out, stream
+        ],
+    ),
 }
 
 
@@ -749,27 +770,51 @@ def _blocks_to_plane(x):
     return x.permute(0, 1, 3, 2, 4).reshape(b, by * 8, bx * 8)
 
 
-def _decode_pixels(geom: JpegGeometry, coeffs, qt):
-    """Coefficient tensors (+ per-image quant tables), all on one device ->
-    [B, H, W, 3] BGR f32 pixel batch, integral values in [0, 255]."""
-    h_img, w_img = geom.height, geom.width
+@dataclasses.dataclass(frozen=True)
+class PlaneSpec:
+    """One component's plane in the decode: its true sample grid
+    ``height x width`` (the MCU-padded block grid cropped), and whether it is
+    upsampled 2x along x (``up_h``) and along y (``up_v``) to the image."""
+
+    height: int
+    width: int
+    up_h: bool
+    up_v: bool
+
+
+@functools.lru_cache(maxsize=64)
+def plane_layout(geom: JpegGeometry) -> tuple:
+    """The :class:`PlaneSpec` of each component of ``geom``: the crop comes
+    BEFORE upsampling, so the MCU pad region (encoder filler) never bleeds
+    into real pixels through the triangular filter."""
     hmax = max(h for h, _v in geom.sampling)
     vmax = max(v for _h, v in geom.sampling)
+    return tuple(
+        PlaneSpec(
+            height=-(-geom.height * cv // vmax),
+            width=-(-geom.width * ch // hmax),
+            up_h=ch < hmax,
+            up_v=cv < vmax,
+        )
+        for ch, cv in geom.sampling
+    )
+
+
+def decode_pixels_reference(geom: JpegGeometry, coeffs, qt):
+    """Plain PyTorch composition of the decode: coefficient tensors (+
+    per-image quant tables), all on one device -> [B, H, W, 3] BGR f32
+    pixel batch, integral values in [0, 255].  Its IDCT is
+    :func:`idct_blocks` (the kernel on a CUDA tensor), so on the card it is
+    the decode that :func:`decode_pixels` reproduces bit for bit."""
+    h_img, w_img = geom.height, geom.width
     planes = []
-    for c in range(geom.n_components):
+    for c, spec in enumerate(plane_layout(geom)):
         x = coeffs[c].to(torch.float32) * qt[:, c][:, None, None]
         x = idct_blocks(x) + 128.0
-        plane = _blocks_to_plane(x)
-        ch, cv = geom.sampling[c]
-        # crop to the component's true sample grid BEFORE upsampling: the
-        # MCU pad region holds encoder filler whose values must not bleed
-        # into real pixels through the triangular filter
-        comp_h = -(-h_img * cv // vmax)
-        comp_w = -(-w_img * ch // hmax)
-        plane = plane[:, :comp_h, :comp_w]
-        if ch < hmax:
+        plane = _blocks_to_plane(x)[:, : spec.height, : spec.width]
+        if spec.up_h:
             plane = _upsample2_h(plane)
-        if cv < vmax:
+        if spec.up_v:
             plane = _upsample2_v(plane)
         planes.append(plane[:, :h_img, :w_img])
     y = planes[0]
@@ -787,6 +832,96 @@ def _decode_pixels(geom: JpegGeometry, coeffs, qt):
     # contract: integral f32 in [0, 255])
     bgr = torch.stack([rgb[2], rgb[1], rgb[0]], dim=-1)
     return torch.clamp(torch.round(bgr), 0.0, 255.0)
+
+
+def _check_decode_inputs(geom: JpegGeometry, coeffs, qt, layout) -> int:
+    """Raise unless ``coeffs``/``qt`` are what the kernel takes for
+    ``geom``; returns the batch size."""
+    if geom.n_components not in (1, 3) or len(coeffs) != geom.n_components:
+        raise ValueError(
+            f"decode_pixels: {len(coeffs)} coefficient tensors for "
+            f"{geom.n_components} components (1 or 3 are decoded)"
+        )
+    dev = coeffs[0].device
+    b = coeffs[0].shape[0] if coeffs[0].dim() else 0
+    hmax = max(h for h, _v in geom.sampling)
+    vmax = max(v for _h, v in geom.sampling)
+    for c, (t, (by, bx), spec, (ch, cv)) in enumerate(
+        zip(coeffs, geom.block_shape, layout, geom.sampling)
+    ):
+        if t.device != dev:
+            raise ValueError(f"decode_pixels: component {c} is on {t.device}, not {dev}")
+        if t.dtype != torch.int16:
+            raise TypeError(f"decode_pixels: coefficients must be int16, got {t.dtype}")
+        if tuple(t.shape) != (b, by, bx, 8, 8):
+            raise ValueError(
+                f"decode_pixels: component {c} has shape {tuple(t.shape)}, "
+                f"expected {(b, by, bx, 8, 8)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"decode_pixels: component {c} must be contiguous")
+        if hmax not in (ch, 2 * ch) or vmax not in (cv, 2 * cv):
+            raise ValueError(f"decode_pixels: sampling {geom.sampling} is not 1x or 2x")
+        if spec.height > 8 * by or spec.width > 8 * bx:
+            raise ValueError(f"decode_pixels: plane {spec} exceeds its {by}x{bx} blocks")
+    if qt.device != dev:
+        raise ValueError(f"decode_pixels: quant tables are on {qt.device}, not {dev}")
+    if qt.dtype != torch.float32:
+        raise TypeError(f"decode_pixels: quant tables must be float32, got {qt.dtype}")
+    if tuple(qt.shape) != (b, geom.n_components, 8, 8) or not qt.is_contiguous():
+        raise ValueError(
+            f"decode_pixels: quant tables must be contiguous "
+            f"{(b, geom.n_components, 8, 8)}, got {tuple(qt.shape)}"
+        )
+    return b
+
+
+def decode_pixels(geom: JpegGeometry, coeffs, qt):
+    """Coefficient tensors ([B, by, bx, 8, 8] int16 per component) + [B,
+    ncomp, 8, 8] f32 quant tables, all on one device -> [B, H, W, 3] BGR f32
+    pixels, integral in [0, 255].  On CUDA tensors two launches of
+    ``csrc/idct.cu`` (all components' planes, then the pixels), bit-equal to
+    :func:`decode_pixels_reference` on the card; anything the kernel does not
+    take raises.  On CPU tensors it runs :func:`decode_pixels_reference`."""
+    dev = coeffs[0].device
+    if dev.type == "cpu":
+        return decode_pixels_reference(geom, coeffs, qt)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_pixels: unsupported device {dev}")
+    layout = plane_layout(geom)
+    b = _check_decode_inputs(geom, coeffs, qt, layout)
+    out = torch.empty((b, geom.height, geom.width, 3), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    sizes = [b * spec.height * spec.width for spec in layout]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=dev)  # the planes
+    plane_ptrs = [buf.data_ptr() + 4 * sum(sizes[:c]) for c in range(len(sizes))]
+    ncomp = geom.n_components
+    pointers = ctypes.c_void_p * ncomp
+    dims = ctypes.c_int * (4 * ncomp)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load("idct", _SIGNATURES)
+    global decode_launches
+    rc = lib.decode_planes_launch(
+        pointers(*(t.data_ptr() for t in coeffs)),
+        pointers(*plane_ptrs),
+        dims(*(d for (by, bx), spec in zip(geom.block_shape, layout)
+               for d in (by, bx, spec.height, spec.width))),
+        ncomp, b, qt.data_ptr(), _basis(dev, torch.float32).data_ptr(), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"decode_planes kernel launch failed: cudaError {rc}")
+    decode_launches += 1
+    rc = lib.decode_pixels_launch(
+        pointers(*plane_ptrs),
+        dims(*(int(d) for spec in layout
+               for d in (spec.height, spec.width, spec.up_h, spec.up_v))),
+        ncomp, b, geom.height, geom.width, out.data_ptr(), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"decode_pixels kernel launch failed: cudaError {rc}")
+    decode_launches += 1
+    return out
 
 
 def _on_device(a, device, dtype=None):
@@ -808,7 +943,7 @@ def decode_batch(geom: JpegGeometry, coeffs, qt, device=None):
     device = torch.device(device)
     coeffs = tuple(_on_device(c, device) for c in coeffs)
     qt = _on_device(qt, device, torch.float32)
-    return _decode_pixels(geom, coeffs, qt)
+    return decode_pixels(geom, coeffs, qt)
 
 
 def fused_apply(transform, geom: JpegGeometry, coeffs, qt, device=None):

@@ -206,6 +206,31 @@ def test_mixed_quality_batch_uses_per_image_quant_tables():
         assert golden.max() <= jd.GOLDEN_MAX_ABS and golden.mean() <= jd.GOLDEN_MEAN_ABS
 
 
+@pytest.mark.parametrize("subsampling", ["4:2:0", "4:2:2", "4:4:4", "gray"])
+@pytest.mark.parametrize("size", [(45, 61), (33, 47), (47, 53), (16, 16)])
+def test_plane_layout(subsampling, size):
+    """Each component's cropped plane and upsampling, as the decode kernel
+    is handed them, for the four samplings at odd sizes."""
+    from keystone_tpu_torch.testing.jpeg_encode import encode_jpeg
+
+    h, w = size
+    img = np.random.default_rng(5).uniform(0, 255, (h, w, 3))
+    data = encode_jpeg(img[..., 0], 90)[0] if subsampling == "gray" else encode_jpeg(img, 90, subsampling)[0]
+    geom = jd.entropy_decode(data).geom
+    half_h, half_w = -(-h // 2), -(-w // 2)
+    chroma = {"4:2:0": (half_h, half_w, True, True), "4:2:2": (h, half_w, True, False),
+              "4:4:4": (h, w, False, False)}
+    expect = [(h, w, False, False)]
+    if subsampling != "gray":
+        expect += [chroma[subsampling]] * 2
+    layout = jd.plane_layout(geom)
+    assert [(p.height, p.width, p.up_h, p.up_v) for p in layout] == expect
+    for spec, (by, bx) in zip(layout, geom.block_shape):
+        assert spec.height <= 8 * by < spec.height + 16 and spec.width <= 8 * bx < spec.width + 16
+        assert h <= spec.height * (2 if spec.up_v else 1) <= h + 1
+        assert w <= spec.width * (2 if spec.up_h else 1) <= w + 1
+
+
 def test_fused_apply_is_transform_of_decode():
     data = CORPUS["odd/ss2"]
     ci = jd.entropy_decode(data)
