@@ -55,7 +55,27 @@ which raises (and so exits non-zero) on failure:
    entry did not); ``fused_apply`` of the servable chain at batches 1, 4
    and 16 reproduces the offline test scores; and the decode's time at
    batches 1 and 64 beside the unfused composition's and its bound;
-9. one JSON line per the kernels, the card line, and the final JSON line.
+9. MnistRandomFFT at BASELINE config 1 (``--numFFTs 4 --blockSize 2048``,
+   no ``--lambda``) on seeded synthetic MNIST-shaped data, 60,000 train and
+   10,000 test rows of 784 integer pixels in [0, 255] (class stroke maps,
+   each pixel inked at random), written as CSVs with the 1-indexed label in
+   column 0 and run through
+   ``keystone_tpu_torch.workloads.mnist_random_fft.main``: cuFFT features,
+   the block solve, streaming evaluation.  Checks: a finite model, train and
+   test error below 10 % (chance 90 %); prints the CSV write and load
+   seconds, the stage seconds and the peak device memory;
+10. the reference's default width, ``--numFFTs 200 --blockSize 2048`` (50
+   blocks, 102,400 features), through ``mnist_random_fft.run`` on the same
+   rows in memory: the same checks and prints, the peak against its
+   estimate and below 80 GB;
+11. phase 9's servable chain applied in batches of 1, 4, 16 and 64, which
+   must reproduce the offline test predictions exactly, and one fitted
+   state carried by ``convert.mnist_to_arrays``/``mnist_from_arrays`` onto
+   the card and the CPU: on 2,000 test rows the features agree within
+   1e-5·max, the scores within 1e-3·max and the predictions exactly.  The
+   launch counters of the three kernels do not move in phases 9-11 (the
+   path has no hand kernel, as in the JAX package);
+12. one JSON line per the kernels, the card line, and the final JSON line.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -81,6 +101,7 @@ from keystone_tpu_torch import _build, convert
 from keystone_tpu_torch.core import ingest
 from keystone_tpu_torch.loaders import image_loaders
 from keystone_tpu_torch.loaders.cifar import cifar_loader
+from keystone_tpu_torch.loaders.csv_loader import LabeledData
 from keystone_tpu_torch.loaders.image_loaders import VOC_NUM_CLASSES, MultiLabeledImages
 from keystone_tpu_torch.ops import fv_stats as fs
 from keystone_tpu_torch.ops import jpeg_device as jd
@@ -91,11 +112,12 @@ from keystone_tpu_torch.ops.images import convolver_epilogue
 from keystone_tpu_torch.ops.sift import SIFTExtractor
 from keystone_tpu_torch.ops.stats import StandardScaler
 from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
-from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels
+from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
 from keystone_tpu_torch.testing.jpeg_encode import encode_jpeg
 from keystone_tpu_torch.utils.platform import resolve_device
 from keystone_tpu_torch.workloads import cifar_random_patch as cifar
+from keystone_tpu_torch.workloads import mnist_random_fft as mnist
 from keystone_tpu_torch.workloads import voc_sift_fisher as voc
 from keystone_tpu_torch.workloads.fv_common import fisher_feature_pipeline, grayscale
 
@@ -148,6 +170,14 @@ VOC_SHAPES = {(375, 500): 384, (500, 375): 128}
 VOC_CONF = dict(desc_dim=80, vocab_size=256, sift_step_size=3, scale_step=0,
                 lam=0.5, num_pca_samples=int(1e6), num_gmm_samples=int(1e6),
                 seed=42, device="cuda")
+
+
+# MnistRandomFFT: MNIST's splits and width; BASELINE config 1 (README
+# "Running pipelines"), then the reference's default number of FFTs.
+MNIST_TRAIN, MNIST_TEST, MNIST_PIXELS = 60_000, 10_000, 784
+MNIST_FLAGS = ["--numFFTs", "4", "--blockSize", "2048", "--device", "cuda"]
+MNIST_WIDE_FFTS = 200
+MNIST_CARD_VS_CPU_ROWS = 2000
 
 
 def log(msg: str) -> None:
@@ -784,6 +814,149 @@ def run_voc_tar(card: str, train, test, memory_map: float) -> tuple[int, int, di
     return decode_launches, fv_launches, decode_times
 
 
+def mnist_stroke_maps(rng) -> np.ndarray:
+    """Ten seeded class maps on the 28x28 grid, each five Gaussian blobs
+    (a stroke's ink probability, 0 far from the blobs), flattened to 784."""
+    yy, xx = np.mgrid[0:28, 0:28]
+    maps = np.zeros((10, 28, 28))
+    for c in range(10):
+        for _ in range(5):
+            cy, cx = rng.uniform(6, 22, 2)
+            s = rng.uniform(1.5, 3.0)
+            maps[c] += np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s))
+    return np.clip(maps, 0, 1).reshape(10, MNIST_PIXELS)
+
+
+def mnist_rows(rng, n: int, maps: np.ndarray) -> np.ndarray:
+    """``n`` MNIST-shaped rows: the 1-indexed label, then 784 integer pixels
+    in [0, 255].  A pixel is inked with probability 0.7 times its class map,
+    at a level in [128, 255], else 0: about 13 % of pixels are inked (MNIST:
+    19 %), and pixel means stay below their spread, as in MNIST, so no
+    rectified FFT feature is zero on every row."""
+    labels = rng.integers(0, 10, n)
+    ink = rng.random((n, MNIST_PIXELS)) < 0.7 * maps[labels]
+    pixels = np.rint(ink * rng.uniform(128, 255, (n, MNIST_PIXELS)))
+    return np.column_stack([labels + 1, pixels]).astype(np.int64)
+
+
+def write_csv(path: Path, rows: np.ndarray) -> None:
+    """Integer rows as comma-separated text, the reference's CSV layout."""
+    text = np.array([str(i) for i in range(int(rows.max()) + 1)])
+    with open(path, "w") as fh:
+        for i in range(0, len(rows), 5000):
+            fh.write("\n".join(",".join(r) for r in text[rows[i : i + 5000]]) + "\n")
+
+
+def kernel_launches() -> dict:
+    return {"rect_pool": rp.launches, "conv_rect_pool": rp.fused_launches,
+            "fv_stats": fs.launches, "idct_blocks": jd.launches,
+            "decode_pixels": jd.decode_launches}
+
+
+def mnist_record(res: dict, peak_gb: float) -> dict:
+    """The run's errors, stage seconds and peak memory; raises unless the
+    model is finite and both errors are below 10 % (chance is 90 %)."""
+    model = res["servable"].nodes[1]
+    if not all(bool(torch.isfinite(t).all()) for t in [*model.xs, model.b]):
+        raise AssertionError("MnistRandomFFT model is not finite")
+    if not (res["train_error"] < 10.0 and res["test_error"] < 10.0):
+        raise AssertionError(f"MnistRandomFFT errors {res['train_error']}% / "
+                             f"{res['test_error']}% are not below 10%")
+    return {
+        "features": sum(int(x.shape[0]) for x in model.xs), "blocks": len(model.xs),
+        "train_error": res["train_error"], "test_error": res["test_error"],
+        **{k: res[k] for k in ("featurize_seconds", "featurize_examples_per_sec",
+                               "solve_seconds", "eval_seconds", "seconds")},
+        "peak_memory_gb": peak_gb,
+    }
+
+
+def run_mnist(card: str) -> None:
+    """Phases 9-11: MnistRandomFFT at BASELINE config 1 through the CLI, at
+    the reference's default width in memory, then its servable apply and
+    card against CPU.  No hand kernel may launch in them."""
+    rng = np.random.default_rng(11)
+    maps = mnist_stroke_maps(rng)
+    train_rows = mnist_rows(rng, MNIST_TRAIN, maps)
+    test_rows = mnist_rows(rng, MNIST_TEST, maps)
+    before = kernel_launches()
+    torch.cuda.empty_cache()
+
+    # 9. BASELINE config 1 from CSV files, through the CLI.
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        train_path, test_path = Path(tmp) / "train.csv", Path(tmp) / "test.csv"
+        t = time.perf_counter()
+        write_csv(train_path, train_rows)
+        write_csv(test_path, test_rows)
+        write_secs = time.perf_counter() - t
+        csv_bytes = train_path.stat().st_size + test_path.stat().st_size
+        torch.cuda.reset_peak_memory_stats()
+        res = mnist.main(["--trainLocation", str(train_path),
+                          "--testLocation", str(test_path), *MNIST_FLAGS])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    servable, offline = res["servable"], res["test_predictions"]
+    log(json.dumps({
+        "main_path": "MnistRandomFFT BASELINE config 1 (--numFFTs 4 --blockSize 2048)",
+        "card": card, "train_rows": MNIST_TRAIN, "test_rows": MNIST_TEST,
+        "csv_write_seconds": write_secs, "csv_bytes": csv_bytes,
+        "csv_load_seconds": res["load_seconds"], **mnist_record(res, peak_gb),
+    }))
+    del res
+
+    # 10. The reference's default width on the same rows, in memory.
+    train = LabeledData.from_rows(train_rows.astype(np.float32), one_indexed=True)
+    test = LabeledData.from_rows(test_rows.astype(np.float32), one_indexed=True)
+    conf = mnist.MnistRandomFFTConfig(num_ffts=MNIST_WIDE_FFTS, block_size=2048, device="cuda")
+    groups = -(-MNIST_WIDE_FFTS // (conf.block_size // 512))
+    # The train features as a list, and their concatenation in the fit, then
+    # the test features: 4 bytes each.
+    estimate_gb = (2 * MNIST_TRAIN + MNIST_TEST) * groups * conf.block_size * 4 / 1e9
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wide = mnist.run(conf, train, test)
+    wide_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rec = mnist_record(wide, wide_peak_gb)
+    if not wide_peak_gb < 80.0:
+        raise AssertionError(f"--numFFTs {MNIST_WIDE_FFTS} peaked at {wide_peak_gb} GB")
+    log(json.dumps({
+        "main_path": f"MnistRandomFFT --numFFTs {MNIST_WIDE_FFTS} --blockSize 2048 (in memory)",
+        "card": card, "train_rows": MNIST_TRAIN, "test_rows": MNIST_TEST, **rec,
+        "peak_estimate_gb": estimate_gb,
+    }))
+    del wide
+    torch.cuda.empty_cache()
+
+    # 11. The servable chain at served batches, then card against CPU.
+    x = torch.from_numpy(test.data[:256])
+    for chunk in (1, 4, 16, 64):
+        served = np.concatenate([servable(x[i : i + chunk].cuda()).cpu().numpy()
+                                 for i in range(0, len(x), chunk)])
+        if not np.array_equal(served, offline[:256]):
+            raise AssertionError(f"MNIST servable apply at batch {chunk} != offline predictions")
+    arrays = convert.mnist_to_arrays(servable)
+    rows = torch.from_numpy(test.data[:MNIST_CARD_VS_CPU_ROWS])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fitted = convert.mnist_from_arrays(**arrays, device=dev)
+        feats = fitted.servable.nodes[0](rows.to(dev))
+        scores = fitted.model(feats)
+        out[dev] = (feats.cpu(), scores.cpu(), MaxClassifier()(scores).cpu())
+    feat_err = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+    feat_max = out["cpu"][0].abs().max().item()
+    score_err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    score_max = out["cpu"][1].abs().max().item()
+    differ = int((out["cuda"][2] != out["cpu"][2]).sum())
+    log(f"MNIST card vs cpu on {len(rows)} rows: features max abs err {feat_err:.4e} of max "
+        f"{feat_max:.4e} (bound 1e-5·max), scores {score_err:.4e} of max {score_max:.4e} "
+        f"(bound 1e-3·max), {differ} predictions differ (bound 0)")
+    if not (feat_err <= 1e-5 * feat_max and score_err <= 1e-3 * score_max and differ == 0):
+        raise AssertionError("MNIST card and CPU disagree beyond the bounds")
+    after = kernel_launches()
+    if after != before:
+        raise AssertionError(f"hand kernels launched in the MNIST phases: {before} -> {after}")
+    log(f"MNIST phases: kernel launch counters unchanged {after}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -903,8 +1076,10 @@ def main() -> int:
     voc_launches, voc_train, voc_test, voc_map = run_voc(card)
     decode_launches, tar_fv_launches, decode_times = run_voc_tar(card, voc_train, voc_test,
                                                                  voc_map)
+    del voc_train, voc_test
+    run_mnist(card)
 
-    # 9. The kernels line, the card line, the result line.
+    # 12. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
         "name": "conv_rect_pool",
         "route": "cuda",

@@ -1,11 +1,12 @@
-"""Carry a fitted RandomPatchCifar or VOCSIFTFisher result into the port,
-as numpy arrays.
+"""Carry a fitted RandomPatchCifar, VOCSIFTFisher or MnistRandomFFT result
+into the port, as numpy arrays.
 
-:func:`from_arrays` (RandomPatchCifar) and :func:`voc_from_arrays`
-(VOCSIFTFisher) rebuild the port's fitted nodes and servable pipeline on a
-chosen device from plain arrays, whichever implementation fitted them (the
-JAX package or the port itself); :func:`to_arrays` and
-:func:`voc_to_arrays` are their inverses for a servable the port fitted.
+:func:`from_arrays` (RandomPatchCifar), :func:`voc_from_arrays`
+(VOCSIFTFisher) and :func:`mnist_from_arrays` (MnistRandomFFT) rebuild the
+port's fitted nodes and servable pipeline on a chosen device from plain
+arrays, whichever implementation fitted them (the JAX package or the port
+itself); :func:`to_arrays`, :func:`voc_to_arrays` and
+:func:`mnist_to_arrays` are their inverses for a servable the port fitted.
 The tests push one fitted state through both packages this way.
 """
 
@@ -27,6 +28,7 @@ from .solvers.gmm import GaussianMixtureModel
 from .solvers.pca import BatchPCATransformer
 from .solvers.whitening import ZCAWhitener
 from .utils.platform import resolve_device
+from .workloads import mnist_random_fft as mnist
 from .workloads.voc_sift_fisher import SIFTFisherConfig, servable_pipeline
 
 
@@ -183,5 +185,48 @@ def voc_to_arrays(servable: Pipeline) -> dict:
         model_block_means=[a(s.mean) for s in model.feature_scalers],
         sift_step_size=sift.step_size,
         scale_step=sift.scale_step,
+        block_size=model.block_size,
+    )
+
+
+@dataclass
+class FittedMnist:
+    model: BlockLinearMapper
+    servable: Pipeline
+
+
+def mnist_from_arrays(
+    *, signs, xs, b, block_means, block_size: int = 2048, device="cuda"
+) -> FittedMnist:
+    """Build the fitted MnistRandomFFT chain from arrays.
+
+    signs: per FFT group, per chain, the [d] ±1 vector of its
+    RandomSignNode; xs: list of [group width, k] model blocks; b [k]
+    intercept; block_means: list of per-block feature means."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float32), device=dev)
+
+    groups = [[mnist.fft_chain(t(s)) for s in group] for group in signs]
+    model = BlockLinearMapper(
+        [t(x) for x in xs], block_size, t(b), [StandardScalerModel(t(m)) for m in block_means]
+    )
+    return FittedMnist(model, mnist.servable_pipeline(groups, model))
+
+
+def mnist_to_arrays(servable: Pipeline) -> dict:
+    """The keyword arguments of :func:`mnist_from_arrays` for a
+    MnistRandomFFT servable (``workloads.mnist_random_fft.servable_pipeline``)."""
+    featurizer, model = servable.nodes[:2]
+
+    def a(x):
+        return x.detach().cpu().numpy()
+
+    return dict(
+        signs=[[a(chain.nodes[0].signs) for chain in group] for group in featurizer.groups],
+        xs=[a(x) for x in model.xs],
+        b=a(model.b),
+        block_means=[a(s.mean) for s in model.feature_scalers],
         block_size=model.block_size,
     )

@@ -73,3 +73,45 @@ class SignedHellingerMapper(Transformer):
 
     def __call__(self, batch):
         return torch.sign(batch) * torch.sqrt(torch.abs(batch))
+
+
+def next_power_of_two(i: int) -> int:
+    return 1 << (i - 1).bit_length()
+
+
+class PaddedFFT(Transformer):
+    """Zero-pad to the next power of two and keep the real part of the
+    first half of the FFT: d -> next_pow2(d)/2 (cuFFT on the card)."""
+
+    def __call__(self, batch):
+        padded = next_power_of_two(batch.shape[-1])
+        return torch.fft.rfft(batch, n=padded, dim=-1).real[..., : padded // 2]
+
+
+class RandomSignNode(Transformer):
+    """Elementwise random ±1 mask."""
+
+    def __init__(self, signs):
+        self.signs = signs
+
+    def __call__(self, batch):
+        return batch * self.signs
+
+    @staticmethod
+    def create(size: int, generator: torch.Generator, device="cpu") -> "RandomSignNode":
+        """Fair ±1 signs drawn from ``generator`` (a CPU generator, so the
+        signs do not depend on the device).  They do not reproduce the JAX
+        package's ``jax.random.bernoulli`` bits."""
+        draws = torch.randint(0, 2, (size,), generator=generator, dtype=torch.int64)
+        return RandomSignNode((2.0 * draws - 1.0).to(torch.float32).to(device))
+
+
+class LinearRectifier(Transformer):
+    """``max(max_val, x - alpha)``."""
+
+    def __init__(self, max_val: float = 0.0, alpha: float = 0.0):
+        self.max_val = max_val
+        self.alpha = alpha
+
+    def __call__(self, batch):
+        return torch.clamp_min(batch - self.alpha, self.max_val)

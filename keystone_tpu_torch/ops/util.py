@@ -2,10 +2,12 @@
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
 
-from ..core.pipeline import Transformer
+from ..core.pipeline import FunctionNode, Transformer
 
 
 class ClassLabelIndicatorsFromIntLabels(Transformer):
@@ -52,3 +54,55 @@ class MaxClassifier(Transformer):
 
     def __call__(self, batch):
         return torch.argmax(batch, dim=-1)
+
+
+class ZipVectors(FunctionNode):
+    """Concatenate a sequence of feature batches along the feature axis."""
+
+    def __call__(self, batches: Sequence):
+        return self.apply(batches)
+
+    @staticmethod
+    def apply(batches):
+        return torch.cat(list(batches), dim=-1)
+
+
+class GroupConcatFeaturizer(Transformer):
+    """The MnistRandomFFT featurize phase as one chainable node: each group
+    of per-FFT chains runs on the same input batch, ZipVectors concatenates
+    within the group, and the groups concatenate along the feature axis,
+    ``[n, d] -> [n, G * group_width]``.  The fitted block model cuts that
+    back into exactly the per-group blocks, so the servable chain
+    ``GroupConcatFeaturizer >> model >> MaxClassifier`` scores as the fit
+    path's per-group apply does."""
+
+    def __init__(self, groups: Sequence[Sequence[Transformer]]):
+        self.groups = tuple(tuple(g) for g in groups)
+
+    def __call__(self, batch):
+        return torch.cat(
+            [ZipVectors.apply([chain(batch) for chain in group]) for group in self.groups],
+            dim=-1,
+        )
+
+    def __repr__(self):
+        return (
+            f"GroupConcatFeaturizer({len(self.groups)} groups x "
+            f"{len(self.groups[0]) if self.groups else 0} chains)"
+        )
+
+
+class VectorSplitter(FunctionNode):
+    """Split [N, d] features into ⌈d/block_size⌉ feature blocks (views); the
+    last block may be short."""
+
+    def __init__(self, block_size: int, num_features: int | None = None):
+        self.block_size = block_size
+        self.num_features = num_features
+
+    def __call__(self, data):
+        d = self.num_features or data.shape[-1]
+        return [
+            data[..., i : min(i + self.block_size, d)]
+            for i in range(0, d, self.block_size)
+        ]

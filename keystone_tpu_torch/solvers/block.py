@@ -9,7 +9,7 @@ JAX package are not ported.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -68,6 +68,25 @@ class BlockLinearMapper(Transformer):
         if isinstance(batch, (list, tuple)):
             return self.apply_blocks(batch)
         return self.apply_blocks(self._split_features(batch))
+
+    def apply_and_evaluate(self, batch_or_blocks, evaluator: Callable[[torch.Tensor], None]):
+        """Call ``evaluator`` on the running prediction (intercept included)
+        after each block: streaming evaluation, the last call seeing the
+        full model."""
+        blocks = (
+            batch_or_blocks
+            if isinstance(batch_or_blocks, (list, tuple))
+            else self._split_features(batch_or_blocks)
+        )
+        if len(blocks) != len(self.xs):
+            raise ValueError(
+                f"{len(blocks)} feature blocks vs {len(self.xs)} model blocks"
+            )
+        running = None
+        for blk, x, scaler in zip(blocks, self.xs, self.feature_scalers):
+            part = scaler(blk) @ x
+            running = part if running is None else running + part
+            evaluator(running if self.b is None else running + self.b)
 
 
 def _blocked_design_matrix(features, block_size: int, num_features=None):
