@@ -75,7 +75,36 @@ which raises (and so exits non-zero) on failure:
    1e-5·max, the scores within 1e-3·max and the predictions exactly.  The
    launch counters of the three kernels do not move in phases 9-11 (the
    path has no hand kernel, as in the JAX package);
-12. one JSON line per the kernels, the card line, and the final JSON line.
+12. TimitPipeline at BASELINE config 4's width (``--numCosines 50``, 4096
+   cosine features each, ``--numEpochs 5``, no ``--lambda``) on seeded
+   synthetic 440-dim frames of 147 classes, 32,768 train and 8,192 test,
+   written as CSVs with sparse 1-indexed label files and run through
+   ``keystone_tpu_torch.workloads.timit.main``.  Checks: a finite model,
+   test error below 20 % (chance 99.3 %) and the peak device memory below
+   80 GB, printed beside its estimate; then a Cauchy run at 4 blocks in
+   memory with the same checks;
+13. phase 12's servable chain at batches 1, 4, 16 and 64, which must
+   reproduce the offline test predictions, and one fitted state carried by
+   ``convert.timit_to_arrays``/``timit_from_arrays`` onto the card and the
+   CPU: on 1,000 test rows the features agree within 1e-5·max, the scores
+   within 1e-3·max and the predictions exactly.  The kernels' launch
+   counters do not move in phases 12-13;
+14. LinearPixels and RandomCifar through their CLIs on phase 3's files.
+   RandomCifar's featurize (the fused featurizer with f32 activations) must
+   launch the rect+pool kernel's ``conv_rect_pool`` entry on every chunk and
+   never the ``rect_pool`` entry; then one 2048-image chunk of its
+   Convolver terms through the entry and its plain version on the card
+   (within 1e-5·max), timed beside the bound;
+15. NewsgroupsPipeline at BASELINE config 2 (``--nGrams 2
+   --commonFeatures 100000``) through
+   ``keystone_tpu_torch.workloads.newsgroups.main`` on a seeded synthetic
+   20-class tree of the 20news-bydate split's sizes, 11,314 train and
+   7,532 test documents: test error below 20 %, all 100,000 features used,
+   the host's text seconds beside the card's scoring seconds, scores at
+   batches 1, 4, 16 and 64 equal to the offline ones bit for bit, and the
+   naive-Bayes scores card against CPU within 1e-5·max with equal
+   predictions on 2,000 documents.  The kernels' counters do not move;
+16. one JSON line per the kernels, the card line, and the final JSON line.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -98,11 +127,20 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch import _build, convert
+from keystone_tpu_torch.core.pipeline import Pipeline
 from keystone_tpu_torch.core import ingest
 from keystone_tpu_torch.loaders import image_loaders
 from keystone_tpu_torch.loaders.cifar import cifar_loader
 from keystone_tpu_torch.loaders.csv_loader import LabeledData
 from keystone_tpu_torch.loaders.image_loaders import VOC_NUM_CLASSES, MultiLabeledImages
+from keystone_tpu_torch.loaders.newsgroups import CLASSES as NG_CLASSES
+from keystone_tpu_torch.loaders.newsgroups import newsgroups_loader
+from keystone_tpu_torch.loaders.timit import (
+    TIMIT_DIMENSION,
+    TIMIT_NUM_CLASSES,
+    TimitFeaturesData,
+    TimitSplit,
+)
 from keystone_tpu_torch.ops import fv_stats as fs
 from keystone_tpu_torch.ops import jpeg_device as jd
 from keystone_tpu_torch.ops import native_entropy
@@ -114,9 +152,11 @@ from keystone_tpu_torch.ops.stats import StandardScaler
 from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
 from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
+from keystone_tpu_torch.testing.corpus import write_newsgroups_tree
 from keystone_tpu_torch.testing.jpeg_encode import encode_jpeg
 from keystone_tpu_torch.utils.platform import resolve_device
 from keystone_tpu_torch.workloads import cifar_random_patch as cifar
+from keystone_tpu_torch.workloads import linear_pixels, newsgroups, random_cifar, timit
 from keystone_tpu_torch.workloads import mnist_random_fft as mnist
 from keystone_tpu_torch.workloads import voc_sift_fisher as voc
 from keystone_tpu_torch.workloads.fv_common import fisher_feature_pipeline, grayscale
@@ -178,6 +218,29 @@ MNIST_TRAIN, MNIST_TEST, MNIST_PIXELS = 60_000, 10_000, 784
 MNIST_FLAGS = ["--numFFTs", "4", "--blockSize", "2048", "--device", "cuda"]
 MNIST_WIDE_FFTS = 200
 MNIST_CARD_VS_CPU_ROWS = 2000
+
+# TimitPipeline at BASELINE config 4's width (50 blocks of 4096 cosine
+# features, 5 epochs, lambda 0) on synthetic 440-dim frames of 147 classes;
+# the rows cut from TIMIT's two million frames to 32,768 / 8,192.  The
+# class centres carry TIMIT_CENTRE_SCALE of each dimension's unit spread.
+TIMIT_TRAIN, TIMIT_TEST = 32_768, 8_192
+TIMIT_CENTRE_SCALE = 0.3
+TIMIT_FLAGS = ["--numCosines", "50", "--gamma", "0.05555", "--rfType", "gaussian",
+               "--numEpochs", "5", "--device", "cuda"]
+TIMIT_CAUCHY = dict(num_cosines=4, rf_type="cauchy", gamma=0.002)
+TIMIT_CARD_VS_CPU_ROWS = 1000
+
+# RandomCifar at its defaults with lambda 10, on phase 3's files.
+RANDOM_CIFAR_FLAGS = [
+    "--numFilters", "100", "--patchSize", "6", "--poolSize", "14", "--poolStride", "13",
+    "--alpha", "0.25", "--lambda", "10", "--device", "cuda",
+]
+
+# NewsgroupsPipeline at BASELINE config 2 on a synthetic tree of the
+# 20news-bydate split's sizes.
+NG_TRAIN, NG_TEST = 11_314, 7_532
+NG_FLAGS = ["--nGrams", "2", "--commonFeatures", "100000", "--device", "cuda"]
+NG_CARD_VS_CPU_DOCS = 2000
 
 
 def log(msg: str) -> None:
@@ -957,10 +1020,284 @@ def run_mnist(card: str) -> None:
     log(f"MNIST phases: kernel launch counters unchanged {after}")
 
 
+def timit_split(rng, n: int, centres: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` synthetic phone frames: a class centre plus Gaussian noise per
+    frame, with the per-dimension variance 1 (centre share TIMIT_CENTRE_SCALE
+    squared), rounded to 0.01 as the CSV stores them.  Returns (frames f32
+    [n, 440], 0-indexed labels)."""
+    labels = rng.integers(0, TIMIT_NUM_CLASSES, n)
+    noise = math.sqrt(1.0 - TIMIT_CENTRE_SCALE**2)
+    frames = centres[labels] + noise * rng.standard_normal((n, TIMIT_DIMENSION))
+    hundredths = np.clip(np.rint(frames * 100), -999, 999).astype(np.int64)
+    return (hundredths / 100.0).astype(np.float32), labels
+
+
+def write_timit_split(data_path: Path, labels_path: Path, frames: np.ndarray,
+                      labels: np.ndarray) -> None:
+    """Frames as comma-separated text with two decimals, and the sparse
+    1-indexed ``row label`` file, the reference's TIMIT layout."""
+    text = np.array([f"{k / 100:.2f}" for k in range(-999, 1000)])
+    codes = np.rint(frames * 100).astype(np.int64) + 999
+    with open(data_path, "w") as fh:
+        for i in range(0, len(codes), 4096):
+            fh.write("\n".join(",".join(r) for r in text[codes[i : i + 4096]]) + "\n")
+    labels_path.write_text("".join(f"{i + 1} {c + 1}\n" for i, c in enumerate(labels)))
+
+
+def timit_record(res: dict, peak_gb: float, estimate_gb: float) -> dict:
+    """The run's error, stage seconds and peak memory; raises unless the
+    model is finite, the test error is below 20 % (chance 146/147) and the
+    peak is below 80 GB."""
+    model = res["servable"].nodes[1]
+    if not all(bool(torch.isfinite(t).all()) for t in [*model.xs, model.b]):
+        raise AssertionError("TIMIT model is not finite")
+    if not res["test_error"] < 20.0:
+        raise AssertionError(f"TIMIT test error {res['test_error']}% is not below 20%")
+    if not peak_gb < 80.0:
+        raise AssertionError(f"TIMIT peaked at {peak_gb} GB")
+    return {
+        "features": sum(int(x.shape[0]) for x in model.xs), "blocks": len(model.xs),
+        "test_error": res["test_error"],
+        **{k: res[k] for k in ("featurize_seconds", "solve_seconds", "eval_seconds", "seconds")},
+        "peak_memory_gb": peak_gb, "peak_estimate_gb": estimate_gb,
+    }
+
+
+def timit_peak_estimate(n: int, blocks: int, width: int) -> float:
+    """GB the fit holds at its peak: the training blocks and their
+    concatenation, the blocks' Cholesky factors, and three centred blocks
+    (the one in use, the next, and the centring's intermediate)."""
+    return (2 * n * blocks * width + blocks * width * width + 3 * n * width) * 4 / 1e9
+
+
+def run_timit(card: str) -> None:
+    """Phases 12-13: TimitPipeline at BASELINE config 4 through the CLI on
+    CSVs, a Cauchy run at depth 4, then card against CPU and the servable
+    chain at served batches.  No hand kernel may launch in them."""
+    rng = np.random.default_rng(13)
+    centres = rng.normal(0.0, TIMIT_CENTRE_SCALE, (TIMIT_NUM_CLASSES, TIMIT_DIMENSION))
+    train_frames, train_labels = timit_split(rng, TIMIT_TRAIN, centres)
+    test_frames, test_labels = timit_split(rng, TIMIT_TEST, centres)
+    before = kernel_launches()
+    torch.cuda.empty_cache()
+
+    # 12. BASELINE config 4 from CSV files, through the CLI.
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        paths = [Path(tmp) / name for name in ("train.csv", "train.labels", "test.csv",
+                                               "test.labels")]
+        t = time.perf_counter()
+        write_timit_split(paths[0], paths[1], train_frames, train_labels)
+        write_timit_split(paths[2], paths[3], test_frames, test_labels)
+        write_secs = time.perf_counter() - t
+        csv_bytes = sum(p.stat().st_size for p in paths)
+        torch.cuda.reset_peak_memory_stats()
+        flags = ["--trainDataLocation", "--trainLabelsLocation", "--testDataLocation",
+                 "--testLabelsLocation"]
+        res = timit.main([a for pair in zip(flags, map(str, paths)) for a in pair]
+                         + TIMIT_FLAGS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    estimate_gb = timit_peak_estimate(TIMIT_TRAIN, 50, 4096)
+    servable, offline = res["servable"], res["test_scores"].argmax(axis=1)
+    log(json.dumps({
+        "main_path": "TimitPipeline BASELINE config 4 (--numCosines 50, 4096 features each, "
+                     "--numEpochs 5, lambda 0)",
+        "card": card, "train_rows": TIMIT_TRAIN, "test_rows": TIMIT_TEST,
+        "csv_write_seconds": write_secs, "csv_bytes": csv_bytes,
+        "csv_load_seconds": res["load_seconds"], **timit_record(res, peak_gb, estimate_gb),
+    }))
+    del res
+    torch.cuda.empty_cache()
+
+    # The other draw: Cauchy W at depth 4, in memory.  Its kernel is
+    # exp(-gamma * L1 distance): at gamma 0.05555 any two 440-dim frames are
+    # ~e^-27 apart, so the run uses a gamma that suits the frames' scale.
+    data = TimitFeaturesData(TimitSplit(train_frames, train_labels.astype(np.int32)),
+                             TimitSplit(test_frames, test_labels.astype(np.int32)))
+    conf = timit.TimitConfig(**TIMIT_CAUCHY, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cauchy = timit.run(conf, data)
+    cauchy_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(json.dumps({
+        "main_path": f"TimitPipeline --rfType cauchy --numCosines {conf.num_cosines} "
+                     f"--gamma {conf.gamma} (in memory)",
+        "card": card, **timit_record(cauchy, cauchy_peak,
+                                     timit_peak_estimate(TIMIT_TRAIN, conf.num_cosines, 4096)),
+    }))
+    del cauchy
+    torch.cuda.empty_cache()
+
+    # 13. Served batches, then card against CPU on one fitted state.
+    x = torch.from_numpy(test_frames[:256])
+    for chunk in (1, 4, 16, 64):
+        served = np.concatenate([servable(x[i : i + chunk].cuda()).cpu().numpy()
+                                 for i in range(0, len(x), chunk)])
+        if not np.array_equal(served, offline[:256]):
+            raise AssertionError(f"TIMIT servable apply at batch {chunk} != offline predictions")
+    arrays = convert.timit_to_arrays(servable)
+    del servable
+    rows = torch.from_numpy(test_frames[:TIMIT_CARD_VS_CPU_ROWS])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fitted = convert.timit_from_arrays(**arrays, device=dev)
+        feats = fitted.servable.nodes[0](rows.to(dev))
+        scores = fitted.model(feats)
+        out[dev] = (feats.cpu(), scores.cpu(), MaxClassifier()(scores).cpu())
+        del fitted, feats, scores
+    feat_err = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+    feat_max = out["cpu"][0].abs().max().item()
+    score_err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    score_max = out["cpu"][1].abs().max().item()
+    differ = int((out["cuda"][2] != out["cpu"][2]).sum())
+    log(f"TIMIT card vs cpu on {len(rows)} rows: features max abs err {feat_err:.4e} of max "
+        f"{feat_max:.4e} (bound 1e-5·max), scores {score_err:.4e} of max {score_max:.4e} "
+        f"(bound 1e-3·max), {differ} predictions differ (bound 0)")
+    if not (feat_err <= 1e-5 * feat_max and score_err <= 1e-3 * score_max and differ == 0):
+        raise AssertionError("TIMIT card and CPU disagree beyond the bounds")
+    after = kernel_launches()
+    if after != before:
+        raise AssertionError(f"hand kernels launched in the TIMIT phases: {before} -> {after}")
+    log(f"TIMIT phases: kernel launch counters unchanged {after}")
+
+
+def run_cifar_variants(card: str, train_path: Path, test_path: Path) -> dict:
+    """Phase 14: LinearPixels and RandomCifar through their CLIs on phase
+    3's files; RandomCifar's featurize must go through the conv_rect_pool
+    entry of the rect+pool kernel (f32 activations) and never through the
+    rect_pool entry.  Then one 2048-image chunk's Convolver terms through
+    the entry and its plain version on the card.  Returns the entry's
+    record on that chunk, with RandomCifar's launches."""
+    before = kernel_launches()
+    lp = linear_pixels.main(["--trainLocation", str(train_path),
+                             "--testLocation", str(test_path), "--device", "cuda"])
+    if kernel_launches() != before:
+        raise AssertionError("LinearPixels launched a hand kernel")
+    lp_error = 100.0 * (1.0 - lp["test_accuracy"])
+    rp.launches = rp.fused_launches = 0
+    rc = random_cifar.main(["--trainLocation", str(train_path),
+                            "--testLocation", str(test_path), *RANDOM_CIFAR_FLAGS])
+    rc_fused, rc_unfused = rp.fused_launches, rp.launches
+    need = math.ceil(N_TRAIN / 2048) + math.ceil(N_TEST / 2048)
+    if rc_fused < need or rc_unfused:
+        raise AssertionError(f"RandomCifar: conv_rect_pool launched {rc_fused} times, expected "
+                             f">= {need}; rect_pool {rc_unfused} times, expected 0")
+    if not (lp_error < 45.0 and rc["test_error"] < 45.0):  # chance is 90%
+        raise AssertionError(f"test errors LinearPixels {lp_error}%, RandomCifar "
+                             f"{rc['test_error']}% are not well under chance")
+    log(json.dumps({
+        "main_path": "LinearPixels and RandomCifar", "card": card,
+        "train_images": N_TRAIN, "test_images": N_TEST,
+        "linear_pixels": {"train_accuracy": lp["train_accuracy"],
+                          "test_accuracy": lp["test_accuracy"], "test_error": lp_error,
+                          "seconds": lp["seconds"]},
+        "random_cifar": {k: rc[k] for k in ("train_error", "test_error", "seconds",
+                                            "featurize_seconds", "featurize_images_per_sec",
+                                            "solve_seconds")},
+        "conv_rect_pool_launches": rc_fused, "rect_pool_launches": rc_unfused,
+    }))
+
+    # One production chunk of RandomCifar's Convolver terms through the entry.
+    featurizer = rc["servable"].nodes[0]
+    conv = featurizer.conv
+    images = cifar_loader(str(test_path)).images[:2048]
+    terms = (*conv.terms(torch.from_numpy(np.ascontiguousarray(images)).cuda()),
+             conv.fsum, conv.filter_means_dot)
+    kw = dict(pool_stride=featurizer.pool_stride, pool_size=featurizer.pool_size,
+              alpha=featurizer.alpha, activation_dtype=torch.float32)
+    got = rp.conv_rect_pool(*terms, **kw)
+    ref = rp.conv_rect_pool_reference(*terms, **kw)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    # Both sides compute the same f32 activations and sum them in another
+    # order: 1e-5 * max.
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"conv_rect_pool f32 on RandomCifar terms: {err} > 1e-5 * {scale}")
+    rec = {"shape": list(terms[0].shape), "dtype": "float32", "max_abs_err": err,
+           "max_abs": scale,
+           "ms": cuda_ms(lambda: rp.conv_rect_pool(*terms, **kw)),
+           "plain_ms": cuda_ms(lambda: rp.conv_rect_pool_reference(*terms, **kw)),
+           "launches": rc_fused}
+    rec["bound_ms"], rec["bound_by"] = conv_rect_pool_bound(terms, got.numel())
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    log(f"conv_rect_pool on a RandomCifar chunk {rec}")
+    return rec
+
+
+def run_newsgroups(card: str) -> None:
+    """Phase 15: NewsgroupsPipeline at BASELINE config 2 through the CLI on
+    a synthetic tree of the 20news-bydate split's size, then naive-Bayes
+    scores card against CPU and at served batches.  No hand kernel may
+    launch in it."""
+    before = kernel_launches()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        root = Path(tmp)
+        rng = np.random.default_rng(17)
+        t = time.perf_counter()
+        tokens = 0
+        for split, total in (("train", NG_TRAIN), ("test", NG_TEST)):
+            per_class = [total // 20 + (c < total % 20) for c in range(20)]
+            tokens += write_newsgroups_tree(root / split, NG_CLASSES, per_class, rng)
+        write_secs = time.perf_counter() - t
+        t = time.perf_counter()
+        test = newsgroups_loader(str(root / "test"))
+        load_secs = time.perf_counter() - t
+        res = newsgroups.main(["--trainLocation", str(root / "train"),
+                               "--testLocation", str(root / "test"), *NG_FLAGS])
+    if not res["test_error"] < 20.0:  # chance is 95%
+        raise AssertionError(f"Newsgroups test error {res['test_error']}% is not below 20%")
+    if res["num_features"] != 100_000:
+        raise AssertionError(f"Newsgroups kept {res['num_features']} features, not 100,000")
+    log(json.dumps({
+        "main_path": "NewsgroupsPipeline BASELINE config 2 (--nGrams 2 --commonFeatures 100000)",
+        "card": card, "train_docs": NG_TRAIN, "test_docs": NG_TEST, "tokens": tokens,
+        "write_seconds": write_secs, "test_load_seconds": load_secs,
+        **{k: res[k] for k in ("test_error", "seconds", "text_seconds", "score_seconds",
+                               "num_features", "test_nnz")},
+    }))
+
+    # Served batches reproduce the offline scores bit for bit; then the same
+    # fitted state scores on the CPU.
+    nodes = res["servable"].nodes  # the text nodes, vectorizer, model, argmax
+    vectorizer, model = nodes[-3:-1]
+    score = Pipeline(nodes[:-1])
+    docs = test.data[:NG_CARD_VS_CPU_DOCS]
+    offline = res["test_scores"]
+    for chunk in (1, 4, 16, 64):
+        served = np.concatenate([score(docs[i : i + chunk]).cpu().numpy()
+                                 for i in range(0, 64, chunk)])
+        if not np.array_equal(served, offline[:64]):
+            raise AssertionError(f"Newsgroups scores at batch {chunk} differ from offline")
+    csr = Pipeline(nodes[:-2])(docs)
+    on_cpu = convert.newsgroups_from_arrays(
+        vocabulary=list(vectorizer.feature_space), pi=model.pi.cpu().numpy(),
+        theta=model.theta.cpu().numpy(), device="cpu",
+    ).model(csr).numpy()
+    on_card = offline[: len(docs)]
+    err = np.abs(on_card - on_cpu).max()
+    scale = np.abs(on_cpu).max()
+    differ = int((on_card.argmax(axis=1) != on_cpu.argmax(axis=1)).sum())
+    log(f"Newsgroups card vs cpu on {len(docs)} documents: scores max abs err {err:.4e} of max "
+        f"{scale:.4e} (bound 1e-5·max), {differ} predictions differ (bound 0)")
+    if not (err <= 1e-5 * scale and differ == 0):
+        raise AssertionError("Newsgroups card and CPU disagree beyond the bounds")
+    after = kernel_launches()
+    if after != before:
+        raise AssertionError(f"hand kernels launched in the Newsgroups phase: {before} -> {after}")
+    log(f"Newsgroups phase: kernel launch counters unchanged {after}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 1
+    # The synthetic data lives under the checkout's git-ignored build/.
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        return smoke(Path(tmp))
+
+
+def smoke(data_dir: Path) -> int:
+    """Every phase, the CIFAR files of phases 3 and 14 under ``data_dir``."""
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     resolve_device("cuda")  # full f32, no TF32, for every plain version timed below
@@ -1002,28 +1339,25 @@ def main() -> int:
     log("decode_pixels library_ms: null (no single PyTorch call decodes JPEG "
         "coefficients to pixels; the IDCT entry's yardstick is torch.einsum)")
 
-    # The synthetic data lives under the checkout's git-ignored build/.
-    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
-        train_path, test_path = Path(tmp) / "train.bin", Path(tmp) / "test.bin"
-        rng = np.random.default_rng(5)
-        palette = rng.uniform(40, 215, (N_CLASSES, 3))
-        write_cifar(train_path, N_TRAIN, rng, palette)
-        write_cifar(test_path, N_TEST, rng, palette)
-        test = cifar_loader(str(test_path))
-        test_images = test.images
+    train_path, test_path = data_dir / "train.bin", data_dir / "test.bin"
+    rng = np.random.default_rng(5)
+    palette = rng.uniform(40, 215, (N_CLASSES, 3))
+    write_cifar(train_path, N_TRAIN, rng, palette)
+    write_cifar(test_path, N_TEST, rng, palette)
+    test = cifar_loader(str(test_path))
+    test_images = test.images
 
-        # 3. + 4. The main path: fit, eval, then the servable apply.
-        rp.launches = rp.fused_launches = 0
-        res = cifar.main(["--trainLocation", str(train_path),
-                          "--testLocation", str(test_path), *MAIN_FLAGS])
-        fit_launches = rp.fused_launches
-        servable = res["servable"]
-        for chunk in (1, 4, 16, 64):
-            served = cifar.apply_servable_chunked(servable, test_images[:256], chunk)
-            if not np.array_equal(served, res["test_predictions"][:256]):
-                raise AssertionError(f"servable apply at batch {chunk} != offline predictions")
-        main_launches, unfused_launches = rp.fused_launches, rp.launches
+    # 3. + 4. The main path: fit, eval, then the servable apply.
+    rp.launches = rp.fused_launches = 0
+    res = cifar.main(["--trainLocation", str(train_path),
+                      "--testLocation", str(test_path), *MAIN_FLAGS])
+    fit_launches = rp.fused_launches
+    servable = res["servable"]
+    for chunk in (1, 4, 16, 64):
+        served = cifar.apply_servable_chunked(servable, test_images[:256], chunk)
+        if not np.array_equal(served, res["test_predictions"][:256]):
+            raise AssertionError(f"servable apply at batch {chunk} != offline predictions")
+    main_launches, unfused_launches = rp.fused_launches, rp.launches
     need = math.ceil(N_TRAIN / 2048) + math.ceil(N_TEST / 2048)
     if fit_launches < need or unfused_launches:
         raise AssertionError(f"conv_rect_pool launched {fit_launches} times, expected >= "
@@ -1078,21 +1412,29 @@ def main() -> int:
                                                                  voc_map)
     del voc_train, voc_test
     run_mnist(card)
+    run_timit(card)
+    random_cifar_rec = run_cifar_variants(card, train_path, test_path)
+    run_newsgroups(card)
 
-    # 12. The kernels line, the card line, the result line.
+    # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
         "name": "conv_rect_pool",
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/rect_pool.cu",
         "replaces": "keystone_tpu/ops/rect_pool_pallas.py:78",
-        "launches": main_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in [fused_prod, fused_prod_f32, *fused_odd]),
+        "launches": main_launches + random_cifar_rec["launches"],
+        "launches_by_path": {"random_patch_cifar": main_launches,
+                             "random_cifar": random_cifar_rec["launches"]},
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in [fused_prod, fused_prod_f32, *fused_odd, random_cifar_rec]),
         "ms": fused_prod["ms"],
         "plain_ms": fused_prod["plain_ms"],
         "bound_ms": fused_prod["bound_ms"],
         "bound_by": fused_prod["bound_by"],
         "library_ms": None,
         "f32": {k: fused_prod_f32[k] for k in ("ms", "plain_ms", "bound_ms")},
+        "random_cifar_f32": {k: random_cifar_rec[k]
+                             for k in ("ms", "plain_ms", "bound_ms", "bound_share")},
         "ms_by_batch": {**{str(n): r["ms"] for n, r in fused_served.items()},
                         str(PROD[0]): fused_prod["ms"]},
         "bound_share": {**{str(n): r["bound_share"] for n, r in fused_served.items()},

@@ -1,13 +1,15 @@
-"""Carry a fitted RandomPatchCifar, VOCSIFTFisher or MnistRandomFFT result
-into the port, as numpy arrays.
+"""Carry a fitted pipeline into the port, as numpy arrays.
 
 :func:`from_arrays` (RandomPatchCifar), :func:`voc_from_arrays`
-(VOCSIFTFisher) and :func:`mnist_from_arrays` (MnistRandomFFT) rebuild the
-port's fitted nodes and servable pipeline on a chosen device from plain
-arrays, whichever implementation fitted them (the JAX package or the port
-itself); :func:`to_arrays`, :func:`voc_to_arrays` and
-:func:`mnist_to_arrays` are their inverses for a servable the port fitted.
-The tests push one fitted state through both packages this way.
+(VOCSIFTFisher), :func:`mnist_from_arrays` (MnistRandomFFT),
+:func:`timit_from_arrays` (TimitPipeline), :func:`random_cifar_from_arrays`
+(RandomCifar) and :func:`newsgroups_from_arrays` (NewsgroupsPipeline)
+rebuild the port's fitted nodes and servable pipeline on a chosen device
+from plain arrays, whichever implementation fitted them (the JAX package or
+the port itself); :func:`to_arrays`, :func:`voc_to_arrays`,
+:func:`mnist_to_arrays` and :func:`timit_to_arrays` are inverses for a
+servable the port fitted.  The tests push one fitted state through both
+packages this way.
 """
 
 from __future__ import annotations
@@ -20,16 +22,34 @@ import torch
 from .core.pipeline import Pipeline
 from .ops.conv_fused import FusedConvFeaturizer
 from .ops.fisher import FisherVector
+from .ops.sparse import SparseFeatureVectorizer
 from .ops.sift import SIFTExtractor
-from .ops.stats import StandardScalerModel
+from .ops.stats import CosineRandomFeatures, StandardScalerModel
 from .ops.util import MaxClassifier
 from .solvers.block import BlockLinearMapper
 from .solvers.gmm import GaussianMixtureModel
+from .solvers.linear import LinearMapper
+from .solvers.naive_bayes import NaiveBayesModel
 from .solvers.pca import BatchPCATransformer
 from .solvers.whitening import ZCAWhitener
 from .utils.platform import resolve_device
 from .workloads import mnist_random_fft as mnist
+from .workloads import newsgroups, random_cifar, timit
 from .workloads.voc_sift_fisher import SIFTFisherConfig, servable_pipeline
+
+
+
+def _tensor_fn(device):
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float32), device=dev)
+
+    return dev, t
+
+
+def _arrays(x):
+    return x.detach().cpu().numpy()
 
 
 @dataclass
@@ -66,10 +86,7 @@ def from_arrays(
     it is folded into the filters at fit time, so the servable needs only its
     means, and it comes back as a :class:`ZCAWhitener` for patch-level use.
     """
-    dev = resolve_device(device)
-
-    def t(a):
-        return torch.as_tensor(np.array(a, np.float32), device=dev)
+    dev, t = _tensor_fn(device)
 
     filters = t(filters)
     featurizer = FusedConvFeaturizer(
@@ -100,18 +117,15 @@ def to_arrays(servable: Pipeline) -> dict:
     ``[FusedConvFeaturizer, StandardScalerModel, BlockLinearMapper, ...]``."""
     featurizer, scaler, model = servable.nodes[:3]
 
-    def a(x):
-        return x.detach().cpu().numpy()
-
     conv = featurizer.conv
     return dict(
-        filters=a(conv.filters),
-        whitener_means=a(conv.whitener_means),
-        scaler_mean=a(scaler.mean),
-        scaler_std=a(scaler.std),
-        xs=[a(x) for x in model.xs],
-        b=a(model.b),
-        block_means=[a(s.mean) for s in model.feature_scalers],
+        filters=_arrays(conv.filters),
+        whitener_means=_arrays(conv.whitener_means),
+        scaler_mean=_arrays(scaler.mean),
+        scaler_std=_arrays(scaler.std),
+        xs=[_arrays(x) for x in model.xs],
+        b=_arrays(model.b),
+        block_means=[_arrays(s.mean) for s in model.feature_scalers],
         pool_stride=featurizer.pool_stride,
         pool_size=featurizer.pool_size,
         alpha=featurizer.alpha,
@@ -147,10 +161,7 @@ def voc_from_arrays(
     pca_mat [128, dims]; gmm_means/gmm_variances [dims, k]; gmm_weights [k];
     model_xs: list of [d_i, 20] blocks; model_b [20]; model_block_means:
     list of [d_i] per-block feature means."""
-    dev = resolve_device(device)
-
-    def t(a):
-        return torch.as_tensor(np.array(a, np.float32), device=dev)
+    dev, t = _tensor_fn(device)
 
     pca = BatchPCATransformer(t(pca_mat))
     gmm = GaussianMixtureModel(t(gmm_means), t(gmm_variances), t(gmm_weights))
@@ -170,19 +181,16 @@ def voc_to_arrays(servable: Pipeline) -> dict:
     def node(kind):
         return next(n for n in servable.nodes if isinstance(n, kind))
 
-    def a(x):
-        return x.detach().cpu().numpy()
-
     sift, pca, model = node(SIFTExtractor), node(BatchPCATransformer), node(BlockLinearMapper)
     gmm = node(FisherVector).gmm
     return dict(
-        pca_mat=a(pca.pca_mat),
-        gmm_means=a(gmm.means),
-        gmm_variances=a(gmm.variances),
-        gmm_weights=a(gmm.weights),
-        model_xs=[a(x) for x in model.xs],
-        model_b=a(model.b),
-        model_block_means=[a(s.mean) for s in model.feature_scalers],
+        pca_mat=_arrays(pca.pca_mat),
+        gmm_means=_arrays(gmm.means),
+        gmm_variances=_arrays(gmm.variances),
+        gmm_weights=_arrays(gmm.weights),
+        model_xs=[_arrays(x) for x in model.xs],
+        model_b=_arrays(model.b),
+        model_block_means=[_arrays(s.mean) for s in model.feature_scalers],
         sift_step_size=sift.step_size,
         scale_step=sift.scale_step,
         block_size=model.block_size,
@@ -203,10 +211,7 @@ def mnist_from_arrays(
     signs: per FFT group, per chain, the [d] ±1 vector of its
     RandomSignNode; xs: list of [group width, k] model blocks; b [k]
     intercept; block_means: list of per-block feature means."""
-    dev = resolve_device(device)
-
-    def t(a):
-        return torch.as_tensor(np.array(a, np.float32), device=dev)
+    dev, t = _tensor_fn(device)
 
     groups = [[mnist.fft_chain(t(s)) for s in group] for group in signs]
     model = BlockLinearMapper(
@@ -220,13 +225,107 @@ def mnist_to_arrays(servable: Pipeline) -> dict:
     MnistRandomFFT servable (``workloads.mnist_random_fft.servable_pipeline``)."""
     featurizer, model = servable.nodes[:2]
 
-    def a(x):
-        return x.detach().cpu().numpy()
-
     return dict(
-        signs=[[a(chain.nodes[0].signs) for chain in group] for group in featurizer.groups],
-        xs=[a(x) for x in model.xs],
-        b=a(model.b),
-        block_means=[a(s.mean) for s in model.feature_scalers],
+        signs=[[_arrays(chain.nodes[0].signs) for chain in group]
+               for group in featurizer.groups],
+        xs=[_arrays(x) for x in model.xs],
+        b=_arrays(model.b),
+        block_means=[_arrays(s.mean) for s in model.feature_scalers],
         block_size=model.block_size,
     )
+
+
+@dataclass
+class FittedTimit:
+    featurizers: list
+    model: BlockLinearMapper
+    servable: Pipeline
+
+
+def timit_from_arrays(
+    *, W, b, scaler_means, scaler_stds, xs, block_means, intercept,
+    block_size: int = 4096, device="cuda",
+) -> FittedTimit:
+    """Build the fitted TimitPipeline chain from arrays.
+
+    W, b: per block, the [D, 440] weights and [D] offsets of its
+    CosineRandomFeatures; scaler_means, scaler_stds: per block, its
+    StandardScaler's [D] mean and std; xs: the [D, k] model blocks;
+    block_means: the model's per-block feature means; intercept [k]."""
+    _, t = _tensor_fn(device)
+    featurizers = [
+        Pipeline([CosineRandomFeatures(t(w), t(off)), StandardScalerModel(t(m), t(s))])
+        for w, off, m, s in zip(W, b, scaler_means, scaler_stds)
+    ]
+    model = BlockLinearMapper(
+        [t(x) for x in xs], block_size, t(intercept),
+        [StandardScalerModel(t(m)) for m in block_means],
+    )
+    return FittedTimit(featurizers, model, timit.servable_pipeline(featurizers, model))
+
+
+def timit_to_arrays(servable: Pipeline) -> dict:
+    """The keyword arguments of :func:`timit_from_arrays` for a TimitPipeline
+    servable (``workloads.timit.servable_pipeline``)."""
+    featurizer, model = servable.nodes[:2]
+    chains = [group[0] for group in featurizer.groups]
+    return dict(
+        W=[_arrays(c.nodes[0].W) for c in chains],
+        b=[_arrays(c.nodes[0].b) for c in chains],
+        scaler_means=[_arrays(c.nodes[1].mean) for c in chains],
+        scaler_stds=[_arrays(c.nodes[1].std) for c in chains],
+        xs=[_arrays(x) for x in model.xs],
+        block_means=[_arrays(s.mean) for s in model.feature_scalers],
+        intercept=_arrays(model.b),
+        block_size=model.block_size,
+    )
+
+
+@dataclass
+class FittedRandomCifar:
+    featurizer: FusedConvFeaturizer
+    scaler: StandardScalerModel
+    model: LinearMapper
+    servable: Pipeline
+
+
+def random_cifar_from_arrays(
+    *, filters, scaler_mean, scaler_std, x, b, feature_mean,
+    pool_stride: int = 13, pool_size: int = 14, alpha: float = 0.25,
+    num_channels: int = 3, device="cuda",
+) -> FittedRandomCifar:
+    """Build the fitted RandomCifar chain from arrays.
+
+    filters [F, ps*ps*C]; scaler_mean/std [d]; the linear model's x [d, k],
+    intercept b [k] and its mean-only feature scaler's feature_mean [d]."""
+    dev, t = _tensor_fn(device)
+    featurizer = random_cifar.build_featurizer(
+        t(filters), random_cifar.RandomCifarWorkloadConfig(
+            pool_stride=pool_stride, pool_size=pool_size, alpha=alpha, num_channels=num_channels),
+        dev,
+    )
+    scaler = StandardScalerModel(t(scaler_mean), t(scaler_std))
+    model = LinearMapper(t(x), t(b), StandardScalerModel(t(feature_mean)))
+    return FittedRandomCifar(
+        featurizer, scaler, model, Pipeline([featurizer, scaler, model, MaxClassifier()])
+    )
+
+
+@dataclass
+class FittedNewsgroups:
+    vectorizer: SparseFeatureVectorizer
+    model: NaiveBayesModel
+    servable: Pipeline
+
+
+def newsgroups_from_arrays(
+    *, vocabulary, pi, theta, n_grams: int = 2, device="cuda"
+) -> FittedNewsgroups:
+    """Build the fitted NewsgroupsPipeline chain from its feature space
+    (``vocabulary``: the n-gram tuples in feature-index order) and the
+    naive-Bayes ``pi`` [C] and ``theta`` [C, D]."""
+    _, t = _tensor_fn(device)
+    vectorizer = SparseFeatureVectorizer({term: i for i, term in enumerate(vocabulary)})
+    model = NaiveBayesModel(t(pi), t(theta))
+    servable = Pipeline([newsgroups.text_pipeline(n_grams), vectorizer, model, MaxClassifier()])
+    return FittedNewsgroups(vectorizer, model, servable)

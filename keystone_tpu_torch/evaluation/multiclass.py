@@ -109,6 +109,45 @@ class MulticlassMetrics:
     def micro_f_score(self, beta: float = 1.0):
         return self._micro(lambda m: m.f_score(beta))
 
+    def pprint_confusion_matrix(self, classes) -> str:
+        """Mahout-style table: one row per actual class, one column per
+        predicted class, headed by base-26 column labels."""
+        labels = [_small_label(i) for i in range(self.num_classes)]
+        width = max(6, max(len(l) for l in labels) + 1)
+        lines = ["".join(l.rjust(width) for l in labels) + "   <-- Classified As"]
+        for r in range(self.num_classes):
+            row = "".join(
+                str(int(self.confusion_matrix[r, c])).rjust(width)
+                for c in range(self.num_classes)
+            )
+            lines.append(f"{row}   {labels[r]} = {classes[r]}")
+        return "\n".join(lines)
+
+    def summary(self, classes) -> str:
+        return (
+            f"{self.pprint_confusion_matrix(classes)}\n"
+            f"Avg Accuracy:\t{self.avg_accuracy:2.3f}\n"
+            f"Macro Precision:\t{self.macro_precision:2.3f}\n"
+            f"Macro Recall:\t{self.macro_recall:2.3f}\n"
+            f"Macro F1:\t{self.macro_f_score():2.3f}\n"
+            f"Total Accuracy:\t{self.total_accuracy:2.3f}\n"
+            f"Micro Precision:\t{self.micro_precision:2.3f}\n"
+            f"Micro Recall:\t{self.micro_recall:2.3f}\n"
+            f"Micro F1:\t{self.micro_f_score():2.3f}\n"
+        )
+
+
+def _small_label(i: int) -> str:
+    """Base-26 column header with the reference's digit order (least
+    significant first) and its off-by-one, so printed headers match."""
+    if i == 0:
+        return "a"
+    out = ""
+    while i > 0:
+        out = out + chr(ord("a") + (i % 26))
+        i //= 26
+    return out
+
 
 def confusion_matrix(predictions, actuals, num_classes: int) -> torch.Tensor:
     """Confusion matrix in one bincount: rows = actual, cols = predicted."""
@@ -130,3 +169,19 @@ class MulticlassClassifierEvaluator:
 
     def __new__(cls, predictions, actuals, num_classes: int) -> MulticlassMetrics:  # type: ignore[misc]
         return cls.apply(predictions, actuals, num_classes)
+
+
+class BinaryClassifierEvaluator:
+    """``BinaryClassifierEvaluator(predictions, actuals)`` returns the
+    contingency table of two boolean vectors (tensors on any device, or
+    arrays) as :class:`BinaryClassificationMetrics`."""
+
+    @staticmethod
+    def apply(predictions, actuals) -> BinaryClassificationMetrics:
+        p = torch.as_tensor(predictions).to(torch.bool)
+        a = torch.as_tensor(actuals).to(device=p.device, dtype=torch.bool)
+        counts = torch.stack([m.sum() for m in (p & a, p & ~a, ~p & ~a, ~p & a)])
+        return BinaryClassificationMetrics(*(float(c) for c in counts.tolist()))
+
+    def __new__(cls, predictions, actuals) -> BinaryClassificationMetrics:  # type: ignore[misc]
+        return cls.apply(predictions, actuals)

@@ -241,3 +241,21 @@ class GrayScaler(Transformer):
         else:
             out = torch.sqrt(torch.mean(batch * batch, dim=-1))
         return out[..., None]
+
+
+class ImageExtractor(Transformer):
+    """Labelled image batch -> its images."""
+
+    def __call__(self, labeled):
+        return labeled.images
+
+
+class LabelExtractor(Transformer):
+    """Labelled image batch -> its labels."""
+
+    def __call__(self, labeled):
+        return labeled.labels
+
+
+MultiLabelExtractor = LabelExtractor
+MultiLabeledImageExtractor = ImageExtractor

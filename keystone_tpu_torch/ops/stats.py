@@ -75,6 +75,44 @@ class SignedHellingerMapper(Transformer):
         return torch.sign(batch) * torch.sqrt(torch.abs(batch))
 
 
+class CosineRandomFeatures(Transformer):
+    """Random Fourier features ``cos(x Wᵀ + b)``: ``W`` [D, d], ``b`` [D].
+    The product is one ``torch.matmul`` (cuBLAS on the card, f32 with TF32
+    off)."""
+
+    def __init__(self, W, b):
+        if b.shape[0] != W.shape[0]:
+            raise ValueError("# rows of W must match size of b")
+        self.W = W
+        self.b = b
+
+    def __call__(self, batch):
+        return torch.cos(batch @ self.W.T + self.b)
+
+    @staticmethod
+    def create(
+        num_input_features: int,
+        num_output_features: int,
+        gamma: float,
+        generator: torch.Generator,
+        w_dist: str = "gaussian",
+        device="cpu",
+    ) -> "CosineRandomFeatures":
+        """``W`` normal (an RBF kernel) or Cauchy (a Laplacian kernel) times
+        ``gamma``, ``b`` uniform in [0, 2π), drawn in f32 from ``generator``
+        (a CPU generator, so the draws do not depend on the device).  They do
+        not reproduce the JAX package's ``jax.random`` draws."""
+        shape = (num_output_features, num_input_features)
+        if w_dist == "gaussian":
+            W = torch.randn(shape, generator=generator)
+        elif w_dist == "cauchy":
+            W = torch.empty(shape).cauchy_(generator=generator)
+        else:
+            raise ValueError(f"unknown w_dist {w_dist!r}")
+        b = torch.rand((num_output_features,), generator=generator) * (2.0 * torch.pi)
+        return CosineRandomFeatures((W * gamma).to(device), b.to(device))
+
+
 def next_power_of_two(i: int) -> int:
     return 1 << (i - 1).bit_length()
 

@@ -22,3 +22,10 @@ def normalize_rows(mat: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
     mean = mat.mean(dim=1, keepdim=True)
     var = mat.var(dim=1, keepdim=True, correction=1)
     return (mat - mean) / torch.sqrt(var + alpha)
+
+
+def check_finite(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ``FloatingPointError`` if any of ``tensors`` holds a NaN or an
+    Inf: a diverged fit must not look like a model."""
+    if not all(bool(torch.isfinite(t).all()) for t in tensors):
+        raise FloatingPointError(f"{name} has non-finite values")

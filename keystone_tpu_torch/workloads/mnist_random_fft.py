@@ -38,6 +38,7 @@ from ..ops.util import (
 )
 from ..solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
 from ..utils.platform import resolve_device, synchronize
+from ..utils.stats import check_finite
 
 _log = logging.getLogger(__name__)
 
@@ -86,14 +87,6 @@ def servable_pipeline(groups, model: BlockLinearMapper) -> Pipeline:
     return Pipeline([GroupConcatFeaturizer(groups), model, MaxClassifier()])
 
 
-def _check_finite(model: BlockLinearMapper) -> None:
-    """Raise ``FloatingPointError`` for a model with a NaN or Inf entry: a
-    diverged solve must not look like a model."""
-    parts = [*model.xs, *([] if model.b is None else [model.b])]
-    if not all(bool(torch.isfinite(p).all()) for p in parts):
-        raise FloatingPointError("mnist random-fft model: non-finite weights")
-
-
 def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> dict:
     """Fit on ``train``, evaluate on ``train`` and ``test`` block by block.
     The results carry the fitted servable pipeline under ``"servable"``."""
@@ -119,7 +112,7 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
     model = BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0).fit(
         training_batches, labels
     )
-    _check_finite(model)
+    check_finite("mnist random-fft model", *model.xs, model.b)
     solve_secs = time.perf_counter() - t_solve
 
     results: dict = {}

@@ -43,6 +43,7 @@ from ..solvers.block import BlockLeastSquaresEstimator
 from ..solvers.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from ..solvers.pca import BatchPCATransformer, compute_pca
 from ..utils.platform import resolve_device, synchronize
+from ..utils.stats import check_finite
 from .fv_common import (
     bucket_by_shape,
     fisher_feature_pipeline,
@@ -181,11 +182,6 @@ def extract_sift_buckets(conf: SIFTFisherConfig, images) -> dict:
     return out
 
 
-def _check_finite(name: str, *tensors: torch.Tensor) -> None:
-    if not all(bool(torch.isfinite(t).all()) for t in tensors):
-        raise FloatingPointError(f"{name} has non-finite values")
-
-
 def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledImages) -> dict:
     """Fit on ``train``, score ``test``.  The results carry the fitted
     ``{pca, gmm, model}`` under ``"bundle"`` and the test scores under
@@ -227,7 +223,7 @@ def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledIma
         gmm_samples = sample_columns(pca_desc, conf.num_gmm_samples, conf.seed + 1)
         gmm = GaussianMixtureModelEstimator(conf.vocab_size).fit(gmm_samples.T)
         del gmm_samples
-    _check_finite("VOC GMM fit", gmm.means, gmm.variances, gmm.weights)
+    check_finite("VOC GMM fit", gmm.means, gmm.variances, gmm.weights)
     gmm_secs = lap(t)
 
     t = time.perf_counter()
@@ -240,7 +236,7 @@ def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledIma
     model = BlockLeastSquaresEstimator(4096, 1, conf.lam).fit(
         train_features, train_labels, num_features=feat_dim
     )
-    _check_finite("VOC block least-squares fit", *model.xs, model.b)
+    check_finite("VOC block least-squares fit", *model.xs, model.b)
     solve_secs = lap(t)
 
     t = time.perf_counter()
