@@ -13,10 +13,13 @@ which raises (and so exits non-zero) on failure:
    rect+pool on activations and fused with the Convolver's epilogue (the
    fused entry with every flag on and off, and also at served batches of 1
    and 64 images), the Fisher statistics (also at served batches of 1 and
-   16 images, each as a share of its bound), the IDCT (also beside one
-   ``torch.einsum`` call, its library yardstick) and the whole pixel decode
-   (``torch.equal`` to the PyTorch composition with the IDCT kernel in it,
-   for 4:2:0, 4:2:2, 4:4:4 and grayscale at odd sizes);
+   16 images, each as a share of its bound, and at ImageNetSiftLcsFV's
+   shapes, d 64 and k 16 over the SIFT and LCS descriptors of a 375x500
+   image, timed with the plain version at 1, 32 and 1,000 images), the
+   IDCT (also beside one ``torch.einsum`` call, its library yardstick) and
+   the whole pixel decode (``torch.equal`` to the PyTorch composition with
+   the IDCT kernel in it, for 4:2:0, 4:2:2, 4:4:4 and grayscale at odd
+   sizes);
 3. the RandomPatchCifar main path at full width (100 filters of 6x6x3,
    pool 14 / stride 13) on seeded synthetic CIFAR-shaped data, 50,000 train
    and 10,000 test images, through
@@ -104,7 +107,32 @@ which raises (and so exits non-zero) on failure:
    batches 1, 4, 16 and 64 equal to the offline ones bit for bit, and the
    naive-Bayes scores card against CPU within 1e-5·max with equal
    predictions on 2,000 documents.  The kernels' counters do not move;
-16. one JSON line per the kernels, the card line, and the final JSON line.
+16. one JSON line per the kernels, the card line, and the final JSON
+   line, printed last, after phases 17-19;
+17. ImageNetSiftLcsFV at BASELINE config 5's width (1,000 classes; SIFT
+   step 3 at scale step 1 with bf16 intermediates, then a signed square
+   root; LCS (4, 16, 6); PCA to 64; 16 Gaussians; 4,096 features; the
+   class-weighted block solve at lambda 6e-5, mixture weight 0.25; top-5
+   evaluation) on seeded synthetic BGR images made on the card, 2,000
+   train and 1,000 test at 375x500 and 333x500, through
+   ``keystone_tpu_torch.workloads.imagenet_sift_lcs_fv.run``: a reckoned
+   lower bound of the peak, which the measured peak must reach, top-5
+   error below 50 % (chance 99.5 %),
+   a finite model, the Fisher statistics kernel launched in both
+   branches; then the fitted branches applied to batches of 1, 4 and 16
+   test images, which must reproduce the offline scores within 1e-4·max;
+18. card against CPU inside the port: one fitted ImageNet state and four
+   images through both branches on both devices (descriptors, Fisher
+   statistics, features and scores, each against its own bar);
+19. ImageNetSiftLcsFV from JPEG tars with device decode: one training
+   image per class and 500 test images of phase 17, encoded by the numpy
+   encoder into one tar per synset plus a labels file, through
+   ``imagenet_sift_lcs_fv.main([... "--streamIngest", "--deviceDecode"])``:
+   the native entropy pass with nothing skipped or routed to the host,
+   every pass over a split seeing the same survivors, the fused decode
+   launched and the IDCT entry not, the statistics kernel in both
+   branches, and the top-5 error below 50 % and within 2 points of an
+   in-memory run on the same pixel arrays.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -132,7 +160,11 @@ from keystone_tpu_torch.core import ingest
 from keystone_tpu_torch.loaders import image_loaders
 from keystone_tpu_torch.loaders.cifar import cifar_loader
 from keystone_tpu_torch.loaders.csv_loader import LabeledData
-from keystone_tpu_torch.loaders.image_loaders import VOC_NUM_CLASSES, MultiLabeledImages
+from keystone_tpu_torch.loaders.image_loaders import (
+    VOC_NUM_CLASSES,
+    LabeledImages,
+    MultiLabeledImages,
+)
 from keystone_tpu_torch.loaders.newsgroups import CLASSES as NG_CLASSES
 from keystone_tpu_torch.loaders.newsgroups import newsgroups_loader
 from keystone_tpu_torch.loaders.timit import (
@@ -147,15 +179,17 @@ from keystone_tpu_torch.ops import native_entropy
 from keystone_tpu_torch.ops import rect_pool as rp
 from keystone_tpu_torch.ops.fisher import _fv_from_stats
 from keystone_tpu_torch.ops.images import convolver_epilogue
+from keystone_tpu_torch.ops.lcs import LCSExtractor
 from keystone_tpu_torch.ops.sift import SIFTExtractor
-from keystone_tpu_torch.ops.stats import StandardScaler
+from keystone_tpu_torch.ops.stats import SignedHellingerMapper, StandardScaler
 from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
 from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
-from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
+from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
 from keystone_tpu_torch.testing.corpus import write_newsgroups_tree
 from keystone_tpu_torch.testing.jpeg_encode import encode_jpeg
 from keystone_tpu_torch.utils.platform import resolve_device
 from keystone_tpu_torch.workloads import cifar_random_patch as cifar
+from keystone_tpu_torch.workloads import imagenet_sift_lcs_fv as inet
 from keystone_tpu_torch.workloads import linear_pixels, newsgroups, random_cifar, timit
 from keystone_tpu_torch.workloads import mnist_random_fft as mnist
 from keystone_tpu_torch.workloads import voc_sift_fisher as voc
@@ -190,6 +224,14 @@ FV_PROD = (32, 80, 73866, 256, False)
 FV_ODD = [(3, 24, 700, 8, True), (3, 24, 333, 8, False)]
 # fv_stats is also timed at served batches of one and 16 such images.
 FV_SERVED = (1, 16)
+# fv_stats at ImageNetSiftLcsFV's shapes (d 64, k 16): the descriptors of a
+# 375x500 image in the SIFT branch (step 3, scale step 1) and in the LCS
+# branch (stride 4, border 16), checked on 8 images (LCS's with ragged
+# counts) and timed at one image, at a test chunk of 32 and at a training
+# bucket of 1,000 (one launch each).
+FV_IMAGENET = {"sift": (SIFTExtractor(scale_step=1).num_descriptors(375, 500), False),
+               "lcs": (LCSExtractor(4, 16, 6).num_keypoints(375, 500), True)}
+FV_IMAGENET_BATCHES = (1, 32, 1000)
 
 # idct: the main path's luma launch (a 64-image chunk of 375x500 4:2:0 JPEGs
 # is [64, 48, 64, 8, 8]), then one block, a ragged count and leading dims.
@@ -210,6 +252,18 @@ VOC_SHAPES = {(375, 500): 384, (500, 375): 128}
 VOC_CONF = dict(desc_dim=80, vocab_size=256, sift_step_size=3, scale_step=0,
                 lam=0.5, num_pca_samples=int(1e6), num_gmm_samples=int(1e6),
                 seed=42, device="cuda")
+
+
+# ImageNetSiftLcsFV at BASELINE config 5's width (the workload's defaults:
+# 1,000 classes, SIFT step 3 at scale step 1, LCS (4, 16, 6), PCA to 64, 16
+# Gaussians, 4,096 features, lambda 6e-5, mixture weight 0.25, one pass) on
+# seeded synthetic BGR images at ImageNet's two common sizes, half each;
+# the images cut from 1.28 million to 2 train and 1 test per class.  Phase
+# 19 encodes one training image per class and 500 test images as JPEGs.
+IMAGENET_CLASSES = 1000
+IMAGENET_SHAPES = ((375, 500), (333, 500))
+IMAGENET_TRAIN_PER_CLASS, IMAGENET_TEST_PER_CLASS = 2, 1
+IMAGENET_TAR_TEST = 500
 
 
 # MnistRandomFFT: MNIST's splits and width; BASELINE config 1 (README
@@ -390,20 +444,26 @@ def fv_stats_f64(args, n_valid, chunk: int = 8) -> torch.Tensor:
     ])
 
 
-def time_fv_stats(n: int, gen) -> dict:
-    """The kernel's time on ``n`` images of the production shape, and its
-    share of the bound."""
-    _, d, cols, k, _ = FV_PROD
+def time_fv_stats(n: int, gen, d: int = FV_PROD[1], cols: int = FV_PROD[2],
+                  k: int = FV_PROD[3], plain: bool = False) -> dict:
+    """The kernel's time on ``n`` images of ``[d, cols]`` descriptors (the
+    VOC production shape by default), its share of the bound, and with
+    ``plain`` the plain version's time on the same inputs."""
     x = torch.randn((n, d, cols), generator=gen, device="cuda")
     means = torch.randn((d, k), generator=gen, device="cuda")
     variances = 0.5 + 1.5 * torch.rand((d, k), generator=gen, device="cuda")
     weights = torch.full((k,), 1.0 / k, device="cuda")
-    ms = cuda_ms(lambda: fs.fv_stats(x, None, means, variances, weights), reps=10)
-    bound_ms, _ = fv_stats_bound(n, d, cols, k)
+    args = (x, None, means, variances, weights)
+    ms = cuda_ms(lambda: fs.fv_stats(*args), reps=10)
+    bound_ms, bound_by = fv_stats_bound(n, d, cols, k)
     rec = {"shape": [n, d, cols], "k": k, "ms": ms, "bound_ms": bound_ms,
-           "bound_share": bound_ms / ms}
-    log(f"fv_stats at batch {n}: {ms:.4f} ms, {100 * bound_ms / ms:.1f} % of its "
-        f"{bound_ms:.4f} ms bound")
+           "bound_by": bound_by, "bound_share": bound_ms / ms}
+    if plain:
+        rec["plain_ms"] = cuda_ms(lambda: fs.fv_stats_reference(*args), reps=3, warmup=1)
+    del x
+    log(f"fv_stats at batch {n} of [{d}, {cols}], k {k}: {ms:.4f} ms, "
+        f"{100 * bound_ms / ms:.1f} % of its {bound_ms:.4f} ms bound"
+        + (f", plain {rec['plain_ms']:.4f} ms" if plain else ""))
     return rec
 
 
@@ -1286,6 +1346,347 @@ def run_newsgroups(card: str) -> None:
     log(f"Newsgroups phase: kernel launch counters unchanged {after}")
 
 
+def imagenet_class_params(num_classes: int = IMAGENET_CLASSES) -> tuple:
+    """Each class's colour, grating orientation, grating period and grating
+    channel.  The colours are distinct points of a 10x10x10 grid over
+    [40, 215] (seeded order), so LCS's local colour statistics carry the
+    class; the 96 gratings (8 orientations, 4 periods, 3 channels) carry it
+    in SIFT's gradients too."""
+    levels = np.linspace(40.0, 215.0, 10)
+    grid = np.stack(np.meshgrid(levels, levels, levels, indexing="ij"), -1).reshape(-1, 3)
+    palette = grid[np.random.default_rng(1).permutation(len(grid))[:num_classes]]
+    c = np.arange(num_classes)
+    angles = np.pi * (c % 8) / 8
+    periods = np.array([5.0, 7.0, 10.0, 14.0])[(c // 8) % 4]
+    return palette, angles, periods, (c // 32) % 3
+
+
+def imagenet_images(seed: int, labels: np.ndarray, shapes: list) -> list:
+    """Seeded synthetic BGR images in [0, 255], integer-valued, made on the
+    card: the class colour jittered by up to 3 levels, pixel noise of
+    spread 12, and the class grating (amplitude 40-60, random phase) in the
+    class channel.  Returns one f32 [H, W, 3] host array per label."""
+    palette, angles, periods, channels = imagenet_class_params()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = [None] * len(labels)
+    for shape in sorted(set(shapes)):
+        idx = np.array([i for i, s in enumerate(shapes) if s == shape])
+        h, w = shape
+        yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device="cuda"),
+                                torch.arange(w, dtype=torch.float32, device="cuda"),
+                                indexing="ij")
+        for i in range(0, len(idx), 64):
+            part = idx[i : i + 64]
+            c = labels[part]
+            b = len(part)
+
+            def t(a):
+                return torch.as_tensor(a, dtype=torch.float32, device="cuda")
+
+            base = t(palette[c]) + 6.0 * torch.rand((b, 3), generator=gen, device="cuda") - 3.0
+            phase = 2 * np.pi * torch.rand((b, 1, 1), generator=gen, device="cuda")
+            amp = 40.0 + 20.0 * torch.rand((b, 1, 1), generator=gen, device="cuda")
+            a, period = t(angles[c])[:, None, None], t(periods[c])[:, None, None]
+            wave = amp * torch.sin((xx * torch.cos(a) + yy * torch.sin(a)) * (2 * np.pi / period)
+                                   + phase)
+            img = base[:, None, None, :] + 12.0 * torch.randn((b, h, w, 3), generator=gen,
+                                                              device="cuda")
+            img[torch.arange(b, device="cuda"), :, :, t(channels[c]).long()] += wave
+            host = img.clamp_(0, 255).round_().cpu().numpy()
+            for j, k in enumerate(part):
+                out[k] = host[j]
+    return out
+
+
+def imagenet_split(seed: int, per_class: int) -> LabeledImages:
+    """``per_class`` images of each of the 1,000 classes, alternating
+    between the two image sizes, in a seeded random order."""
+    labels = np.repeat(np.arange(IMAGENET_CLASSES), per_class)
+    shapes = [IMAGENET_SHAPES[i % 2] for i in range(len(labels))]
+    images = imagenet_images(seed, labels, shapes)
+    order = np.random.default_rng(seed).permutation(len(labels))
+    return LabeledImages([images[i] for i in order], labels[order].astype(np.int32),
+                         [f"synthetic/{i:07d}" for i in range(len(labels))])
+
+
+def imagenet_peak_lower_bound(train: LabeledImages, conf) -> float:
+    """GB the fit holds at once in the SIFT branch's PCA fit: the raw SIFT
+    training descriptors (f32, 128 each) and the column sample three times
+    over (the sample, its centred copy and the QR factorisation's copy of
+    it).  A lower bound of the peak: the QR factorisation's workspace and
+    what the process held before the run come on top and are not reckoned.
+    The projected descriptors replace the raw ones bucket by bucket, and the
+    test split is featurized 32 images at a time, so neither raises it."""
+    sift = SIFTExtractor(scale_step=conf.sift_scale_step)
+    cols = sum(sift.num_descriptors(*img.shape[:2]) for img in train.images)
+    return (cols + 3 * min(cols, conf.num_pca_samples)) * 128 * 4 / 1e9
+
+
+class BranchLaunches:
+    """Counts the fv_stats launches of each descriptor branch while it is
+    active (it wraps ``imagenet_sift_lcs_fv.branch_features``)."""
+
+    def __enter__(self) -> dict:
+        self.counts = {b: 0 for b in inet.BRANCHES}
+        self._orig = inet.branch_features
+
+        def counted(conf, train_images, test_images, branch):
+            before = fs.launches
+            try:
+                return self._orig(conf, train_images, test_images, branch)
+            finally:
+                self.counts[branch] += fs.launches - before
+
+        inet.branch_features = counted
+        return self.counts
+
+    def __exit__(self, *exc) -> None:
+        inet.branch_features = self._orig
+
+
+def imagenet_record(res: dict) -> dict:
+    """The run's errors and stage seconds; raises unless the model is
+    finite and the top-5 error is below 50 % (chance 99.5 %)."""
+    model = res["bundle"]["model"]
+    if not all(bool(torch.isfinite(t).all()) for t in [*model.xs, model.b]):
+        raise AssertionError("ImageNetSiftLcsFV model is not finite")
+    if not res["top5_err_percent"] < 50.0:
+        raise AssertionError(f"ImageNetSiftLcsFV top-5 error {res['top5_err_percent']}% "
+                             "is not below 50%")
+    return {k: res[k] for k in ("top5_err_percent", "top1_err_percent", "seconds",
+                                "sift_branch_seconds", "lcs_branch_seconds", "solve_seconds",
+                                "eval_seconds", "featurize_images_per_sec",
+                                "branch_stage_seconds")}
+
+
+def run_imagenet(card: str) -> tuple:
+    """Phases 17 and 18: ImageNetSiftLcsFV in memory at full width, its
+    fitted branches applied to served batches, then card against CPU.
+    Returns the fv_stats launches of the path (fit, eval and served
+    batches) and the two splits."""
+    t = time.perf_counter()
+    train = imagenet_split(19, IMAGENET_TRAIN_PER_CLASS)
+    test = imagenet_split(23, IMAGENET_TEST_PER_CLASS)
+    data_secs = time.perf_counter() - t
+    conf = inet.ImageNetSiftLcsFVConfig(num_classes=IMAGENET_CLASSES, device="cuda")
+    bound_gb = imagenet_peak_lower_bound(train, conf)
+    log(f"ImageNet data: {len(train)} train / {len(test)} test images in {data_secs:.1f} s; "
+        f"reckoned peak at least {bound_gb:.2f} GB (raw SIFT descriptors and the PCA sample "
+        "three times over; the QR workspace not reckoned)")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fs.launches = 0
+    with BranchLaunches() as by_branch:
+        res = inet.run(conf, train, test)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fit_launches = fs.launches
+    rec = imagenet_record(res)
+    if not all(by_branch[b] > 0 for b in inet.BRANCHES):
+        raise AssertionError(f"fv_stats launches by branch {by_branch}")
+    if not bound_gb <= peak_gb < 80.0:
+        raise AssertionError(f"ImageNetSiftLcsFV peaked at {peak_gb} GB (reckoned at least "
+                             f"{bound_gb} GB)")
+
+    # The fitted branches on new images: batches of 1, 4 and 16 test images
+    # of one size reproduce the offline scores.
+    fitted = convert.FittedImageNet(res["bundle"], conf)
+    land = [i for i, img in enumerate(test.images) if img.shape[:2] == IMAGENET_SHAPES[0]][:16]
+    offline = res["test_scores"][land]
+    for chunk in (1, 4, 16):
+        served = np.concatenate([
+            fitted.scores([test.images[j] for j in land[i : i + chunk]]).cpu().numpy()
+            for i in range(0, len(land), chunk)
+        ])
+        err = np.abs(served - offline).max()
+        if not err <= 1e-4 * np.abs(offline).max():
+            raise AssertionError(f"ImageNet scores at batch {chunk} differ from the offline "
+                                 f"scores by {err} (max {np.abs(offline).max()})")
+    main_launches = fs.launches
+    log(json.dumps({
+        "main_path": "ImageNetSiftLcsFV BASELINE config 5 (in memory)", "card": card,
+        "classes": IMAGENET_CLASSES, "train_images": len(train), "test_images": len(test),
+        "feature_dim": 2 * 2 * conf.desc_dim * conf.vocab_size, "data_seconds": data_secs,
+        **rec, "peak_memory_gb": peak_gb, "peak_lower_bound_gb": bound_gb,
+        "fv_stats_launches_fit": fit_launches, "fv_stats_launches_by_branch": by_branch,
+        "fv_stats_launches_serve": main_launches - fit_launches,
+    }))
+    arrays = convert.imagenet_to_arrays(res["bundle"], conf)
+    del res, fitted
+    torch.cuda.empty_cache()
+    imagenet_card_vs_cpu(arrays, [test.images[j] for j in land[:4]])
+    return main_launches, train, test
+
+
+def imagenet_card_vs_cpu(arrays: dict, images: list) -> dict:
+    """Phase 18: one fitted state on the card and on the CPU; four images
+    through both branches on both.  Bars: quantised SIFT descriptors (scale
+    step 1, bf16) within +-1 on >= 99.5 % of entries and LCS descriptors
+    within rtol 1e-5, atol 255e-6 (the CPU tests' bar against the JAX
+    package; the same f32 multiplies and adds run on both devices); from
+    identical descriptors, the Fisher statistics within rtol 2e-4, atol
+    2e-5·max, and the features and scores no further from their f64
+    evaluation on the card than on the CPU plus 1e-3·max (phase 7's bars)."""
+    fitted = {dev: convert.imagenet_from_arrays(**arrays, device=dev) for dev in ("cuda", "cpu")}
+    conf = fitted["cpu"].conf
+    x = torch.from_numpy(np.stack(images))
+    sift = SIFTExtractor(scale_step=conf.sift_scale_step, compute_dtype=torch.bfloat16)
+    sift_cpu = sift(grayscale(x))
+    sift_within = (sift(grayscale(x.cuda())).cpu() - sift_cpu).abs().le(1.0).float().mean().item()
+    lcs = LCSExtractor(conf.lcs_stride, conf.lcs_border, conf.lcs_patch)
+    lcs_cpu = lcs(x)
+    lcs_card = lcs(x.cuda()).cpu()
+    lcs_err = (lcs_card - lcs_cpu).abs().max().item()
+    if not sift_within >= 0.995:
+        raise AssertionError(f"SIFT descriptors card vs cpu within +-1: {sift_within}")
+    torch.testing.assert_close(lcs_card, lcs_cpu, rtol=1e-5, atol=255e-6)
+
+    descs = {"sift": SignedHellingerMapper()(sift_cpu), "lcs": lcs_cpu}
+    feats = {"cuda": [], "cpu": []}
+    exact, stat_errs = [], {}
+    for b in inet.BRANCHES:
+        pca_desc, gmm = {}, {}
+        for dev in fitted:
+            pca_desc[dev] = fitted[dev].bundle[f"{b}_pca"](descs[b].to(dev))
+            gmm[dev] = fitted[dev].bundle[f"{b}_gmm"]
+        stats = {dev: [t.cpu() for t in fs.fv_stats(pca_desc[dev], None, gmm[dev].means,
+                                                    gmm[dev].variances, gmm[dev].weights)]
+                 for dev in fitted}
+        for card_stat, cpu_stat in zip(stats["cuda"], stats["cpu"]):
+            torch.testing.assert_close(card_stat, cpu_stat, rtol=2e-4,
+                                       atol=2e-5 * cpu_stat.abs().max().item())
+        stat_errs[b] = [rel_err(a, c) for a, c in zip(stats["cuda"], stats["cpu"])]
+        for dev in fitted:
+            feats[dev].append(fisher_feature_pipeline(gmm[dev])(pca_desc[dev]).cpu())
+        g64 = GaussianMixtureModel(*(t.double() for t in (gmm["cpu"].means, gmm["cpu"].variances,
+                                                          gmm["cpu"].weights)))
+        exact.append(fisher_feature_pipeline(g64)(pca_desc["cpu"].double()))
+    exact_feats = torch.cat(exact, dim=1)
+    model = fitted["cpu"].bundle["model"]
+    model64 = BlockLinearMapper([m.double() for m in model.xs], model.block_size, model.b.double())
+    exact_scores = model64(exact_feats)
+    errs = {}
+    for dev in fitted:
+        f = torch.cat(feats[dev], dim=1)
+        s = fitted[dev].bundle["model"](f.to(dev)).cpu()
+        errs[dev] = (((f.double() - exact_feats).abs().max() / exact_feats.abs().max()).item(),
+                     ((s.double() - exact_scores).abs().max() / exact_scores.abs().max()).item())
+    rec = {"sift_within_1": sift_within, "lcs_max_abs_err": lcs_err,
+           "fv_stats_rel_err": stat_errs,
+           "features_rel_err_from_f64": {d: e[0] for d, e in errs.items()},
+           "scores_rel_err_from_f64": {d: e[1] for d, e in errs.items()}}
+    log(f"ImageNet card vs cpu on {len(images)} images: {json.dumps(rec)}")
+    for i, what in enumerate(("features", "scores")):
+        if not errs["cuda"][i] <= errs["cpu"][i] + 1e-3:
+            raise AssertionError(f"card {what} {errs['cuda'][i]} further from f64 than the "
+                                 f"cpu's {errs['cpu'][i]}")
+    return rec
+
+
+def synset(c: int) -> str:
+    return f"n{c:08d}"
+
+
+def write_imagenet_tars(root: Path, splits: dict) -> None:
+    """Encode each split's images as baseline JPEGs (q90, 4:2:0) into
+    ``root/<split>/<synset>.tar``, one tar per class with members
+    ``<synset>/<split>_<i>.JPEG``, and write ``root/labels.txt``, one
+    ``synset class-id`` line per class."""
+    (root / "labels.txt").write_text(
+        "".join(f"{synset(c)} {c}\n" for c in range(IMAGENET_CLASSES)))
+    with ThreadPoolExecutor(8) as pool:
+        for split, data in splits.items():
+            (root / split).mkdir()
+            encoded = list(pool.map(lambda img: encode_jpeg(img, 90, "4:2:0")[0], data.images))
+            by_class: dict = {}
+            for i, (jpeg, c) in enumerate(zip(encoded, data.labels)):
+                by_class.setdefault(int(c), []).append((i, jpeg))
+            for c, members in by_class.items():
+                with tarfile.open(root / split / f"{synset(c)}.tar", "w") as tf:
+                    for i, jpeg in members:
+                        info = tarfile.TarInfo(f"{synset(c)}/{split}_{i:06d}.JPEG")
+                        info.size = len(jpeg)
+                        tf.addfile(info, io.BytesIO(jpeg))
+
+
+def run_imagenet_tar(card: str, train: LabeledImages, test: LabeledImages) -> tuple[int, int]:
+    """Phase 19: ImageNetSiftLcsFV from JPEG tars through ``--streamIngest
+    --deviceDecode``, on one training image per class and the first 500
+    test images of phase 17, then in memory on the same pixel arrays.
+    Returns the decode and fv_stats launches of the tar path."""
+    first: dict = {}
+    for i, c in enumerate(train.labels):
+        first.setdefault(int(c), i)
+    keep = sorted(first.values())
+    sub_train = LabeledImages([train.images[i] for i in keep], train.labels[keep],
+                              [train.filenames[i] for i in keep])
+    sub_test = LabeledImages(test.images[:IMAGENET_TAR_TEST], test.labels[:IMAGENET_TAR_TEST],
+                             test.filenames[:IMAGENET_TAR_TEST])
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        write_imagenet_tars(root, {"train": sub_train, "test": sub_test})
+        encode_secs = time.perf_counter() - t
+        tar_bytes = sum(p.stat().st_size for p in root.glob("*/*.tar"))
+        log(f"ImageNet JPEG tars: {len(sub_train)} + {len(sub_test)} images encoded in "
+            f"{encode_secs:.1f} s")
+        for counter in (ingest.counters, native_entropy.counters, image_loaders.skipped):
+            counter.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        jd.launches = jd.decode_launches = fs.launches = 0
+        with BranchLaunches() as by_branch:
+            res = inet.main([
+                "--trainLocation", str(root / "train"), "--testLocation", str(root / "test"),
+                "--labelPath", str(root / "labels.txt"), "--streamIngest", "--deviceDecode",
+                "--numClasses", str(IMAGENET_CLASSES), "--device", "cuda",
+            ])
+        decode_launches, fv_launches, idct_launches = jd.decode_launches, fs.launches, jd.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # The native entropy pass ran with nothing skipped or routed away, and
+    # every pass over a split saw the same survivors (the source checks
+    # their names; here their counts).
+    chunks = 0
+    for split, passes in res["ingest"].items():
+        want = len(sub_train) if split == "train" else len(sub_test)
+        if len(passes) != 2 or any(p["decoded"] != want for p in passes):
+            raise AssertionError(f"{split}: passes {passes}")
+        for st in passes:
+            if st["entropy_backend"] != "native":
+                raise AssertionError(f"{split}: entropy backend {st['entropy_backend']!r}")
+            if st["skipped"] or st["device_fallbacks"] or st["entropy_corrupt"]:
+                raise AssertionError(f"{split}: skips or fallbacks in the stream: {st}")
+            chunks += st["batches"]
+    if ingest.counters or native_entropy.counters or image_loaders.skipped:
+        raise AssertionError(f"counted events: {ingest.counters} {native_entropy.counters} "
+                             f"{image_loaders.skipped}")
+    # The fused decode ran (two launches a chunk), the IDCT entry never did,
+    # and the statistics kernel ran in both branches.
+    if not (decode_launches >= 2 * chunks and idct_launches == 0
+            and all(by_branch[b] > 0 for b in inet.BRANCHES)):
+        raise AssertionError(f"launches: decode {decode_launches}, idct {idct_launches}, "
+                             f"fv_stats by branch {by_branch}, {chunks} chunks")
+    rec = imagenet_record(res)
+    del res
+    torch.cuda.empty_cache()
+    memory = inet.run(inet.ImageNetSiftLcsFVConfig(num_classes=IMAGENET_CLASSES, device="cuda"), sub_train, sub_test)
+    if not abs(rec["top5_err_percent"] - memory["top5_err_percent"]) <= 2.0:
+        raise AssertionError(f"top-5 error from JPEG tars {rec['top5_err_percent']}% vs "
+                             f"{memory['top5_err_percent']}% in memory on the same pixels")
+    log(json.dumps({
+        "main_path": "ImageNetSiftLcsFV from JPEG tars, --streamIngest --deviceDecode",
+        "card": card, "train_images": len(sub_train), "test_images": len(sub_test),
+        **rec, "top5_err_percent_in_memory": memory["top5_err_percent"],
+        "top1_err_percent_in_memory": memory["top1_err_percent"],
+        "peak_memory_gb": peak_gb, "encode_seconds": encode_secs,
+        "tar_bytes_per_image": tar_bytes / (len(sub_train) + len(sub_test)),
+        "chunks": chunks, "decode_launches": decode_launches, "idct_launches": idct_launches,
+        "fv_stats_launches": fv_launches, "fv_stats_launches_by_branch": by_branch,
+    }))
+    return decode_launches, fv_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -1330,6 +1731,12 @@ def smoke(data_dir: Path) -> int:
     torch.cuda.empty_cache()
     fv_served = {n: time_fv_stats(n, gen) for n in FV_SERVED}
     torch.cuda.empty_cache()
+    fv_imagenet = {}
+    for branch, (cols, ragged) in FV_IMAGENET.items():
+        fv_imagenet[branch] = check_fv_stats((8, 64, cols, 16, ragged), gen, timed=False)
+        fv_imagenet[branch]["by_batch"] = {
+            n: time_fv_stats(n, gen, 64, cols, 16, plain=True) for n in FV_IMAGENET_BATCHES}
+        torch.cuda.empty_cache()
     log("fv_stats library_ms: null (no single PyTorch call computes GMM "
         "posteriors and their weighted moments)")
     idct_prod = check_idct(IDCT_PROD, gen, timed=True)
@@ -1415,6 +1822,10 @@ def smoke(data_dir: Path) -> int:
     run_timit(card)
     random_cifar_rec = run_cifar_variants(card, train_path, test_path)
     run_newsgroups(card)
+    torch.cuda.empty_cache()
+    inet_launches, inet_train, inet_test = run_imagenet(card)
+    inet_tar_decode, inet_tar_fv = run_imagenet_tar(card, inet_train, inet_test)
+    del inet_train, inet_test
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -1450,9 +1861,11 @@ def smoke(data_dir: Path) -> int:
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/fv_stats.cu",
         "replaces": "keystone_tpu/ops/fv_pallas.py:95",
-        "launches": voc_launches + tar_fv_launches,
-        "launches_by_path": {"voc_in_memory": voc_launches, "voc_jpeg_tars": tar_fv_launches},
-        "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd]),
+        "launches": voc_launches + tar_fv_launches + inet_launches + inet_tar_fv,
+        "launches_by_path": {"voc_in_memory": voc_launches, "voc_jpeg_tars": tar_fv_launches,
+                             "imagenet_in_memory": inet_launches,
+                             "imagenet_jpeg_tars": inet_tar_fv},
+        "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd, *fv_imagenet.values()]),
         "ms": fv_prod["ms"],
         "plain_ms": fv_prod["plain_ms"],
         "bound_ms": fv_prod["bound_ms"],
@@ -1462,12 +1875,20 @@ def smoke(data_dir: Path) -> int:
                         str(FV_PROD[0]): fv_prod["ms"]},
         "bound_share": {**{str(n): r["bound_share"] for n, r in fv_served.items()},
                         str(FV_PROD[0]): fv_prod["bound_share"]},
+        "imagenet": {branch: {
+            "shape": [64, FV_IMAGENET[branch][0]], "k": 16, "max_abs_err": r["max_abs_err"],
+            "bound_by": r["by_batch"][1]["bound_by"],
+            **{key: {str(n): t[key] for n, t in r["by_batch"].items()}
+               for key in ("ms", "plain_ms", "bound_ms", "bound_share")},
+        } for branch, r in fv_imagenet.items()},
     }, {
         "name": "decode_pixels",
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/idct.cu",
         "replaces": "keystone_tpu/ops/jpeg_device.py:743",
-        "launches": decode_launches,
+        "launches": decode_launches + inet_tar_decode,
+        "launches_by_path": {"voc_jpeg_tars": decode_launches,
+                             "imagenet_jpeg_tars": inet_tar_decode},
         "max_abs_err": max(r["max_abs_err"] for r in decode_checks),
         "ms": decode_times[64]["ms"],
         "plain_ms": decode_times[64]["plain_ms"],

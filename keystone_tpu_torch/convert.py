@@ -3,11 +3,13 @@
 :func:`from_arrays` (RandomPatchCifar), :func:`voc_from_arrays`
 (VOCSIFTFisher), :func:`mnist_from_arrays` (MnistRandomFFT),
 :func:`timit_from_arrays` (TimitPipeline), :func:`random_cifar_from_arrays`
-(RandomCifar) and :func:`newsgroups_from_arrays` (NewsgroupsPipeline)
+(RandomCifar), :func:`newsgroups_from_arrays` (NewsgroupsPipeline) and
+:func:`imagenet_from_arrays` (ImageNetSiftLcsFV)
 rebuild the port's fitted nodes and servable pipeline on a chosen device
 from plain arrays, whichever implementation fitted them (the JAX package or
 the port itself); :func:`to_arrays`, :func:`voc_to_arrays`,
-:func:`mnist_to_arrays` and :func:`timit_to_arrays` are inverses for a
+:func:`mnist_to_arrays`, :func:`timit_to_arrays` and
+:func:`imagenet_to_arrays` are inverses for a
 servable the port fitted.  The tests push one fitted state through both
 packages this way.
 """
@@ -25,7 +27,7 @@ from .ops.fisher import FisherVector
 from .ops.sparse import SparseFeatureVectorizer
 from .ops.sift import SIFTExtractor
 from .ops.stats import CosineRandomFeatures, StandardScalerModel
-from .ops.util import MaxClassifier
+from .ops.util import MaxClassifier, ZipVectors
 from .solvers.block import BlockLinearMapper
 from .solvers.gmm import GaussianMixtureModel
 from .solvers.linear import LinearMapper
@@ -34,6 +36,7 @@ from .solvers.pca import BatchPCATransformer
 from .solvers.whitening import ZCAWhitener
 from .utils.platform import resolve_device
 from .workloads import mnist_random_fft as mnist
+from .workloads import imagenet_sift_lcs_fv as imagenet
 from .workloads import newsgroups, random_cifar, timit
 from .workloads.voc_sift_fisher import SIFTFisherConfig, servable_pipeline
 
@@ -329,3 +332,71 @@ def newsgroups_from_arrays(
     model = NaiveBayesModel(t(pi), t(theta))
     servable = Pipeline([newsgroups.text_pipeline(n_grams), vectorizer, model, MaxClassifier()])
     return FittedNewsgroups(vectorizer, model, servable)
+
+
+@dataclass
+class FittedImageNet:
+    """Both branches' PCA and GMM and the weighted block model, with the
+    configuration whose descriptor settings fit them."""
+
+    bundle: dict  #: {sift_pca, sift_gmm, lcs_pca, lcs_gmm, model}, as ``run`` returns it
+    conf: imagenet.ImageNetSiftLcsFVConfig
+
+    def scores(self, images: list) -> torch.Tensor:
+        """Per-class scores of new images: both branches' features
+        (``branch_test_features``), concatenated, through the model."""
+        feats = [
+            imagenet.branch_test_features(
+                self.conf, images, b, self.bundle[f"{b}_pca"], self.bundle[f"{b}_gmm"]
+            )
+            for b in imagenet.BRANCHES
+        ]
+        return self.bundle["model"](ZipVectors.apply(feats))
+
+
+def imagenet_from_arrays(
+    *, sift_pca_mat, sift_gmm_means, sift_gmm_variances, sift_gmm_weights,
+    lcs_pca_mat, lcs_gmm_means, lcs_gmm_variances, lcs_gmm_weights, model_xs, model_b,
+    block_size: int = 4096, sift_scale_step: int = 1, lcs_stride: int = 4,
+    lcs_border: int = 16, lcs_patch: int = 6, device="cuda",
+) -> FittedImageNet:
+    """Build the fitted ImageNetSiftLcsFV state from arrays.
+
+    *_pca_mat [128 or 96, dims]; *_gmm_means/variances [dims, k];
+    *_gmm_weights [k]; model_xs: list of [d_i, C] blocks (SIFT's features
+    first); model_b [C]."""
+    _, t = _tensor_fn(device)
+    bundle = {}
+    for b, pca_mat, means, variances, weights in (
+        ("sift", sift_pca_mat, sift_gmm_means, sift_gmm_variances, sift_gmm_weights),
+        ("lcs", lcs_pca_mat, lcs_gmm_means, lcs_gmm_variances, lcs_gmm_weights),
+    ):
+        bundle[f"{b}_pca"] = BatchPCATransformer(t(pca_mat))
+        bundle[f"{b}_gmm"] = GaussianMixtureModel(t(means), t(variances), t(weights))
+    bundle["model"] = BlockLinearMapper([t(x) for x in model_xs], block_size, t(model_b))
+    means = np.asarray(sift_gmm_means)
+    conf = imagenet.ImageNetSiftLcsFVConfig(
+        desc_dim=means.shape[0], vocab_size=means.shape[1], sift_scale_step=sift_scale_step,
+        lcs_stride=lcs_stride, lcs_border=lcs_border, lcs_patch=lcs_patch, device=device,
+    )
+    return FittedImageNet(bundle, conf)
+
+
+def imagenet_to_arrays(bundle: dict, conf) -> dict:
+    """The keyword arguments of :func:`imagenet_from_arrays` for a fitted
+    bundle (``run(...)["bundle"]``) and the configuration that fitted it."""
+    out = {}
+    for b in imagenet.BRANCHES:
+        gmm = bundle[f"{b}_gmm"]
+        out.update({
+            f"{b}_pca_mat": _arrays(bundle[f"{b}_pca"].pca_mat),
+            f"{b}_gmm_means": _arrays(gmm.means),
+            f"{b}_gmm_variances": _arrays(gmm.variances),
+            f"{b}_gmm_weights": _arrays(gmm.weights),
+        })
+    model = bundle["model"]
+    return dict(
+        out, model_xs=[_arrays(x) for x in model.xs], model_b=_arrays(model.b),
+        block_size=model.block_size, sift_scale_step=conf.sift_scale_step,
+        lcs_stride=conf.lcs_stride, lcs_border=conf.lcs_border, lcs_patch=conf.lcs_patch,
+    )

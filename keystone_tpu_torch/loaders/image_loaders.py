@@ -1,5 +1,5 @@
-"""VOC tar loader (counterpart of keystone_tpu/loaders/image_loaders.py,
-eager VOC subset).
+"""VOC and ImageNet tar loaders (counterpart of
+keystone_tpu/loaders/image_loaders.py, eager subset).
 
 Images decode on the host with PIL into ``f32[H, W, 3]`` BGR arrays in
 [0, 255]; grayscale images are tripled, and images under ``MIN_DIM`` pixels
@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 
 VOC_NUM_CLASSES = 20
+IMAGENET_NUM_CLASSES = 1000
 MIN_DIM = 36
 
 #: Decodes a stream keeps in flight beyond the pool width: a small constant
@@ -47,6 +48,16 @@ def decode_ahead() -> int:
 class MultiLabeledImages:
     images: list  # of f32[H, W, 3] BGR arrays
     labels: list  # of list[int]
+    filenames: list
+
+    def __len__(self):
+        return len(self.images)
+
+
+@dataclass
+class LabeledImages:
+    images: list  # of f32[H, W, 3] BGR arrays
+    labels: np.ndarray  # [N] int32
     filenames: list
 
     def __len__(self):
@@ -143,3 +154,34 @@ def voc_loader(
         labels.append(labels_map[name])
         filenames.append(name)
     return MultiLabeledImages(images, labels, filenames)
+
+
+def imagenet_labels_map(labels_path: str) -> dict[str, int]:
+    """Parse the space-separated ``synset class-id`` labels file."""
+    labels_map: dict[str, int] = {}
+    with open(labels_path) as fh:
+        for line in fh:
+            parts = line.split()
+            if len(parts) >= 2:
+                labels_map[parts[0]] = int(parts[1])
+    return labels_map
+
+
+def imagenet_loader(data_path: str, labels_path: str) -> LabeledImages:
+    """ImageNet loader: each tar (a file, or every tar of a directory in
+    name order) holds synset directories; a member is kept when its
+    directory is a synset of the labels file, and labelled with its id."""
+    labels_map = imagenet_labels_map(labels_path)
+    images, labels, filenames = [], [], []
+    for name, data in _iter_tar_members(data_path):
+        synset = name.split("/")[0]
+        if synset not in labels_map:
+            continue
+        img = decode_image(data)
+        if img is None:
+            skipped["corrupt_image"] += 1
+            continue
+        images.append(img)
+        labels.append(labels_map[synset])
+        filenames.append(name)
+    return LabeledImages(images, np.asarray(labels, np.int32), filenames)

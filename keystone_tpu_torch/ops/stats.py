@@ -60,6 +60,32 @@ class Sampler:
         return data[idx.to(data.device)]
 
 
+class ColumnSampler:
+    """Sample columns without replacement from descriptor matrices:
+    ``[N, d, cols]`` or a list of ``[d, cols_i]`` -> ``[d, num_samples]``
+    (all columns when there are no more than ``num_samples``).
+
+    Draws from its own ``torch.Generator`` seeded with ``seed``; it does not
+    reproduce the JAX package's ``jax.random.choice`` columns."""
+
+    def __init__(self, num_samples: int, seed: int = 42):
+        self.num_samples = num_samples
+        self.seed = seed
+
+    def __call__(self, mats):
+        if isinstance(mats, (list, tuple)):
+            cols = torch.cat(list(mats), dim=1)
+        else:
+            n, d, c = mats.shape
+            cols = mats.permute(1, 0, 2).reshape(d, n * c)
+        total = cols.shape[1]
+        if total <= self.num_samples:
+            return cols
+        gen = torch.Generator().manual_seed(self.seed)
+        idx = torch.randperm(total, generator=gen)[: self.num_samples]
+        return cols[:, idx.to(cols.device)]
+
+
 class NormalizeRows(Transformer):
     """L2-normalise each row, the norm floored at 2.2e-16."""
 

@@ -56,6 +56,30 @@ class MaxClassifier(Transformer):
         return torch.argmax(batch, dim=-1)
 
 
+class TopKClassifier(Transformer):
+    """Top-k class indices, best first (``torch.topk``, sorted).  Equal
+    scores may come out in another order than ``jax.lax.top_k``'s."""
+
+    def __init__(self, k: int):
+        self.k = k
+
+    def __call__(self, batch):
+        return torch.topk(batch, self.k, dim=-1, sorted=True).indices
+
+
+class Cast(Transformer):
+    """dtype cast (the reference's FloatToDouble, generalised)."""
+
+    def __init__(self, dtype: torch.dtype):
+        self.dtype = dtype
+
+    def __call__(self, batch):
+        return batch.to(self.dtype)
+
+
+FloatToDouble = Cast  # alias; pass torch.float64
+
+
 class ZipVectors(FunctionNode):
     """Concatenate a sequence of feature batches along the feature axis."""
 

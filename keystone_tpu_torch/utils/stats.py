@@ -17,6 +17,11 @@ def classification_error(predicted, actual, k: int = 1) -> float:
     return float(1.0 - hits.mean())
 
 
+def get_err_percent(predicted, actual, k: int = 1) -> float:
+    """:func:`classification_error` in percent."""
+    return 100.0 * classification_error(predicted, actual, k)
+
+
 def normalize_rows(mat: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
     """Per row ``(x - mean) / sqrt(var + alpha)``, sample (n-1) variance."""
     mean = mat.mean(dim=1, keepdim=True)

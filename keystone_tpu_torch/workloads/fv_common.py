@@ -8,10 +8,13 @@ The streaming helpers build the same buckets from a ``core.ingest`` stream.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Callable
+
 import numpy as np
 import torch
 
-from ..core.ingest import StreamConfig
+from ..core.ingest import StreamConfig, stream_batches
 from ..core.pipeline import Pipeline
 from ..ops.fisher import FisherVector
 from ..ops.images import GrayScaler, PixelScaler
@@ -29,6 +32,30 @@ def bucket_by_shape(images: list) -> dict:
         shape: (np.asarray(idx), np.stack([images[i] for i in idx]))
         for shape, idx in groups.items()
     }
+
+
+def chunked(describe, pixels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``describe`` on ``chunk`` images at a time, concatenated: it bounds
+    the intermediates of one call; no image's result depends on it."""
+    if pixels.shape[0] <= chunk:
+        return describe(pixels)
+    return torch.cat([describe(pixels[i : i + chunk]) for i in range(0, pixels.shape[0], chunk)])
+
+
+def describe_buckets(images: list, describe, device, chunk: int) -> dict:
+    """Per shape bucket of ``images`` (per-image arrays): (original indices,
+    ``describe`` of the bucket's images on ``device``), run ``chunk``
+    images at a time into one preallocated tensor."""
+    out = {}
+    for shape, (idx, batch) in bucket_by_shape(images).items():
+        descs = None
+        for i in range(0, len(idx), chunk):
+            part = describe(torch.from_numpy(batch[i : i + chunk]).to(device))
+            if descs is None:
+                descs = torch.empty((len(idx), *part.shape[1:]), dtype=part.dtype, device=device)
+            descs[i : i + part.shape[0]] = part
+        out[shape] = (idx, descs)
+    return out
 
 
 def grayscale(batch: torch.Tensor) -> torch.Tensor:
@@ -88,6 +115,71 @@ def stream_config_from_flags(*, device_decode: bool = False) -> StreamConfig:
     ``--deviceDecode`` selecting ``decode_mode="device"`` (the entropy pass
     on the host, the pixels born on the card)."""
     return StreamConfig(decode_mode="device" if device_decode else "host")
+
+
+@dataclass
+class StreamSource:
+    """Streaming stand-in for a loader's labelled images (``core.ingest``):
+    each pass decodes the tar(s) at ``data_path`` while the device
+    featurizes.  ``keep(name)`` selects the members and ``label(name)``
+    labels them.  Every pass over one source must see the same survivors in
+    the same order (features of passes are joined row by row), which
+    :meth:`record_names` checks; ``labels``, ``filenames`` and ``len`` are
+    known after the first pass."""
+
+    data_path: str
+    keep: Callable[[str], bool]
+    label: Callable[[str], object]
+    batch_size: int = 32
+    #: ``--deviceDecode``: entropy pass on the host, pixels born on the card
+    device_decode: bool = False
+
+    def __post_init__(self):
+        self._names: list | None = None
+        #: the ``core.ingest.StreamStats`` of every pass, in order
+        self.stream_stats: list = []
+
+    @property
+    def images(self) -> "StreamSource":
+        # A workload passes ``data.images`` to its extractor; for a stream
+        # source the "images" are the source.
+        return self
+
+    def record_names(self, names: list) -> None:
+        if self._names is None:
+            self._names = names
+        elif self._names != names:
+            raise RuntimeError(
+                "streaming ingest order drifted between passes "
+                f"({len(self._names)} vs {len(names)} survivors): features of "
+                "different images would be joined"
+            )
+
+    @property
+    def filenames(self) -> list:
+        if self._names is None:
+            raise RuntimeError("StreamSource read before its first pass")
+        return self._names
+
+    @property
+    def labels(self) -> list:
+        return [self.label(n) for n in self.filenames]
+
+    def __len__(self) -> int:
+        return len(self.filenames)
+
+    def run_pass(self, device: torch.device, consume):
+        """One pass: ``consume`` (a ``core.ingest`` stream -> (result,
+        names in stream-ordinal order)) over the kept members, decoded for
+        ``device``.  Records the names and the pass's stats; returns the
+        result."""
+        cfg = stream_config_from_flags(device_decode=self.device_decode)
+        with stream_batches(self.data_path, self.batch_size, keep=self.keep, config=cfg,
+                            device=device) as st:
+            out, names = consume(st)
+        self.record_names(names)
+        self.stream_stats.append(st.stats)
+        return out
 
 
 def _ordered_names(pairs: list, n: int) -> list:

@@ -28,7 +28,6 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
-from ..core.ingest import stream_batches
 from ..core.pipeline import FunctionTransformer, Pipeline
 from ..evaluation.map import MeanAveragePrecisionEvaluator
 from ..loaders.image_loaders import (
@@ -45,12 +44,13 @@ from ..solvers.pca import BatchPCATransformer, compute_pca
 from ..utils.platform import resolve_device, synchronize
 from ..utils.stats import check_finite
 from .fv_common import (
-    bucket_by_shape,
+    StreamSource,
+    chunked,
+    describe_buckets,
     fisher_feature_pipeline,
     grayscale,
     sample_columns,
     scatter_features,
-    stream_config_from_flags,
     stream_descriptor_buckets,
 )
 
@@ -61,56 +61,18 @@ _log = logging.getLogger(__name__)
 SIFT_CHUNK = 32
 
 
-@dataclass
-class VOCStreamSource:
-    """Streaming stand-in for :class:`MultiLabeledImages` (``core.ingest``):
-    the tar is decoded while the device runs SIFT, instead of all of it
-    first.  ``labels``, ``filenames`` and ``len`` become available after the
-    descriptor pass has recorded the decode-survival order."""
-
-    data_path: str
-    labels_path: str
-    name_prefix: str = "VOCdevkit/VOC2007/JPEGImages/"
-    batch_size: int = 64
-    #: ``--deviceDecode``: entropy pass on the host, pixels born on the card
-    device_decode: bool = False
-
-    def __post_init__(self):
-        self._names: list | None = None
-        self._labels_map: dict | None = None
-        #: the ``core.ingest.StreamStats`` of the last descriptor pass
-        self.stream_stats = None
-
-    @property
-    def images(self) -> "VOCStreamSource":
-        # The workload passes ``data.images`` to the descriptor extractor;
-        # for a stream source the "images" are the source.
-        return self
-
-    def labels_map(self) -> dict:
-        if self._labels_map is None:
-            self._labels_map = voc_labels_map(self.labels_path)
-        return self._labels_map
-
-    def record_names(self, names: list) -> None:
-        self._names = names
-
-    @property
-    def filenames(self) -> list:
-        if self._names is None:
-            raise RuntimeError(
-                "VOCStreamSource.filenames before the descriptor pass — the "
-                "streaming extract must run first (it records image order)"
-            )
-        return self._names
-
-    @property
-    def labels(self) -> list:
-        lm = self.labels_map()
-        return [lm[n] for n in self.filenames]
-
-    def __len__(self) -> int:
-        return len(self.filenames)
+def voc_stream_source(
+    data_path: str, labels_path: str, name_prefix: str = "VOCdevkit/VOC2007/JPEGImages/",
+    batch_size: int = 64, device_decode: bool = False,
+) -> StreamSource:
+    """Streaming stand-in for :func:`voc_loader`: the members under
+    ``name_prefix`` that the labels CSV names, labelled with their class
+    lists, decoded while the device runs SIFT."""
+    lm = voc_labels_map(labels_path)
+    return StreamSource(
+        data_path, keep=lambda name: name.startswith(name_prefix) and name in lm,
+        label=lm.__getitem__, batch_size=batch_size, device_decode=device_decode,
+    )
 
 
 @dataclass
@@ -144,42 +106,19 @@ def make_sift(conf: SIFTFisherConfig) -> SIFTExtractor:
 def extract_sift_buckets(conf: SIFTFisherConfig, images) -> dict:
     """Per shape bucket: grayscale + dense SIFT -> (indices, [n, 128, cols])
     on the configured device, in chunks of ``SIFT_CHUNK`` images.
-    ``images`` is a list of arrays, or a :class:`VOCStreamSource` whose tar
+    ``images`` is a list of arrays, or a :class:`StreamSource` whose tar
     is streamed (and, with ``device_decode``, decoded on the device)."""
     dev = resolve_device(conf.device)
     sift = make_sift(conf)
-    if isinstance(images, VOCStreamSource):
-        src = images
-        lm = src.labels_map()
 
-        def keep(name: str) -> bool:
-            return name.startswith(src.name_prefix) and name in lm
+    def describe(pixels: torch.Tensor) -> torch.Tensor:
+        return sift(grayscale(pixels))
 
-        def featurize(pixels: torch.Tensor) -> torch.Tensor:
-            # A stream chunk may hold more images than SIFT_CHUNK: run SIFT
-            # on sub-chunks so its intermediates stay bounded.
-            return torch.cat([
-                sift(grayscale(pixels[i : i + SIFT_CHUNK]))
-                for i in range(0, pixels.shape[0], SIFT_CHUNK)
-            ])
-
-        cfg = stream_config_from_flags(device_decode=src.device_decode)
-        with stream_batches(src.data_path, src.batch_size, keep=keep, config=cfg,
-                            device=dev) as st:
-            buckets, names = stream_descriptor_buckets(st, featurize)
-        src.record_names(names)
-        src.stream_stats = st.stats
-        return buckets
-    out = {}
-    for shape, (idx, batch) in bucket_by_shape(images).items():
-        descs = None
-        for i in range(0, len(idx), SIFT_CHUNK):
-            part = sift(grayscale(torch.from_numpy(batch[i : i + SIFT_CHUNK]).to(dev)))
-            if descs is None:
-                descs = torch.empty((len(idx), *part.shape[1:]), dtype=part.dtype, device=dev)
-            descs[i : i + part.shape[0]] = part
-        out[shape] = (idx, descs)
-    return out
+    if isinstance(images, StreamSource):
+        # A stream chunk may hold more images than SIFT_CHUNK.
+        return images.run_pass(dev, lambda st: stream_descriptor_buckets(
+            st, lambda pixels: chunked(describe, pixels, SIFT_CHUNK)))
+    return describe_buckets(images, describe, dev, SIFT_CHUNK)
 
 
 def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledImages) -> dict:
@@ -250,9 +189,9 @@ def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledIma
 
     aps = MeanAveragePrecisionEvaluator(test.labels, scores, VOC_NUM_CLASSES)
     ingest_stats = {
-        split: asdict(src.stream_stats)
+        split: asdict(src.stream_stats[-1])
         for split, src in (("train", train), ("test", test))
-        if isinstance(src, VOCStreamSource)
+        if isinstance(src, StreamSource)
     }
     results = {
         "aps": aps,
@@ -344,8 +283,8 @@ def main(argv=None) -> dict:
     resolve_device(conf.device)
     if a.streamIngest:
         train, test = (
-            VOCStreamSource(path, conf.label_path, batch_size=a.streamBatchSize,
-                            device_decode=a.deviceDecode)
+            voc_stream_source(path, conf.label_path, batch_size=a.streamBatchSize,
+                              device_decode=a.deviceDecode)
             for path in (conf.train_location, conf.test_location)
         )
     else:

@@ -101,6 +101,29 @@ def test_kernel_matches_reference_on_card(cuda_device, n, cols, d, k, ragged):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,cols,ragged", [
+    (2, 10062, True),  # LCS descriptors of a 375x500 image
+    (2, 40584, False),  # SIFT descriptors (step 3, scale step 1) of a 375x500 image
+    (3, 8892, False),  # LCS at 333x500
+])
+def test_kernel_at_imagenet_shapes(cuda_device, n, cols, ragged):
+    # ImageNetSiftLcsFV's GMM: 16 components over 64 PCA dimensions.
+    x, counts, means, variances, weights = _case(n, cols, 64, 16, ragged, cuda_device, seed=5)
+    before = fs.launches
+    got = fs.fv_stats(x, counts, means, variances, weights)
+    assert fs.launches == before + 1
+    gmm64 = (means.double(), variances.double(), weights.double())
+    ref_fv = _fv(fs.fv_stats_reference(x.double(), counts, *gmm64), counts, cols, *gmm64)
+    got_fv = _fv(got, counts, cols, means, variances, weights).double()
+    torch.testing.assert_close(got_fv, ref_fv, rtol=2e-4, atol=2e-5 * ref_fv.abs().max().item())
+    for i in range(n):
+        alone = fs.fv_stats(x[i : i + 1].contiguous(), None if counts is None else counts[i : i + 1],
+                            means, variances, weights)
+        for b, a in zip(got, alone):
+            assert torch.equal(b[i], a[0])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cols", [fs.SPLIT_COLS, 2 * fs.SPLIT_COLS + 5])
 def test_counts_of_zero_and_of_one_split(cuda_device, cols):
     x, _, means, variances, weights = _case(4, cols, 24, 8, False, cuda_device)

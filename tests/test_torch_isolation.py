@@ -53,7 +53,8 @@ def test_port_and_smoke_import_no_jax():
     for name in ("workloads.cifar_random_patch", "ops.rect_pool", "workloads.voc_sift_fisher",
                  "ops.fv_stats", "ops.sift", "solvers.gmm", "loaders.image_loaders",
                  "ops.jpeg_device", "ops.native_entropy", "core.ingest",
-                 "testing.jpeg_encode"):
+                 "testing.jpeg_encode", "ops.lcs", "solvers.weighted",
+                 "workloads.imagenet_sift_lcs_fv"):
         assert f"keystone_tpu_torch.{name}" in rec["imported"]
     mods = rec["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
