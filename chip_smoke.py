@@ -108,7 +108,7 @@ which raises (and so exits non-zero) on failure:
    naive-Bayes scores card against CPU within 1e-5·max with equal
    predictions on 2,000 documents.  The kernels' counters do not move;
 16. one JSON line per the kernels, the card line, and the final JSON
-   line, printed last, after phases 17-19;
+   line, printed last, after phases 17-21;
 17. ImageNetSiftLcsFV at BASELINE config 5's width (1,000 classes; SIFT
    step 3 at scale step 1 with bf16 intermediates, then a signed square
    root; LCS (4, 16, 6); PCA to 64; 16 Gaussians; 4,096 features; the
@@ -132,7 +132,21 @@ which raises (and so exits non-zero) on failure:
    every pass over a split seeing the same survivors, the fused decode
    launched and the IDCT entry not, the statistics kernel in both
    branches, and the top-5 error below 50 % and within 2 points of an
-   in-memory run on the same pixel arrays.
+   in-memory run on the same pixel arrays;
+20. HOG and DAISY on the card at VOC's shapes: one 64-image batch of
+   phase 6's generator at 375x500 and one at 500x375, HOG at bin size 8 on
+   the RGB pixels in [0, 1] and DAISY at its defaults on the grayscale.
+   Checks: the output shapes (61x45 and 45x61 cells of 32 features;
+   10,062 keypoints of 200), all finite, two card runs ``torch.equal``,
+   four images on the card ``torch.equal`` to the CPU, and no hand-kernel
+   launch; prints each batch's median time (CUDA events), the
+   images per second and the phase's peak device memory;
+21. StupidBackoffPipeline and CoreNLP on the host: the lines of 2,000
+   synthetic documents through ``stupid_backoff.main`` (16 parts, n 3; the
+   sharded scores must equal the single table's), then
+   ``CoreNLPFeatureExtractor((1, 2, 3))`` over 1,000 of them; prints the
+   token, vocabulary and n-gram counts and the host seconds.  Nothing may
+   be allocated on the card and no kernel counter may move.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -177,7 +191,10 @@ from keystone_tpu_torch.ops import fv_stats as fs
 from keystone_tpu_torch.ops import jpeg_device as jd
 from keystone_tpu_torch.ops import native_entropy
 from keystone_tpu_torch.ops import rect_pool as rp
+from keystone_tpu_torch.ops.corenlp import CoreNLPFeatureExtractor
+from keystone_tpu_torch.ops.daisy import DaisyExtractor
 from keystone_tpu_torch.ops.fisher import _fv_from_stats
+from keystone_tpu_torch.ops.hog import HogExtractor
 from keystone_tpu_torch.ops.images import convolver_epilogue
 from keystone_tpu_torch.ops.lcs import LCSExtractor
 from keystone_tpu_torch.ops.sift import SIFTExtractor
@@ -190,7 +207,13 @@ from keystone_tpu_torch.testing.jpeg_encode import encode_jpeg
 from keystone_tpu_torch.utils.platform import resolve_device
 from keystone_tpu_torch.workloads import cifar_random_patch as cifar
 from keystone_tpu_torch.workloads import imagenet_sift_lcs_fv as inet
-from keystone_tpu_torch.workloads import linear_pixels, newsgroups, random_cifar, timit
+from keystone_tpu_torch.workloads import (
+    linear_pixels,
+    newsgroups,
+    random_cifar,
+    stupid_backoff,
+    timit,
+)
 from keystone_tpu_torch.workloads import mnist_random_fft as mnist
 from keystone_tpu_torch.workloads import voc_sift_fisher as voc
 from keystone_tpu_torch.workloads.fv_common import fisher_feature_pipeline, grayscale
@@ -295,6 +318,21 @@ RANDOM_CIFAR_FLAGS = [
 NG_TRAIN, NG_TEST = 11_314, 7_532
 NG_FLAGS = ["--nGrams", "2", "--commonFeatures", "100000", "--device", "cuda"]
 NG_CARD_VS_CPU_DOCS = 2000
+
+# HOG (bin size 8) and DAISY (the defaults) on one 64-image batch of each
+# VOC shape; the expected rows per image (HOG's cells less a border of
+# one, DAISY's keypoints from border 16 by stride 4); four images of each
+# are held to the CPU bit for bit.
+DESC_BATCH = 64
+HOG_BIN = 8
+DESC_ROWS = {(375, 500): (61 * 45, 117 * 86), (500, 375): (45 * 61, 86 * 117)}
+DESC_CARD_VS_CPU = 4
+
+# StupidBackoffPipeline on the lines of 2,000 synthetic documents (100 per
+# Newsgroups class), CoreNLP on 1,000 of them.
+LM_DOCS_PER_CLASS = 100
+LM_FLAGS = ["--numParts", "16", "--n", "3"]
+CORENLP_DOCS = 1000
 
 
 def log(msg: str) -> None:
@@ -1687,6 +1725,91 @@ def run_imagenet_tar(card: str, train: LabeledImages, test: LabeledImages) -> tu
     return decode_launches, fv_launches
 
 
+def run_descriptors(card: str) -> None:
+    """Phase 20: HOG and DAISY on the card at VOC's two shapes, each checked
+    for shape, finiteness, run-to-run bits and against the CPU, and timed.
+    No hand kernel may launch."""
+    before = kernel_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    voc = voc_images(np.random.default_rng(20), {shape: DESC_BATCH for shape in VOC_SHAPES})
+    nodes = {"hog": HogExtractor(HOG_BIN), "daisy": DaisyExtractor()}
+    rec = {}
+    for shape, rows in DESC_ROWS.items():
+        batch = torch.from_numpy(np.stack([im for im in voc.images if im.shape[:2] == shape]))
+        batch = batch.cuda()
+        inputs = {"hog": batch.flip(-1) / 255.0, "daisy": grayscale(batch)}  # RGB; gray
+        for (name, node), n_rows in zip(nodes.items(), rows):
+            x = inputs[name]
+            out = node(x)
+            if out.shape != (DESC_BATCH, n_rows, 32 if name == "hog" else 200):
+                raise AssertionError(f"{name} at {shape}: output shape {tuple(out.shape)}")
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name} at {shape}: non-finite output")
+            if not torch.equal(node(x), out):
+                raise AssertionError(f"{name} at {shape}: two card runs differ")
+            on_cpu = node(x[:DESC_CARD_VS_CPU].cpu())
+            err = (out[:DESC_CARD_VS_CPU].cpu() - on_cpu).abs().max().item()
+            if not torch.equal(out[:DESC_CARD_VS_CPU].cpu(), on_cpu):
+                raise AssertionError(f"{name} at {shape}: card and CPU differ by {err}")
+            ms = cuda_ms(lambda: node(x), reps=10, warmup=1)
+            rec[f"{name} {shape[0]}x{shape[1]}"] = {
+                "rows": n_rows, "ms": ms, "images_per_sec": DESC_BATCH / (ms / 1e3),
+                "card_vs_cpu_max_abs_err": err,
+            }
+            del out, on_cpu
+        del batch, inputs
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    after = kernel_launches()
+    if after != before:
+        raise AssertionError(f"hand kernels launched in the HOG/DAISY phase: {before} -> {after}")
+    log(json.dumps({"phase": f"HOG (bin 8) and DAISY (defaults) at VOC shapes, batch {DESC_BATCH}",
+                    "card": card, **rec, "peak_memory_gb": peak_gb,
+                    "kernel_launches": after}))
+
+
+def run_text(card: str) -> None:
+    """Phase 21: StupidBackoffPipeline through its CLI and CoreNLP on the
+    host.  Nothing may be allocated on the card, and no kernel counter may
+    move."""
+    before = kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        tokens = write_newsgroups_tree(root / "docs", NG_CLASSES,
+                                       [LM_DOCS_PER_CLASS] * len(NG_CLASSES),
+                                       np.random.default_rng(21))
+        docs = [p.read_text().strip()
+                for c in NG_CLASSES for p in sorted((root / "docs" / c).iterdir())]
+        (root / "lines.txt").write_text("\n".join(docs) + "\n")
+        write_secs = time.perf_counter() - t
+        res = stupid_backoff.main(["--trainData", str(root / "lines.txt"), *LM_FLAGS])
+    if not (res["sharded_scoring_equal"] and res["num_tokens"] == tokens):
+        raise AssertionError(f"StupidBackoff counted {res['num_tokens']} tokens of {tokens}")
+    if sorted(res["shard_sizes"]) != list(range(16)):
+        raise AssertionError(f"StupidBackoff shards {sorted(res['shard_sizes'])}")
+    t = time.perf_counter()
+    grams = CoreNLPFeatureExtractor((1, 2, 3))(docs[:CORENLP_DOCS])
+    corenlp_secs = time.perf_counter() - t
+    if len(grams) != CORENLP_DOCS or not all(grams):
+        raise AssertionError("CoreNLP returned an empty document")
+    after = kernel_launches()
+    if after != before or torch.cuda.max_memory_allocated() != held:
+        raise AssertionError("the host text phase touched the card")
+    rec = {
+        "docs": len(docs), "write_seconds": write_secs,
+        **{k: res[k] for k in ("num_tokens", "vocab_size", "num_ngrams", "seconds")},
+        "shard_size_min": min(res["shard_sizes"].values()),
+        "shard_size_max": max(res["shard_sizes"].values()),
+        "corenlp_docs": CORENLP_DOCS, "corenlp_ngrams": sum(map(len, grams)),
+        "corenlp_seconds": corenlp_secs,
+    }
+    log(json.dumps({"phase": "StupidBackoffPipeline (--numParts 16 --n 3) and CoreNLP (1, 2, 3)",
+                    "card": card, **rec, "kernel_launches": after}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -1826,6 +1949,8 @@ def smoke(data_dir: Path) -> int:
     inet_launches, inet_train, inet_test = run_imagenet(card)
     inet_tar_decode, inet_tar_fv = run_imagenet_tar(card, inet_train, inet_test)
     del inet_train, inet_test
+    run_descriptors(card)
+    run_text(card)
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
