@@ -11,15 +11,17 @@ which raises (and so exits non-zero) on failure:
 2. every kernel entry against its plain PyTorch version on the card, at
    the main path's shape and at the odd shapes, timed with CUDA events:
    rect+pool on activations and fused with the Convolver's epilogue (the
-   fused entry with every flag on and off, and also at served batches of 1
-   and 64 images), the Fisher statistics (also at served batches of 1 and
+   fused entry with every flag on and off, also at served batches of 1
+   and 64 images and at phase 22's [2048, 43, 43, 100] grid of 48 px
+   images), the Fisher statistics (also at served batches of 1 and
    16 images, each as a share of its bound, and at ImageNetSiftLcsFV's
    shapes, d 64 and k 16 over the SIFT and LCS descriptors of a 375x500
    image, timed with the plain version at 1, 32 and 1,000 images), the
    IDCT (also beside one ``torch.einsum`` call, its library yardstick) and
    the whole pixel decode (``torch.equal`` to the PyTorch composition with
    the IDCT kernel in it, for 4:2:0, 4:2:2, 4:4:4 and grayscale at odd
-   sizes);
+   sizes, and for phase 22's 2048-image chunk of 48x48 4:2:0 JPEGs, 3x3
+   MCUs, which is also timed);
 3. the RandomPatchCifar main path at full width (100 filters of 6x6x3,
    pool 14 / stride 13) on seeded synthetic CIFAR-shaped data, 50,000 train
    and 10,000 test images, through
@@ -50,7 +52,8 @@ which raises (and so exits non-zero) on failure:
    ``voc_sift_fisher.main([... "--streamIngest", "--deviceDecode"])``: the
    native entropy pass on the host, the whole pixel decode on the card in
    two launches of the decode kernel.  Checks: the native backend ran with
-   no fallback or skip; one chunk's entropy decode equals the encoder's
+   no fallback or skip and the fault ledger (``core.resilience.counters``)
+   stayed empty; one chunk's entropy decode equals the encoder's
    coefficients exactly; its card decode equals the unfused PyTorch
    composition on the card bit for bit and is within 1 level of the CPU
    decode with >= 99.9 % of pixels equal; MAP >= 0.5 and within 0.05 of
@@ -108,7 +111,7 @@ which raises (and so exits non-zero) on failure:
    naive-Bayes scores card against CPU within 1e-5·max with equal
    predictions on 2,000 documents.  The kernels' counters do not move;
 16. one JSON line per the kernels, the card line, and the final JSON
-   line, printed last, after phases 17-21;
+   line, printed last, after phases 17-22;
 17. ImageNetSiftLcsFV at BASELINE config 5's width (1,000 classes; SIFT
    step 3 at scale step 1 with bf16 intermediates, then a signed square
    root; LCS (4, 16, 6); PCA to 64; 16 Gaussians; 4,096 features; the
@@ -146,33 +149,54 @@ which raises (and so exits non-zero) on failure:
    sharded scores must equal the single table's), then
    ``CoreNLPFeatureExtractor((1, 2, 3))`` over 1,000 of them; prints the
    token, vocabulary and n-gram counts and the host seconds.  Nothing may
-   be allocated on the card and no kernel counter may move.
+   be allocated on the card and no kernel counter may move;
+22. RandomPatchCifar at its defaults (100 filters of 6x6x3, pool 14 /
+   stride 13, alpha 0.25, lambda 10, chunks of 2048) with the test split
+   streamed from a JPEG tar: 50,000 training images of 48x48 in memory
+   (phase 3's recipe at 48 px; the loaders reject images under 36 px) and
+   10,000 test images encoded by the numpy encoder (q90, 4:2:0) into one
+   tar of ``<label>/img_NNNNN.jpg`` members, through
+   ``cifar_random_patch.run`` with ``stream_test_tar`` and
+   ``device_decode`` under ``core.trace``: the native entropy pass on the
+   host, ``decode_pixels`` (K3) and the fused featurizer (K1) on the card.
+   Checks: the decode launched at least twice per chunk and the IDCT entry
+   never, K1's fused entry at least once per chunk and the unfused entry
+   never, the native backend with no skip or fallback, an empty fault
+   ledger, test error below 45 %, predictions equal to a run on the same
+   pixels decoded in memory by ``decode_batch`` on the card, and a trace
+   that ``tools/trace_view.py`` reads holding the five stage spans and the
+   ingest spans; prints the per-stage totals and the decode/consume
+   overlap.  Then phase 3's fit with ``--trace`` and without, to read what
+   tracing costs.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import io
 import json
 import math
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import tarfile
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from keystone_tpu_torch import _build, convert
+from keystone_tpu_torch.core import resilience, trace
+from keystone_tpu_torch.core.logging import stage_timer
 from keystone_tpu_torch.core.pipeline import Pipeline
-from keystone_tpu_torch.core import ingest
-from keystone_tpu_torch.loaders import image_loaders
-from keystone_tpu_torch.loaders.cifar import cifar_loader
+from keystone_tpu_torch.loaders.cifar import LabeledImageBatch, cifar_loader
 from keystone_tpu_torch.loaders.csv_loader import LabeledData
 from keystone_tpu_torch.loaders.image_loaders import (
     VOC_NUM_CLASSES,
@@ -189,7 +213,6 @@ from keystone_tpu_torch.loaders.timit import (
 )
 from keystone_tpu_torch.ops import fv_stats as fs
 from keystone_tpu_torch.ops import jpeg_device as jd
-from keystone_tpu_torch.ops import native_entropy
 from keystone_tpu_torch.ops import rect_pool as rp
 from keystone_tpu_torch.ops.corenlp import CoreNLPFeatureExtractor
 from keystone_tpu_torch.ops.daisy import DaisyExtractor
@@ -233,6 +256,9 @@ MAIN_FLAGS = [
 # ([2048, 27, 27, 100] conv activations) and two odd shapes (F not a
 # multiple of 32, truncated edge windows, odd pool size, max_val != 0).
 PROD = (2048, 27, 27, 100, 13, 14, 0.25, 0.0)
+# Phase 22's chunk: 48 px images give a 43x43 conv grid (48 - 6 + 1), and
+# pool 14 / stride 13 lays 3x3 pools over it (ops/rect_pool.num_pools).
+CIFAR48 = (2048, 43, 43, 100, 13, 14, 0.25, 0.0)
 ODD = [(64, 20, 24, 7, 4, 6, 0.25, 0.0), (64, 16, 16, 3, 5, 5, 0.1, 0.05)]
 # The fused entry's flags (normalize_patches, whitener means), and the
 # served batches it is also timed at.
@@ -264,6 +290,7 @@ IDCT_ODD = [(1, 8, 8), (37, 8, 8), (3, 2, 5, 8, 8)]
 # 64-image 375x500 4:2:0 chunk, then 4:2:2, 4:4:4 and grayscale at odd sizes.
 DECODE_CASES = [
     (64, 375, 500, ((2, 2), (1, 1), (1, 1))),
+    (2048, 48, 48, ((2, 2), (1, 1), (1, 1))),  # phase 22's chunk: 3x3 MCUs
     (3, 45, 61, ((2, 1), (1, 1), (1, 1))),
     (3, 33, 47, ((1, 1), (1, 1), (1, 1))),
     (3, 33, 47, ((1, 1),)),
@@ -327,6 +354,14 @@ DESC_BATCH = 64
 HOG_BIN = 8
 DESC_ROWS = {(375, 500): (61 * 45, 117 * 86), (500, 375): (45 * 61, 86 * 117)}
 DESC_CARD_VS_CPU = 4
+
+# RandomPatchCifar from a JPEG tar (phase 22): 50,000 train images in
+# memory and 10,000 test images in one tar, 48 px (the loaders' MIN_DIM of
+# 36 px rules out 32 px JPEGs); the stage and ingest spans its trace holds.
+CIFAR_TAR_PX, CIFAR_TAR_TEST = 48, 10_000
+TAR_STAGES = ("load", "learn_filters", "featurize", "solve", "eval")
+TAR_INGEST_SPANS = ("ingest.produce", "ingest.entropy_decode", "ingest.ring_put",
+                    "ingest.ring_get", "ingest.consume")
 
 # StupidBackoffPipeline on the lines of 2,000 synthetic documents (100 per
 # Newsgroups class), CoreNLP on 1,000 of them.
@@ -872,8 +907,7 @@ def run_voc_tar(card: str, train, test, memory_map: float) -> tuple[int, int, di
         jpeg_bytes = (root / "test.tar").stat().st_size / len(test)
         log(f"VOC JPEG tars: {len(train)} + {len(test)} images encoded in {encode_secs:.1f} s")
 
-        for counter in (ingest.counters, native_entropy.counters, image_loaders.skipped):
-            counter.clear()
+        resilience.counters.reset()
         torch.cuda.reset_peak_memory_stats()
         jd.launches = jd.decode_launches = fs.launches = 0
         res = voc.main([
@@ -913,9 +947,8 @@ def run_voc_tar(card: str, train, test, memory_map: float) -> tuple[int, int, di
             raise AssertionError(f"{split}: entropy backend {st['entropy_backend']!r}")
         if st["skipped"] or st["device_fallbacks"] or st["entropy_corrupt"]:
             raise AssertionError(f"{split}: skips or fallbacks in the stream: {st}")
-    if ingest.counters or native_entropy.counters or image_loaders.skipped:
-        raise AssertionError(f"counted events: {ingest.counters} {native_entropy.counters} "
-                             f"{image_loaders.skipped}")
+    if resilience.counters.snapshot():
+        raise AssertionError(f"counted events: {resilience.counters.snapshot()}")
     # (b) one chunk's entropy decode against the encoder's coefficients.
     for name, img in zip(chunk, images):
         if not all(np.array_equal(a, b) for a, b in zip(img.coeffs, members[name][1])):
@@ -1560,8 +1593,8 @@ def imagenet_card_vs_cpu(arrays: dict, images: list) -> dict:
     """Phase 18: one fitted state on the card and on the CPU; four images
     through both branches on both.  Bars: quantised SIFT descriptors (scale
     step 1, bf16) within +-1 on >= 99.5 % of entries and LCS descriptors
-    within rtol 1e-5, atol 255e-6 (the CPU tests' bar against the JAX
-    package; the same f32 multiplies and adds run on both devices); from
+    ``torch.equal`` (the same f32 multiplies and adds run on both devices,
+    and the roots are correctly rounded by ``sqrt_rn``); from
     identical descriptors, the Fisher statistics within rtol 2e-4, atol
     2e-5·max, and the features and scores no further from their f64
     evaluation on the card than on the CPU plus 1e-3·max (phase 7's bars)."""
@@ -1577,7 +1610,8 @@ def imagenet_card_vs_cpu(arrays: dict, images: list) -> dict:
     lcs_err = (lcs_card - lcs_cpu).abs().max().item()
     if not sift_within >= 0.995:
         raise AssertionError(f"SIFT descriptors card vs cpu within +-1: {sift_within}")
-    torch.testing.assert_close(lcs_card, lcs_cpu, rtol=1e-5, atol=255e-6)
+    if not torch.equal(lcs_card, lcs_cpu):
+        raise AssertionError(f"LCS descriptors card vs cpu differ by {lcs_err}")
 
     descs = {"sift": SignedHellingerMapper()(sift_cpu), "lcs": lcs_cpu}
     feats = {"cuda": [], "cpu": []}
@@ -1610,6 +1644,7 @@ def imagenet_card_vs_cpu(arrays: dict, images: list) -> dict:
         errs[dev] = (((f.double() - exact_feats).abs().max() / exact_feats.abs().max()).item(),
                      ((s.double() - exact_scores).abs().max() / exact_scores.abs().max()).item())
     rec = {"sift_within_1": sift_within, "lcs_max_abs_err": lcs_err,
+           "lcs_equal": bool(torch.equal(lcs_card, lcs_cpu)),
            "fv_stats_rel_err": stat_errs,
            "features_rel_err_from_f64": {d: e[0] for d, e in errs.items()},
            "scores_rel_err_from_f64": {d: e[1] for d, e in errs.items()}}
@@ -1668,8 +1703,7 @@ def run_imagenet_tar(card: str, train: LabeledImages, test: LabeledImages) -> tu
         tar_bytes = sum(p.stat().st_size for p in root.glob("*/*.tar"))
         log(f"ImageNet JPEG tars: {len(sub_train)} + {len(sub_test)} images encoded in "
             f"{encode_secs:.1f} s")
-        for counter in (ingest.counters, native_entropy.counters, image_loaders.skipped):
-            counter.clear()
+        resilience.counters.reset()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         jd.launches = jd.decode_launches = fs.launches = 0
@@ -1696,9 +1730,8 @@ def run_imagenet_tar(card: str, train: LabeledImages, test: LabeledImages) -> tu
             if st["skipped"] or st["device_fallbacks"] or st["entropy_corrupt"]:
                 raise AssertionError(f"{split}: skips or fallbacks in the stream: {st}")
             chunks += st["batches"]
-    if ingest.counters or native_entropy.counters or image_loaders.skipped:
-        raise AssertionError(f"counted events: {ingest.counters} {native_entropy.counters} "
-                             f"{image_loaders.skipped}")
+    if resilience.counters.snapshot():
+        raise AssertionError(f"counted events: {resilience.counters.snapshot()}")
     # The fused decode ran (two launches a chunk), the IDCT entry never did,
     # and the statistics kernel ran in both branches.
     if not (decode_launches >= 2 * chunks and idct_launches == 0
@@ -1723,6 +1756,176 @@ def run_imagenet_tar(card: str, train: LabeledImages, test: LabeledImages) -> tu
         "fv_stats_launches": fv_launches, "fv_stats_launches_by_branch": by_branch,
     }))
     return decode_launches, fv_launches
+
+def cifar48_split(n: int, rng, palette) -> LabeledImageBatch:
+    """``n`` separable 48 px images of phase 3's recipe (a class colour of
+    the shared ``palette`` plus noise, a class-frequency wave in one
+    channel), as f32 [n, 48, 48, 3] of whole levels in [0, 255]."""
+    xx = np.arange(CIFAR_TAR_PX, dtype=np.float64)[None, None, :]
+    images = np.empty((n, CIFAR_TAR_PX, CIFAR_TAR_PX, 3), np.float32)
+    labels = rng.integers(0, N_CLASSES, n)
+    for i in range(0, n, 5000):
+        lab = labels[i : i + 5000]
+        m = len(lab)
+        img = palette[lab][:, :, None, None] + rng.normal(0, 25, (m, 3, CIFAR_TAR_PX, CIFAR_TAR_PX))
+        img[np.arange(m), lab % 3] += 30 * np.sin(xx / (2.0 + lab[:, None, None]))
+        images[i : i + m] = np.clip(img, 0, 255).astype(np.uint8).transpose(0, 2, 3, 1)
+    return LabeledImageBatch(images, labels.astype(np.int32))
+
+
+def write_cifar_tar(path: Path, split: LabeledImageBatch) -> dict:
+    """Encode ``split`` as baseline JPEGs (q90, 4:2:0) into one tar of
+    ``<label>/img_NNNNN.jpg`` members.  Returns member name -> JPEG bytes.
+    A 48 px image is too small for the encoder's numpy calls to leave the
+    interpreter lock, so the encode runs in 8 spawned processes."""
+    members = {}
+    encode = functools.partial(encode_jpeg, quality=90, subsampling="4:2:0")
+    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn")) as pool:
+        encoded = pool.map(encode, split.images, chunksize=256)
+        with tarfile.open(path, "w") as tf:
+            for i, ((jpeg, _coeffs), label) in enumerate(zip(encoded, split.labels)):
+                name = f"{int(label)}/img_{i:05d}.jpg"
+                info = tarfile.TarInfo(name)
+                info.size = len(jpeg)
+                tf.addfile(info, io.BytesIO(jpeg))
+                members[name] = jpeg
+    return members
+
+
+def decode_members_on_card(members: dict, names: list) -> np.ndarray:
+    """The JPEGs ``names`` decoded in memory, in that order: the native
+    entropy pass on the host, then ``decode_batch`` on the card a chunk of
+    one geometry at a time."""
+    with ThreadPoolExecutor(8) as pool:
+        images = list(pool.map(lambda n: jd.entropy_decode(members[n], backend="native"), names))
+    out = []
+    for i in range(0, len(images), 2048):
+        chunk = images[i : i + 2048]
+        if len({im.geom for im in chunk}) != 1:
+            raise AssertionError("the tar's JPEGs do not share one geometry")
+        coeffs, qt = jd.stack_coeff_images(chunk)
+        out.append(jd.decode_batch(chunk[0].geom, coeffs, qt, "cuda").cpu().numpy())
+    return np.concatenate(out)
+
+
+def load_trace_view():
+    """``tools/trace_view.py`` of this checkout, loaded by path (the port
+    itself imports nothing from ``tools/``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "trace_view", Path(__file__).resolve().parent / "tools" / "trace_view.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_cifar_tar(card: str, train_path: Path, test_path: Path) -> dict:
+    """Phase 22: RandomPatchCifar at its defaults with the test split
+    streamed from a JPEG tar with device decode (K3 then K1), traced.
+    Returns the path's launches and timings for the kernels line."""
+    rng = np.random.default_rng(22)
+    palette = rng.uniform(40, 215, (N_CLASSES, 3))
+    conf = cifar.RandomCifarConfig(
+        num_filters=100, patch_size=6, pool_size=14, pool_stride=13, alpha=0.25, lam=10.0,
+        whitener_size=100000, device="cuda", device_decode=True)
+    trace_view = load_trace_view()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        test = cifar48_split(CIFAR_TAR_TEST, rng, palette)
+        tar = root / "cifar48_test.tar"
+        members = write_cifar_tar(tar, test)
+        encode_secs = time.perf_counter() - t
+        log(f"Cifar JPEG tar: {CIFAR_TAR_TEST} images of {CIFAR_TAR_PX} px encoded in "
+            f"{encode_secs:.1f} s, {tar.stat().st_size / CIFAR_TAR_TEST:.0f} bytes each")
+
+        trace_path = root / "cifar_tar_trace.json"
+        trace.disable()
+        trace.reset()
+        trace.enable(str(trace_path))
+        resilience.counters.reset()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with stage_timer("load"):
+            train = cifar48_split(N_TRAIN, rng, palette)
+        rp.launches = rp.fused_launches = jd.launches = jd.decode_launches = fs.launches = 0
+        res = cifar.run(dataclasses.replace(conf, stream_test_tar=str(tar)), train,
+                        LabeledImageBatch(train.images[:0], train.labels[:0]))
+        launches = {"conv_rect_pool": rp.fused_launches, "rect_pool": rp.launches,
+                    "decode_pixels": jd.decode_launches, "idct_blocks": jd.launches,
+                    "fv_stats": fs.launches}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        trace.flush()
+        trace.disable()
+        events = trace_view.load_events(str(trace_path))
+        trace.reset()
+
+        # The same pixels in memory: the members decoded by decode_batch on
+        # the card, in the stream's order, through a run without the stream.
+        t = time.perf_counter()
+        names = res["test_filenames"]
+        pixels = decode_members_on_card(members, names)
+        mem = cifar.run(dataclasses.replace(conf, device_decode=False), train,
+                        LabeledImageBatch(pixels, np.asarray(res["test_labels"], np.int32)))
+        memory_secs = time.perf_counter() - t
+
+    st = res["ingest"]
+    chunks = st["batches"]
+    train_chunks = math.ceil(N_TRAIN / conf.featurize_chunk)
+    if st["entropy_backend"] != "native" or st["decoded"] != CIFAR_TAR_TEST:
+        raise AssertionError(f"stream stats {st}")
+    if st["skipped"] or st["device_fallbacks"] or st["entropy_corrupt"]:
+        raise AssertionError(f"skips or fallbacks in the stream: {st}")
+    if not (launches["decode_pixels"] >= 2 * chunks and launches["idct_blocks"] == 0
+            and launches["conv_rect_pool"] >= chunks + train_chunks
+            and launches["rect_pool"] == 0):
+        raise AssertionError(f"launches {launches} for {chunks} test and {train_chunks} "
+                             "train chunks")
+    if resilience.counters.snapshot():
+        raise AssertionError(f"counted faults: {resilience.counters.snapshot()}")
+    if not res["test_error"] < 45.0:  # chance is 90%
+        raise AssertionError(f"test error {res['test_error']}% is not well under chance")
+    agree = float(np.mean(mem["test_predictions"] == res["test_predictions"]))
+    stages = trace_view.per_stage(events)
+    overlap = trace_view.overlap_from_spans(events)
+    rec = {
+        "phase": "RandomPatchCifar, test split from a JPEG tar (--streamTestTar --deviceDecode)",
+        "card": card, "train_images": N_TRAIN, "test_images": CIFAR_TAR_TEST,
+        "image_px": CIFAR_TAR_PX, "encode_seconds": encode_secs,
+        **{k: res[k] for k in ("train_error", "test_error", "seconds", "learn_seconds",
+                               "featurize_seconds", "featurize_images_per_sec",
+                               "solve_seconds")},
+        "test_chunks": chunks, "launches": launches, "peak_memory_gb": peak_gb,
+        "in_memory_test_error": mem["test_error"], "in_memory_seconds": memory_secs,
+        "predictions_equal_in_memory": agree == 1.0, "prediction_agreement": agree,
+        "stage_totals_ms": {k: v["total_ms"] for k, v in stages.items()
+                            if k in TAR_STAGES or k.startswith("ingest.")},
+        "decode_consume_overlap": overlap, "trace_events": len(events),
+    }
+    log(json.dumps(rec))
+    if agree != 1.0:
+        raise AssertionError(f"streamed predictions agree with the in-memory run on the same "
+                             f"pixels on {agree:.6f} of the test images, not all")
+    names_seen = {e["name"] for e in trace_view.spans(events)}
+    missing = (set(TAR_STAGES) | set(TAR_INGEST_SPANS)) - names_seen
+    if missing:
+        raise AssertionError(f"the trace lacks spans {sorted(missing)}")
+    if not overlap or overlap["decode_spans"] != CIFAR_TAR_TEST:
+        raise AssertionError(f"decode/consume overlap {overlap}")
+
+    # What tracing costs: phase 3's fit with --trace, then without.
+    rates = {}
+    for traced in (True, False):
+        flags = ["--trace", str(train_path.parent / "phase3_trace.json")] if traced else []
+        again = cifar.main(["--trainLocation", str(train_path), "--testLocation",
+                            str(test_path), *MAIN_FLAGS, *flags])
+        trace.disable()
+        trace.reset()
+        rates["traced" if traced else "untraced"] = again["featurize_images_per_sec"]
+    log(json.dumps({"phase": "tracing cost on phase 3's fit", "card": card,
+                    "featurize_images_per_sec": rates}))
+    return launches
 
 
 def run_descriptors(card: str) -> None:
@@ -1847,6 +2050,8 @@ def smoke(data_dir: Path) -> int:
     fused_odd += [check_conv_rect_pool((64, *PROD[1:]), torch.bfloat16, fl, gen, timed=False)
                   for fl in FUSED_FLAGS[1:]]
     fused_served = {n: time_conv_rect_pool(n, gen) for n in K1_SERVED}
+    fused_cifar48 = check_conv_rect_pool(CIFAR48, torch.bfloat16, (True, True), gen,
+                                         timed=True)
     log("conv_rect_pool library_ms: null (no single PyTorch call applies the "
         "Convolver's epilogue, rectifies and sum-pools both signs)")
     fv_prod = check_fv_stats(FV_PROD, gen, timed=True)
@@ -1865,6 +2070,7 @@ def smoke(data_dir: Path) -> int:
     idct_prod = check_idct(IDCT_PROD, gen, timed=True)
     idct_odd = [check_idct(s, gen, timed=False) for s in IDCT_ODD]
     decode_checks = [check_decode(case, gen) for case in DECODE_CASES]
+    decode_cifar48 = time_decode(*random_coeff_batch(DECODE_CASES[1], gen))
     torch.cuda.empty_cache()
     log("decode_pixels library_ms: null (no single PyTorch call decodes JPEG "
         "coefficients to pixels; the IDCT entry's yardstick is torch.einsum)")
@@ -1951,6 +2157,7 @@ def smoke(data_dir: Path) -> int:
     del inet_train, inet_test
     run_descriptors(card)
     run_text(card)
+    tar_launches = run_cifar_tar(card, train_path, test_path)
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -1958,11 +2165,13 @@ def smoke(data_dir: Path) -> int:
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/rect_pool.cu",
         "replaces": "keystone_tpu/ops/rect_pool_pallas.py:78",
-        "launches": main_launches + random_cifar_rec["launches"],
+        "launches": (main_launches + random_cifar_rec["launches"]
+                     + tar_launches["conv_rect_pool"]),
         "launches_by_path": {"random_patch_cifar": main_launches,
-                             "random_cifar": random_cifar_rec["launches"]},
-        "max_abs_err": max(r["max_abs_err"]
-                           for r in [fused_prod, fused_prod_f32, *fused_odd, random_cifar_rec]),
+                             "random_cifar": random_cifar_rec["launches"],
+                             "random_patch_cifar_jpeg_tar": tar_launches["conv_rect_pool"]},
+        "max_abs_err": max(r["max_abs_err"] for r in [
+            fused_prod, fused_prod_f32, fused_cifar48, *fused_odd, random_cifar_rec]),
         "ms": fused_prod["ms"],
         "plain_ms": fused_prod["plain_ms"],
         "bound_ms": fused_prod["bound_ms"],
@@ -1971,6 +2180,9 @@ def smoke(data_dir: Path) -> int:
         "f32": {k: fused_prod_f32[k] for k in ("ms", "plain_ms", "bound_ms")},
         "random_cifar_f32": {k: random_cifar_rec[k]
                              for k in ("ms", "plain_ms", "bound_ms", "bound_share")},
+        "cifar48": {"shape": list(CIFAR48[:4]),
+                    **{k: fused_cifar48[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "bound_share")}},
         "ms_by_batch": {**{str(n): r["ms"] for n, r in fused_served.items()},
                         str(PROD[0]): fused_prod["ms"]},
         "bound_share": {**{str(n): r["bound_share"] for n, r in fused_served.items()},
@@ -2011,9 +2223,10 @@ def smoke(data_dir: Path) -> int:
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/idct.cu",
         "replaces": "keystone_tpu/ops/jpeg_device.py:743",
-        "launches": decode_launches + inet_tar_decode,
+        "launches": decode_launches + inet_tar_decode + tar_launches["decode_pixels"],
         "launches_by_path": {"voc_jpeg_tars": decode_launches,
-                             "imagenet_jpeg_tars": inet_tar_decode},
+                             "imagenet_jpeg_tars": inet_tar_decode,
+                             "cifar_jpeg_tar": tar_launches["decode_pixels"]},
         "max_abs_err": max(r["max_abs_err"] for r in decode_checks),
         "ms": decode_times[64]["ms"],
         "plain_ms": decode_times[64]["plain_ms"],
@@ -2023,6 +2236,9 @@ def smoke(data_dir: Path) -> int:
         "ms_by_batch": {str(b): r["ms"] for b, r in decode_times.items()},
         "plain_ms_by_batch": {str(b): r["plain_ms"] for b, r in decode_times.items()},
         "bound_share": {str(b): r["bound_share"] for b, r in decode_times.items()},
+        "cifar48": {"batch": decode_cifar48["batch"], "size": [CIFAR_TAR_PX, CIFAR_TAR_PX],
+                    **{k: decode_cifar48[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                       "bound_share")}},
         "idct_entry": {
             "max_abs_err": max(r["max_abs_err"] for r in [idct_prod, *idct_odd]),
             **{k: idct_prod[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

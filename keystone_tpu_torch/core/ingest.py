@@ -24,11 +24,19 @@ bounded pipeline:
   consumer, never as a silent end of stream; leaving the ``with`` block
   stops the producer, and ``join()`` proves every thread exited.
 
-Events are counted in :data:`counters` under the JAX package's names:
-``corrupt_image``, ``jpeg_corrupt_entropy``, ``device_decode_fallback`` and
-``device_decode_fallback_<reason>``.  Not ported (ROADMAP Queue 1 item 10):
-the autotuner, the process decode backend, snapshots, two-in-flight H2D on
-CUDA streams, trace spans and environment knobs.
+Events are counted in ``core.resilience.counters`` under the JAX
+package's names: ``corrupt_image``, ``jpeg_corrupt_entropy``,
+``device_decode_fallback`` and ``device_decode_fallback_<reason>``.  With
+tracing on (``core.trace``) the stream records the JAX package's spans:
+``ingest.produce`` on the producer lane, ``ingest.decode`` /
+``ingest.entropy_decode`` per member on the decode lanes,
+``ingest.ring_put`` (its length is the backpressure stall),
+``ingest.ring_get`` and ``ingest.consume`` (the consumer's work on one
+chunk) on the consumer lane.  With the numerics observatory on, each
+chunk's featurize output is a probe site named by its tar members.  Not
+ported (ROADMAP Queue 1 item 10): the autotuner, the process decode
+backend, snapshots, two-in-flight H2D on CUDA streams and environment
+knobs.
 """
 
 from __future__ import annotations
@@ -48,6 +56,9 @@ import torch
 
 from ..loaders import image_loaders
 from ..ops import jpeg_device as jdev
+from . import numerics as knum
+from . import trace
+from .resilience import counters
 
 _logger = logging.getLogger(__name__)
 
@@ -60,9 +71,6 @@ DECODE_MODES = ("host", "device")
 
 #: Every blocking wait polls at this period, so stop flags are observed.
 _POLL_SECONDS = 0.05
-
-#: Ingest events, by name (the JAX package's counter names).
-counters: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass
@@ -116,10 +124,15 @@ class _CorruptEntropy:
         self.detail = detail
 
 
-def _timed(task, data: bytes):
-    """``(task(data), seconds it took)`` on the calling decode thread."""
+def _timed(task, data: bytes, name: str, span_name: str):
+    """``(task(data), seconds it took)`` on the calling decode thread; with
+    tracing on, the decode is a ``span_name`` span on that thread's lane."""
     start = time.perf_counter()
-    out = task(data)
+    if trace.enabled():
+        with trace.span(span_name, cat="ingest", member=name):
+            out = task(data)
+    else:
+        out = task(data)
     return out, time.perf_counter() - start
 
 
@@ -187,10 +200,24 @@ class StreamBatch:
         pixels are decoded on the device first
         (:func:`~..ops.jpeg_device.fused_apply`)."""
         if self.coeff is not None:
-            return jdev.fused_apply(
+            out = jdev.fused_apply(
                 transform, self.coeff.geom, self.coeff.coeffs, self.coeff.qt, self.device
             )
-        return transform(self.dev())
+        else:
+            out = transform(self.dev())
+        return self._probed(out)
+
+    def _probed(self, out):
+        """Numerics observatory hook (``KEYSTONE_NUMERICS=1``): the
+        featurize output of every streamed chunk is a tensor-stat probe
+        site, with this chunk's member ``names`` as the NaN-provenance
+        map.  One flag check when off; the value passes through unchanged
+        either way."""
+        if knum.active():
+            knum.probe(
+                f"stream.featurize.{self.shape[0]}x{self.shape[1]}", out, names=self.names
+            )
+        return out
 
 
 @dataclasses.dataclass
@@ -330,6 +357,7 @@ class IngestStream:
             # record which backend this pass runs.
             self.stats.entropy_backend = jdev.entropy_backend()
         task = _entropy_decode_task if device_mode else image_loaders.decode_image
+        span_name = "ingest.entropy_decode" if device_mode else "ingest.decode"
         self._pool = ThreadPoolExecutor(
             max_workers=self.config.decode_threads,
             thread_name_prefix="keystone-decode",
@@ -362,35 +390,51 @@ class IngestStream:
             img, seconds = self._await_decode(fut)
             self.stats.decode_seconds += seconds
             if isinstance(img, _CorruptEntropy):
-                counters["jpeg_corrupt_entropy"] += 1
-                _logger.warning("skipping %s: %s", name, img.detail)
+                # A damaged scan under device decode: a counted skip, never
+                # silent wrong pixels.
+                counters.record("jpeg_corrupt_entropy", f"{name}: {img.detail}")
                 self.stats.skipped += 1
                 self.stats.entropy_corrupt += 1
                 return
             if isinstance(img, _FallbackPixels):
-                counters["device_decode_fallback"] += 1
-                counters[f"device_decode_fallback_{img.reason}"] += 1
+                counters.record("device_decode_fallback", f"{name}: {img.reason}")
+                counters.record(f"device_decode_fallback_{img.reason}", name)
                 self.stats.device_fallbacks += 1
                 img = img.img
             if img is None:
-                counters["corrupt_image"] += 1
+                counters.record("corrupt_image", name)
                 self.stats.skipped += 1
                 return
             keep_decoded(name, img)
 
-        for name, data in image_loaders._iter_tar_members(self._path):
-            if self._ring.stopped:
-                raise _Cancelled()
-            if self._keep is not None and not self._keep(name):
-                continue
-            window.append((name, self._pool.submit(_timed, task, data)))
-            while len(window) >= self.config.window():
-                drain_one()
-        while window:
-            drain_one()
-        # Flush the batch-size remainders, oldest bucket first.
-        for bucket in sorted(buckets.values(), key=lambda b: b[0][0]):
-            self._emit(bucket)
+        with trace.span("ingest.produce", cat="ingest", path=self._path) as prod_sp:
+            try:
+                for name, data in image_loaders._iter_tar_members(self._path):
+                    if self._ring.stopped:
+                        raise _Cancelled()
+                    if self._keep is not None and not self._keep(name):
+                        continue
+                    window.append(
+                        (name, self._pool.submit(_timed, task, data, name, span_name))
+                    )
+                    while len(window) >= self.config.window():
+                        drain_one()
+                while window:
+                    drain_one()
+                # Flush the batch-size remainders, oldest bucket first.
+                for bucket in sorted(buckets.values(), key=lambda b: b[0][0]):
+                    self._emit(bucket)
+            except _Cancelled:
+                # The consumer stopped the stream: routine shutdown, marked
+                # aborted rather than errored.
+                prod_sp.set(aborted=True)
+                raise
+            finally:
+                prod_sp.set(
+                    decoded=self.stats.decoded,
+                    skipped=self.stats.skipped,
+                    batches=self.stats.batches,
+                )
 
     def _emit(self, bucket):
         idx, names, imgs = bucket
@@ -404,7 +448,14 @@ class IngestStream:
             names=names, host=host, device=self.device, coeff=coeff,
         )
         self._chunk_counter += 1
-        if not self._ring.put(chunk):
+        attrs = {"coeff_bytes": coeff.nbytes()} if coeff is not None else {}
+        # The put span's duration is the backpressure stall: a full ring
+        # blocks here.
+        with trace.span(
+            "ingest.ring_put", cat="ingest", index=chunk.index, images=len(chunk), **attrs
+        ):
+            ok = self._ring.put(chunk)
+        if not ok:
             raise _Cancelled()
         self.stats.batches += 1
 
@@ -413,10 +464,17 @@ class IngestStream:
     def _drain(self):
         try:
             while True:
-                item = self._ring.get(self._thread)
+                with trace.span("ingest.ring_get", cat="ingest"):
+                    item = self._ring.get(self._thread)
                 if item is _Ring._END:
                     break
-                yield item
+                # The consume span runs from the consumer receiving the
+                # chunk until it asks for the next one: its work on THAT
+                # chunk.  Decode spans inside its interval are the overlap.
+                with trace.span(
+                    "ingest.consume", cat="ingest", index=item.index, images=len(item)
+                ):
+                    yield item
         finally:
             self._ring.stop()
 

@@ -5,14 +5,18 @@ The composition algebra — ``then`` / ``then_estimator`` /
 (fitting the chained estimator first pushes the data through the upstream
 transformer) — is the JAX package's.  Nodes are plain Python classes holding
 tensors; PyTorch runs eagerly, so a ``Pipeline`` is plain function
-composition.  The profiling, reuse-tracking and Cacher machinery of the JAX
-package is not ported.
+composition.  With the numerics observatory on (``core.numerics``), every
+node boundary of ``Pipeline.__call__`` is a tensor-stat probe site.  The
+profiling, reuse-tracking and Cacher machinery of the JAX package is not
+ported.
 """
 
 from __future__ import annotations
 
 import abc
 from typing import Any, Callable, Sequence
+
+from . import numerics
 
 
 class Transformer(abc.ABC):
@@ -79,8 +83,13 @@ class Pipeline(Transformer):
         self.nodes = tuple(flat)
 
     def __call__(self, batch):
+        # One flag check when the observatory is off; a probe never
+        # changes the value it reads.
+        probing = numerics.active()
         for n in self.nodes:
             batch = n(batch)
+            if probing:
+                numerics.probe(f"pipeline.{_node_label(n)}", batch)
         return batch
 
     def apply_item(self, item):
@@ -90,6 +99,15 @@ class Pipeline(Transformer):
 
     def __repr__(self):
         return "Pipeline(" + " >> ".join(repr(n) for n in self.nodes) + ")"
+
+
+def _node_label(n: Transformer) -> str:
+    """Stable display name for a pipeline node (FunctionTransformers carry
+    their wrapped function's name)."""
+    name = getattr(n, "name", None)
+    if isinstance(name, str) and name:
+        return name
+    return type(n).__name__
 
 
 class Estimator(abc.ABC):

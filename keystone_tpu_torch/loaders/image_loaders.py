@@ -4,7 +4,8 @@ keystone_tpu/loaders/image_loaders.py, eager subset).
 Images decode on the host with PIL into ``f32[H, W, 3]`` BGR arrays in
 [0, 255]; grayscale images are tripled, and images under ``MIN_DIM`` pixels
 on a side are rejected.  Members that cannot be read or decoded are skipped
-and counted in :data:`skipped`.  Images of differing sizes stay per-image
+and counted in ``core.resilience.counters`` (``tar_stream_error``,
+``tar_member_error``, ``corrupt_image``).  Images of differing sizes stay per-image
 arrays; the workloads bucket them by shape.
 """
 
@@ -14,9 +15,12 @@ import collections
 import io
 import os
 import tarfile
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
+
+from ..core.resilience import counters, retry
 
 VOC_NUM_CLASSES = 20
 IMAGENET_NUM_CLASSES = 1000
@@ -25,9 +29,6 @@ MIN_DIM = 36
 #: Decodes a stream keeps in flight beyond the pool width: a small constant
 #: of finished results buffered behind a slow head-of-line decode.
 _DECODE_AHEAD = 8
-
-#: Members skipped by the loaders, by reason.
-skipped: collections.Counter = collections.Counter()
 
 
 def decode_threads() -> int:
@@ -94,18 +95,21 @@ def _tar_files(path: str) -> list[str]:
 
 
 def _iter_tar_members(path: str):
-    """Yield (member_name, bytes) for each readable file in the tar(s).  An
-    unreadable member is skipped; a corrupt header ends that tar."""
+    """Yield (member_name, bytes) for each readable file in the tar(s).
+    Opening a tar retries transient IO errors with backoff
+    (``core.resilience.retry``); an unreadable member is counted
+    ``tar_member_error`` and skipped; a corrupt header ends that tar,
+    counted ``tar_stream_error``, and the remaining tars still stream."""
     for tar_path in _tar_files(path):
-        with tarfile.open(tar_path) as tf:
+        with retry(tarfile.open, name=f"tarfile.open({tar_path})")(tar_path) as tf:
             it = iter(tf)
             while True:
                 try:
                     member = next(it)
                 except StopIteration:
                     break
-                except (tarfile.TarError, OSError, EOFError):
-                    skipped["tar_stream_error"] += 1
+                except (tarfile.TarError, OSError, EOFError) as e:
+                    counters.record("tar_stream_error", f"{tar_path}: {e}")
                     break
                 if not member.isfile():
                     continue
@@ -114,10 +118,47 @@ def _iter_tar_members(path: str):
                     if f is None:
                         continue
                     data = f.read()
-                except (tarfile.TarError, OSError, EOFError):
-                    skipped["tar_member_error"] += 1
+                except (tarfile.TarError, OSError, EOFError) as e:
+                    counters.record("tar_member_error", f"{tar_path}:{member.name}: {e}")
                     continue
                 yield member.name.lstrip("./"), data
+
+
+def _iter_tar_images(path: str, num_threads: int | None = None):
+    """Yield (member_name, image) for each decodable image in the tar(s),
+    in member order.  The tar is read serially; the decode runs on a
+    thread pool (PIL releases the GIL inside libjpeg) under an in-order
+    window of ``num_threads + decode_ahead()`` futures.  An undecodable
+    member is counted ``corrupt_image`` and skipped."""
+    num_threads = num_threads or decode_threads()
+    if num_threads <= 1:
+        for name, data in _iter_tar_members(path):
+            img = decode_image(data)
+            if img is not None:
+                yield name, img
+            else:
+                counters.record("corrupt_image", name)
+        return
+    with ThreadPoolExecutor(max_workers=num_threads) as pool:
+        window: collections.deque = collections.deque()
+
+        def pop():
+            done_name, fut = window.popleft()
+            img = fut.result()
+            if img is None:
+                counters.record("corrupt_image", done_name)
+            return done_name, img
+
+        for name, data in _iter_tar_members(path):
+            window.append((name, pool.submit(decode_image, data)))
+            if len(window) >= num_threads + decode_ahead():
+                done_name, img = pop()
+                if img is not None:
+                    yield done_name, img
+        while window:
+            done_name, img = pop()
+            if img is not None:
+                yield done_name, img
 
 
 def voc_labels_map(labels_path: str) -> dict[str, list[int]]:
@@ -148,7 +189,7 @@ def voc_loader(
             continue
         img = decode_image(data)
         if img is None:
-            skipped["corrupt_image"] += 1
+            counters.record("corrupt_image", name)
             continue
         images.append(img)
         labels.append(labels_map[name])
@@ -179,7 +220,7 @@ def imagenet_loader(data_path: str, labels_path: str) -> LabeledImages:
             continue
         img = decode_image(data)
         if img is None:
-            skipped["corrupt_image"] += 1
+            counters.record("corrupt_image", name)
             continue
         images.append(img)
         labels.append(labels_map[synset])

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..core.resilience import counters
 from . import native_entropy
 
 _logger = logging.getLogger(__name__)
@@ -324,7 +325,7 @@ def _run_scan(
     and otherwise runs the pure-Python pass (bit-equal by contract).  An
     unexpected native failure (not a typed corrupt-stream error) re-decodes
     this one image with the Python pass, counted ``native_entropy_fallback``
-    in :data:`native_entropy.counters`.  ``"native"`` / ``"python"`` pin a
+    in ``core.resilience.counters``.  ``"native"`` / ``"python"`` pin a
     backend; a pinned native backend raises rather than degrade."""
     if backend == "python":
         _decode_scan(
@@ -352,7 +353,7 @@ def _run_scan(
         except JpegEntropyCorrupt:
             raise  # typed classification, identical to the Python pass
         except Exception as exc:  # noqa: BLE001 — degrade, counted
-            native_entropy.counters["native_entropy_fallback"] += 1
+            counters.record("native_entropy_fallback", f"{type(exc).__name__}: {exc}")
             _logger.warning(
                 "native entropy decode failed (%s: %s); this image is "
                 "decoded by the pure-Python pass", type(exc).__name__, exc,

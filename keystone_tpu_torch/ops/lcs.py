@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.pipeline import Transformer
+from ..utils.stats import sqrt_rn
 
 
 def _conv1d_zero(x: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
@@ -92,7 +93,8 @@ class LCSExtractor(Transformer):
         x = batch.to(torch.float32)
         means = _same_conv2d_zero(x, box, box)
         sq = _same_conv2d_zero(x * x, box, box)
-        stds = torch.sqrt(torch.clamp_min(sq - means * means, 0.0))
+        # Correctly rounded on every device, so the card matches the CPU.
+        stds = sqrt_rn(torch.clamp_min(sq - means * means, 0.0))
 
         xs, ys, nbr = self._keypoints(w), self._keypoints(h), self._neighborhood()
         sx = torch.from_numpy((xs[:, None] + nbr[None, :]).ravel()).to(batch.device)

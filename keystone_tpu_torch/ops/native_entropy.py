@@ -9,7 +9,7 @@ of the JAX package's C source.  The library is built with the host compiler
 use, keyed by a hash of the source (:mod:`keystone_tpu_torch._build`).
 
 When it cannot be built or loaded, :func:`available` is False, the
-degradation is counted once per process in :data:`counters`
+degradation is counted once per process in ``core.resilience.counters``
 (``native_entropy_unavailable``) and the auto backend runs the Python pass:
 both loops are the same algorithm, so the coefficients are bit-identical.
 ctypes releases the GIL for each ``decode_scan`` call, so the ingest thread
@@ -18,7 +18,6 @@ pool runs the entropy pass on several cores.  This module imports no torch.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import logging
 import os
@@ -27,17 +26,13 @@ import threading
 import numpy as np
 
 from .. import _build
+from ..core.resilience import counters
 
 _logger = logging.getLogger(__name__)
 
 #: ``0`` makes the auto backend run the pure-Python pass (host code, not a
 #: kernel path: both passes give the same coefficients).
 NATIVE_ENTROPY_ENV = "KEYSTONE_NATIVE_ENTROPY"
-
-#: Degradations of the native loop, by name: ``native_entropy_unavailable``
-#: (the library did not build or load) and ``native_entropy_fallback`` (one
-#: image re-decoded by the Python pass after an unexpected native error).
-counters: collections.Counter = collections.Counter()
 
 #: C return code -> the EXACT JpegEntropyCorrupt message the Python loop
 #: raises, in the order of the KST_E* enum in csrc/entropy.cpp.  Formatted
@@ -91,7 +86,10 @@ def _load() -> ctypes.CDLL | None:
             try:
                 _lib = _build.load("entropy", _SIGNATURES)
             except (OSError, RuntimeError) as e:
-                counters["native_entropy_unavailable"] += 1
+                counters.record(
+                    "native_entropy_unavailable",
+                    f"{e}: entropy decode degraded to the pure-Python pass",
+                )
                 _logger.warning(
                     "native entropy decoder unavailable (%s); using the "
                     "pure-Python pass: coefficients stay bit-equal, "

@@ -13,6 +13,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..core import numerics as knum
 from ..core.pipeline import Identity, LabelEstimator, Transformer
 from ..ops.stats import StandardScalerModel
 from .normal_equations import cho_factor, cho_solve
@@ -181,6 +182,10 @@ class BlockLeastSquaresEstimator(LabelEstimator):
     ) -> BlockLinearMapper:
         """``nvalid``: true row count when the inputs carry zero pad rows."""
         x, widths = _blocked_design_matrix(features, self.block_size, num_features)
+        if knum.active():
+            # Per-block κ estimates on the design matrix this fit formed
+            # (row-capped probe); one flag check when the observatory is off.
+            knum.design_conditioning(x, widths, float(self.lam), label="bcd_fit")
         labels = labels.to(device=x.device, dtype=x.dtype)
         if nvalid is None:
             nvalid = int(labels.shape[0])

@@ -5,9 +5,10 @@ least squares, and the step-at-a-time block coordinate descent that the
 fused block fit (``solvers/block.py``) is held against.
 
 The numerics guard is always on here: non-finite inputs raise, and a
-factorization that fails retries with escalating jitter before raising.
-The JAX package can switch it off (``KEYSTONE_NUMERICS_GUARD=0``) and also
-feeds a conditioning monitor; the port has neither.
+factorization that fails retries with escalating jitter before raising
+(the JAX package can switch it off with ``KEYSTONE_NUMERICS_GUARD=0``).
+With the numerics observatory on, each guarded solve first feeds the
+conditioning monitor (``core.numerics.estimate_gram_condition``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import logging
 from typing import Sequence
 
 import torch
+
+from ..core import numerics as knum
 
 _logger = logging.getLogger("keystone_tpu_torch.solvers.normal_equations")
 
@@ -60,6 +63,10 @@ def solve_gram_l2(ata: torch.Tensor, atb: torch.Tensor, lam: float) -> torch.Ten
     raises.  λ = 0 escalates from 1.2e-7·|mean diagonal|, about f32 epsilon
     relative to the gram's scale.  The checks cost host syncs per solve.
     """
+    if knum.active():
+        # A κ estimate of the gram this Cholesky is about to factor, counted
+        # as a predictive ``cond_warn`` before the jitter retry trips.
+        knum.estimate_gram_condition(ata, float(lam), label="solve_gram_l2")
     if not _all_finite(ata) or not _all_finite(atb):
         raise FloatingPointError(
             "solve_gram_l2: non-finite entries in the gram/right-hand side "

@@ -27,6 +27,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..core import numerics as knum
 from ..core.pipeline import LabelEstimator
 from .block import BlockLinearMapper, _blocked_design_matrix
 
@@ -168,6 +169,9 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         num_features: int | None = None,
     ) -> BlockLinearMapper:
         x, widths = _blocked_design_matrix(features, self.block_size, num_features)
+        if knum.active():
+            # Per-block κ estimates on the design matrix (row-capped probe).
+            knum.design_conditioning(x, widths, float(self.lam), label="bwls_fit")
         dev, dtype = x.device, x.dtype
         labels = torch.as_tensor(labels).to(device=dev, dtype=dtype)
         n = int(labels.shape[0])

@@ -9,6 +9,17 @@ StandardScaler -> BlockLeastSquares(4096, 1, lambda) -> MaxClassifier ->
 MulticlassClassifierEvaluator.  The fitted chain
 ``[featurizer, scaler, model, MaxClassifier]`` is the servable pipeline.
 
+The splits load from CIFAR binaries or from JPEG tars of
+``"<label>/img.jpg"`` members (images of at least ``MIN_DIM`` = 36 px a
+side, so CIFAR-style tars hold 48 px images).  ``--streamTestTar`` scores
+the test split straight from a tar through ``core.ingest`` (decode of the
+next chunk overlaps the featurize of this one); with ``--deviceDecode`` the
+host runs only the entropy pass and the pixels are born on the card
+(``decode_pixels``, the K3 kernel) before the fused featurizer (K1).
+``--streamTrainTar`` decodes the train split through the same stream, bit
+for bit the eager tar loader's images.  ``--trace out.json`` writes the
+run's stage and ingest spans as a Chrome trace.
+
 Run: ``python -m keystone_tpu_torch.workloads.cifar_random_patch
 --trainLocation train.bin --testLocation test.bin [--device cpu]``.
 """
@@ -16,16 +27,22 @@ Run: ``python -m keystone_tpu_torch.workloads.cifar_random_patch
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import time
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import numpy as np
 import torch
 
+from ..core import trace
+from ..core.ingest import StreamConfig, stream_batches
+from ..core.logging import configure_logging, stage_timer
 from ..core.pipeline import Pipeline
+from ..core.resilience import assert_all_finite, counters
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
 from ..loaders.cifar import LabeledImageBatch, cifar_loader
+from ..loaders.image_loaders import _iter_tar_images
 from ..ops.conv_fused import FusedConvFeaturizer
 from ..ops.images import ImageVectorizer, Windower
 from ..ops.stats import Sampler, StandardScaler
@@ -34,6 +51,7 @@ from ..solvers.block import BlockLeastSquaresEstimator
 from ..solvers.whitening import ZCAWhitener, ZCAWhitenerEstimator
 from ..utils.platform import resolve_device, synchronize
 from ..utils.stats import normalize_rows
+from .fv_common import stream_config_from_flags
 
 _log = logging.getLogger(__name__)
 
@@ -57,6 +75,13 @@ class RandomCifarConfig:
     whitener_size: int = 100000
     featurize_chunk: int = 2048
     device: str = "cuda"
+    #: Score the test split from this JPEG tar through ``core.ingest``
+    #: (labels from the member names, "<label>/x.jpg") instead of the
+    #: eagerly loaded ``test`` batch.
+    stream_test_tar: str | None = None
+    #: With ``stream_test_tar``: the host runs the entropy pass only and
+    #: the pixels are decoded on the device, straight into the featurizer.
+    device_decode: bool = False
 
 
 def learn_filters(
@@ -128,6 +153,109 @@ def featurize_chunked(fn, images: np.ndarray, chunk: int, device) -> torch.Tenso
     return torch.cat([fn(b)[:rows] for b, rows in _chunks(images, chunk, dev)])
 
 
+def cifar_tar_label(name: str) -> int:
+    """Class id from a tar member's leading directory ("<label>/img.jpg")."""
+    return int(name.split("/", 1)[0])
+
+
+def _empty_batch() -> LabeledImageBatch:
+    return LabeledImageBatch(np.zeros((0, 1, 1, 3), np.float32), np.zeros(0, np.int32))
+
+
+def cifar_tar_loader(path: str) -> LabeledImageBatch:
+    """Eager CIFAR-from-JPEG-tar loader ("<label>/img.jpg" members, images
+    of at least ``MIN_DIM`` px): threaded host decode in member order,
+    labels parsed from the member names; undecodable members are counted
+    ``corrupt_image`` and skipped."""
+    pairs = list(_iter_tar_images(path))
+    if not pairs:
+        return _empty_batch()
+    return LabeledImageBatch(
+        np.stack([img for _, img in pairs]),
+        np.asarray([cifar_tar_label(n) for n, _ in pairs], np.int32),
+    )
+
+
+def cifar_tar_stream_loader(
+    path: str, *, batch: int = 256, config: StreamConfig | None = None
+) -> LabeledImageBatch:
+    """Streamed counterpart of :func:`cifar_tar_loader`: the images decode
+    through ``core.ingest`` (overlapped decode pool, corrupt members
+    skipped and counted) and scatter back to stream-ordinal (tar member)
+    order, so the result equals the eager loader's bit for bit.  Filter
+    learning needs host-resident pixels, so ``decode_mode="device"`` is
+    pinned to host decode and counted ``device_decode_unsupported``."""
+    if config is not None and config.decode_mode == "device":
+        counters.record(
+            "device_decode_unsupported",
+            f"{path}: cifar_tar_stream_loader needs host-resident pixels "
+            "— decode_mode='device' ignored for the train stream",
+        )
+        config = dataclasses.replace(config, decode_mode="host")
+    parts: list = []
+    name_pairs: list = []
+    n = 0
+    with stream_batches(path, batch, config=config, device="cpu") as st:
+        for b in st:
+            parts.append((b.indices, b.host))
+            name_pairs.extend(zip(b.indices.tolist(), b.names))
+            n += len(b)
+    if not parts:
+        return _empty_batch()
+    images = np.zeros((n,) + parts[0][1].shape[1:], np.float32)
+    for idx, imgs in parts:
+        images[idx] = imgs
+    names = [None] * n
+    for i, name in name_pairs:
+        names[i] = name
+    return LabeledImageBatch(images, np.asarray([cifar_tar_label(nm) for nm in names], np.int32))
+
+
+def _pad_to_chunk(batch, chunk: int) -> torch.Tensor:
+    """One streamed batch as a ``chunk``-row pixel block on the stream's
+    device, zero rows after the batch's own, as :func:`featurize_chunked`
+    pads its tail.  A coefficient chunk (device decode) is decoded on the
+    device first and padded there: its pixels never cross to the host, and
+    the decode kernel only ever sees JPEG rows."""
+    rows = len(batch)
+    pad = chunk - rows
+    if pad < 0:
+        raise ValueError(
+            f"streamed batch of {rows} rows exceeds the featurize chunk {chunk} "
+            "— stream with batch_size == featurize_chunk"
+        )
+    if batch.host is None:
+        pixels = batch.dev()
+        return torch.nn.functional.pad(pixels, (0, 0, 0, 0, 0, 0, 0, pad)) if pad else pixels
+    block = np.pad(batch.host, ((0, pad), (0, 0), (0, 0), (0, 0))) if pad else batch.host
+    return torch.from_numpy(np.ascontiguousarray(block, np.float32)).to(batch.device)
+
+
+def featurize_stream(fn, stream, chunk: int) -> tuple[torch.Tensor, list]:
+    """Streaming counterpart of :func:`featurize_chunked`: ``fn`` on each
+    ``core.ingest`` chunk padded to ``chunk`` rows, while the producer
+    decodes the next ones.  Returns the feature rows on the stream's
+    device, scattered back to stream-ordinal order, and the member names
+    in that order."""
+    parts: list = []
+    name_pairs: list = []
+    n = 0
+    for batch in stream:
+        parts.append((batch.indices, fn(_pad_to_chunk(batch, chunk))[: len(batch)]))
+        name_pairs.extend(zip(batch.indices.tolist(), batch.names))
+        n += len(batch)
+    if not parts:
+        raise ValueError("the streamed tar holds no decodable image")
+    first = parts[0][1]
+    out = torch.empty((n, *first.shape[1:]), dtype=first.dtype, device=first.device)
+    for idx, feats in parts:
+        out[torch.from_numpy(idx).to(out.device)] = feats
+    names = [None] * n
+    for i, name in name_pairs:
+        names[i] = name
+    return out, names
+
+
 def apply_servable_chunked(servable, images: np.ndarray, chunk: int) -> np.ndarray:
     """Apply the servable chain in fixed-size chunks (the tail padded);
     returns the predicted labels."""
@@ -137,8 +265,12 @@ def apply_servable_chunked(servable, images: np.ndarray, chunk: int) -> np.ndarr
 
 
 def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBatch) -> dict:
-    """Fit on ``train``, score ``train`` and ``test``.  The results carry the
-    fitted servable pipeline under ``"servable"``."""
+    """Fit on ``train``, score ``train`` and ``test`` (or, with
+    ``conf.stream_test_tar``, the streamed tar).  The results carry the
+    fitted servable pipeline under ``"servable"``.  Each stage is a
+    ``stage_timer`` span that ends after a synchronize, so a trace charges
+    the device work to the stage that queued it."""
+    configure_logging()
     dev = resolve_device(conf.device)
     t0 = time.perf_counter()
     if conf.sample_frac is not None:
@@ -146,8 +278,9 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
         keep = rng.random(len(train)) < conf.sample_frac
         train = LabeledImageBatch(train.images[keep], train.labels[keep])
 
-    filters, whitener = learn_filters(conf, train.images)
-    synchronize(dev)
+    with stage_timer("learn_filters"):
+        filters, whitener = learn_filters(conf, train.images)
+        synchronize(dev)
     learn_secs = time.perf_counter() - t0
     conv_pipe = build_conv_pipeline(conf, filters, whitener)
     # One warm chunk first, so the throughput below is steady state (cuDNN
@@ -156,8 +289,9 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
     synchronize(dev)
 
     t_feat = time.perf_counter()
-    train_conv = featurize_chunked(conv_pipe, train.images, conf.featurize_chunk, dev)
-    synchronize(dev)
+    with stage_timer("featurize"):
+        train_conv = featurize_chunked(conv_pipe, train.images, conf.featurize_chunk, dev)
+        synchronize(dev)
     feat_secs = time.perf_counter() - t_feat
 
     scaler = StandardScaler().fit(train_conv)
@@ -167,24 +301,40 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
         torch.from_numpy(train.labels).to(dev)
     )
     t_solve = time.perf_counter()
-    model = BlockLeastSquaresEstimator(4096, 1, conf.lam or 0.0).fit(
-        train_features, labels
-    )
-    synchronize(dev)
+    with stage_timer("solve"):
+        model = BlockLeastSquaresEstimator(4096, 1, conf.lam or 0.0).fit(
+            train_features, labels
+        )
+        # Typed failure (FloatingPointError) instead of NaN predictions.
+        assert_all_finite(model, "cifar random-patch model")
+        synchronize(dev)
     solve_secs = time.perf_counter() - t_solve
 
     def predict(features):
         return MaxClassifier()(model(features))
 
-    train_pred = predict(train_features)
-    train_eval = MulticlassClassifierEvaluator(
-        train_pred, torch.from_numpy(train.labels).to(dev), conf.num_classes
-    )
-    test_conv = featurize_chunked(conv_pipe, test.images, conf.featurize_chunk, dev)
-    test_pred = predict(scaler(test_conv))
-    test_eval = MulticlassClassifierEvaluator(
-        test_pred, torch.from_numpy(test.labels).to(dev), conf.num_classes
-    )
+    ingest_stats = names = None
+    with stage_timer("eval"):
+        train_pred = predict(train_features)
+        train_eval = MulticlassClassifierEvaluator(
+            train_pred, torch.from_numpy(train.labels).to(dev), conf.num_classes
+        )
+        if conf.stream_test_tar is not None:
+            cfg = stream_config_from_flags(device_decode=conf.device_decode)
+            with stream_batches(
+                conf.stream_test_tar, conf.featurize_chunk, config=cfg, device=dev
+            ) as st:
+                test_conv, names = featurize_stream(conv_pipe, st, conf.featurize_chunk)
+            ingest_stats = asdict(st.stats)
+            test_labels = np.asarray([cifar_tar_label(n) for n in names], np.int32)
+        else:
+            test_labels = test.labels
+            test_conv = featurize_chunked(conv_pipe, test.images, conf.featurize_chunk, dev)
+        test_pred = predict(scaler(test_conv))
+        test_eval = MulticlassClassifierEvaluator(
+            test_pred, torch.from_numpy(test_labels).to(dev), conf.num_classes
+        )
+        synchronize(dev)
 
     secs = time.perf_counter() - t0
     results = {
@@ -198,16 +348,34 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
         "solve_seconds": solve_secs,
         "servable": Pipeline([*conv_pipe.nodes, scaler, model, MaxClassifier()]),
     }
+    if ingest_stats is not None:
+        results["ingest"] = ingest_stats
+        results["test_labels"] = test_labels
+        results["test_filenames"] = names
     _log.info("Training error is: %s", train_eval.total_error)
     _log.info("Test error is: %s", test_eval.total_error)
     _log.info("Pipeline took %.3f s", secs)
     return results
 
 
+def _load_split(location: str) -> LabeledImageBatch:
+    """A JPEG tar ("<label>/img.jpg" members) through the threaded tar
+    decoder; anything else is the CIFAR binary format."""
+    if location.endswith((".tar", ".tar.gz", ".tgz")):
+        return cifar_tar_loader(location)
+    return cifar_loader(location)
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser("RandomPatchCifar")
-    p.add_argument("--trainLocation", required=True, help="CIFAR binary")
-    p.add_argument("--testLocation", required=True, help="CIFAR binary")
+    p.add_argument(
+        "--trainLocation", default=None,
+        help="CIFAR binary (or JPEG tar); optional when --streamTrainTar supplies the train split",
+    )
+    p.add_argument(
+        "--testLocation", default=None,
+        help="CIFAR binary (or JPEG tar); optional when --streamTestTar supplies the test split",
+    )
     p.add_argument("--numFilters", type=int, default=100)
     p.add_argument("--patchSize", type=int, default=6)
     p.add_argument("--patchSteps", type=int, default=1)
@@ -218,12 +386,38 @@ def main(argv=None) -> dict:
     p.add_argument("--sampleFrac", type=float, default=None)
     p.add_argument("--whitenerSize", type=int, default=100000)
     p.add_argument(
+        "--streamTestTar", default=None,
+        help="score the test split from this JPEG tar ('<label>/name.jpg' members) "
+        "through core.ingest, decode overlapping the featurize",
+    )
+    p.add_argument(
+        "--streamTrainTar", default=None,
+        help="decode the train split from this JPEG tar ('<label>/name.jpg' members) "
+        "through core.ingest, bit-identical to the eager loader (replaces --trainLocation)",
+    )
+    p.add_argument(
+        "--deviceDecode", action="store_true",
+        help="with --streamTestTar: host entropy pass only, pixels decoded on the device",
+    )
+    p.add_argument(
+        "--trace", default=None, metavar="PATH",
+        help="write a Chrome-trace JSON (.jsonl for the JSONL event log) of the run",
+    )
+    p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
     a = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    if a.trainLocation is None and a.streamTrainTar is None:
+        p.error("one of --trainLocation / --streamTrainTar is required")
+    if a.testLocation is None and a.streamTestTar is None:
+        p.error("one of --testLocation / --streamTestTar is required")
+    if a.deviceDecode and a.streamTestTar is None:
+        p.error("--deviceDecode needs --streamTestTar")
+    if a.trace:
+        trace.enable(a.trace)
+    configure_logging()
     conf = RandomCifarConfig(
-        train_location=a.trainLocation,
+        train_location=a.trainLocation or a.streamTrainTar,
         test_location=a.testLocation,
         num_filters=a.numFilters,
         patch_size=a.patchSize,
@@ -235,11 +429,30 @@ def main(argv=None) -> dict:
         sample_frac=a.sampleFrac,
         whitener_size=a.whitenerSize,
         device=a.device,
+        stream_test_tar=a.streamTestTar,
+        device_decode=a.deviceDecode,
     )
     resolve_device(conf.device)
-    train = cifar_loader(conf.train_location)
-    test = cifar_loader(conf.test_location)
-    return run(conf, train, test)
+    try:
+        with stage_timer("load"):
+            if a.streamTrainTar is not None:
+                train = cifar_tar_stream_loader(
+                    a.streamTrainTar, batch=conf.featurize_chunk,
+                    config=stream_config_from_flags(),
+                )
+            else:
+                train = _load_split(conf.train_location)
+            if a.streamTestTar is not None:
+                # run() never reads the eager test split when it streams one.
+                test = LabeledImageBatch(
+                    np.zeros((0,) + train.images.shape[1:], np.float32), np.zeros(0, np.int32)
+                )
+            else:
+                test = _load_split(a.testLocation)
+        return run(conf, train, test)
+    finally:
+        if a.trace:
+            trace.flush()
 
 
 if __name__ == "__main__":

@@ -33,6 +33,9 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
+from ..core import trace
+from ..core.logging import configure_logging, stage_timer
+from ..core.resilience import assert_all_finite
 from ..loaders.image_loaders import LabeledImages, imagenet_labels_map, imagenet_loader
 from ..ops.lcs import LCSExtractor
 from ..ops.sift import SIFTExtractor
@@ -42,7 +45,7 @@ from ..solvers.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from ..solvers.pca import BatchPCATransformer, compute_pca
 from ..solvers.weighted import BlockWeightedLeastSquaresEstimator
 from ..utils.platform import resolve_device, synchronize
-from ..utils.stats import check_finite, get_err_percent
+from ..utils.stats import get_err_percent
 from .fv_common import (
     StreamSource,
     chunked,
@@ -186,7 +189,7 @@ def _fit_branch(conf: ImageNetSiftLcsFVConfig, desc_buckets: dict, branch: str, 
             gmm_samples = gmm_samples[:, :GMM_FIT_CAP].clone()
         gmm = GaussianMixtureModelEstimator(conf.vocab_size).fit(gmm_samples.T)
         del gmm_samples
-    check_finite(f"{branch} branch GMM fit", gmm.means, gmm.variances, gmm.weights)
+    assert_all_finite(gmm, f"{branch} branch GMM fit")
     secs["gmm"] = lap(t)
     return batch_pca, gmm, pca_desc, secs
 
@@ -243,7 +246,10 @@ def branch_features(conf: ImageNetSiftLcsFVConfig, train_images, test_images, br
 def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages) -> dict:
     """Fit on ``train``, score ``test``.  The results carry the top-5 and
     top-1 errors, the stage seconds, the test scores and the fitted
-    ``{sift_pca, sift_gmm, lcs_pca, lcs_gmm, model}`` under ``"bundle"``."""
+    ``{sift_pca, sift_gmm, lcs_pca, lcs_gmm, model}`` under ``"bundle"``.
+    Each stage (``sift_branch``, ``lcs_branch``, ``solve``, ``eval``) is a
+    ``stage_timer`` span that ends after a synchronize."""
+    configure_logging()
     dev = resolve_device(conf.device)
     t0 = time.perf_counter()
 
@@ -254,12 +260,13 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
     feats, fitted, stage, branch_secs = {}, {}, {}, {}
     for branch in BRANCHES:
         t = time.perf_counter()
-        train_f, test_f, batch_pca, gmm, stage[branch] = branch_features(
-            conf, train.images, test.images, branch
-        )
-        feats[branch] = (train_f, test_f)
-        fitted[f"{branch}_pca"], fitted[f"{branch}_gmm"] = batch_pca, gmm
-        branch_secs[branch] = lap(t)
+        with stage_timer(f"{branch}_branch"):
+            train_f, test_f, batch_pca, gmm, stage[branch] = branch_features(
+                conf, train.images, test.images, branch
+            )
+            feats[branch] = (train_f, test_f)
+            fitted[f"{branch}_pca"], fitted[f"{branch}_gmm"] = batch_pca, gmm
+            branch_secs[branch] = lap(t)
 
     train_features = ZipVectors.apply([feats[b][0] for b in BRANCHES])
     test_features = ZipVectors.apply([feats[b][1] for b in BRANCHES])
@@ -267,18 +274,20 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
     labels = ClassLabelIndicatorsFromIntLabels(conf.num_classes)(train.labels).to(dev)
 
     t = time.perf_counter()
-    model = BlockWeightedLeastSquaresEstimator(4096, 1, conf.lam, conf.mixture_weight).fit(
-        train_features, labels, num_features=2 * 2 * conf.desc_dim * conf.vocab_size
-    )
-    check_finite("ImageNet weighted block solve", *model.xs, model.b)
-    solve_secs = lap(t)
+    with stage_timer("solve"):
+        model = BlockWeightedLeastSquaresEstimator(4096, 1, conf.lam, conf.mixture_weight).fit(
+            train_features, labels, num_features=2 * 2 * conf.desc_dim * conf.vocab_size
+        )
+        assert_all_finite(model, "ImageNet weighted block solve")
+        solve_secs = lap(t)
 
     t = time.perf_counter()
-    scores = model(test_features)
-    k = min(5, conf.num_classes)
-    topk = TopKClassifier(k)(scores).cpu().numpy()
-    scores = scores.cpu().numpy()
-    eval_secs = lap(t)
+    with stage_timer("eval"):
+        scores = model(test_features)
+        k = min(5, conf.num_classes)
+        topk = TopKClassifier(k)(scores).cpu().numpy()
+        scores = scores.cpu().numpy()
+        eval_secs = lap(t)
     test_labels = np.asarray(test.labels)
 
     featurize = sum(stage[b][s] for b in BRANCHES for s in ("describe", "project", "fisher"))
@@ -344,12 +353,18 @@ def main(argv=None) -> dict:
         help="with --streamIngest: host entropy pass only, pixels decoded on the device",
     )
     p.add_argument(
+        "--trace", default=None, metavar="PATH",
+        help="write a Chrome-trace JSON (.jsonl for the JSONL event log) of the run",
+    )
+    p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
     a = p.parse_args(argv)
     if a.deviceDecode and not a.streamIngest:
         p.error("--deviceDecode needs --streamIngest")
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    if a.trace:
+        trace.enable(a.trace)
+    configure_logging()
     conf = ImageNetSiftLcsFVConfig(
         train_location=a.trainLocation,
         test_location=a.testLocation,
@@ -376,16 +391,20 @@ def main(argv=None) -> dict:
         device=a.device,
     )
     resolve_device(conf.device)
-    if a.streamIngest:
-        train, test = (
-            imagenet_stream_source(path, conf.label_path, batch_size=a.streamBatchSize,
-                                   device_decode=a.deviceDecode)
-            for path in (conf.train_location, conf.test_location)
-        )
-    else:
-        train = imagenet_loader(conf.train_location, conf.label_path)
-        test = imagenet_loader(conf.test_location, conf.label_path)
-    return run(conf, train, test)
+    try:
+        if a.streamIngest:
+            train, test = (
+                imagenet_stream_source(path, conf.label_path, batch_size=a.streamBatchSize,
+                                       device_decode=a.deviceDecode)
+                for path in (conf.train_location, conf.test_location)
+            )
+        else:
+            train = imagenet_loader(conf.train_location, conf.label_path)
+            test = imagenet_loader(conf.test_location, conf.label_path)
+        return run(conf, train, test)
+    finally:
+        if a.trace:
+            trace.flush()
 
 
 if __name__ == "__main__":

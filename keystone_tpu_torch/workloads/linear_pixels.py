@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.logging import configure_logging
 from ..core.pipeline import Pipeline
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
 from ..loaders.cifar import LabeledImageBatch, cifar_loader
@@ -85,7 +86,7 @@ def main(argv=None) -> dict:
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
     a = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    configure_logging()
     conf = LinearPixelsConfig(
         train_location=a.trainLocation, test_location=a.testLocation, device=a.device
     )

@@ -26,7 +26,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core import trace
+from ..core.logging import configure_logging, stage_timer
 from ..core.pipeline import Pipeline
+from ..core.resilience import assert_all_finite
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
 from ..loaders.csv_loader import LabeledData, csv_data_loader
 from ..ops.stats import LinearRectifier, PaddedFFT, RandomSignNode
@@ -38,7 +41,6 @@ from ..ops.util import (
 )
 from ..solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
 from ..utils.platform import resolve_device, synchronize
-from ..utils.stats import check_finite
 
 _log = logging.getLogger(__name__)
 
@@ -89,7 +91,9 @@ def servable_pipeline(groups, model: BlockLinearMapper) -> Pipeline:
 
 def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> dict:
     """Fit on ``train``, evaluate on ``train`` and ``test`` block by block.
-    The results carry the fitted servable pipeline under ``"servable"``."""
+    The results carry the fitted servable pipeline under ``"servable"``.
+    Each stage is a ``stage_timer`` span that ends after a synchronize."""
+    configure_logging()
     dev = resolve_device(conf.device)
     t0 = time.perf_counter()
     groups = build_featurizer_batches(conf, dev)
@@ -104,15 +108,17 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
     synchronize(dev)
 
     t_feat = time.perf_counter()
-    training_batches = featurize_groups(groups, train_data)
-    synchronize(dev)
+    with stage_timer("featurize"):
+        training_batches = featurize_groups(groups, train_data)
+        synchronize(dev)
     feat_secs = time.perf_counter() - t_feat
 
     t_solve = time.perf_counter()
-    model = BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0).fit(
-        training_batches, labels
-    )
-    check_finite("mnist random-fft model", *model.xs, model.b)
+    with stage_timer("solve"):
+        model = BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0).fit(
+            training_batches, labels
+        )
+        assert_all_finite(model, "mnist random-fft model")
     solve_secs = time.perf_counter() - t_solve
 
     results: dict = {}
@@ -131,13 +137,14 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
 
     # Streaming evaluation after each block; the last call sees the full model.
     t_eval = time.perf_counter()
-    model.apply_and_evaluate(training_batches, train_eval)
-    _log.info("Train Error is %s%%", results["train_error"])
-    del training_batches
-    test_batches = featurize_groups(groups, test_data)
-    model.apply_and_evaluate(test_batches, test_eval)
-    _log.info("TEST Error is %s%%", results["test_error"])
-    synchronize(dev)
+    with stage_timer("eval"):
+        model.apply_and_evaluate(training_batches, train_eval)
+        _log.info("Train Error is %s%%", results["train_error"])
+        del training_batches
+        test_batches = featurize_groups(groups, test_data)
+        model.apply_and_evaluate(test_batches, test_eval)
+        _log.info("TEST Error is %s%%", results["test_error"])
+        synchronize(dev)
     eval_secs = time.perf_counter() - t_eval
 
     results["test_predictions"] = results["test_predictions"].cpu().numpy()
@@ -162,12 +169,18 @@ def main(argv=None) -> dict:
     p.add_argument("--lambda", dest="lam", type=float, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
+        "--trace", default=None, metavar="PATH",
+        help="write a Chrome-trace JSON (.jsonl for the JSONL event log) of the run",
+    )
+    p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
     a = p.parse_args(argv)
     if a.blockSize <= 0 or a.blockSize % 512 != 0:
         p.error("--blockSize must be a positive multiple of 512")
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    if a.trace:
+        trace.enable(a.trace)
+    configure_logging()
     conf = MnistRandomFFTConfig(
         train_location=a.trainLocation,
         test_location=a.testLocation,
@@ -178,16 +191,21 @@ def main(argv=None) -> dict:
         device=a.device,
     )
     resolve_device(conf.device)
-    t_load = time.perf_counter()
-    train = LabeledData.from_rows(csv_data_loader(conf.train_location), one_indexed=True)
-    test = LabeledData.from_rows(csv_data_loader(conf.test_location), one_indexed=True)
-    load_secs = time.perf_counter() - t_load
-    # The reference fixes 784 pixels; the width comes from the data here,
-    # as in the JAX package, so any pixel count runs.
-    conf.mnist_image_size = train.data.shape[1]
-    results = run(conf, train, test)
-    results["load_seconds"] = load_secs
-    return results
+    try:
+        t_load = time.perf_counter()
+        with stage_timer("load"):
+            train = LabeledData.from_rows(csv_data_loader(conf.train_location), one_indexed=True)
+            test = LabeledData.from_rows(csv_data_loader(conf.test_location), one_indexed=True)
+        load_secs = time.perf_counter() - t_load
+        # The reference fixes 784 pixels; the width comes from the data
+        # here, as in the JAX package, so any pixel count runs.
+        conf.mnist_image_size = train.data.shape[1]
+        results = run(conf, train, test)
+        results["load_seconds"] = load_secs
+        return results
+    finally:
+        if a.trace:
+            trace.flush()
 
 
 if __name__ == "__main__":

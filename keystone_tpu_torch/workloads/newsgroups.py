@@ -23,6 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core.logging import configure_logging
 from ..core.pipeline import Pipeline
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
 from ..loaders.newsgroups import CLASSES, NewsgroupsData, newsgroups_loader
@@ -106,7 +107,7 @@ def main(argv=None) -> dict:
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
     a = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    configure_logging()
     conf = NewsgroupsConfig(
         train_location=a.trainLocation,
         test_location=a.testLocation,

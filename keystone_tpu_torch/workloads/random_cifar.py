@@ -24,7 +24,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.logging import configure_logging
 from ..core.pipeline import Pipeline
+from ..core.resilience import assert_all_finite
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
 from ..loaders.cifar import LabeledImageBatch, cifar_loader
 from ..ops.conv_fused import FusedConvFeaturizer
@@ -32,7 +34,6 @@ from ..ops.stats import StandardScaler
 from ..ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
 from ..solvers.linear import LinearMapEstimator
 from ..utils.platform import resolve_device, synchronize
-from ..utils.stats import check_finite
 from .cifar_random_patch import featurize_chunked
 
 _log = logging.getLogger(__name__)
@@ -86,6 +87,7 @@ def run(
     ``filters``: the [F, ps*ps*C] bank to use in place of drawing it (the
     tests carry the JAX package's draw across).  The results carry the test
     predictions and the fitted servable pipeline under ``"servable"``."""
+    configure_logging()
     dev = resolve_device(conf.device)
     t0 = time.perf_counter()
     if conf.sample_frac is not None:
@@ -111,7 +113,7 @@ def run(
     )
     t_solve = time.perf_counter()
     model = LinearMapEstimator(lam=conf.lam).fit(train_features, labels)
-    check_finite("random-cifar model", model.x, model.b)
+    assert_all_finite(model, "random-cifar model")
     solve_secs = time.perf_counter() - t_solve
 
     def predict(features):
@@ -156,7 +158,7 @@ def main(argv=None) -> dict:
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
     a = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    configure_logging()
     conf = RandomCifarWorkloadConfig(
         train_location=a.trainLocation,
         test_location=a.testLocation,

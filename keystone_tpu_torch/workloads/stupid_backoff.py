@@ -28,6 +28,7 @@ import time
 from collections import Counter
 from dataclasses import dataclass
 
+from ..core.logging import configure_logging
 from ..ops.ngram_lm import NGramsCounts, StupidBackoffEstimator, sharded_scores
 from ..ops.nlp import NGramsFeaturizer, Tokenizer, fit_word_frequency_encoder
 
@@ -100,7 +101,7 @@ def main(argv=None) -> dict:
     p.add_argument("--numParts", type=int, default=16)
     p.add_argument("--n", type=int, default=3)
     a = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    configure_logging()
     conf = StupidBackoffConfig(train_data=a.trainData, num_parts=a.numParts, n=a.n)
     with open(conf.train_data, encoding="utf-8") as fh:
         lines = [ln.rstrip("\n") for ln in fh if ln.strip()]

@@ -26,7 +26,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.logging import configure_logging
 from ..core.pipeline import Pipeline
+from ..core.resilience import assert_all_finite
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
 from ..loaders.timit import (
     TIMIT_DIMENSION,
@@ -38,7 +40,6 @@ from ..ops.stats import CosineRandomFeatures, StandardScaler
 from ..ops.util import ClassLabelIndicatorsFromIntLabels, GroupConcatFeaturizer, MaxClassifier
 from ..solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
 from ..utils.platform import resolve_device, synchronize
-from ..utils.stats import check_finite
 
 _log = logging.getLogger(__name__)
 
@@ -104,6 +105,7 @@ def run(conf: TimitConfig, data: TimitFeaturesData, random_features=None) -> dic
     The results carry the last evaluation's ``test_scores`` and the fitted
     servable pipeline under ``"servable"``.  The stage clocks each end in a
     synchronize; ``eval_seconds`` includes featurizing the test split."""
+    configure_logging()
     dev = resolve_device(conf.device)
     t0 = time.perf_counter()
     if random_features is None:
@@ -126,7 +128,7 @@ def run(conf: TimitConfig, data: TimitFeaturesData, random_features=None) -> dic
     model = BlockLeastSquaresEstimator(conf.num_cosine_features, conf.num_epochs, conf.lam).fit(
         training_batches, labels
     )
-    check_finite("timit model", *model.xs, model.b)
+    assert_all_finite(model, "timit model")
     solve_secs = time.perf_counter() - t_solve
     del training_batches, train_data
 
@@ -172,7 +174,7 @@ def main(argv=None) -> dict:
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
     a = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    configure_logging()
     conf = TimitConfig(
         train_data_location=a.trainDataLocation,
         train_labels_location=a.trainLabelsLocation,

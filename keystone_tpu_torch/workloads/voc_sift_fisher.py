@@ -28,7 +28,10 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
+from ..core import trace
+from ..core.logging import configure_logging, stage_timer
 from ..core.pipeline import FunctionTransformer, Pipeline
+from ..core.resilience import assert_all_finite
 from ..evaluation.map import MeanAveragePrecisionEvaluator
 from ..loaders.image_loaders import (
     VOC_NUM_CLASSES,
@@ -42,7 +45,6 @@ from ..solvers.block import BlockLeastSquaresEstimator
 from ..solvers.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from ..solvers.pca import BatchPCATransformer, compute_pca
 from ..utils.platform import resolve_device, synchronize
-from ..utils.stats import check_finite
 from .fv_common import (
     StreamSource,
     chunked,
@@ -124,7 +126,10 @@ def extract_sift_buckets(conf: SIFTFisherConfig, images) -> dict:
 def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledImages) -> dict:
     """Fit on ``train``, score ``test``.  The results carry the fitted
     ``{pca, gmm, model}`` under ``"bundle"`` and the test scores under
-    ``"test_scores"``."""
+    ``"test_scores"``.  Each stage (``sift``, ``pca``, ``gmm``,
+    ``fisher_features``, ``solve``, ``eval``) is a ``stage_timer`` span that
+    ends after a synchronize."""
+    configure_logging()
     dev = resolve_device(conf.device)
     feat_dim = 2 * conf.desc_dim * conf.vocab_size
     t0 = time.perf_counter()
@@ -134,58 +139,64 @@ def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledIma
         return time.perf_counter() - start
 
     t = time.perf_counter()
-    train_desc = extract_sift_buckets(conf, train.images)
-    sift_secs = lap(t)
+    with stage_timer("sift"):
+        train_desc = extract_sift_buckets(conf, train.images)
+        sift_secs = lap(t)
     train_labels = ClassLabelIndicatorsFromIntArrayLabels(VOC_NUM_CLASSES)(train.labels).to(dev)
 
     t = time.perf_counter()
-    if conf.pca_file is not None:
-        pca_mat = np.loadtxt(conf.pca_file, delimiter=",", ndmin=2).T
-        pca_mat = torch.as_tensor(np.asarray(pca_mat, np.float32), device=dev)
-    else:
-        samples = sample_columns(train_desc, conf.num_pca_samples, conf.seed)
-        pca_mat = compute_pca(samples.T, conf.desc_dim)
-        del samples
-    batch_pca = BatchPCATransformer(pca_mat)
-    t_proj = time.perf_counter()
-    pca_desc = {shape: (idx, batch_pca(descs)) for shape, (idx, descs) in train_desc.items()}
-    project_secs = lap(t_proj)
-    pca_secs = lap(t)
+    with stage_timer("pca"):
+        if conf.pca_file is not None:
+            pca_mat = np.loadtxt(conf.pca_file, delimiter=",", ndmin=2).T
+            pca_mat = torch.as_tensor(np.asarray(pca_mat, np.float32), device=dev)
+        else:
+            samples = sample_columns(train_desc, conf.num_pca_samples, conf.seed)
+            pca_mat = compute_pca(samples.T, conf.desc_dim)
+            del samples
+        batch_pca = BatchPCATransformer(pca_mat)
+        t_proj = time.perf_counter()
+        pca_desc = {shape: (idx, batch_pca(descs)) for shape, (idx, descs) in train_desc.items()}
+        project_secs = lap(t_proj)
+        pca_secs = lap(t)
     del train_desc
 
     t = time.perf_counter()
-    if conf.gmm_mean_file is not None:
-        gmm = GaussianMixtureModel.load(
-            conf.gmm_mean_file, conf.gmm_var_file, conf.gmm_wts_file, device=dev
-        )
-    else:
-        gmm_samples = sample_columns(pca_desc, conf.num_gmm_samples, conf.seed + 1)
-        gmm = GaussianMixtureModelEstimator(conf.vocab_size).fit(gmm_samples.T)
-        del gmm_samples
-    check_finite("VOC GMM fit", gmm.means, gmm.variances, gmm.weights)
-    gmm_secs = lap(t)
+    with stage_timer("gmm"):
+        if conf.gmm_mean_file is not None:
+            gmm = GaussianMixtureModel.load(
+                conf.gmm_mean_file, conf.gmm_var_file, conf.gmm_wts_file, device=dev
+            )
+        else:
+            gmm_samples = sample_columns(pca_desc, conf.num_gmm_samples, conf.seed + 1)
+            gmm = GaussianMixtureModelEstimator(conf.vocab_size).fit(gmm_samples.T)
+            del gmm_samples
+        assert_all_finite(gmm, "VOC GMM fit")
+        gmm_secs = lap(t)
 
     t = time.perf_counter()
-    fisher = fisher_feature_pipeline(gmm)
-    train_features = scatter_features(pca_desc, fisher, len(train), feat_dim)
-    fisher_secs = lap(t)
+    with stage_timer("fisher_features"):
+        fisher = fisher_feature_pipeline(gmm)
+        train_features = scatter_features(pca_desc, fisher, len(train), feat_dim)
+        fisher_secs = lap(t)
     del pca_desc  # the training descriptors are no longer needed
 
     t = time.perf_counter()
-    model = BlockLeastSquaresEstimator(4096, 1, conf.lam).fit(
-        train_features, train_labels, num_features=feat_dim
-    )
-    check_finite("VOC block least-squares fit", *model.xs, model.b)
-    solve_secs = lap(t)
+    with stage_timer("solve"):
+        model = BlockLeastSquaresEstimator(4096, 1, conf.lam).fit(
+            train_features, train_labels, num_features=feat_dim
+        )
+        assert_all_finite(model, "VOC block least-squares fit")
+        solve_secs = lap(t)
 
     t = time.perf_counter()
-    test_desc = extract_sift_buckets(conf, test.images)
-    test_features = scatter_features(
-        test_desc, lambda d: fisher(batch_pca(d)), len(test), feat_dim
-    )
-    del test_desc
-    scores = model(test_features).cpu().numpy()
-    eval_secs = lap(t)
+    with stage_timer("eval"):
+        test_desc = extract_sift_buckets(conf, test.images)
+        test_features = scatter_features(
+            test_desc, lambda d: fisher(batch_pca(d)), len(test), feat_dim
+        )
+        del test_desc
+        scores = model(test_features).cpu().numpy()
+        eval_secs = lap(t)
 
     aps = MeanAveragePrecisionEvaluator(test.labels, scores, VOC_NUM_CLASSES)
     ingest_stats = {
@@ -258,12 +269,18 @@ def main(argv=None) -> dict:
         help="with --streamIngest: host entropy pass only, pixels decoded on the device",
     )
     p.add_argument(
+        "--trace", default=None, metavar="PATH",
+        help="write a Chrome-trace JSON (.jsonl for the JSONL event log) of the run",
+    )
+    p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
     a = p.parse_args(argv)
     if a.deviceDecode and not a.streamIngest:
         p.error("--deviceDecode needs --streamIngest")
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    if a.trace:
+        trace.enable(a.trace)
+    configure_logging()
     conf = SIFTFisherConfig(
         train_location=a.trainLocation,
         test_location=a.testLocation,
@@ -281,16 +298,20 @@ def main(argv=None) -> dict:
         device=a.device,
     )
     resolve_device(conf.device)
-    if a.streamIngest:
-        train, test = (
-            voc_stream_source(path, conf.label_path, batch_size=a.streamBatchSize,
-                              device_decode=a.deviceDecode)
-            for path in (conf.train_location, conf.test_location)
-        )
-    else:
-        train = voc_loader(conf.train_location, conf.label_path)
-        test = voc_loader(conf.test_location, conf.label_path)
-    return run(conf, train, test)
+    try:
+        if a.streamIngest:
+            train, test = (
+                voc_stream_source(path, conf.label_path, batch_size=a.streamBatchSize,
+                                  device_decode=a.deviceDecode)
+                for path in (conf.train_location, conf.test_location)
+            )
+        else:
+            train = voc_loader(conf.train_location, conf.label_path)
+            test = voc_loader(conf.test_location, conf.label_path)
+        return run(conf, train, test)
+    finally:
+        if a.trace:
+            trace.flush()
 
 
 if __name__ == "__main__":

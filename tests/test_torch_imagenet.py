@@ -314,7 +314,7 @@ def _cpu_decoded(path, labels):
 
 @pytest.mark.parametrize("flags", [
     ["--pipelineFile", "ck"], ["--autoCache"], ["--autoShard"], ["--mesh", "8"],
-    ["--trace", "t.json"], ["--streamIngest", "--autoTune"],
+    ["--serveBench"], ["--streamIngest", "--autoTune"],
     ["--streamIngest", "--decodeBackend", "thread"], ["--streamIngest", "--snapshotDir", "s"],
     ["--deviceDecode"],
 ])

@@ -21,6 +21,7 @@ import faults
 from keystone_tpu.core import ingest as jingest
 from keystone_tpu.core.resilience import counters as jcounters
 from keystone_tpu_torch.core import ingest
+from keystone_tpu_torch.core.resilience import counters as pcounters
 from keystone_tpu_torch.loaders import image_loaders as ploaders
 from keystone_tpu_torch.ops import jpeg_device as jd
 from keystone_tpu_torch.workloads import fv_common as pfv
@@ -82,12 +83,12 @@ def test_device_stream_matches_jax(mixed_tar):
     ref_stats = st.stats
     ref_events = _event_delta(before, jcounters.snapshot())
 
-    port_before = dict(ingest.counters)
+    port_before = pcounters.snapshot()
     config = ingest.StreamConfig(decode_mode="device")
     with ingest.stream_batches(mixed_tar, 4, config=config, device="cpu") as st:
         got = list(st)
     assert st.join(10.0)
-    assert _event_delta(port_before, dict(ingest.counters)) == ref_events == {
+    assert _event_delta(port_before, pcounters.snapshot()) == ref_events == {
         "jpeg_corrupt_entropy": 1, "device_decode_fallback": 1,
         "device_decode_fallback_progressive": 1, "corrupt_image": 1,
     }

@@ -33,6 +33,19 @@ print(json.dumps({"modules": sorted(sys.modules)}))
 """
 
 
+_IMPORT_OBSERVABILITY = """
+import importlib, json, sys
+for name in %r:
+    importlib.import_module("keystone_tpu_torch." + name)
+print(json.dumps({"modules": sorted(sys.modules)}))
+"""
+
+#: The observability base: no torch at import (numerics and logging import
+#: it inside the functions that reduce or time on a device).
+OBSERVABILITY = ("core.trace", "core.telemetry", "core.resilience", "core.logging",
+                 "core.numerics")
+
+
 def _run(code: str) -> dict:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
@@ -54,7 +67,7 @@ def test_port_and_smoke_import_no_jax():
                  "ops.fv_stats", "ops.sift", "solvers.gmm", "loaders.image_loaders",
                  "ops.jpeg_device", "ops.native_entropy", "core.ingest",
                  "testing.jpeg_encode", "ops.lcs", "solvers.weighted",
-                 "workloads.imagenet_sift_lcs_fv"):
+                 "workloads.imagenet_sift_lcs_fv", *OBSERVABILITY):
         assert f"keystone_tpu_torch.{name}" in rec["imported"]
     mods = rec["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
@@ -74,3 +87,11 @@ def test_package_import_is_cheap():
 )
 def test_prefix_rule(name, expect):
     assert _jax_package(name) is expect
+
+
+def test_observability_imports_no_torch():
+    mods = _run(_IMPORT_OBSERVABILITY % (OBSERVABILITY,))["modules"]
+    for name in OBSERVABILITY:
+        assert f"keystone_tpu_torch.{name}" in mods
+    assert "torch" not in mods
+    assert not [m for m in mods if m == "jax" or _jax_package(m)]

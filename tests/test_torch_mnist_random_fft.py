@@ -204,7 +204,7 @@ def test_cli_needs_a_card_by_default(csv_files, monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "8"], ["--pipelineFile", "fitted"], ["--solveCheckpoint", "bcd"],
-    ["--autoCache"], ["--serve"], ["--trace", "t.json"], ["--blockSize", "300"],
+    ["--autoCache"], ["--serve"], ["--serveBench"], ["--blockSize", "300"],
     ["--blockSize", "0"],
 ])
 def test_cli_usage_errors(csv_files, flags):
