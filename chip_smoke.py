@@ -111,7 +111,7 @@ which raises (and so exits non-zero) on failure:
    naive-Bayes scores card against CPU within 1e-5·max with equal
    predictions on 2,000 documents.  The kernels' counters do not move;
 16. one JSON line per the kernels, the card line, and the final JSON
-   line, printed last, after phases 17-22;
+   line, printed last, after phases 17-23;
 17. ImageNetSiftLcsFV at BASELINE config 5's width (1,000 classes; SIFT
    step 3 at scale step 1 with bf16 intermediates, then a signed square
    root; LCS (4, 16, 6); PCA to 64; 16 Gaussians; 4,096 features; the
@@ -167,7 +167,21 @@ which raises (and so exits non-zero) on failure:
    that ``tools/trace_view.py`` reads holding the five stage spans and the
    ingest spans; prints the per-stage totals and the decode/consume
    overlap.  Then phase 3's fit with ``--trace`` and without, to read what
-   tracing costs.
+   tracing costs;
+23. the fitted pipelines that phases 3, 6, 8 and 9 saved with
+   ``--pipelineFile``, restored through the CLIs (``run`` for VOC in
+   memory) with no training data to read: RandomPatchCifar's predictions
+   ``np.array_equal`` to phase 3's with K1 launched once per test chunk,
+   MnistRandomFFT's equal to phase 9's with no hand kernel, VOCSIFTFisher's
+   MAP equal to phase 6's in memory (K2) and to phase 8's from the test tar
+   with the decode on the card (K3 in the admitted ``fused_apply``, K2;
+   only the test split streams), then the tar run again under
+   ``KEYSTONE_HBM_BUDGET=1MB`` (one ``device_decode_admission_denied`` per
+   test geometry, the MAP unchanged); then, with the profiler on, the
+   restored Cifar run inside one capture window (its trace must name
+   ``conv_rect_pool``), the restored tar run and MNIST config 1's fit, and
+   prints the ledger rows of the three kernels with their bound shares and
+   the ``bcd_fit`` plan and flops audits.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -180,6 +194,7 @@ import io
 import json
 import math
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -193,6 +208,7 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch import _build, convert
+from keystone_tpu_torch.core import profiler as kprof
 from keystone_tpu_torch.core import resilience, trace
 from keystone_tpu_torch.core.logging import stage_timer
 from keystone_tpu_torch.core.pipeline import Pipeline
@@ -242,9 +258,10 @@ from keystone_tpu_torch.workloads import voc_sift_fisher as voc
 from keystone_tpu_torch.workloads.fv_common import fisher_feature_pipeline, grayscale
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
-# the f32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
+# the f32 rate outside the tensor cores (3.35e12 B/s, 67e12 flop/s), the
+# profiler's rate table entry; every bound below divides a wrapper's stated
+# launch cost by them through ``profiler.bound_seconds``.
+H100_RATES = kprof.DEVICE_RATES["NVIDIA H100 80GB HBM3"]
 
 N_TRAIN, N_TEST, N_CLASSES = 50_000, 10_000, 10
 MAIN_FLAGS = [
@@ -297,6 +314,9 @@ DECODE_CASES = [
     (5, 45, 61, ((2, 2), (1, 1), (1, 1))),
 ]
 
+# VOCSIFTFisher from JPEG tars (phases 8 and 23): the stream's flags.
+VOC_TAR_FLAGS = ["--streamIngest", "--deviceDecode", "--streamBatchSize", "64", "--device", "cuda"]
+
 # VOCSIFTFisher: VOC 2007's two common image sizes (H, W), images per split.
 VOC_SHAPES = {(375, 500): 384, (500, 375): 128}
 VOC_CONF = dict(desc_dim=80, vocab_size=256, sift_step_size=3, scale_step=0,
@@ -320,6 +340,7 @@ IMAGENET_TAR_TEST = 500
 # "Running pipelines"), then the reference's default number of FFTs.
 MNIST_TRAIN, MNIST_TEST, MNIST_PIXELS = 60_000, 10_000, 784
 MNIST_FLAGS = ["--numFFTs", "4", "--blockSize", "2048", "--device", "cuda"]
+MNIST_CONF = dict(num_ffts=4, block_size=2048, device="cuda")  # the same, for run()
 MNIST_WIDE_FFTS = 200
 MNIST_CARD_VS_CPU_ROWS = 2000
 
@@ -399,13 +420,16 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound_ms(cost) -> tuple[float, str]:
+    """Least time in ms for a launch of ``cost`` (its wrapper's stated
+    ``(flops, bytes)``) on the H100's peaks, and what bounds it."""
+    seconds, by = kprof.bound_seconds(*cost, H100_RATES)
+    return seconds * 1e3, by
+
+
 def rect_pool_bound(z: torch.Tensor, out_numel: int) -> tuple[float, str]:
-    """Least time for the rect+pool work: z read once, the f32 output
-    written once, against 6 f32 operations per element of z (two
-    subtractions, two maxima, two additions)."""
-    bytes_ms = (z.numel() * z.element_size() + out_numel * 4) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 6 * z.numel() / F32_FLOPS_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    """Least time for the rect+pool work (``rect_pool.rect_pool_cost``)."""
+    return bound_ms(rp.rect_pool_cost(z.shape, z.element_size(), out_numel))
 
 
 def check_rect_pool(shape, dtype, gen, timed: bool) -> dict:
@@ -443,14 +467,10 @@ def conv_terms(n, oh, ow, f, gen, normalize=True, means=True):
 
 
 def conv_rect_pool_bound(terms, out_numel: int) -> tuple[float, str]:
-    """Least time for the fused step: conv (and mu, sigma, fsum, fmd) read
-    once, the f32 output written once, against 10 f32 operations per conv
-    element (the epilogue's product, two subtractions and division, then
-    the rect+pool's six)."""
-    read = sum(t.numel() * t.element_size() for t in terms if t is not None)
-    bytes_ms = (read + out_numel * 4) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 10 * terms[0].numel() / F32_FLOPS_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    """Least time for the fused step (``rect_pool.conv_rect_pool_cost``)."""
+    conv, mu, _sigma, _fsum, fmd = terms
+    return bound_ms(rp.conv_rect_pool_cost(*conv.shape, out_numel, normalize=mu is not None,
+                                           means=fmd is not None))
 
 
 def check_conv_rect_pool(shape, dtype, flags, gen, timed: bool) -> dict:
@@ -493,12 +513,8 @@ def time_conv_rect_pool(n: int, gen) -> dict:
 
 
 def fv_stats_bound(n: int, d: int, cols: int, k: int) -> tuple[float, str]:
-    """Least time for the statistics: x read once and s0/s1/s2 written once,
-    against the 8*k*d*D f32 operations of the four contractions per image
-    (the k*D exps are left out, in the bound's favour)."""
-    bytes_ms = (n * d * cols * 4 + n * (k + 2 * d * k) * 4) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 8 * k * d * cols * n / F32_FLOPS_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    """Least time for the statistics (``fv_stats.fv_stats_cost``)."""
+    return bound_ms(fs.fv_stats_cost(n, d, cols, k))
 
 
 def fv_stats_f64(args, n_valid, chunk: int = 8) -> torch.Tensor:
@@ -579,11 +595,8 @@ def check_fv_stats(shape, gen, timed: bool) -> dict:
 
 
 def idct_bound(n_blocks: int) -> tuple[float, str]:
-    """Least time for the IDCT: each f32 block read once and written once,
-    against two 8x8x8 products (2 * 512 FMAs = 2048 f32 flops) per block."""
-    bytes_ms = n_blocks * 64 * 4 * 2 / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_blocks * 2048 / F32_FLOPS_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    """Least time for the IDCT (``jpeg_device.idct_cost``)."""
+    return bound_ms(jd.idct_cost(n_blocks))
 
 
 def check_idct(shape, gen, timed: bool) -> dict:
@@ -609,12 +622,11 @@ def check_idct(shape, gen, timed: bool) -> dict:
     return rec
 
 
-def decode_bound(coeffs, out: torch.Tensor) -> tuple[float, str]:
-    """Least time for the whole decode: the int16 coefficients (and the quant
-    tables) read once and the f32 BGR pixels written once.  The operations
-    (an IDCT's 2048 flops per block, a few dozen per pixel) sit far below."""
-    read = sum(c.numel() * c.element_size() for c in coeffs)
-    return (read + out.numel() * 4) / HBM_BYTES_PER_S * 1e3, "bytes"
+def decode_bound(geom, batch: int) -> tuple[float, str]:
+    """Least time for the whole decode (``jpeg_device.decode_pixels_cost``:
+    the coefficients and quant tables read once, the pixels written once;
+    bytes bound it)."""
+    return bound_ms(jd.decode_pixels_cost(geom, batch))
 
 
 def random_coeff_batch(case, gen):
@@ -654,11 +666,10 @@ def check_decode(case, gen) -> dict:
 def time_decode(geom, coeffs, qt) -> dict:
     """The fused decode and the unfused composition on the card, each timed
     alone, and the decode's bound (coefficients already on the card)."""
-    out = jd.decode_pixels(geom, coeffs, qt)
     rec = {"batch": int(qt.shape[0]),
            "ms": cuda_ms(lambda: jd.decode_pixels(geom, coeffs, qt), reps=50),
            "plain_ms": cuda_ms(lambda: jd.decode_pixels_reference(geom, coeffs, qt), reps=20)}
-    rec["bound_ms"], rec["bound_by"] = decode_bound(coeffs, out)
+    rec["bound_ms"], rec["bound_by"] = decode_bound(geom, int(qt.shape[0]))
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     log(f"decode timing {rec}")
     return rec
@@ -775,17 +786,18 @@ def featurize_breakdown(featurizer, images: np.ndarray) -> dict:
     }
 
 
-def run_voc(card: str) -> tuple:
-    """Phases 6 and 7: the VOCSIFTFisher main path, its servable apply, and
-    card against CPU.  Returns the fv_stats launches of the path, the two
-    splits and the MAP."""
+def run_voc(card: str, stem: Path) -> tuple:
+    """Phases 6 and 7: the VOCSIFTFisher main path (its fitted bundle saved
+    at ``stem``), its servable apply, and card against CPU.  Returns the
+    fv_stats launches of the path, the two splits, the MAP and the run's
+    seconds."""
     rng = np.random.default_rng(7)
     t = time.perf_counter()
     train = voc_images(rng, VOC_SHAPES)
     test = voc_images(rng, VOC_SHAPES)
     log(f"VOC data: {len(train)} train / {len(test)} test images in "
         f"{time.perf_counter() - t:.1f} s")
-    conf = voc.SIFTFisherConfig(**VOC_CONF)
+    conf = voc.SIFTFisherConfig(**VOC_CONF, pipeline_file=str(stem))
 
     torch.cuda.reset_peak_memory_stats()
     fs.launches = 0
@@ -865,7 +877,7 @@ def run_voc(card: str) -> tuple:
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5 * b.abs().max().item())
     if not card_err <= cpu_err + 1e-3:
         raise AssertionError(f"card features {card_err} further from f64 than the cpu's {cpu_err}")
-    return main_launches, train, test, res["map"]
+    return main_launches, train, test, res["map"], res["seconds"]
 
 
 JPEG_PREFIX = "VOCdevkit/VOC2007/JPEGImages/"
@@ -894,50 +906,50 @@ def write_voc_tars(root: Path, splits: dict) -> dict:
     return test_members
 
 
-def run_voc_tar(card: str, train, test, memory_map: float) -> tuple[int, int, dict]:
-    """Phase 8: VOCSIFTFisher from JPEG tars through ``--streamIngest
-    --deviceDecode``.  Returns the decode and fv_stats launches of the path
-    and the decode's timings at batches 1 and 64."""
-    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
-        root = Path(tmp)
-        t = time.perf_counter()
-        members = write_voc_tars(root, {"train": train, "test": test})
-        encode_secs = time.perf_counter() - t
-        jpeg_bytes = (root / "test.tar").stat().st_size / len(test)
-        log(f"VOC JPEG tars: {len(train)} + {len(test)} images encoded in {encode_secs:.1f} s")
+def run_voc_tar(card: str, train, test, memory_map: float, root: Path) -> tuple:
+    """Phase 8: VOCSIFTFisher from JPEG tars (written under ``root``, kept
+    for phase 23) through ``--streamIngest --deviceDecode``, its fitted
+    bundle saved at ``root / "bundle"``.  Returns the decode and fv_stats
+    launches of the path, the decode's timings at batches 1 and 64, the MAP
+    and the run's seconds."""
+    root.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    members = write_voc_tars(root, {"train": train, "test": test})
+    encode_secs = time.perf_counter() - t
+    jpeg_bytes = (root / "test.tar").stat().st_size / len(test)
+    log(f"VOC JPEG tars: {len(train)} + {len(test)} images encoded in {encode_secs:.1f} s")
 
-        resilience.counters.reset()
-        torch.cuda.reset_peak_memory_stats()
-        jd.launches = jd.decode_launches = fs.launches = 0
-        res = voc.main([
-            "--trainLocation", str(root / "train.tar"), "--testLocation", str(root / "test.tar"),
-            "--labelPath", str(root / "labels.csv"), "--streamIngest", "--deviceDecode",
-            "--streamBatchSize", "64", "--device", "cuda",
+    resilience.counters.reset()
+    torch.cuda.reset_peak_memory_stats()
+    jd.launches = jd.decode_launches = fs.launches = 0
+    res = voc.main([
+        "--trainLocation", str(root / "train.tar"), "--testLocation", str(root / "test.tar"),
+        "--labelPath", str(root / "labels.csv"), *VOC_TAR_FLAGS,
+        "--pipelineFile", str(root / "bundle"),
+    ])
+    fit_decode, fit_fv = jd.decode_launches, fs.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # (f) the servable chain fed coefficient batches of one geometry.
+    conf = voc.SIFTFisherConfig(device="cuda")
+    servable = voc.servable_pipeline(conf, res["bundle"])
+    order = {name: i for i, name in enumerate(res["test_filenames"])}
+    chunk = [n for n in res["test_filenames"] if members[n][2].shape[:2] == (375, 500)][:64]
+    images = [jd.entropy_decode(members[n][0], backend="native") for n in chunk]
+    coeffs, qt = jd.stack_coeff_images(images)
+    geom = images[0].geom
+    offline = res["test_scores"][[order[n] for n in chunk[:16]]]
+    for b in (1, 4, 16):
+        served = np.concatenate([
+            jd.fused_apply(servable, geom, [c[i : i + b] for c in coeffs], qt[i : i + b],
+                           "cuda").cpu().numpy()
+            for i in range(0, 16, b)
         ])
-        fit_decode, fit_fv = jd.decode_launches, fs.launches
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-        # (f) the servable chain fed coefficient batches of one geometry.
-        conf = voc.SIFTFisherConfig(device="cuda")
-        servable = voc.servable_pipeline(conf, res["bundle"])
-        order = {name: i for i, name in enumerate(res["test_filenames"])}
-        chunk = [n for n in res["test_filenames"] if members[n][2].shape[:2] == (375, 500)][:64]
-        images = [jd.entropy_decode(members[n][0], backend="native") for n in chunk]
-        coeffs, qt = jd.stack_coeff_images(images)
-        geom = images[0].geom
-        offline = res["test_scores"][[order[n] for n in chunk[:16]]]
-        for b in (1, 4, 16):
-            served = np.concatenate([
-                jd.fused_apply(servable, geom, [c[i : i + b] for c in coeffs], qt[i : i + b],
-                               "cuda").cpu().numpy()
-                for i in range(0, 16, b)
-            ])
-            err = np.abs(served - offline).max()
-            if not err <= 1e-4 * np.abs(offline).max():
-                raise AssertionError(f"fused_apply at batch {b} differs from the offline "
-                                     f"scores by {err}")
-        decode_launches, fv_launches, idct_launches = jd.decode_launches, fs.launches, jd.launches
+        err = np.abs(served - offline).max()
+        if not err <= 1e-4 * np.abs(offline).max():
+            raise AssertionError(f"fused_apply at batch {b} differs from the offline "
+                                 f"scores by {err}")
+    decode_launches, fv_launches, idct_launches = jd.decode_launches, fs.launches, jd.launches
 
     stats = res["ingest"]
     chunks = sum(s["batches"] for s in stats.values())
@@ -1005,7 +1017,7 @@ def run_voc_tar(card: str, train, test, memory_map: float) -> tuple[int, int, di
         "card_vs_cpu_decode_max_abs": diff.max().item(), "card_vs_cpu_decode_equal": equal,
         "decoded_vs_source_mean_abs": source_err,
     }))
-    return decode_launches, fv_launches, decode_times
+    return decode_launches, fv_launches, decode_times, res["map"], res["seconds"]
 
 
 def mnist_stroke_maps(rng) -> np.ndarray:
@@ -1065,10 +1077,14 @@ def mnist_record(res: dict, peak_gb: float) -> dict:
     }
 
 
-def run_mnist(card: str) -> None:
-    """Phases 9-11: MnistRandomFFT at BASELINE config 1 through the CLI, at
-    the reference's default width in memory, then its servable apply and
-    card against CPU.  No hand kernel may launch in them."""
+def run_mnist(card: str, root: Path) -> dict:
+    """Phases 9-11: MnistRandomFFT at BASELINE config 1 through the CLI
+    (CSVs and the fitted servable chain under ``root``, kept for phase
+    23), at the reference's default width in memory, then its servable
+    apply and card against CPU.  No hand kernel may launch in them.
+    Returns what phase 23 restores and refits: the test CSV, the
+    checkpoint stem, the offline predictions, the fit's seconds and the
+    splits in memory."""
     rng = np.random.default_rng(11)
     maps = mnist_stroke_maps(rng)
     train_rows = mnist_rows(rng, MNIST_TRAIN, maps)
@@ -1077,18 +1093,19 @@ def run_mnist(card: str) -> None:
     torch.cuda.empty_cache()
 
     # 9. BASELINE config 1 from CSV files, through the CLI.
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
-        train_path, test_path = Path(tmp) / "train.csv", Path(tmp) / "test.csv"
-        t = time.perf_counter()
-        write_csv(train_path, train_rows)
-        write_csv(test_path, test_rows)
-        write_secs = time.perf_counter() - t
-        csv_bytes = train_path.stat().st_size + test_path.stat().st_size
-        torch.cuda.reset_peak_memory_stats()
-        res = mnist.main(["--trainLocation", str(train_path),
-                          "--testLocation", str(test_path), *MNIST_FLAGS])
+    root.mkdir(parents=True, exist_ok=True)
+    train_path, test_path = root / "train.csv", root / "test.csv"
+    t = time.perf_counter()
+    write_csv(train_path, train_rows)
+    write_csv(test_path, test_rows)
+    write_secs = time.perf_counter() - t
+    csv_bytes = train_path.stat().st_size + test_path.stat().st_size
+    torch.cuda.reset_peak_memory_stats()
+    res = mnist.main(["--trainLocation", str(train_path), "--testLocation", str(test_path),
+                      *MNIST_FLAGS, "--pipelineFile", str(root / "servable")])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     servable, offline = res["servable"], res["test_predictions"]
+    fit_seconds = res["seconds"]
     log(json.dumps({
         "main_path": "MnistRandomFFT BASELINE config 1 (--numFFTs 4 --blockSize 2048)",
         "card": card, "train_rows": MNIST_TRAIN, "test_rows": MNIST_TEST,
@@ -1149,6 +1166,8 @@ def run_mnist(card: str) -> None:
     if after != before:
         raise AssertionError(f"hand kernels launched in the MNIST phases: {before} -> {after}")
     log(f"MNIST phases: kernel launch counters unchanged {after}")
+    return {"test_csv": test_path, "stem": root / "servable", "predictions": offline,
+            "seconds": fit_seconds, "train": train, "test": test}
 
 
 def timit_split(rng, n: int, centres: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -2013,6 +2032,156 @@ def run_text(card: str) -> None:
                     "card": card, **rec, "kernel_launches": after}))
 
 
+def ledger_row(name: str) -> dict:
+    row = kprof.ledger().get(name)
+    if row is None:
+        raise AssertionError(f"no ledger row {name!r} in {sorted(kprof.ledger())}")
+    return {k: row[k] for k in ("runs", "wall_seconds", "flops", "bytes_accessed",
+                                "achieved_hbm_gbps", "mfu", "bound", "bound_share")}
+
+
+def run_restored(card: str, data_dir: Path, fitted: dict) -> dict:
+    """Phase 23: the fitted pipelines saved with ``--pipelineFile`` by
+    phases 3, 6, 8 and 9, restored: no training data is read and nothing is
+    fitted.  Each restored path is driven with the kernel counts set to 0
+    just before it and read just after.  Then the same paths once more with
+    the profiler on, a capture window around the restored Cifar run, and
+    MNIST's config-1 fit for the ``bcd_fit`` plan audit.  Returns the
+    restored paths' launches."""
+    absent = str(data_dir / "absent")  # no training split exists there
+    out: dict = {}
+
+    # (a) RandomPatchCifar: predictions equal to phase 3's, K1 only on the
+    # test chunks.
+    rp.launches = rp.fused_launches = 0
+    res = cifar.main(["--trainLocation", absent, "--testLocation", str(fitted["cifar_test"]),
+                      *MAIN_FLAGS, "--pipelineFile", str(fitted["cifar_stem"])])
+    out["conv_rect_pool"] = rp.fused_launches
+    if not (res["restored"] and np.array_equal(res["test_predictions"], fitted["cifar_pred"])):
+        raise AssertionError("restored Cifar predictions differ from phase 3's")
+    if out["conv_rect_pool"] != math.ceil(N_TEST / 2048) or rp.launches:
+        raise AssertionError(f"restored Cifar launched conv_rect_pool {out['conv_rect_pool']} "
+                             f"times (expected {math.ceil(N_TEST / 2048)}), rect_pool {rp.launches}")
+    cifar_secs = res["seconds"]
+
+    # (b) MnistRandomFFT: predictions equal to phase 9's, no hand kernel.
+    before = kernel_launches()
+    mres = mnist.main(["--trainLocation", absent, "--testLocation", str(fitted["mnist"]["test_csv"]),
+                       *MNIST_FLAGS, "--pipelineFile", str(fitted["mnist"]["stem"])])
+    if not (mres["restored"] and np.array_equal(mres["test_predictions"],
+                                                fitted["mnist"]["predictions"])):
+        raise AssertionError("restored MNIST predictions differ from phase 9's")
+    if kernel_launches() != before:
+        raise AssertionError("hand kernels launched in the restored MNIST run")
+
+    # (c) VOCSIFTFisher in memory: phase 6's MAP, through K2.
+    conf = voc.SIFTFisherConfig(**VOC_CONF, pipeline_file=str(fitted["voc_stem"]))
+    fs.launches = 0
+    vres = voc.run(conf, MultiLabeledImages([], [], []), fitted["voc_test"])
+    out["fv_stats_in_memory"] = fs.launches
+    if not (vres["restored"] and vres["map"] == fitted["voc_map"] and fs.launches >= len(VOC_SHAPES)):
+        raise AssertionError(f"restored VOC MAP {vres['map']} (fitted {fitted['voc_map']}), "
+                             f"fv_stats {fs.launches} launches")
+
+    # (d) VOCSIFTFisher from the test tar with the decode on the card:
+    # phase 8's MAP, through K3 (in the admitted fused_apply) and K2; only
+    # the test split streams.
+    tars = fitted["voc_tars"]
+    tar_flags = ["--trainLocation", absent, "--testLocation", str(tars / "test.tar"),
+                 "--labelPath", str(tars / "labels.csv"), *VOC_TAR_FLAGS,
+                 "--pipelineFile", str(tars / "bundle")]
+    resilience.counters.reset()
+    jd.launches = jd.decode_launches = fs.launches = 0
+    tres = voc.main(tar_flags)
+    out["decode_pixels"], out["fv_stats_jpeg_tars"] = jd.decode_launches, fs.launches
+    chunks = tres["ingest"]["test"]["batches"]
+    if not (tres["restored"] and tres["map"] == fitted["voc_tar_map"]
+            and set(tres["ingest"]) == {"test"}):
+        raise AssertionError(f"restored VOC from tars: MAP {tres['map']} (fitted "
+                             f"{fitted['voc_tar_map']}), streams {sorted(tres['ingest'])}")
+    # The statistics run per shape bucket once the stream ends, in launches
+    # of at most 2 GiB of partials (ops/fv_stats.launch_geometry).
+    if not (jd.decode_launches >= 2 * chunks and fs.launches >= len(VOC_SHAPES)
+            and jd.launches == 0):
+        raise AssertionError(f"restored VOC from tars: decode {jd.decode_launches}, fv_stats "
+                             f"{fs.launches}, idct {jd.launches} launches for {chunks} chunks")
+    if resilience.counters.snapshot():
+        raise AssertionError(f"counted events: {resilience.counters.snapshot()}")
+
+    # (e) The same under a 1 MB HBM budget: the decode+featurize is denied
+    # once per (transform, geometry), counted, and changes nothing else.
+    geometries = len(VOC_SHAPES)
+    os.environ["KEYSTONE_HBM_BUDGET"] = "1MB"
+    try:
+        bres = voc.main(tar_flags)
+    finally:
+        del os.environ["KEYSTONE_HBM_BUDGET"]
+    denied = resilience.counters.get("device_decode_admission_denied")
+    if not (denied == geometries and bres["map"] == tres["map"]):
+        raise AssertionError(f"under a 1 MB budget: {denied} denials (expected {geometries}), "
+                             f"MAP {bres['map']} (unbudgeted {tres['map']})")
+    log(json.dumps({
+        "phase": "23: restored pipelines (--pipelineFile), no training data read", "card": card,
+        "cifar": {"restored_seconds": cifar_secs, "fitted_seconds": fitted["cifar_seconds"],
+                  "predictions_equal": True, "conv_rect_pool_launches": out["conv_rect_pool"]},
+        "mnist": {"restored_seconds": mres["seconds"], "fitted_seconds": fitted["mnist"]["seconds"],
+                  "predictions_equal": True},
+        "voc_in_memory": {"restored_seconds": vres["seconds"], "fitted_seconds": fitted["voc_seconds"],
+                          "map": vres["map"], "fv_stats_launches": out["fv_stats_in_memory"]},
+        "voc_jpeg_tars": {"restored_seconds": tres["seconds"],
+                          "fitted_seconds": fitted["voc_tar_seconds"], "map": tres["map"],
+                          "decode_pixels_launches": out["decode_pixels"],
+                          "fv_stats_launches": out["fv_stats_jpeg_tars"], "chunks": chunks},
+        "budget_1mb": {"device_decode_admission_denied": denied, "map": bres["map"],
+                       "seconds": bres["seconds"]},
+    }))
+
+    # (f) Profiled: the ledger rows of the three kernels on the restored
+    # paths, a capture window around the restored Cifar run, and MNIST's
+    # config-1 fit for the bcd_fit audit.
+    xprof = data_dir / "xprof"
+    os.environ[kprof.XPROF_DIR_ENV] = str(xprof)
+    os.environ[kprof.XPROF_WINDOW_ENV] = "120"
+    try:
+        kprof.reset_state()
+        with kprof.profiled(True):
+            capture = kprof.maybe_capture("chip_smoke", "phase 23: restored Cifar")
+            if capture is None:
+                raise AssertionError("the capture window did not open")
+            cifar.main(["--trainLocation", absent, "--testLocation", str(fitted["cifar_test"]),
+                        *MAIN_FLAGS, "--pipelineFile", str(fitted["cifar_stem"])])
+            kprof.close_capture()
+            voc.main(tar_flags)
+            fit = mnist.run(mnist.MnistRandomFFTConfig(**MNIST_CONF), fitted["mnist"]["train"],
+                            fitted["mnist"]["test"])
+            rows = {name: ledger_row(name) for name in ("conv_rect_pool", "fv_stats",
+                                                        "decode_pixels")}
+            fused = {k: v for k, v in kprof.ledger().items() if k.startswith("fused_decode:")}
+            audits = {"plan": kprof.plan_audits().get("bcd_fit:fused"),
+                      "flops": kprof.flops_audits().get("bcd_fit:fused")}
+            sampler = kprof.sampler().record()
+    finally:
+        del os.environ[kprof.XPROF_DIR_ENV], os.environ[kprof.XPROF_WINDOW_ENV]
+    trace_path = Path(capture) / kprof.CAPTURE_TRACE_NAME
+    text = trace_path.read_text()
+    kernel_events = sum(1 for e in json.loads(text).get("traceEvents", [])
+                        if e.get("cat") == "kernel")
+    if "conv_rect_pool" not in text or audits["plan"] is None:
+        raise AssertionError(f"capture names conv_rect_pool: {'conv_rect_pool' in text}; "
+                             f"bcd_fit plan audit: {audits['plan']}")
+    log(json.dumps({
+        "phase": "23: profiled restored paths and the bcd_fit audit", "card": card,
+        "ledger": rows, "fused_decode_rows": fused,
+        "bcd_fit_report": fit["fit_report"], "bcd_fit_audits": audits,
+        "sampler": {k: sampler[k] for k in ("samples", "interval_ms", "crashed", "unavailable")},
+        "capture": {"file": str(trace_path), "bytes": trace_path.stat().st_size,
+                    "names_conv_rect_pool": True, "cuda_kernel_events": kernel_events,
+                    "pool_kernel_named": "pool_kernel" in text},
+    }))
+    kprof.reset_state()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -2085,9 +2254,11 @@ def smoke(data_dir: Path) -> int:
 
     # 3. + 4. The main path: fit, eval, then the servable apply.
     rp.launches = rp.fused_launches = 0
-    res = cifar.main(["--trainLocation", str(train_path),
-                      "--testLocation", str(test_path), *MAIN_FLAGS])
+    res = cifar.main(["--trainLocation", str(train_path), "--testLocation", str(test_path),
+                      *MAIN_FLAGS, "--pipelineFile", str(data_dir / "cifar_servable")])
     fit_launches = rp.fused_launches
+    fitted = {"cifar_test": test_path, "cifar_stem": data_dir / "cifar_servable",
+              "cifar_pred": res["test_predictions"], "cifar_seconds": res["seconds"]}
     servable = res["servable"]
     for chunk in (1, 4, 16, 64):
         served = cifar.apply_servable_chunked(servable, test_images[:256], chunk)
@@ -2143,11 +2314,14 @@ def smoke(data_dir: Path) -> int:
     if not (w_err <= 1e-3 and s_err <= 1e-3):
         raise AssertionError("the solve differs between card and CPU beyond 1e-3")
 
-    voc_launches, voc_train, voc_test, voc_map = run_voc(card)
-    decode_launches, tar_fv_launches, decode_times = run_voc_tar(card, voc_train, voc_test,
-                                                                 voc_map)
-    del voc_train, voc_test
-    run_mnist(card)
+    voc_launches, voc_train, voc_test, voc_map, voc_secs = run_voc(card, data_dir / "voc_bundle")
+    decode_launches, tar_fv_launches, decode_times, tar_map, tar_secs = run_voc_tar(
+        card, voc_train, voc_test, voc_map, data_dir / "voc_tars")
+    del voc_train
+    fitted.update(voc_stem=data_dir / "voc_bundle", voc_test=voc_test, voc_map=voc_map,
+                  voc_seconds=voc_secs, voc_tars=data_dir / "voc_tars", voc_tar_map=tar_map,
+                  voc_tar_seconds=tar_secs)
+    fitted["mnist"] = run_mnist(card, data_dir / "mnist")
     run_timit(card)
     random_cifar_rec = run_cifar_variants(card, train_path, test_path)
     run_newsgroups(card)
@@ -2158,6 +2332,7 @@ def smoke(data_dir: Path) -> int:
     run_descriptors(card)
     run_text(card)
     tar_launches = run_cifar_tar(card, train_path, test_path)
+    restored = run_restored(card, data_dir, fitted)
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -2166,10 +2341,11 @@ def smoke(data_dir: Path) -> int:
         "source": "keystone_tpu_torch/csrc/rect_pool.cu",
         "replaces": "keystone_tpu/ops/rect_pool_pallas.py:78",
         "launches": (main_launches + random_cifar_rec["launches"]
-                     + tar_launches["conv_rect_pool"]),
+                     + tar_launches["conv_rect_pool"] + restored["conv_rect_pool"]),
         "launches_by_path": {"random_patch_cifar": main_launches,
                              "random_cifar": random_cifar_rec["launches"],
-                             "random_patch_cifar_jpeg_tar": tar_launches["conv_rect_pool"]},
+                             "random_patch_cifar_jpeg_tar": tar_launches["conv_rect_pool"],
+                             "random_patch_cifar_restored": restored["conv_rect_pool"]},
         "max_abs_err": max(r["max_abs_err"] for r in [
             fused_prod, fused_prod_f32, fused_cifar48, *fused_odd, random_cifar_rec]),
         "ms": fused_prod["ms"],
@@ -2198,10 +2374,13 @@ def smoke(data_dir: Path) -> int:
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/fv_stats.cu",
         "replaces": "keystone_tpu/ops/fv_pallas.py:95",
-        "launches": voc_launches + tar_fv_launches + inet_launches + inet_tar_fv,
+        "launches": (voc_launches + tar_fv_launches + inet_launches + inet_tar_fv
+                     + restored["fv_stats_in_memory"] + restored["fv_stats_jpeg_tars"]),
         "launches_by_path": {"voc_in_memory": voc_launches, "voc_jpeg_tars": tar_fv_launches,
                              "imagenet_in_memory": inet_launches,
-                             "imagenet_jpeg_tars": inet_tar_fv},
+                             "imagenet_jpeg_tars": inet_tar_fv,
+                             "voc_restored_in_memory": restored["fv_stats_in_memory"],
+                             "voc_restored_jpeg_tars": restored["fv_stats_jpeg_tars"]},
         "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd, *fv_imagenet.values()]),
         "ms": fv_prod["ms"],
         "plain_ms": fv_prod["plain_ms"],
@@ -2223,10 +2402,12 @@ def smoke(data_dir: Path) -> int:
         "route": "cuda",
         "source": "keystone_tpu_torch/csrc/idct.cu",
         "replaces": "keystone_tpu/ops/jpeg_device.py:743",
-        "launches": decode_launches + inet_tar_decode + tar_launches["decode_pixels"],
+        "launches": (decode_launches + inet_tar_decode + tar_launches["decode_pixels"]
+                     + restored["decode_pixels"]),
         "launches_by_path": {"voc_jpeg_tars": decode_launches,
                              "imagenet_jpeg_tars": inet_tar_decode,
-                             "cifar_jpeg_tar": tar_launches["decode_pixels"]},
+                             "cifar_jpeg_tar": tar_launches["decode_pixels"],
+                             "voc_restored_jpeg_tars": restored["decode_pixels"]},
         "max_abs_err": max(r["max_abs_err"] for r in decode_checks),
         "ms": decode_times[64]["ms"],
         "plain_ms": decode_times[64]["plain_ms"],

@@ -57,6 +57,7 @@ import torch
 from ..loaders import image_loaders
 from ..ops import jpeg_device as jdev
 from . import numerics as knum
+from . import profiler as kprof
 from . import trace
 from .resilience import counters
 
@@ -197,14 +198,25 @@ class StreamBatch:
 
     def apply(self, transform):
         """``transform(pixels)`` for this chunk; for coefficient chunks the
-        pixels are decoded on the device first
-        (:func:`~..ops.jpeg_device.fused_apply`)."""
+        pixels are decoded on the device first, admitted and attributed by
+        :func:`~..ops.jpeg_device.fused_apply`.  With the profiler on, a
+        pixel chunk's featurize is attributed to the ledger
+        (``core.profiler.attributed_call``) with the transform's stated
+        cost where it has one (``launch_cost``)."""
         if self.coeff is not None:
             out = jdev.fused_apply(
                 transform, self.coeff.geom, self.coeff.coeffs, self.coeff.qt, self.device
             )
-        else:
+        elif not kprof.enabled():
             out = transform(self.dev())
+        else:
+            pixels = self.dev()
+            launch_cost = getattr(transform, "launch_cost", None)
+            out = kprof.attributed_call(
+                f"featurize:{self.shape[0]}x{self.shape[1]}",
+                launch_cost(tuple(pixels.shape)) if launch_cost is not None else None,
+                transform, pixels,
+            )
         return self._probed(out)
 
     def _probed(self, out):

@@ -5,10 +5,12 @@ The composition algebra — ``then`` / ``then_estimator`` /
 (fitting the chained estimator first pushes the data through the upstream
 transformer) — is the JAX package's.  Nodes are plain Python classes holding
 tensors; PyTorch runs eagerly, so a ``Pipeline`` is plain function
-composition.  With the numerics observatory on (``core.numerics``), every
-node boundary of ``Pipeline.__call__`` is a tensor-stat probe site.  The
-profiling, reuse-tracking and Cacher machinery of the JAX package is not
-ported.
+composition.  Fitted node classes are registered by name with their data
+and meta fields (:func:`register_node`, the JAX package's names and
+fields), the schema ``core.checkpoint`` saves and rebuilds them by.  With
+the numerics observatory on (``core.numerics``), every node boundary of
+``Pipeline.__call__`` is a tensor-stat probe site.  The profiling,
+reuse-tracking and Cacher machinery of the JAX package is not ported.
 """
 
 from __future__ import annotations
@@ -17,6 +19,34 @@ import abc
 from typing import Any, Callable, Sequence
 
 from . import numerics
+
+#: Class name -> (cls, data_fields, meta_fields) for every node registered
+#: via :func:`register_node` / :func:`node` — the schema the checkpoint
+#: serializer (core.checkpoint) walks to save and rebuild fitted pipelines
+#: by name.
+NODE_REGISTRY: dict = {}
+
+
+def register_node(cls, data_fields: Sequence[str] = (), meta_fields: Sequence[str] = ()):
+    """Register a node class for checkpointing.
+
+    ``data_fields`` hold fitted state (tensors, nested nodes); ``meta_fields``
+    hold static settings (sizes, flags, dtypes).  Loading rebuilds a node
+    without calling ``__init__``, setting exactly these fields, as the JAX
+    package's pytree unflatten does; a class whose ``__init__`` derives
+    state that no field holds defines ``_restore(self)``, which the loader
+    calls once the fields are set."""
+    NODE_REGISTRY[cls.__name__] = (cls, tuple(data_fields), tuple(meta_fields))
+    return cls
+
+
+def node(data_fields: Sequence[str] = (), meta_fields: Sequence[str] = ()):
+    """Class decorator form of :func:`register_node`."""
+
+    def deco(cls):
+        return register_node(cls, data_fields, meta_fields)
+
+    return deco
 
 
 class Transformer(abc.ABC):
@@ -51,6 +81,7 @@ class Transformer(abc.ABC):
         return ChainedLabelEstimator(self, est)
 
 
+@node(meta_fields=("fn", "name"))
 class FunctionTransformer(Transformer):
     """Wrap a plain function as a Transformer."""
 
@@ -163,6 +194,7 @@ class FunctionNode:
         raise NotImplementedError
 
 
+@node()
 class Identity(Transformer):
     def __call__(self, batch):
         return batch

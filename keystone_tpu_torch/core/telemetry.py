@@ -27,10 +27,10 @@ the flight-recorder postmortem dump.
   schema-tagged JSON file, atomically.  Capped per kind per process so a
   fault storm cannot fill a disk.
 
-The JAX package also opens a bounded device-capture window from an SLO
-burn and from each postmortem (its ``core.profiler``); the port has no
-profiler yet, so neither hook exists here and a dump carries no
-``xprof_captures`` list.
+An SLO burn-rate breach and every postmortem-family fault also open one
+bounded device-capture window (``core.profiler.maybe_capture``; a no-op
+without ``KEYSTONE_XPROF_DIR``, capped per kind per process), and a dump
+lists the capture windows the process opened (``xprof_captures``).
 
 Never on the fit/serve hot path: the SLO observe is one deque append under
 a lock, the postmortem check is one set lookup + one env read, and
@@ -191,11 +191,17 @@ class SLOTracker:
         self.total_errors = 0
         self.total_violations = 0
 
+    #: window observations required before a burn-rate breach can fire a
+    #: capture — one early violation over a 3-request window is noise,
+    #: not a page.
+    BURN_CAPTURE_MIN_COUNT = 20
+
     def observe(self, latency_ms: float, ok: bool = True) -> None:
         if _suspended:
             return
         now = self._clock()
         violation = (not ok) or latency_ms > self.slo_ms
+        breach = False
         with self._lock:
             self.total_requests += 1
             if not ok:
@@ -205,6 +211,21 @@ class SLOTracker:
                 self._window_violations += 1
             self._window.append((now, float(latency_ms), violation))
             self._prune(now)
+            if violation and self.budget > 0:
+                count = len(self._window)
+                breach = (
+                    count >= self.BURN_CAPTURE_MIN_COUNT
+                    and (self._window_violations / count) / self.budget > 1.0
+                )
+        if breach:
+            # SLO burn-rate breach: the endpoint is spending its error
+            # budget faster than the budget allows — open one bounded
+            # device capture window (rate-limited per kind per process).
+            from . import profiler
+
+            profiler.maybe_capture(
+                "slo_burn", reason=f"engine {self.label} burning error budget"
+            )
 
     def _prune(self, now: float) -> None:
         cutoff = now - self.window_s
@@ -600,6 +621,13 @@ def maybe_postmortem(kind: str, detail: str | None = None, total: int = 0):
     documenting."""
     if kind not in POSTMORTEM_KINDS:
         return None
+    # Any postmortem-family fault also triggers a bounded device capture
+    # window (core.profiler; no-op without KEYSTONE_XPROF_DIR, capped per
+    # kind per process, never raises) — the device-side evidence next to
+    # the flight ring's host-side last moments.
+    from . import profiler
+
+    profiler.maybe_capture(kind, reason=(detail or "")[:200])
     dump_dir = os.environ.get(POSTMORTEM_DIR_ENV, "").strip()
     if not dump_dir:
         return None
@@ -622,6 +650,9 @@ def maybe_postmortem(kind: str, detail: str | None = None, total: int = 0):
             # One atomic registry snapshot: counters, gauges, histograms,
             # the fault ledger, and the live SLO surface.
             "metrics": trace.metrics.snapshot(),
+            # Triggered device capture windows this process opened
+            # (core.profiler) — the postmortem links the trace evidence.
+            "xprof_captures": profiler.capture_paths(),
         }
         os.makedirs(dump_dir, exist_ok=True)
         path = os.path.join(

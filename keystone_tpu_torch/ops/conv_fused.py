@@ -13,11 +13,15 @@ from __future__ import annotations
 
 import torch
 
-from ..core.pipeline import Transformer
+from ..core.pipeline import Transformer, node
 from .images import Convolver
-from .rect_pool import conv_rect_pool
+from .rect_pool import conv_rect_pool, conv_rect_pool_cost, num_pools
 
 
+@node(
+    data_fields=("conv",),
+    meta_fields=("alpha", "max_val", "pool_stride", "pool_size", "activation_dtype"),
+)
 class FusedConvFeaturizer(Transformer):
     """Convolver -> SymmetricRectifier -> Pooler('sum') -> ImageVectorizer.
 
@@ -58,6 +62,20 @@ class FusedConvFeaturizer(Transformer):
     @property
     def device(self) -> torch.device:
         return self.conv.device
+
+    def launch_cost(self, shape) -> tuple[float, float]:
+        """(flops, bytes) of the fused kernel's launch on [N, H, W, C]
+        images of ``shape`` (``rect_pool.conv_rect_pool_cost``)."""
+        n, h, w, _ = shape
+        f, ws = self.conv.filters.shape[0], self.conv.conv_size
+        oh, ow = h - ws + 1, w - ws + 1
+        npools = (num_pools(oh, self.pool_stride, self.pool_size)
+                  * num_pools(ow, self.pool_stride, self.pool_size))
+        return conv_rect_pool_cost(
+            n, oh, ow, f, n * npools * 2 * f,
+            normalize=self.conv.normalize_patches,
+            means=self.conv.filter_means_dot is not None,
+        )
 
     def __call__(self, batch):
         conv = self.conv

@@ -23,7 +23,7 @@ import math
 import numpy as np
 import torch
 
-from ..core.pipeline import Transformer
+from ..core.pipeline import Transformer, node
 from ..utils.stats import sqrt_rn
 from .lcs import _same_conv2d_zero
 
@@ -31,6 +31,9 @@ FEATURE_THRESHOLD = 1e-8  # zero histograms below this norm
 CONV_THRESHOLD = 1e-6  # where to truncate the Gaussian blurs
 
 
+@node(
+    meta_fields=("daisy_t", "daisy_q", "daisy_r", "daisy_h", "pixel_border", "stride", "patch_size"),
+)
 class DaisyExtractor(Transformer):
     """Batched DAISY: ``[N, H, W, 1]`` (or ``[N, H, W]``) -> ``[N, K,
     feature_size]`` f32 on the input's device; keypoints ``x·numY + y``,

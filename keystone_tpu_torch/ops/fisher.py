@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.pipeline import Transformer
+from ..core.pipeline import Transformer, node
 from ..solvers.gmm import GaussianMixtureModel, _log_resp
 from .fv_stats import fv_stats
 
@@ -51,6 +51,7 @@ def fisher_vector(descriptors, means, variances, weights, mask=None):
     return _fv_from_stats(q.sum(dim=0), x.T @ q, (x * x).T @ q, means, variances, weights, n_valid)
 
 
+@node(data_fields=("gmm",))
 class FisherVector(Transformer):
     """Batched FV node: ``[N, d, cols]`` descriptor matrices (descriptors as
     columns) -> ``[N, d, 2K]``."""

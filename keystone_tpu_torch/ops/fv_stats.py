@@ -10,6 +10,8 @@ posterior-weighted sums of the descriptors and of their squares.
 On a CUDA tensor it launches the hand-written kernel ``csrc/fv_stats.cu``
 (or raises); on a CPU tensor it runs :func:`fv_stats_reference`, the plain
 PyTorch version the tests and ``chip_smoke.py`` hold the kernel against.
+:func:`fv_stats_cost` states a call's flops and bytes, from which
+``core.profiler`` reckons the roofline bound.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..core import profiler as kprof
 
 #: Kernel launches made by :func:`fv_stats` (never by the plain version):
 #: one per group of images (see :func:`launch_geometry`).
@@ -93,6 +96,18 @@ _SIGNATURES = {
         ],
     ),
 }
+
+
+def fv_stats_cost(n: int, d: int, cols: int, k: int,
+                  valid_cols: int | None = None) -> tuple[float, float]:
+    """(flops, bytes) of :func:`fv_stats` on ``[n, d, cols]`` descriptors
+    with ``k`` components: the valid descriptors read once and s0/s1/s2
+    written once, against the 8*k*d f32 operations per descriptor of the
+    four contractions (the k exps per descriptor are left out, in the
+    bound's favour).  ``valid_cols``: the descriptors the counts leave
+    valid over the whole batch (default all ``n * cols``)."""
+    used = n * cols if valid_cols is None else valid_cols
+    return 8.0 * k * d * used, float(used * d * 4 + n * (k + 2 * d * k) * 4)
 
 
 def _logit_terms(means, variances, weights):
@@ -172,10 +187,15 @@ def fv_stats(x, counts, means, variances, weights):
     global launches
     for i in range(0, n, geom.group):
         m = min(geom.group, n - i)
-        rc = lib.fv_stats_launch(
-            x[i].data_ptr(), None if counts is None else counts[i].data_ptr(),
-            params.data_ptr(), out[i].data_ptr(), workspace.data_ptr(),
-            m, d, cols, k, geom.splits, TILES_PER_SPLIT, stream,
+        rc = kprof.launch(
+            "fv_stats",
+            lambda: fv_stats_cost(
+                m, d, cols, k, None if counts is None else int(counts[i : i + m].sum())),
+            lambda: lib.fv_stats_launch(
+                x[i].data_ptr(), None if counts is None else counts[i].data_ptr(),
+                params.data_ptr(), out[i].data_ptr(), workspace.data_ptr(),
+                m, d, cols, k, geom.splits, TILES_PER_SPLIT, stream,
+            ),
         )
         if rc != 0:
             raise RuntimeError(f"fv_stats kernel launch failed: cudaError {rc}")

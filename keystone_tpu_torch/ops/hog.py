@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.pipeline import Transformer
+from ..core.pipeline import Transformer, node
 from ..utils.stats import sqrt_rn
 
 EPSILON = 0.0001
@@ -66,6 +66,7 @@ def _to_cells(v: torch.Tensor, dim: int, upper: np.ndarray) -> torch.Tensor:
     return out
 
 
+@node(meta_fields=("bin_size",))
 class HogExtractor(Transformer):
     """Batched HOG: ``[N, H, W, C]`` -> ``[N, cells, 32]`` f32 on the input's
     device, where cells = max(numXCells−2, 0)·max(numYCells−2, 0), rows

@@ -14,10 +14,11 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from ..core.pipeline import FunctionNode, Transformer
+from ..core.pipeline import FunctionNode, Transformer, node
 from ..utils.platform import resolve_device
 
 
+@node()
 class ImageVectorizer(Transformer):
     """Flatten [N,H,W,C] -> [N, H*W*C] (row-major, channel fastest)."""
 
@@ -25,6 +26,7 @@ class ImageVectorizer(Transformer):
         return batch.reshape(batch.shape[0], -1)
 
 
+@node(meta_fields=("max_val", "alpha"))
 class SymmetricRectifier(Transformer):
     """Two-sided ReLU; channels double: ``[max(v, x-a), max(v, -x-a)]``."""
 
@@ -55,6 +57,7 @@ class Windower(FunctionNode):
         return wins.reshape(-1, ws, ws, c)
 
 
+@node(meta_fields=("stride", "pool_size", "pixel_function", "pool_function"))
 class Pooler(Transformer):
     """Strided pooling over square regions.
 
@@ -120,6 +123,10 @@ def convolver_epilogue(conv_fp, mu, sigma, fsum, filter_means_dot):
     return out
 
 
+@node(
+    data_fields=("filters", "whitener_means", "filter_means_dot"),
+    meta_fields=("normalize_patches", "var_constant"),
+)
 class Convolver(Transformer):
     """Convolve a filter bank over images with optional per-patch
     normalization.
@@ -167,6 +174,14 @@ class Convolver(Transformer):
             self.filter_means_dot = flat @ self.whitener_means
         else:
             self.filter_means_dot = None
+        self._restore()
+
+    def _restore(self) -> None:
+        """The state derived from the fields (a checkpoint load sets the
+        fields without ``__init__`` and calls this): the device, the conv
+        weights and the epilogue's ``fsum``."""
+        filters = self.filters
+        self.device = filters.device
         # [F, C, ws, ws] weights over channels_last memory (= the HWC filters).
         cl = torch.channels_last
         self._weight = filters.permute(0, 3, 1, 2).contiguous(memory_format=cl)
@@ -219,6 +234,7 @@ class Convolver(Transformer):
         )
 
 
+@node()
 class PixelScaler(Transformer):
     """Rescale [0..255] -> [0..1]."""
 
@@ -226,6 +242,7 @@ class PixelScaler(Transformer):
         return batch / 255.0
 
 
+@node()
 class GrayScaler(Transformer):
     """NTSC grayscale.  3-channel input is BGR:
     ``0.2989*R + 0.5870*G + 0.1140*B``; any other channel count takes the
@@ -243,6 +260,7 @@ class GrayScaler(Transformer):
         return out[..., None]
 
 
+@node()
 class ImageExtractor(Transformer):
     """Labelled image batch -> its images."""
 
@@ -250,6 +268,7 @@ class ImageExtractor(Transformer):
         return labeled.images
 
 
+@node()
 class LabelExtractor(Transformer):
     """Labelled image batch -> its labels."""
 

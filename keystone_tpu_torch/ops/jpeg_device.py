@@ -17,7 +17,10 @@ Baseline JPEG is split at the entropy boundary:
   tensor all of it is two launches of the hand-written kernel
   ``csrc/idct.cu`` (:func:`decode_pixels`); on a CPU tensor it is the plain
   composition :func:`decode_pixels_reference`.  :func:`fused_apply` runs a
-  featurizer straight on the pixels.
+  featurizer straight on the pixels, HBM-admitted once per (transform,
+  geometry).  :func:`idct_cost` and :func:`decode_pixels_cost` state a
+  launch's flops and bytes, from which ``core.profiler`` reckons the
+  roofline bound.
 
 Scope is the baseline subset (sequential DCT, Huffman, 8-bit, grayscale or
 YCbCr with 4:4:4 / 4:2:2 / 4:2:0 sampling, restart markers): everything else
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..core import profiler as kprof
 from ..core.resilience import counters
 from . import native_entropy
 
@@ -719,6 +723,24 @@ _SIGNATURES = {
 }
 
 
+def idct_cost(n_blocks: int) -> tuple[float, float]:
+    """(flops, bytes) of :func:`idct_blocks` on ``n_blocks`` f32 blocks:
+    each read once and written once, two 8x8x8 products (2 * 512 FMAs =
+    2048 f32 flops) per block."""
+    return 2048.0 * n_blocks, float(n_blocks * 64 * 4 * 2)
+
+
+def decode_pixels_cost(geom: JpegGeometry, batch: int) -> tuple[float, float]:
+    """(flops, bytes) of :func:`decode_pixels` on ``batch`` images of
+    ``geom``: the int16 coefficients and the f32 quant tables read once,
+    the f32 BGR pixels written once; the operations counted are the IDCT's
+    2048 per block (the few dozen per pixel of upsampling and colour
+    conversion are left out, in the bound's favour)."""
+    blocks = batch * sum(by * bx for by, bx in geom.block_shape)
+    nbytes = blocks * 64 * 2 + batch * geom.n_components * 64 * 4
+    return 2048.0 * blocks, float(nbytes + batch * geom.height * geom.width * 3 * 4)
+
+
 def idct_blocks(blocks):
     """``[..., 8, 8]`` f32 blocks -> their inverse DCT.  On a CUDA tensor it
     launches the hand-written kernel ``csrc/idct.cu`` (or raises); on a CPU
@@ -738,9 +760,12 @@ def idct_blocks(blocks):
     if n == 0:
         return out
     lib = _build.load("idct", _SIGNATURES)
-    rc = lib.idct_launch(
-        blocks.data_ptr(), _basis(blocks.device, torch.float32).data_ptr(),
-        out.data_ptr(), n, torch.cuda.current_stream(blocks.device).cuda_stream,
+    rc = kprof.launch(
+        "idct_blocks", lambda: idct_cost(n),
+        lambda: lib.idct_launch(
+            blocks.data_ptr(), _basis(blocks.device, torch.float32).data_ptr(),
+            out.data_ptr(), n, torch.cuda.current_stream(blocks.device).cuda_stream,
+        ),
     )
     if rc != 0:
         raise RuntimeError(f"idct kernel launch failed: cudaError {rc}")
@@ -902,26 +927,29 @@ def decode_pixels(geom: JpegGeometry, coeffs, qt):
     dims = ctypes.c_int * (4 * ncomp)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.load("idct", _SIGNATURES)
-    global decode_launches
-    rc = lib.decode_planes_launch(
-        pointers(*(t.data_ptr() for t in coeffs)),
-        pointers(*plane_ptrs),
-        dims(*(d for (by, bx), spec in zip(geom.block_shape, layout)
-               for d in (by, bx, spec.height, spec.width))),
-        ncomp, b, qt.data_ptr(), _basis(dev, torch.float32).data_ptr(), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"decode_planes kernel launch failed: cudaError {rc}")
-    decode_launches += 1
-    rc = lib.decode_pixels_launch(
-        pointers(*plane_ptrs),
-        dims(*(int(d) for spec in layout
-               for d in (spec.height, spec.width, spec.up_h, spec.up_v))),
-        ncomp, b, geom.height, geom.width, out.data_ptr(), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"decode_pixels kernel launch failed: cudaError {rc}")
-    decode_launches += 1
+    def launch_both():
+        global decode_launches
+        rc = lib.decode_planes_launch(
+            pointers(*(t.data_ptr() for t in coeffs)),
+            pointers(*plane_ptrs),
+            dims(*(d for (by, bx), spec in zip(geom.block_shape, layout)
+                   for d in (by, bx, spec.height, spec.width))),
+            ncomp, b, qt.data_ptr(), _basis(dev, torch.float32).data_ptr(), stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"decode_planes kernel launch failed: cudaError {rc}")
+        decode_launches += 1
+        rc = lib.decode_pixels_launch(
+            pointers(*plane_ptrs),
+            dims(*(int(d) for spec in layout
+                   for d in (spec.height, spec.width, spec.up_h, spec.up_v))),
+            ncomp, b, geom.height, geom.width, out.data_ptr(), stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"decode_pixels kernel launch failed: cudaError {rc}")
+        decode_launches += 1
+
+    kprof.launch("decode_pixels", lambda: decode_pixels_cost(geom, b), launch_both)
     return out
 
 
@@ -947,12 +975,82 @@ def decode_batch(geom: JpegGeometry, coeffs, qt, device=None):
     return decode_pixels(geom, coeffs, qt)
 
 
+#: transform -> {geometry -> admitted}.  Keyed on the transform OBJECT
+#: (not id(): a dead transform's id can be given to a new callable) with
+#: strong references and oldest-first eviction at a small cap.
+_admission_cache: dict = {}
+_ADMISSION_CACHE_MAX = 64
+
+
+def _admit(transform, geom: JpegGeometry, batch: int, device) -> bool:
+    """HBM admission of the decode of ``batch`` images of ``geom`` feeding
+    ``transform`` (``core.memory.plan_bytes``), once per (transform,
+    geometry): the coefficients and quant tables, the decode's planes and
+    its pixels.  The transform's own footprint is not charged: PyTorch
+    reports none ahead of a run, and running it on the ``meta`` device
+    costs the ingest consumer host time on every new pair.  A denial is
+    counted (``device_decode_admission_denied``)."""
+    from ..core import memory as kmem
+
+    try:
+        per_transform = _admission_cache.get(transform)
+        if per_transform is None:
+            while len(_admission_cache) >= _ADMISSION_CACHE_MAX:
+                _admission_cache.pop(next(iter(_admission_cache)))
+            per_transform = _admission_cache[transform] = {}
+    except TypeError:  # unhashable transform: admit on every call
+        per_transform = {}
+    admitted = per_transform.get(geom)
+    if admitted is not None:
+        return admitted
+    _flops, nbytes = decode_pixels_cost(geom, batch)
+    pixel_bytes = batch * geom.height * geom.width * 3 * 4
+    plan = kmem.plan_bytes(
+        f"device_decode:{geom.height}x{geom.width}",
+        argument_bytes=int(nbytes) - pixel_bytes,
+        temp_bytes=4 * batch * sum(spec.height * spec.width for spec in plane_layout(geom)),
+        output_bytes=pixel_bytes,
+        budget=kmem.hbm_budget(device),
+    )
+    if not plan.admitted:
+        counters.record(
+            "device_decode_admission_denied",
+            f"device decode denied at {geom.height}x{geom.width} "
+            f"(batch {batch}) — {plan.reason}",
+        )
+    per_transform[geom] = plan.admitted
+    return plan.admitted
+
+
 def fused_apply(transform, geom: JpegGeometry, coeffs, qt, device=None):
     """``transform(decode_batch(geom, coeffs, qt, device))``: coefficient
     batches straight to features, the pixels born on the card.
 
-    Unlike the JAX package's, there is no program cache (PyTorch runs
-    eagerly, so there is nothing to compile) and no HBM admission of the
-    decode+featurize: ``core/memory`` is not ported yet (ROADMAP Queue 1
-    item 12)."""
-    return transform(decode_batch(geom, coeffs, qt, device))
+    The decode feeding each (transform, geometry) is HBM-admitted once
+    through ``core.memory``; a denial is counted
+    (``device_decode_admission_denied``).  The JAX package falls back on a
+    denial from its one fused program to decode then featurize; PyTorch runs
+    eagerly, so that two-step path is the only one here and a denial
+    changes only the count.  With the profiler on, the call is attributed
+    to the ledger (``core.profiler.attributed_call``) with the decode's
+    reckoned cost, plus the transform's where it states one
+    (``launch_cost``, as the fused featurizer does)."""
+    batch = int(qt.shape[0])
+    dev = torch.device(device) if device is not None else (
+        coeffs[0].device if isinstance(coeffs[0], torch.Tensor) else torch.device("cuda")
+    )
+    _admit(transform, geom, batch, dev)
+
+    def run(c, q):
+        return transform(decode_batch(geom, c, q, dev))
+
+    if not kprof.enabled():
+        return run(coeffs, qt)
+    flops, nbytes = decode_pixels_cost(geom, batch)
+    launch_cost = getattr(transform, "launch_cost", None)
+    if launch_cost is not None:
+        f2, b2 = launch_cost((batch, geom.height, geom.width, 3))
+        flops, nbytes = flops + f2, nbytes + b2
+    return kprof.attributed_call(
+        f"fused_decode:{geom.height}x{geom.width}", (flops, nbytes), run, coeffs, qt
+    )

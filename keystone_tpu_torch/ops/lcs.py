@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.pipeline import Transformer
+from ..core.pipeline import Transformer, node
 from ..utils.stats import sqrt_rn
 
 
@@ -54,6 +54,7 @@ def _same_conv2d_zero(batch: torch.Tensor, xfilt, yfilt) -> torch.Tensor:
     return _conv1d_zero(_conv1d_zero(batch.to(torch.float32), yfilt, 1), xfilt, 2)
 
 
+@node(meta_fields=("stride", "stride_start", "sub_patch_size"))
 class LCSExtractor(Transformer):
     """Batched LCS: ``[N, H, W, C]`` -> ``[N, 2·16·C, num_keypoints]``
     (descriptors as columns, the SIFT/BatchPCA convention).

@@ -15,7 +15,9 @@ On a CUDA tensor each launches its entry of the hand-written kernel
 ``csrc/rect_pool.cu`` (or raises); on a CPU tensor each runs its plain
 PyTorch version (:func:`rect_pool_reference`,
 :func:`conv_rect_pool_reference`), which the tests and ``chip_smoke.py``
-hold the kernel against.
+hold the kernel against.  :func:`rect_pool_cost` and
+:func:`conv_rect_pool_cost` state one launch's flops and bytes, from which
+``core.profiler`` reckons the roofline bound.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import math
 import torch
 
 from .. import _build
+from ..core import profiler as kprof
 from .images import convolver_epilogue
 
 #: Kernel launches made by :func:`rect_pool` (never by the plain version).
@@ -71,6 +74,28 @@ def windows(dim: int, stride: int, pool_size: int) -> list[tuple[int, int]]:
         (p * stride, min(p * stride + span, dim) - p * stride)
         for p in range(num_pools(dim, stride, pool_size))
     ]
+
+
+def rect_pool_cost(shape, itemsize: int, out_numel: int) -> tuple[float, float]:
+    """(flops, bytes) of one :func:`rect_pool` launch on activations of
+    ``shape`` [N, oh, ow, F] and ``itemsize``: z read once, the f32 output
+    written once, 6 f32 operations per element of z (two subtractions, two
+    maxima, two additions)."""
+    numel = math.prod(shape)
+    return 6.0 * numel, float(numel * itemsize + out_numel * 4)
+
+
+def conv_rect_pool_cost(n: int, oh: int, ow: int, f: int, out_numel: int, *,
+                        normalize: bool = True, means: bool = True) -> tuple[float, float]:
+    """(flops, bytes) of one :func:`conv_rect_pool` launch on an
+    [n, oh, ow, f] conv grid: each term the kernel reads read once (conv;
+    with patch normalisation mu, sigma and fsum; with whitener means the
+    filter-means dot), the f32 output written once, 10 f32 operations per
+    conv element (the epilogue's product, two subtractions and division,
+    then the rect+pool's six)."""
+    grid = n * oh * ow
+    nbytes = grid * f * 4 + (2 * grid * 4 + f * 4 if normalize else 0) + (f * 4 if means else 0)
+    return 10.0 * grid * f, float(nbytes + out_numel * 4)
 
 
 def rect_pool_reference(
@@ -130,9 +155,12 @@ def rect_pool(
     out = torch.empty(shape, dtype=torch.float32, device=z.device)
     lib = _build.load("rect_pool", _SIGNATURES)
     stream = torch.cuda.current_stream(z.device).cuda_stream
-    rc = lib.rect_pool_launch(
-        z.data_ptr(), out.data_ptr(), n, oh, ow, f, pool_stride, pool_size,
-        alpha, max_val, _DTYPE_CODES[z.dtype], stream,
+    rc = kprof.launch(
+        "rect_pool", lambda: rect_pool_cost(z.shape, z.element_size(), out.numel()),
+        lambda: lib.rect_pool_launch(
+            z.data_ptr(), out.data_ptr(), n, oh, ow, f, pool_stride, pool_size,
+            alpha, max_val, _DTYPE_CODES[z.dtype], stream,
+        ),
     )
     if rc != 0:
         raise RuntimeError(f"rect_pool kernel launch failed: cudaError {rc}")
@@ -222,11 +250,16 @@ def conv_rect_pool(
         return None if t is None else t.data_ptr()
 
     lib = _build.load("rect_pool", _SIGNATURES)
-    rc = lib.conv_rect_pool_launch(
-        conv_fp.data_ptr(), ptr(mu), ptr(sigma), ptr(fsum if mu is not None else None),
-        ptr(filter_means_dot), out.data_ptr(), n, oh, ow, f, pool_stride, pool_size,
-        alpha, max_val, int(activation_dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream,
+    rc = kprof.launch(
+        "conv_rect_pool",
+        lambda: conv_rect_pool_cost(n, oh, ow, f, out.numel(), normalize=mu is not None,
+                                    means=filter_means_dot is not None),
+        lambda: lib.conv_rect_pool_launch(
+            conv_fp.data_ptr(), ptr(mu), ptr(sigma), ptr(fsum if mu is not None else None),
+            ptr(filter_means_dot), out.data_ptr(), n, oh, ow, f, pool_stride, pool_size,
+            alpha, max_val, int(activation_dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream,
+        ),
     )
     if rc != 0:
         raise RuntimeError(f"conv_rect_pool kernel launch failed: cudaError {rc}")

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.pipeline import Transformer
+from ..core.pipeline import Transformer, node
 
 MAGNIF = 6.0
 CONTRAST_THRESHOLD = 0.005
@@ -130,6 +130,7 @@ def _f32_matmul(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.T
     return torch.matmul(a.to(torch.float32), b.to(torch.float32)).to(dtype)
 
 
+@node(meta_fields=("step_size", "bin_size", "scales", "scale_step", "compute_dtype"))
 class SIFTExtractor(Transformer):
     """Batched dense SIFT: ``[N, H, W]`` (or ``[N, H, W, 1]``) grayscale in
     [0, 1] -> ``[N, 128, num_desc]`` quantised descriptors as f32.

@@ -4,9 +4,10 @@ from __future__ import annotations
 
 import torch
 
-from ..core.pipeline import Estimator, Transformer
+from ..core.pipeline import Estimator, Transformer, node
 
 
+@node(data_fields=("mean", "std"))
 class StandardScalerModel(Transformer):
     """Subtract column means, optionally divide by column std."""
 
@@ -86,6 +87,7 @@ class ColumnSampler:
         return cols[:, idx.to(cols.device)]
 
 
+@node()
 class NormalizeRows(Transformer):
     """L2-normalise each row, the norm floored at 2.2e-16."""
 
@@ -94,6 +96,7 @@ class NormalizeRows(Transformer):
         return batch / torch.clamp_min(norm, 2.2e-16)
 
 
+@node()
 class SignedHellingerMapper(Transformer):
     """Signed square root ``sign(x) * sqrt(|x|)``, elementwise."""
 
@@ -101,6 +104,7 @@ class SignedHellingerMapper(Transformer):
         return torch.sign(batch) * torch.sqrt(torch.abs(batch))
 
 
+@node(data_fields=("W", "b"))
 class CosineRandomFeatures(Transformer):
     """Random Fourier features ``cos(x Wᵀ + b)``: ``W`` [D, d], ``b`` [D].
     The product is one ``torch.matmul`` (cuBLAS on the card, f32 with TF32
@@ -143,6 +147,7 @@ def next_power_of_two(i: int) -> int:
     return 1 << (i - 1).bit_length()
 
 
+@node()
 class PaddedFFT(Transformer):
     """Zero-pad to the next power of two and keep the real part of the
     first half of the FFT: d -> next_pow2(d)/2 (cuFFT on the card)."""
@@ -152,6 +157,7 @@ class PaddedFFT(Transformer):
         return torch.fft.rfft(batch, n=padded, dim=-1).real[..., : padded // 2]
 
 
+@node(data_fields=("signs",))
 class RandomSignNode(Transformer):
     """Elementwise random ±1 mask."""
 
@@ -170,6 +176,7 @@ class RandomSignNode(Transformer):
         return RandomSignNode((2.0 * draws - 1.0).to(torch.float32).to(device))
 
 
+@node(meta_fields=("max_val", "alpha"))
 class LinearRectifier(Transformer):
     """``max(max_val, x - alpha)``."""
 

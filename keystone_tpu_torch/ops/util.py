@@ -7,9 +7,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..core.pipeline import FunctionNode, Transformer
+from ..core.pipeline import FunctionNode, Transformer, node
 
 
+@node(meta_fields=("num_classes",))
 class ClassLabelIndicatorsFromIntLabels(Transformer):
     """Int label -> ±1 indicator vector: -1 everywhere, +1 at the class."""
 
@@ -24,6 +25,7 @@ class ClassLabelIndicatorsFromIntLabels(Transformer):
         return 2.0 * eye[labels] - 1.0
 
 
+@node(meta_fields=("num_classes",))
 class ClassLabelIndicatorsFromIntArrayLabels(Transformer):
     """Multi-label variant: a ±1 multi-hot from per-example label lists (or
     a padded [N, max_labels] int array, pad = -1)."""
@@ -42,6 +44,7 @@ class ClassLabelIndicatorsFromIntArrayLabels(Transformer):
         return torch.from_numpy(out)
 
 
+@node()
 class MatrixVectorizer(Transformer):
     """Flatten each per-example matrix to a vector in column-major order."""
 
@@ -49,6 +52,7 @@ class MatrixVectorizer(Transformer):
         return batch.transpose(-1, -2).reshape(batch.shape[0], -1)
 
 
+@node()
 class MaxClassifier(Transformer):
     """argmax over the score vector (first index on ties)."""
 
@@ -56,6 +60,7 @@ class MaxClassifier(Transformer):
         return torch.argmax(batch, dim=-1)
 
 
+@node(meta_fields=("k",))
 class TopKClassifier(Transformer):
     """Top-k class indices, best first (``torch.topk``, sorted).  Equal
     scores may come out in another order than ``jax.lax.top_k``'s."""
@@ -67,6 +72,7 @@ class TopKClassifier(Transformer):
         return torch.topk(batch, self.k, dim=-1, sorted=True).indices
 
 
+@node(meta_fields=("dtype",))
 class Cast(Transformer):
     """dtype cast (the reference's FloatToDouble, generalised)."""
 
@@ -91,6 +97,7 @@ class ZipVectors(FunctionNode):
         return torch.cat(list(batches), dim=-1)
 
 
+@node(data_fields=("groups",))
 class GroupConcatFeaturizer(Transformer):
     """The MnistRandomFFT featurize phase as one chainable node: each group
     of per-FFT chains runs on the same input batch, ZipVectors concatenates

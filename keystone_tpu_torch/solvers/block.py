@@ -2,9 +2,12 @@
 
 Only the single-device fused tier is ported: centering, per-block
 regularised grams, Cholesky factors (once) and ``num_iter`` epochs of block
-coordinate descent, as a Python loop over epochs and blocks.  The mesh,
-autoshard, memory-ladder, host-staged and stepwise/checkpoint tiers of the
-JAX package are not ported.
+coordinate descent, as a Python loop over epochs and blocks.  The fit runs
+through the degradation ladder (``core.memory.run_ladder``) with that one
+tier, which is also the floor: its preflight charges the reckoned working
+set, and ``last_fit_report`` records the decision.  The mesh, autoshard,
+host-staged and stepwise/checkpoint tiers of the JAX package are not
+ported.
 """
 
 from __future__ import annotations
@@ -13,7 +16,9 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..core import memory as kmem
 from ..core import numerics as knum
+from ..core import profiler as kprof
 from ..core.pipeline import Identity, LabelEstimator, Transformer
 from ..ops.stats import StandardScalerModel
 from .normal_equations import cho_factor, cho_solve
@@ -90,19 +95,11 @@ class BlockLinearMapper(Transformer):
             evaluator(running if self.b is None else running + self.b)
 
 
-def _blocked_design_matrix(features, block_size: int, num_features=None):
-    """(x, widths): the [N, B*bs] zero-padded blocked layout the fit
-    consumes, from a monolithic [N, d] tensor or a list of feature blocks.
-    A monolithic input whose width is a block multiple passes through
-    uncopied."""
+def _block_widths(features, block_size: int, num_features=None) -> tuple[int, ...]:
+    """The feature-block widths of the blocked layout, from a monolithic
+    [N, d] tensor or a list of feature blocks."""
     if isinstance(features, (list, tuple)):
-        widths = tuple(int(b.shape[1]) for b in features)
-        bs = max(widths)
-        parts = [
-            torch.nn.functional.pad(b, (0, bs - w)) if w < bs else b
-            for b, w in zip(features, widths)
-        ]
-        return torch.cat(parts, dim=1), widths
+        return tuple(int(b.shape[1]) for b in features)
     d = num_features or features.shape[1]
     if d > features.shape[1]:
         raise ValueError(
@@ -110,13 +107,50 @@ def _blocked_design_matrix(features, block_size: int, num_features=None):
             f"{features.shape[1]} — the blocked-design contract requires "
             "num_features <= features.shape[1]"
         )
-    widths = tuple(min(block_size, d - i) for i in range(0, d, block_size))
+    return tuple(min(block_size, d - i) for i in range(0, d, block_size))
+
+
+def _design_is_copy(features, widths) -> bool:
+    """Does :func:`_blocked_design_matrix` allocate a new matrix?  A list
+    of blocks is concatenated; a monolithic input whose width is a block
+    multiple passes through uncopied."""
+    if isinstance(features, (list, tuple)):
+        return True
+    return len(widths) * max(widths) != sum(widths)
+
+
+def _blocked_design_matrix(features, block_size: int, num_features=None):
+    """(x, widths): the [N, B*bs] zero-padded blocked layout the fit
+    consumes, from a monolithic [N, d] tensor or a list of feature blocks.
+    A monolithic input whose width is a block multiple passes through
+    uncopied."""
+    widths = _block_widths(features, block_size, num_features)
     bs = max(widths)
+    if isinstance(features, (list, tuple)):
+        parts = [
+            torch.nn.functional.pad(b, (0, bs - w)) if w < bs else b
+            for b, w in zip(features, widths)
+        ]
+        return torch.cat(parts, dim=1), widths
+    d = sum(widths)
     features = features[:, :d]
     col_pad = len(widths) * bs - d
     if col_pad:
         features = torch.nn.functional.pad(features, (0, col_pad))
     return features, widths
+
+
+def _device_bytes(*tensors) -> int:
+    """Bytes of the tensors among ``tensors`` that live on a CUDA card
+    (the inputs a live budget already excludes)."""
+    return kmem.array_bytes(*(
+        t for t in tensors if isinstance(t, torch.Tensor) and t.device.type == "cuda"
+    ))
+
+
+def _features_device(features) -> torch.device:
+    first = features[0] if isinstance(features, (list, tuple)) else features
+    return first.device
 
 
 def _fused_bcd_impl(x, labels, lam: float, nvalid: int, num_iter: int, widths):
@@ -172,6 +206,29 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         self.block_size = block_size
         self.num_iter = num_iter
         self.lam = lam
+        self.last_fit_report: kmem.FitReport | None = None
+
+    def plan_fused(self, features, labels, widths) -> kmem.MemoryPlan:
+        """Preflight of the fused fit from the shapes alone.  Charged: the
+        caller's feature blocks and their concatenation (the blocked design
+        matrix is a new allocation unless it is a view of the input), the
+        labels, then the transients (two centered [N, bs] blocks, the
+        residual and its update, two [bs, bs] grams, the Cholesky stack),
+        and the outputs (models, means, intercept)."""
+        bs, nb = max(widths), len(widths)
+        rows = labels.shape[0]
+        k = labels.shape[1]
+        feats = list(features) if isinstance(features, (list, tuple)) else [features]
+        it = feats[0].element_size()
+        x_bytes = it * rows * nb * bs if _design_is_copy(features, widths) else 0
+        return kmem.plan_bytes(
+            "bcd_fused",
+            argument_bytes=kmem.array_bytes(*feats) + x_bytes + it * rows * k,
+            temp_bytes=it * (2 * rows * bs + 2 * rows * k + 2 * bs * bs + nb * bs * bs + rows),
+            output_bytes=it * (nb * bs * k + nb * bs + k),
+            resident_bytes=_device_bytes(*feats, labels),
+            budget=kmem.hbm_budget(_features_device(features)),
+        )
 
     def fit(
         self,
@@ -180,21 +237,36 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         num_features: int | None = None,
         nvalid: int | None = None,
     ) -> BlockLinearMapper:
-        """``nvalid``: true row count when the inputs carry zero pad rows."""
-        x, widths = _blocked_design_matrix(features, self.block_size, num_features)
-        if knum.active():
-            # Per-block κ estimates on the design matrix this fit formed
-            # (row-capped probe); one flag check when the observatory is off.
-            knum.design_conditioning(x, widths, float(self.lam), label="bcd_fit")
-        labels = labels.to(device=x.device, dtype=x.dtype)
-        if nvalid is None:
-            nvalid = int(labels.shape[0])
-        models, label_mean, means = _fused_bcd_impl(
-            x, labels, float(self.lam), nvalid, self.num_iter, widths
+        """``nvalid``: true row count when the inputs carry zero pad rows.
+        The fit runs inside the profiler phase ``bcd_fit`` through the
+        ladder; its decision trail is ``self.last_fit_report``."""
+        widths = _block_widths(features, self.block_size, num_features)
+        bs, nb = max(widths), len(widths)
+        rows, k = int(labels.shape[0]), int(labels.shape[1])
+
+        def run_fused(plan):
+            x, _ = _blocked_design_matrix(features, self.block_size, num_features)
+            if knum.active():
+                # Per-block κ estimates on the design matrix this fit formed
+                # (row-capped probe); one flag check when the observatory is off.
+                knum.design_conditioning(x, widths, float(self.lam), label="bcd_fit")
+            y = labels.to(device=x.device, dtype=x.dtype)
+            models, label_mean, means = _fused_bcd_impl(
+                x, y, float(self.lam), rows if nvalid is None else nvalid,
+                self.num_iter, widths,
+            )
+            return BlockLinearMapper(
+                [models[i, :w] for i, w in enumerate(widths)],
+                self.block_size,
+                label_mean,
+                [StandardScalerModel(means[i, :w]) for i, w in enumerate(widths)],
+            )
+
+        report = kmem.FitReport(label="bcd_fit")
+        self.last_fit_report = report
+        tier = kmem.Tier(
+            "fused", lambda: self.plan_fused(features, labels, widths), run_fused,
+            flops=2.0 * rows * bs * bs * nb + self.num_iter * 4.0 * rows * bs * k * nb,
         )
-        return BlockLinearMapper(
-            [models[i, :w] for i, w in enumerate(widths)],
-            self.block_size,
-            label_mean,
-            [StandardScalerModel(means[i, :w]) for i, w in enumerate(widths)],
-        )
+        with kprof.phase("bcd_fit"):
+            return kmem.run_ladder("bcd_fit", [tier], report)

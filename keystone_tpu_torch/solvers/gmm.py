@@ -15,10 +15,11 @@ import math
 import numpy as np
 import torch
 
-from ..core.pipeline import Estimator, Transformer
+from ..core.pipeline import Estimator, Transformer, node
 from ..utils.platform import resolve_device
 
 
+@node(data_fields=("means", "variances", "weights"))
 class GaussianMixtureModel(Transformer):
     """Diagonal-covariance GMM; ``__call__`` returns the posteriors."""
 

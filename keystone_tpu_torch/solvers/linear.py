@@ -5,11 +5,12 @@ from __future__ import annotations
 
 import torch
 
-from ..core.pipeline import LabelEstimator, Transformer
+from ..core.pipeline import LabelEstimator, Transformer, node
 from ..ops.stats import StandardScaler, StandardScalerModel
 from .normal_equations import solve_least_squares
 
 
+@node(data_fields=("x", "b", "feature_scaler"))
 class LinearMapper(Transformer):
     """``out = scale(in) @ x + b``; ``x`` is [d, k]."""
 
@@ -54,6 +55,7 @@ class LinearMapEstimator(LabelEstimator):
         return LinearMapper(x, label_scaler.mean, feature_scaler)
 
 
+@node(data_fields=("weights", "intercept"))
 class LeastSquaresModel(Transformer):
     """Bare ``X @ W + b`` head."""
 

@@ -20,18 +20,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.pipeline import LabelEstimator, Transformer
+from ..core.pipeline import LabelEstimator, Transformer, node
 from ..ops.sparse import CSRFeatures
 from ..utils.platform import resolve_device
 
 
+@node(data_fields=("pi", "theta"))
 class NaiveBayesModel(Transformer):
     """Log-posterior scores ``pi + theta @ x``: ``pi`` [C], ``theta`` [C, D]."""
 
     def __init__(self, pi, theta):
         self.pi = pi
         self.theta = theta
-        self._columns = theta.T.contiguous()  # [D, C]: one row per feature
+        self._restore()
+
+    def _restore(self) -> None:
+        """The state derived from ``theta`` (a checkpoint load sets the
+        fields without ``__init__`` and calls this)."""
+        self._columns = self.theta.T.contiguous()  # [D, C]: one row per feature
 
     def __call__(self, batch):
         if isinstance(batch, CSRFeatures):

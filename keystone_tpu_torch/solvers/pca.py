@@ -14,10 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.pipeline import Estimator, LabelEstimator, Transformer
+from ..core.pipeline import Estimator, LabelEstimator, Transformer, node
 from .linear import LinearMapper
 
 
+@node(data_fields=("pca_mat",))
 class PCATransformer(Transformer):
     """Project row vectors: ``batch @ pca_mat``."""
 
@@ -28,6 +29,7 @@ class PCATransformer(Transformer):
         return batch @ self.pca_mat
 
 
+@node(data_fields=("pca_mat",))
 class BatchPCATransformer(Transformer):
     """Project descriptor matrices whose descriptors are columns:
     ``[N, d, cols] -> [N, dims, cols]`` (``einsum("dk,ndc->nkc")``)."""

@@ -15,9 +15,14 @@ then ``cholesky_solve``) where the JAX package uses LU: half the flops.  A
 failed factorisation raises ``FloatingPointError`` instead of returning
 NaNs.
 
+The fit runs through the degradation ladder (``core.memory.run_ladder``)
+with one tier, the fused solve, which is also the floor: its preflight
+charges the reckoned working set, and ``last_fit_report`` records the
+decision.
+
 Not ported: the mesh tiers and the ``all_to_all`` class regroup, the
-placement search, memory admission and the degradation ladder, the
-conditioning monitor and input donation.
+placement search, the stepwise and host-staged tiers, the conditioning
+monitor and input donation.
 """
 
 from __future__ import annotations
@@ -27,9 +32,18 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..core import memory as kmem
 from ..core import numerics as knum
+from ..core import profiler as kprof
 from ..core.pipeline import LabelEstimator
-from .block import BlockLinearMapper, _blocked_design_matrix
+from .block import (
+    BlockLinearMapper,
+    _block_widths,
+    _blocked_design_matrix,
+    _design_is_copy,
+    _device_bytes,
+    _features_device,
+)
 
 
 def _class_sums(x: torch.Tensor, lengths: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -161,6 +175,35 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         self.lam = lam
         self.mixture_weight = mixture_weight
         self.class_chunk = class_chunk
+        self.last_fit_report: kmem.FitReport | None = None
+
+    def plan_fused(self, features, labels, widths) -> kmem.MemoryPlan:
+        """Preflight of the fused weighted fit from the shapes alone.
+        Charged: the caller's feature blocks and their concatenation, the
+        labels, the class-sorted zero-tailed copy of the design matrix and
+        the gather that fills it, the per-block statistics, one chunk of
+        per-class slabs and systems, the residual, and the outputs."""
+        bs, nb = max(widths), len(widths)
+        rows, n_classes = int(labels.shape[0]), int(labels.shape[1])
+        feats = list(features) if isinstance(features, (list, tuple)) else [features]
+        it = feats[0].element_size()
+        d_all = nb * bs
+        n_max = rows  # the largest class, at most every row
+        p_tot = rows + n_max
+        chunk = max(1, min(self.class_chunk, n_classes))
+        x_bytes = it * rows * d_all if _design_is_copy(features, widths) else 0
+        return kmem.plan_bytes(
+            "bwls_fused",
+            argument_bytes=kmem.array_bytes(*feats) + x_bytes + it * rows * n_classes,
+            temp_bytes=it * (
+                p_tot * d_all + rows * d_all + 3 * p_tot * n_classes
+                + nb * (bs * bs + 2 * n_classes * bs + bs)
+                + 2 * chunk * bs * bs + 2 * chunk * n_max * bs
+            ),
+            output_bytes=it * (nb * bs * n_classes + n_classes),
+            resident_bytes=_device_bytes(*feats, labels),
+            budget=kmem.hbm_budget(_features_device(features)),
+        )
 
     def fit(
         self,
@@ -168,6 +211,24 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         labels: torch.Tensor,
         num_features: int | None = None,
     ) -> BlockLinearMapper:
+        """The fit runs inside the profiler phase ``bwls_fit`` through the
+        ladder; its decision trail is ``self.last_fit_report``."""
+        widths = _block_widths(features, self.block_size, num_features)
+        bs, nb = max(widths), len(widths)
+        rows, n_classes = int(labels.shape[0]), int(labels.shape[1])
+        report = kmem.FitReport(label="bwls_fit")
+        self.last_fit_report = report
+        tier = kmem.Tier(
+            "fused",
+            lambda: self.plan_fused(features, labels, widths),
+            lambda plan: self._fit_fused(features, labels, num_features),
+            flops=nb * (2.0 * rows * bs * bs)
+            + self.num_iter * nb * (2.0 * rows * bs * bs + 4.0 * rows * bs * n_classes),
+        )
+        with kprof.phase("bwls_fit"):
+            return kmem.run_ladder("bwls_fit", [tier], report)
+
+    def _fit_fused(self, features, labels, num_features) -> BlockLinearMapper:
         x, widths = _blocked_design_matrix(features, self.block_size, num_features)
         if knum.active():
             # Per-block κ estimates on the design matrix (row-capped probe).

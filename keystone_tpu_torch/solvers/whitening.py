@@ -9,9 +9,10 @@ from __future__ import annotations
 
 import torch
 
-from ..core.pipeline import Estimator, Transformer
+from ..core.pipeline import Estimator, Transformer, node
 
 
+@node(data_fields=("whitener", "means"))
 class ZCAWhitener(Transformer):
     """Apply ``(x - means) @ whitener``."""
 

@@ -18,7 +18,11 @@ host runs only the entropy pass and the pixels are born on the card
 (``decode_pixels``, the K3 kernel) before the fused featurizer (K1).
 ``--streamTrainTar`` decodes the train split through the same stream, bit
 for bit the eager tar loader's images.  ``--trace out.json`` writes the
-run's stage and ingest spans as a Chrome trace.
+run's stage and ingest spans as a Chrome trace.  ``--pipelineFile stem``
+saves the fitted servable chain (``core.checkpoint``, with the test
+predictions' output sketch as its numerics baseline); when the checkpoint
+exists, the run restores it instead, loads no training data, fits nothing
+and scores the eager test split in featurize chunks.
 
 Run: ``python -m keystone_tpu_torch.workloads.cifar_random_patch
 --trainLocation train.bin --testLocation test.bin [--device cpu]``.
@@ -36,8 +40,11 @@ import numpy as np
 import torch
 
 from ..core import trace
+from ..core.checkpoint import checkpoint_exists, load_pipeline, save_pipeline
 from ..core.ingest import StreamConfig, stream_batches
 from ..core.logging import configure_logging, stage_timer
+from ..core.memory import log_fit_report
+from ..core.numerics import OutputSketch
 from ..core.pipeline import Pipeline
 from ..core.resilience import assert_all_finite, counters
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
@@ -82,6 +89,9 @@ class RandomCifarConfig:
     #: With ``stream_test_tar``: the host runs the entropy pass only and
     #: the pixels are decoded on the device, straight into the featurizer.
     device_decode: bool = False
+    #: Checkpoint stem of the fitted servable chain: saved after a fit,
+    #: restored (no fit) when it exists.
+    pipeline_file: str | None = None
 
 
 def learn_filters(
@@ -273,6 +283,8 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
     configure_logging()
     dev = resolve_device(conf.device)
     t0 = time.perf_counter()
+    if conf.pipeline_file is not None and checkpoint_exists(conf.pipeline_file):
+        return _run_restored(conf, test, t0)
     if conf.sample_frac is not None:
         rng = np.random.default_rng(conf.seed)
         keep = rng.random(len(train)) < conf.sample_frac
@@ -302,9 +314,9 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
     )
     t_solve = time.perf_counter()
     with stage_timer("solve"):
-        model = BlockLeastSquaresEstimator(4096, 1, conf.lam or 0.0).fit(
-            train_features, labels
-        )
+        solver = BlockLeastSquaresEstimator(4096, 1, conf.lam or 0.0)
+        model = solver.fit(train_features, labels)
+        log_fit_report(solver, _log, "cifar random-patch solve")
         # Typed failure (FloatingPointError) instead of NaN predictions.
         assert_all_finite(model, "cifar random-patch model")
         synchronize(dev)
@@ -347,14 +359,50 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
         "learn_seconds": learn_secs,
         "solve_seconds": solve_secs,
         "servable": Pipeline([*conv_pipe.nodes, scaler, model, MaxClassifier()]),
+        "fit_report": solver.last_fit_report.record(),
     }
     if ingest_stats is not None:
         results["ingest"] = ingest_stats
         results["test_labels"] = test_labels
         results["test_filenames"] = names
+    if conf.pipeline_file is not None:
+        # The predicted-class distribution rides the manifest as the
+        # reference a serving tier's drift monitor judges answers against.
+        save_pipeline(
+            conf.pipeline_file, results["servable"],
+            numerics_baseline=OutputSketch.for_outputs(results["test_predictions"]).record(),
+        )
+        _log.info("saved fitted servable pipeline to %s", conf.pipeline_file)
     _log.info("Training error is: %s", train_eval.total_error)
     _log.info("Test error is: %s", test_eval.total_error)
     _log.info("Pipeline took %.3f s", secs)
+    return results
+
+
+def _run_restored(conf: RandomCifarConfig, test: LabeledImageBatch, t0: float) -> dict:
+    """Score the eager test split with the restored servable chain, in
+    featurize chunks: no filter learning, featurize of the training split
+    or solve."""
+    _log.info("restoring fitted servable pipeline from %s", conf.pipeline_file)
+    if len(test.labels) == 0:
+        raise ValueError(
+            "a restored run scores the eager test split — provide "
+            "--testLocation (a streamed test tar has no resident images)"
+        )
+    servable = load_pipeline(conf.pipeline_file, device=conf.device)
+    with stage_timer("eval"):
+        test_pred = apply_servable_chunked(servable, test.images, conf.featurize_chunk)
+    test_eval = MulticlassClassifierEvaluator(
+        torch.from_numpy(test_pred), torch.from_numpy(test.labels), conf.num_classes
+    )
+    results = {
+        "restored": True,
+        "test_error": 100.0 * test_eval.total_error,
+        "test_predictions": test_pred,
+        "servable": servable,
+        "seconds": time.perf_counter() - t0,
+    }
+    _log.info("Test error is: %s (restored pipeline)", test_eval.total_error)
     return results
 
 
@@ -400,6 +448,11 @@ def main(argv=None) -> dict:
         help="with --streamTestTar: host entropy pass only, pixels decoded on the device",
     )
     p.add_argument(
+        "--pipelineFile", default=None,
+        help="checkpoint stem of the fitted servable chain (featurizer + scaler + "
+        "model + classifier): saved after a fit, restored without a fit when it exists",
+    )
+    p.add_argument(
         "--trace", default=None, metavar="PATH",
         help="write a Chrome-trace JSON (.jsonl for the JSONL event log) of the run",
     )
@@ -431,11 +484,16 @@ def main(argv=None) -> dict:
         device=a.device,
         stream_test_tar=a.streamTestTar,
         device_decode=a.deviceDecode,
+        pipeline_file=a.pipelineFile,
     )
     resolve_device(conf.device)
+    restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)
     try:
         with stage_timer("load"):
-            if a.streamTrainTar is not None:
+            if restoring:
+                # A restored run never reads the training split.
+                train = _empty_batch()
+            elif a.streamTrainTar is not None:
                 train = cifar_tar_stream_loader(
                     a.streamTrainTar, batch=conf.featurize_chunk,
                     config=stream_config_from_flags(),

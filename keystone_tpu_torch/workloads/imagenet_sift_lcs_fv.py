@@ -35,6 +35,7 @@ import torch
 
 from ..core import trace
 from ..core.logging import configure_logging, stage_timer
+from ..core.memory import log_fit_report
 from ..core.resilience import assert_all_finite
 from ..loaders.image_loaders import LabeledImages, imagenet_labels_map, imagenet_loader
 from ..ops.lcs import LCSExtractor
@@ -275,9 +276,11 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
 
     t = time.perf_counter()
     with stage_timer("solve"):
-        model = BlockWeightedLeastSquaresEstimator(4096, 1, conf.lam, conf.mixture_weight).fit(
+        solver = BlockWeightedLeastSquaresEstimator(4096, 1, conf.lam, conf.mixture_weight)
+        model = solver.fit(
             train_features, labels, num_features=2 * 2 * conf.desc_dim * conf.vocab_size
         )
+        log_fit_report(solver, _log, "ImageNet weighted block solve")
         assert_all_finite(model, "ImageNet weighted block solve")
         solve_secs = lap(t)
 

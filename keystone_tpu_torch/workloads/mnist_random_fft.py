@@ -9,7 +9,10 @@ BlockLeastSquares(blockSize, 1 pass, lambda) on the list of group batches
 test split (the last call sees the full model) -> MaxClassifier ->
 MulticlassClassifierEvaluator.  The fitted chain
 ``GroupConcatFeaturizer(groups) >> model >> MaxClassifier`` is the
-servable pipeline.
+servable pipeline.  ``--pipelineFile stem`` saves it (``core.checkpoint``,
+with the test predictions' output sketch as its numerics baseline); when
+the checkpoint exists, the run restores it instead, loads no training
+data, fits nothing and scores the test split.
 
 Run: ``python -m keystone_tpu_torch.workloads.mnist_random_fft
 --trainLocation train.csv --testLocation test.csv [--device cpu]``.
@@ -27,7 +30,10 @@ import numpy as np
 import torch
 
 from ..core import trace
+from ..core.checkpoint import checkpoint_exists, load_pipeline, save_pipeline
 from ..core.logging import configure_logging, stage_timer
+from ..core.memory import log_fit_report
+from ..core.numerics import OutputSketch
 from ..core.pipeline import Pipeline
 from ..core.resilience import assert_all_finite
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
@@ -56,6 +62,9 @@ class MnistRandomFFTConfig:
     mnist_image_size: int = 784
     num_classes: int = 10
     device: str = "cuda"
+    #: Checkpoint stem of the fitted servable chain: saved after a fit,
+    #: restored (no fit) when it exists.
+    pipeline_file: str | None = None
 
 
 def fft_chain(signs) -> Pipeline:
@@ -96,6 +105,8 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
     configure_logging()
     dev = resolve_device(conf.device)
     t0 = time.perf_counter()
+    if conf.pipeline_file is not None and checkpoint_exists(conf.pipeline_file):
+        return _run_restored(conf, test, t0)
     groups = build_featurizer_batches(conf, dev)
     train_labels = torch.from_numpy(np.asarray(train.labels)).to(dev)
     test_labels = torch.from_numpy(np.asarray(test.labels)).to(dev)
@@ -115,9 +126,9 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
 
     t_solve = time.perf_counter()
     with stage_timer("solve"):
-        model = BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0).fit(
-            training_batches, labels
-        )
+        solver = BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0)
+        model = solver.fit(training_batches, labels)
+        log_fit_report(solver, _log, "mnist random-fft solve")
         assert_all_finite(model, "mnist random-fft model")
     solve_secs = time.perf_counter() - t_solve
 
@@ -155,8 +166,38 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
         solve_seconds=solve_secs,
         eval_seconds=eval_secs,
         servable=servable_pipeline(groups, model),
+        fit_report=solver.last_fit_report.record(),
     )
+    if conf.pipeline_file is not None:
+        save_pipeline(
+            conf.pipeline_file, results["servable"],
+            numerics_baseline=OutputSketch.for_outputs(results["test_predictions"]).record(),
+        )
+        _log.info("saved fitted servable pipeline to %s", conf.pipeline_file)
     _log.info("Pipeline took %.3f s", results["seconds"])
+    return results
+
+
+def _run_restored(conf: MnistRandomFFTConfig, test: LabeledData, t0: float) -> dict:
+    """Score the test split with the restored servable chain: no
+    featurize of the training split and no solve."""
+    _log.info("restoring fitted servable pipeline from %s", conf.pipeline_file)
+    dev = resolve_device(conf.device)
+    servable = load_pipeline(conf.pipeline_file, device=dev)
+    with stage_timer("eval"):
+        test_data = torch.from_numpy(np.ascontiguousarray(test.data, np.float32)).to(dev)
+        predicted = servable(test_data)
+        test_labels = torch.from_numpy(np.asarray(test.labels)).to(dev)
+        metrics = MulticlassClassifierEvaluator(predicted, test_labels, conf.num_classes)
+        synchronize(dev)
+    results = {
+        "restored": True,
+        "test_error": 100.0 * metrics.total_error,
+        "test_predictions": predicted.cpu().numpy(),
+        "servable": servable,
+        "seconds": time.perf_counter() - t0,
+    }
+    _log.info("TEST Error is %s%% (restored pipeline)", results["test_error"])
     return results
 
 
@@ -168,6 +209,11 @@ def main(argv=None) -> dict:
     p.add_argument("--blockSize", type=int, default=2048)
     p.add_argument("--lambda", dest="lam", type=float, default=None)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--pipelineFile", default=None,
+        help="checkpoint stem of the fitted servable chain (FFT groups + model + "
+        "classifier): saved after a fit, restored without a fit when it exists",
+    )
     p.add_argument(
         "--trace", default=None, metavar="PATH",
         help="write a Chrome-trace JSON (.jsonl for the JSONL event log) of the run",
@@ -189,17 +235,22 @@ def main(argv=None) -> dict:
         lam=a.lam,
         seed=a.seed,
         device=a.device,
+        pipeline_file=a.pipelineFile,
     )
     resolve_device(conf.device)
+    restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)
     try:
         t_load = time.perf_counter()
         with stage_timer("load"):
-            train = LabeledData.from_rows(csv_data_loader(conf.train_location), one_indexed=True)
             test = LabeledData.from_rows(csv_data_loader(conf.test_location), one_indexed=True)
+            # A restored run never reads the training split.
+            train = None if restoring else LabeledData.from_rows(
+                csv_data_loader(conf.train_location), one_indexed=True
+            )
         load_secs = time.perf_counter() - t_load
         # The reference fixes 784 pixels; the width comes from the data
         # here, as in the JAX package, so any pixel count runs.
-        conf.mnist_image_size = train.data.shape[1]
+        conf.mnist_image_size = test.data.shape[1]
         results = run(conf, train, test)
         results["load_seconds"] = load_secs
         return results

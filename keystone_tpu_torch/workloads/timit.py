@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.logging import configure_logging
+from ..core.memory import log_fit_report
 from ..core.pipeline import Pipeline
 from ..core.resilience import assert_all_finite
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
@@ -125,9 +126,9 @@ def run(conf: TimitConfig, data: TimitFeaturesData, random_features=None) -> dic
     feat_secs = time.perf_counter() - t_feat
 
     t_solve = time.perf_counter()
-    model = BlockLeastSquaresEstimator(conf.num_cosine_features, conf.num_epochs, conf.lam).fit(
-        training_batches, labels
-    )
+    solver = BlockLeastSquaresEstimator(conf.num_cosine_features, conf.num_epochs, conf.lam)
+    model = solver.fit(training_batches, labels)
+    log_fit_report(solver, _log, "timit cosine solve")
     assert_all_finite(model, "timit model")
     solve_secs = time.perf_counter() - t_solve
     del training_batches, train_data

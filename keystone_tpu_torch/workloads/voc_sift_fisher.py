@@ -16,6 +16,11 @@ Run: ``python -m keystone_tpu_torch.workloads.voc_sift_fisher
 next chunks overlaps SIFT of this one); with ``--deviceDecode`` the host
 runs only the JPEG entropy pass and the pixels are decoded on the card
 (``ops.jpeg_device``, the IDCT through the idct CUDA kernel).
+
+``--pipelineFile stem`` saves the fitted ``{pca, gmm, model}`` bundle
+(``core.checkpoint``, with the test scores' output sketch as its numerics
+baseline); when the checkpoint exists, the run restores it instead, loads
+(or streams) no training data, fits nothing and scores the test split.
 """
 
 from __future__ import annotations
@@ -29,7 +34,10 @@ import numpy as np
 import torch
 
 from ..core import trace
+from ..core.checkpoint import checkpoint_exists, load_pipeline, save_pipeline
 from ..core.logging import configure_logging, stage_timer
+from ..core.memory import log_fit_report
+from ..core.numerics import OutputSketch
 from ..core.pipeline import FunctionTransformer, Pipeline
 from ..core.resilience import assert_all_finite
 from ..evaluation.map import MeanAveragePrecisionEvaluator
@@ -95,6 +103,9 @@ class SIFTFisherConfig:
     sift_step_size: int = 3
     seed: int = 42
     device: str = "cuda"
+    #: Checkpoint stem of the fitted {pca, gmm, model} bundle: saved after a
+    #: fit, restored (no fit) when it exists.
+    pipeline_file: str | None = None
 
 
 def make_sift(conf: SIFTFisherConfig) -> SIFTExtractor:
@@ -123,16 +134,13 @@ def extract_sift_buckets(conf: SIFTFisherConfig, images) -> dict:
     return describe_buckets(images, describe, dev, SIFT_CHUNK)
 
 
-def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledImages) -> dict:
-    """Fit on ``train``, score ``test``.  The results carry the fitted
-    ``{pca, gmm, model}`` under ``"bundle"`` and the test scores under
-    ``"test_scores"``.  Each stage (``sift``, ``pca``, ``gmm``,
-    ``fisher_features``, ``solve``, ``eval``) is a ``stage_timer`` span that
-    ends after a synchronize."""
-    configure_logging()
+def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict, dict]:
+    """Fit PCA, the GMM and the linear model on ``train``.  Returns the
+    ``{pca, gmm, model}`` bundle and the stage seconds (each stage, ``sift``,
+    ``pca``, ``gmm``, ``fisher_features``, ``solve``, a ``stage_timer``
+    span that ends after a synchronize)."""
     dev = resolve_device(conf.device)
     feat_dim = 2 * conf.desc_dim * conf.vocab_size
-    t0 = time.perf_counter()
 
     def lap(start: float) -> float:
         synchronize(dev)
@@ -182,11 +190,42 @@ def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledIma
 
     t = time.perf_counter()
     with stage_timer("solve"):
-        model = BlockLeastSquaresEstimator(4096, 1, conf.lam).fit(
-            train_features, train_labels, num_features=feat_dim
-        )
+        solver = BlockLeastSquaresEstimator(4096, 1, conf.lam)
+        model = solver.fit(train_features, train_labels, num_features=feat_dim)
+        log_fit_report(solver, _log, "VOC SIFT-Fisher solve")
         assert_all_finite(model, "VOC block least-squares fit")
         solve_secs = lap(t)
+    secs = {
+        "sift_seconds": sift_secs,
+        "pca_seconds": pca_secs,
+        "gmm_seconds": gmm_secs,
+        "fisher_seconds": fisher_secs,
+        "solve_seconds": solve_secs,
+        # SIFT -> PCA projection -> Fisher features of the training split.
+        "featurize_images_per_sec": len(train) / (sift_secs + project_secs + fisher_secs),
+        "fit_report": solver.last_fit_report.record(),
+    }
+    return {"pca": batch_pca, "gmm": gmm, "model": model}, secs
+
+
+def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledImages) -> dict:
+    """Fit on ``train`` (or, with an existing ``conf.pipeline_file``,
+    restore the fitted bundle and never read ``train``), then score
+    ``test``.  The results carry the fitted ``{pca, gmm, model}`` under
+    ``"bundle"`` and the test scores under ``"test_scores"``; the test
+    split's featurize and scoring are the ``eval`` stage."""
+    configure_logging()
+    dev = resolve_device(conf.device)
+    t0 = time.perf_counter()
+    restored = conf.pipeline_file is not None and checkpoint_exists(conf.pipeline_file)
+    if restored:
+        _log.info("restoring fitted pipeline from %s", conf.pipeline_file)
+        bundle, fit_secs = load_pipeline(conf.pipeline_file, device=dev), {}
+    else:
+        bundle, fit_secs = fit_bundle(conf, train)
+    batch_pca, gmm, model = bundle["pca"], bundle["gmm"], bundle["model"]
+    fisher = fisher_feature_pipeline(gmm)
+    feat_dim = 2 * gmm.dim * gmm.k  # the bundle's own width, whatever the flags say
 
     t = time.perf_counter()
     with stage_timer("eval"):
@@ -196,30 +235,35 @@ def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledIma
         )
         del test_desc
         scores = model(test_features).cpu().numpy()
-        eval_secs = lap(t)
+        synchronize(dev)
+        eval_secs = time.perf_counter() - t
 
     aps = MeanAveragePrecisionEvaluator(test.labels, scores, VOC_NUM_CLASSES)
     ingest_stats = {
         split: asdict(src.stream_stats[-1])
         for split, src in (("train", train), ("test", test))
-        if isinstance(src, StreamSource)
+        if isinstance(src, StreamSource) and src.stream_stats
     }
     results = {
         "aps": aps,
         "map": float(np.mean(aps)),
         "seconds": time.perf_counter() - t0,
-        "sift_seconds": sift_secs,
-        "pca_seconds": pca_secs,
-        "gmm_seconds": gmm_secs,
-        "fisher_seconds": fisher_secs,
-        "solve_seconds": solve_secs,
+        **fit_secs,
         "eval_seconds": eval_secs,
-        # SIFT -> PCA projection -> Fisher features of the training split.
-        "featurize_images_per_sec": len(train) / (sift_secs + project_secs + fisher_secs),
         "test_scores": scores,
         "test_filenames": list(test.filenames),
-        "bundle": {"pca": batch_pca, "gmm": gmm, "model": model},
+        "bundle": bundle,
     }
+    if restored:
+        results["restored"] = True
+    elif conf.pipeline_file is not None:
+        # The test scores' distribution rides the manifest as the reference
+        # a serving tier's drift monitor judges answers against.
+        save_pipeline(
+            conf.pipeline_file, bundle,
+            numerics_baseline=OutputSketch.for_outputs(scores).record(),
+        )
+        _log.info("saved fitted pipeline to %s", conf.pipeline_file)
     if ingest_stats:
         results["ingest"] = ingest_stats
     _log.info("TEST APs are: %s", ",".join(str(a) for a in aps))
@@ -269,6 +313,11 @@ def main(argv=None) -> dict:
         help="with --streamIngest: host entropy pass only, pixels decoded on the device",
     )
     p.add_argument(
+        "--pipelineFile", default=None,
+        help="checkpoint stem of the fitted {pca, gmm, model} bundle: saved after "
+        "a fit, restored without a fit when it exists",
+    )
+    p.add_argument(
         "--trace", default=None, metavar="PATH",
         help="write a Chrome-trace JSON (.jsonl for the JSONL event log) of the run",
     )
@@ -296,19 +345,21 @@ def main(argv=None) -> dict:
         num_pca_samples=a.numPcaSamples,
         num_gmm_samples=a.numGmmSamples,
         device=a.device,
+        pipeline_file=a.pipelineFile,
     )
     resolve_device(conf.device)
-    try:
+    restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)
+
+    def load(path: str):
         if a.streamIngest:
-            train, test = (
-                voc_stream_source(path, conf.label_path, batch_size=a.streamBatchSize,
-                                  device_decode=a.deviceDecode)
-                for path in (conf.train_location, conf.test_location)
-            )
-        else:
-            train = voc_loader(conf.train_location, conf.label_path)
-            test = voc_loader(conf.test_location, conf.label_path)
-        return run(conf, train, test)
+            return voc_stream_source(path, conf.label_path, batch_size=a.streamBatchSize,
+                                     device_decode=a.deviceDecode)
+        return voc_loader(path, conf.label_path)
+
+    try:
+        # A restored run never reads (or streams) the training split.
+        train = MultiLabeledImages([], [], []) if restoring else load(conf.train_location)
+        return run(conf, train, load(conf.test_location))
     finally:
         if a.trace:
             trace.flush()

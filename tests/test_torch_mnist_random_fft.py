@@ -203,7 +203,7 @@ def test_cli_needs_a_card_by_default(csv_files, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "8"], ["--pipelineFile", "fitted"], ["--solveCheckpoint", "bcd"],
+    ["--mesh", "8"], ["--autoShard"], ["--solveCheckpoint", "bcd"],
     ["--autoCache"], ["--serve"], ["--serveBench"], ["--blockSize", "300"],
     ["--blockSize", "0"],
 ])
