@@ -181,15 +181,42 @@ which raises (and so exits non-zero) on failure:
    restored Cifar run inside one capture window (its trace must name
    ``conv_rect_pool``), the restored tar run and MNIST config 1's fit, and
    prints the ledger rows of the three kernels with their bound shares and
-   the ``bcd_fit`` plan and flops audits.
+   the ``bcd_fit`` plan and flops audits;
+24. the snapshot tiers and decode backends, on phase 22's tar and training
+   split and on phase 8's VOC test tar with its restored bundle.  It first
+   prints whether ``/usr/include/jpeglib.h`` exists, whether the native
+   libjpeg decoder built, and the card.  (a) Featurized tier, on any host:
+   Cifar with device decode and ``KEYSTONE_SNAPSHOT_MODE=featurized``; the
+   cold test pass launches K3 twice and K1 once per chunk and commits one
+   shard per chunk, the warm pass launches neither and reads every shard,
+   both predict ``np.array_equal`` to phase 22; one flipped byte in a shard
+   is counted ``snapshot_fallback``, predictions unchanged, the snapshot
+   rewritten valid; the cold pass is traced.  (b) Where the host has a
+   decoder (libjpeg, else PIL): host decode on the thread pool and on
+   spawned workers (equal predictions, every worker joined, no
+   ``/dev/shm`` entry left, images/s of each), then the device tier
+   (``KEYSTONE_SNAPSHOT_MODE=device``: the cold pass decodes on the host and
+   writes padded f32 shards, the warm pass copies them to the card,
+   ``snapshot_dma_bytes`` > 0, K1 once per chunk, K3 never, predictions
+   equal), and VOC restored from the test tar with ``--snapshotDir``, cold
+   then warm (MAP equal, K2 on both).  (c) On any host, with both
+   decoders turned off, ``decode_image`` raises its typed error; and VOC
+   with ``--deviceDecode`` and a decoded snapshot counts
+   ``snapshot_mode_unsupported`` with phase 8's MAP.  (d) One ``torch.profiler`` window around a streamed pass (the
+   device tier's warm pass, else a device-decode pass): every copy the
+   stream made is ``Pinned -> Device`` on one stream that runs no kernel;
+   prints the share of copy time that kernels on other streams overlap.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import glob
+import importlib.util
 import io
 import json
 import math
@@ -210,8 +237,10 @@ import torch
 from keystone_tpu_torch import _build, convert
 from keystone_tpu_torch.core import profiler as kprof
 from keystone_tpu_torch.core import resilience, trace
+from keystone_tpu_torch.core import snapshot as ksnap
 from keystone_tpu_torch.core.logging import stage_timer
 from keystone_tpu_torch.core.pipeline import Pipeline
+from keystone_tpu_torch.loaders import image_loaders, native_decode
 from keystone_tpu_torch.loaders.cifar import LabeledImageBatch, cifar_loader
 from keystone_tpu_torch.loaders.csv_loader import LabeledData
 from keystone_tpu_torch.loaders.image_loaders import (
@@ -1839,10 +1868,11 @@ def load_trace_view():
     return module
 
 
-def run_cifar_tar(card: str, train_path: Path, test_path: Path) -> dict:
+def run_cifar_tar(card: str, train_path: Path, test_path: Path, data_dir: Path) -> tuple:
     """Phase 22: RandomPatchCifar at its defaults with the test split
     streamed from a JPEG tar with device decode (K3 then K1), traced.
-    Returns the path's launches and timings for the kernels line."""
+    Returns the path's launches, and what phase 24 reuses: the tar (kept in
+    ``data_dir``), the training split, the run's config and predictions."""
     rng = np.random.default_rng(22)
     palette = rng.uniform(40, 215, (N_CLASSES, 3))
     conf = cifar.RandomCifarConfig(
@@ -1853,7 +1883,7 @@ def run_cifar_tar(card: str, train_path: Path, test_path: Path) -> dict:
         root = Path(tmp)
         t = time.perf_counter()
         test = cifar48_split(CIFAR_TAR_TEST, rng, palette)
-        tar = root / "cifar48_test.tar"
+        tar = data_dir / "cifar48_test.tar"
         members = write_cifar_tar(tar, test)
         encode_secs = time.perf_counter() - t
         log(f"Cifar JPEG tar: {CIFAR_TAR_TEST} images of {CIFAR_TAR_PX} px encoded in "
@@ -1944,7 +1974,8 @@ def run_cifar_tar(card: str, train_path: Path, test_path: Path) -> dict:
         rates["traced" if traced else "untraced"] = again["featurize_images_per_sec"]
     log(json.dumps({"phase": "tracing cost on phase 3's fit", "card": card,
                     "featurize_images_per_sec": rates}))
-    return launches
+    return launches, {"tar": tar, "train": train, "conf": conf,
+                      "predictions": res["test_predictions"]}
 
 
 def run_descriptors(card: str) -> None:
@@ -2182,6 +2213,347 @@ def run_restored(card: str, data_dir: Path, fitted: dict) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def env_set(**values):
+    """Environment variables set for the block, restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class StreamedTestPasses:
+    """For the block, wraps RandomPatchCifar's streamed test pass
+    (``cifar._stream_test_features``, what ``run`` calls): records each
+    pass's K1 and K3 launches, seconds (ended by a synchronize) and stream
+    stats, and with ``profile_next`` set, traces the next pass in one
+    ``torch.profiler`` window into that path."""
+
+    def __init__(self):
+        self.passes: list = []
+        self.profile_next: Path | None = None
+
+    def __enter__(self):
+        self._orig = cifar._stream_test_features
+        cifar._stream_test_features = self._pass
+        return self
+
+    def __exit__(self, *exc):
+        cifar._stream_test_features = self._orig
+
+    def _pass(self, conf, conv_pipe, dev):
+        torch.cuda.synchronize()
+        k1, k3 = rp.fused_launches, jd.decode_launches
+        profile, self.profile_next = self.profile_next, None
+        prof = None
+        if profile is not None:
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                      torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+            # A first copy, then a pause, before the pass: the traces of this
+            # window have missed the pass's first copies (PERF.md §7).
+            torch.ones(16).to(dev)
+            torch.cuda.synchronize()
+            time.sleep(0.5)
+        t = time.perf_counter()
+        try:
+            out = self._orig(conf, conv_pipe, dev)
+            torch.cuda.synchronize()
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                prof.export_chrome_trace(str(profile))
+        self.passes.append({"conv_rect_pool": rp.fused_launches - k1,
+                            "decode_pixels": jd.decode_launches - k3,
+                            "seconds": time.perf_counter() - t,
+                            "stats": dataclasses.asdict(out[2])})
+        return out
+
+
+def h2d_from_trace(path: Path) -> dict:
+    """The host-to-device copies of one profiled stream pass: the pinned
+    copies, their streams and bytes, every other HtoD copy, and the share
+    of pinned copy time that a kernel on another stream overlaps."""
+    events = json.loads(path.read_text())["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["args"].get("stream"))
+                     for e in events if e.get("cat") == "kernel")
+    pinned = [e for e in copies if "Pinned" in e["name"]]
+    other = [e for e in copies if "Pinned" not in e["name"]]
+    copy_streams = {e["args"].get("stream") for e in pinned}
+    overlap = 0.0
+    for c in pinned:
+        lo, hi = c["ts"], c["ts"] + c["dur"]
+        spans = sorted((max(lo, s), min(hi, e)) for s, e, st in kernels
+                       if st not in copy_streams and s < hi and e > lo)
+        covered, end = 0.0, lo
+        for s, e in spans:
+            if e > end:
+                covered += e - max(s, end)
+                end = e
+        overlap += covered
+    copy_us = sum(c["dur"] for c in pinned)
+    t0 = min((e["ts"] for e in copies + [k for k in events if k.get("cat") == "kernel"]),
+             default=0)
+    return {
+        "htod": [(c["name"].split("(")[-1].rstrip(")"), c["args"].get("bytes"),
+                  c["args"].get("stream"), round(c["ts"] - t0)) for c in copies],
+        "memcpy_calls": sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                            and "Memcpy" in e.get("name", "")),
+        "pinned_copies": len(pinned),
+        "pinned_bytes": (sum(c["args"]["bytes"] for c in pinned)
+                         if all("bytes" in c["args"] for c in pinned) else None),
+        "pinned_copy_ms": copy_us / 1e3,
+        "copy_streams": sorted(copy_streams, key=str),
+        "kernel_streams": sorted({st for _, _, st in kernels}, key=str),
+        "other_htod": [(c["name"], c["args"].get("bytes"), c["args"].get("stream"))
+                       for c in other],
+        "kernels": len(kernels),
+        "overlap_share": overlap / copy_us if copy_us else None,
+    }
+
+
+def check_h2d(rep: dict, copies: int, h2d_bytes: int) -> None:
+    """Every copy of the stream that the trace holds is pinned, on one
+    stream of its own that runs no kernel; what else crossed is the
+    consumer's small index vectors.  The trace must hold at least one of
+    the stream's ``copies``; how many it holds is reported
+    (``pinned_copies``), since the profiler may drop activity records."""
+    log("h2d trace " + json.dumps({**rep, "expected_copies": copies,
+                                    "expected_bytes": h2d_bytes}))
+    if not 1 <= rep["pinned_copies"] <= copies or len(rep["copy_streams"]) != 1:
+        raise AssertionError(f"pinned copies {rep['pinned_copies']} (of {copies}) on "
+                             f"streams {rep['copy_streams']}")
+    if set(rep["copy_streams"]) & set(rep["kernel_streams"]):
+        raise AssertionError(f"the copy stream runs kernels: {rep}")
+    if rep["pinned_bytes"] is not None and rep["pinned_bytes"] > h2d_bytes:
+        raise AssertionError(f"pinned bytes {rep['pinned_bytes']} > the stream's {h2d_bytes}")
+    big = [c for c in rep["other_htod"] if c[1] is None or c[1] > 65536]
+    if big:
+        raise AssertionError(f"pageable or unsized HtoD copies beyond index vectors: {big}")
+
+
+def devshm() -> set:
+    return set(glob.glob("/dev/shm/psm_*"))
+
+
+def run_snapshots(card: str, data_dir: Path, c22: dict, fitted: dict) -> dict:
+    """Phase 24: the snapshot tiers and decode backends on phase 22's tar
+    and training split, and on phase 8's VOC test tar with its restored
+    bundle.  Returns the phase's kernel launches for the kernels line."""
+    jpeglib = subprocess.run(["ls", "/usr/include/jpeglib.h"], capture_output=True, text=True)
+    native = native_decode.available()
+    pil = importlib.util.find_spec("PIL") is not None
+    log(f"phase 24: ls /usr/include/jpeglib.h -> {(jpeglib.stdout or jpeglib.stderr).strip()!r}; "
+        f"native_decode.available() = {native}; PIL importable = {pil}; card: {card}")
+    t_phase = time.perf_counter()
+    rp.launches = rp.fused_launches = jd.launches = jd.decode_launches = fs.launches = 0
+    tar, train, conf22 = c22["tar"], c22["train"], c22["conf"]
+    empty = LabeledImageBatch(train.images[:0], train.labels[:0])
+    chunks = math.ceil(CIFAR_TAR_TEST / conf22.featurize_chunk)
+    rec: dict = {"phase": "snapshots and decode backends", "card": card,
+                 "jpeglib_h": jpeglib.returncode == 0, "native_decode": native, "pil": pil}
+    host_decoder = "native" if native else "pil" if pil else None
+    # With neither decoder a host decode raises typed, never skips: shown
+    # here by turning both off.
+    member = next(iter(image_loaders._iter_tar_members(str(tar))))[1]
+    saved_pil = sys.modules.get("PIL")
+    sys.modules["PIL"] = None
+    try:
+        with env_set(KEYSTONE_NATIVE_DECODE="0"):
+            native_decode.reset()
+            image_loaders.decode_image(member)
+    except image_loaders.HostDecoderUnavailable as e:
+        rec["no_host_decoder"] = f"raises HostDecoderUnavailable: {e}"
+    else:
+        raise AssertionError("decode_image decoded with both host decoders off")
+    finally:
+        if saved_pil is None:
+            sys.modules.pop("PIL", None)
+        else:
+            sys.modules["PIL"] = saved_pil
+        native_decode.reset()
+
+    def run(meter, **kw):
+        resilience.counters.reset()
+        res = cifar.run(dataclasses.replace(conf22, stream_test_tar=str(tar), **kw), train, empty)
+        return res, meter.passes[-1], resilience.counters.snapshot()
+
+    def same(res, want, what):
+        if not np.array_equal(res["test_predictions"], want):
+            raise AssertionError(f"{what}: predictions differ")
+
+    with StreamedTestPasses() as meter:
+        # (a) Featurized tier: the conv features of the test split, keyed
+        # by the fitted featurizer's digest.
+        feat_root = data_dir / "snap_featurized"
+        trace_view = load_trace_view()
+        cold_trace = data_dir / "phase24_featurized_cold.json"
+        # Deflating the f32 features saved a third of the shard bytes and
+        # made the cold pass wait on the consumer (PERF.md §6), so the
+        # shards are written plain to keep the phase short.
+        with env_set(KEYSTONE_SNAPSHOT_MODE="featurized", KEYSTONE_SNAPSHOT_COMPRESS="0"):
+            trace.disable()
+            trace.reset()
+            trace.enable(str(cold_trace))
+            cold, p_cold, _ = run(meter, snapshot_dir=str(feat_root))
+            trace.flush()
+            trace.disable()
+            cold_events = trace_view.load_events(str(cold_trace))
+            trace.reset()
+            warm, p_warm, _ = run(meter, snapshot_dir=str(feat_root))
+            [snap] = [s for s in ksnap.list_snapshots(str(feat_root)) if s["valid"]]
+            if not (p_cold["decode_pixels"] >= 2 * chunks and p_cold["conv_rect_pool"] >= chunks
+                    and snap["chunks"] == chunks and snap["mode"] == "featurized"):
+                raise AssertionError(f"featurized cold pass {p_cold}, snapshot {snap}")
+            if (p_warm["decode_pixels"], p_warm["conv_rect_pool"]) != (0, 0) or \
+                    p_warm["stats"]["snapshot_chunks_read"] != chunks:
+                raise AssertionError(f"featurized warm pass {p_warm}")
+            same(cold, c22["predictions"], "featurized cold pass vs phase 22")
+            same(warm, c22["predictions"], "featurized warm pass vs phase 22")
+            shard = sorted((feat_root / snap["dir"]).glob("chunk_*.npz"))[2]
+            data = bytearray(shard.read_bytes())
+            data[len(data) // 2] ^= 0x01
+            shard.write_bytes(bytes(data))
+            healed, p_heal, events = run(meter, snapshot_dir=str(feat_root))
+            if events.get("snapshot_fallback") != 1 or ksnap.validate(str(feat_root), snap["key"]):
+                raise AssertionError(f"corrupt shard: events {events}, snapshot not rewritten")
+            same(healed, c22["predictions"], "featurized fallback pass vs phase 22")
+        rec["featurized"] = {
+            "cold": {k: p_cold[k] for k in ("conv_rect_pool", "decode_pixels", "seconds")},
+            "warm": {k: p_warm[k] for k in ("conv_rect_pool", "decode_pixels", "seconds")},
+            "fallback": {k: p_heal[k] for k in ("conv_rect_pool", "decode_pixels", "seconds")},
+            "run_seconds": {"cold": cold["seconds"], "warm": warm["seconds"]},
+            "shard_bytes": snap["bytes"], "chunks": snap["chunks"],
+            "cold_trace_ms": {k: v["total_ms"] for k, v in
+                              trace_view.per_stage(cold_events).items()
+                              if k.startswith(("ingest.", "snapshot.", "eval"))},
+            "cold_overlap": trace_view.overlap_from_spans(cold_events),
+        }
+
+        profiled = data_dir / "phase24_stream_trace.json"
+        if host_decoder is not None:
+            # (b) A host decoder (libjpeg, else PIL): host decode on the
+            # thread pool and on spawned workers, then the device tier: the
+            # cold pass decodes on the host and writes padded f32 shards,
+            # the warm pass copies them (profiled).
+            host, p_thread, _ = run(meter, device_decode=False)
+            shm_before = devshm()
+            # Traced, for what starting the workers costs apart from
+            # decoding: a spawned worker imports this script's modules
+            # (torch among them) before its first task.
+            proc_trace = data_dir / "phase24_process.json"
+            trace.enable(str(proc_trace))
+            proc, p_proc, _ = run(meter, device_decode=False, decode_backend="process")
+            trace.flush()
+            trace.disable()
+            proc_events = trace_view.load_events(str(proc_trace))
+            trace.reset()
+            spawn = next(e for e in trace_view.spans(proc_events)
+                         if e["name"] == "ingest.spawn_decode_procs")
+            first = min(e["ts"] for e in trace_view.instants(proc_events)
+                        if e["name"] == "ingest.shm_recv")
+            startup = (first - spawn["ts"]) / 1e6
+            leftover = multiprocessing.active_children()
+            if leftover or devshm() - shm_before:
+                raise AssertionError(f"process backend left {leftover} and "
+                                     f"{devshm() - shm_before}")
+            same(proc, host["test_predictions"], "process backend vs thread backend")
+            if (p_thread["stats"]["decoder"], p_proc["stats"]["decoder"]) != ("thread", "process") \
+                    or p_proc["stats"]["host_decoder"] != host_decoder:
+                raise AssertionError(f"decoders {p_thread['stats']} {p_proc['stats']}")
+            dev_root = data_dir / "snap_device"
+            with env_set(KEYSTONE_SNAPSHOT_MODE="device"):
+                dcold, p_dcold, _ = run(meter, snapshot_dir=str(dev_root))
+                meter.profile_next = profiled
+                dwarm, p_dwarm, _ = run(meter, snapshot_dir=str(dev_root))
+            st = p_dwarm["stats"]
+            if p_dcold["stats"]["decoder"] != "thread" or p_dcold["decode_pixels"] != 0 or \
+                    p_dcold["stats"]["snapshot_chunks_written"] != chunks:
+                raise AssertionError(f"device-tier cold pass {p_dcold}")
+            if not (st["snapshot_dma_bytes"] > 0 and st["snapshot_chunks_read"] == chunks
+                    and p_dwarm["conv_rect_pool"] == chunks and p_dwarm["decode_pixels"] == 0):
+                raise AssertionError(f"device-tier warm pass {p_dwarm}")
+            same(dcold, host["test_predictions"], "device tier cold vs host decode")
+            same(dwarm, host["test_predictions"], "device tier warm vs cold")
+            [dsnap] = [s for s in ksnap.list_snapshots(str(dev_root)) if s["valid"]]
+            h2d = h2d_from_trace(profiled)
+            check_h2d(h2d, chunks, st["h2d_bytes"])
+            rec["host_decode"] = {
+                name: {"seconds": p["seconds"], "images_per_sec": CIFAR_TAR_TEST / p["seconds"],
+                       "decode_seconds": p["stats"]["decode_seconds"]}
+                for name, p in (("thread", p_thread), ("process", p_proc))}
+            rec["host_decode"]["process"].update(
+                workers=spawn["args"].get("procs"), worker_startup_seconds=startup,
+                images_per_sec_after_startup=CIFAR_TAR_TEST / max(p_proc["seconds"] - startup,
+                                                                  1e-9))
+            rec["device_tier"] = {
+                "cold_seconds": p_dcold["seconds"], "warm_seconds": p_dwarm["seconds"],
+                "shard_bytes": dsnap["bytes"], "snapshot_dma_bytes": st["snapshot_dma_bytes"],
+                "h2d_bytes": st["h2d_bytes"], "warm_launches": {
+                    k: p_dwarm[k] for k in ("conv_rect_pool", "decode_pixels")}}
+        else:
+            # (c) No host decoder: the profiled pass is a device-decode
+            # stream (coefficients cross).
+            meter.profile_next = profiled
+            plain, p_plain, _ = run(meter)
+            same(plain, c22["predictions"], "device-decode pass vs phase 22")
+            st = p_plain["stats"]
+            h2d = h2d_from_trace(profiled)
+            check_h2d(h2d, 4 * chunks, st["h2d_bytes"])  # 3 planes + quant tables
+        rec["h2d_profiled_pass"] = h2d
+
+    # VOC from phase 8's test tar with its restored bundle (test split only).
+    tars = fitted["voc_tars"]
+    voc_root = data_dir / "snap_voc"
+    voc_flags = ["--trainLocation", str(data_dir / "absent"),
+                 "--testLocation", str(tars / "test.tar"), "--labelPath", str(tars / "labels.csv"),
+                 "--streamIngest", "--streamBatchSize", "64", "--device", "cuda",
+                 "--pipelineFile", str(tars / "bundle"), "--snapshotDir", str(voc_root)]
+    voc_rec = {}
+    if host_decoder is not None:
+        # Decoded tier, host decode.  Deflate gains little on these noisy
+        # pixels and costs the producer thread, so the shards are written
+        # plain (KEYSTONE_SNAPSHOT_COMPRESS=0).
+        runs = {}
+        with env_set(KEYSTONE_SNAPSHOT_COMPRESS="0"):
+            for name in ("cold", "warm"):
+                before = fs.launches
+                res = voc.main(voc_flags)
+                runs[name] = (res, fs.launches - before)
+        (vcold, k2_cold), (vwarm, k2_warm) = runs["cold"], runs["warm"]
+        sc, sw = vcold["ingest"]["test"], vwarm["ingest"]["test"]
+        if not (vcold["map"] == vwarm["map"] and k2_cold > 0 and k2_warm > 0
+                and sc["snapshot_chunks_written"] == sc["batches"] > 0
+                and sw["snapshot_chunks_read"] == sc["batches"] and sw["decoder"] == ""):
+            raise AssertionError(f"VOC decoded tier: MAP {vcold['map']} / {vwarm['map']}, "
+                                 f"K2 {k2_cold} / {k2_warm}, stats {sc} / {sw}")
+        voc_rec.update(map_host_decode=vcold["map"], cold_seconds=vcold["seconds"],
+                       warm_seconds=vwarm["seconds"], fv_stats_launches=[k2_cold, k2_warm],
+                       shard_bytes=sum(s["bytes"] for s in ksnap.list_snapshots(str(voc_root))))
+    resilience.counters.reset()
+    vdev = voc.main([*voc_flags, "--deviceDecode"])
+    events = resilience.counters.snapshot()
+    if events.get("snapshot_mode_unsupported") != 1 or vdev["map"] != fitted["voc_tar_map"]:
+        raise AssertionError(f"VOC device decode with a decoded snapshot: events {events}, "
+                             f"MAP {vdev['map']} (phase 8 {fitted['voc_tar_map']})")
+    voc_rec.update(map_device_decode=vdev["map"], snapshot_mode_unsupported=1)
+    rec["voc"] = voc_rec
+    out = {"conv_rect_pool": rp.fused_launches, "decode_pixels": jd.decode_launches,
+           "fv_stats": fs.launches}
+    if rp.launches or jd.launches:
+        raise AssertionError(f"unfused entries launched: {rp.launches} {jd.launches}")
+    rec.update(launches=out, seconds=time.perf_counter() - t_phase)
+    log(json.dumps(rec))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -2331,8 +2703,10 @@ def smoke(data_dir: Path) -> int:
     del inet_train, inet_test
     run_descriptors(card)
     run_text(card)
-    tar_launches = run_cifar_tar(card, train_path, test_path)
+    tar_launches, cifar_tar = run_cifar_tar(card, train_path, test_path, data_dir)
     restored = run_restored(card, data_dir, fitted)
+    snaps = run_snapshots(card, data_dir, cifar_tar, fitted)
+    del cifar_tar
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -2341,11 +2715,13 @@ def smoke(data_dir: Path) -> int:
         "source": "keystone_tpu_torch/csrc/rect_pool.cu",
         "replaces": "keystone_tpu/ops/rect_pool_pallas.py:78",
         "launches": (main_launches + random_cifar_rec["launches"]
-                     + tar_launches["conv_rect_pool"] + restored["conv_rect_pool"]),
+                     + tar_launches["conv_rect_pool"] + restored["conv_rect_pool"]
+                     + snaps["conv_rect_pool"]),
         "launches_by_path": {"random_patch_cifar": main_launches,
                              "random_cifar": random_cifar_rec["launches"],
                              "random_patch_cifar_jpeg_tar": tar_launches["conv_rect_pool"],
-                             "random_patch_cifar_restored": restored["conv_rect_pool"]},
+                             "random_patch_cifar_restored": restored["conv_rect_pool"],
+                             "snapshots_and_backends": snaps["conv_rect_pool"]},
         "max_abs_err": max(r["max_abs_err"] for r in [
             fused_prod, fused_prod_f32, fused_cifar48, *fused_odd, random_cifar_rec]),
         "ms": fused_prod["ms"],
@@ -2375,12 +2751,14 @@ def smoke(data_dir: Path) -> int:
         "source": "keystone_tpu_torch/csrc/fv_stats.cu",
         "replaces": "keystone_tpu/ops/fv_pallas.py:95",
         "launches": (voc_launches + tar_fv_launches + inet_launches + inet_tar_fv
-                     + restored["fv_stats_in_memory"] + restored["fv_stats_jpeg_tars"]),
+                     + restored["fv_stats_in_memory"] + restored["fv_stats_jpeg_tars"]
+                     + snaps["fv_stats"]),
         "launches_by_path": {"voc_in_memory": voc_launches, "voc_jpeg_tars": tar_fv_launches,
                              "imagenet_in_memory": inet_launches,
                              "imagenet_jpeg_tars": inet_tar_fv,
                              "voc_restored_in_memory": restored["fv_stats_in_memory"],
-                             "voc_restored_jpeg_tars": restored["fv_stats_jpeg_tars"]},
+                             "voc_restored_jpeg_tars": restored["fv_stats_jpeg_tars"],
+                             "snapshots_and_backends": snaps["fv_stats"]},
         "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd, *fv_imagenet.values()]),
         "ms": fv_prod["ms"],
         "plain_ms": fv_prod["plain_ms"],
@@ -2403,11 +2781,12 @@ def smoke(data_dir: Path) -> int:
         "source": "keystone_tpu_torch/csrc/idct.cu",
         "replaces": "keystone_tpu/ops/jpeg_device.py:743",
         "launches": (decode_launches + inet_tar_decode + tar_launches["decode_pixels"]
-                     + restored["decode_pixels"]),
+                     + restored["decode_pixels"] + snaps["decode_pixels"]),
         "launches_by_path": {"voc_jpeg_tars": decode_launches,
                              "imagenet_jpeg_tars": inet_tar_decode,
                              "cifar_jpeg_tar": tar_launches["decode_pixels"],
-                             "voc_restored_jpeg_tars": restored["decode_pixels"]},
+                             "voc_restored_jpeg_tars": restored["decode_pixels"],
+                             "snapshots_and_backends": snaps["decode_pixels"]},
         "max_abs_err": max(r["max_abs_err"] for r in decode_checks),
         "ms": decode_times[64]["ms"],
         "plain_ms": decode_times[64]["plain_ms"],

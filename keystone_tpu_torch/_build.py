@@ -2,11 +2,13 @@
 
 Each ``csrc/<name>.cu`` has a plain C entry point and is compiled by
 ``nvcc`` for Hopper (``sm_90a``); each ``csrc/<name>.cpp`` is host C++
-compiled by ``g++``.  Either becomes ``build/kernels/<name>-<hash>.so`` at
-the repository root, keyed by a hash of the source and the flags, and is
-loaded with ``ctypes``.  No PyTorch headers are involved, so a build takes
-seconds.  Nothing here runs at import: libraries build at their first use
-(or when :func:`build` is called ahead of time), never next to the source.
+compiled by ``g++``, linked against the libraries :data:`LINK_FLAGS`
+names for it.  Either becomes ``build/kernels/<name>-<hash>.so`` at the
+repository root, keyed by a hash of the source and its compile and link
+flags, and is loaded with ``ctypes``.  No PyTorch headers are involved, so
+a build takes seconds.  Nothing here runs at import: libraries build at
+their first use (or when :func:`build` is called ahead of time), never
+next to the source.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 GXX_FLAGS = ("-O2", "-shared", "-fPIC")
+#: Libraries a source links against, after it on the command line.
+LINK_FLAGS = {"ingest": ("-ljpeg",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -60,6 +64,7 @@ def _source(name: str) -> tuple[Path, tuple[str, ...]]:
 
 def library_path(name: str) -> Path:
     src, flags = _source(name)
+    flags = (*flags, *LINK_FLAGS.get(name, ()))
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -78,7 +83,7 @@ def build(*names: str) -> dict[str, Path]:
         src, flags = _source(name)
         compiler = _nvcc() if src.suffix == ".cu" else _gxx()
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [compiler, *flags, "-o", str(tmp), str(src)]
+        cmd = [compiler, *flags, "-o", str(tmp), str(src), *LINK_FLAGS.get(name, ())]
         procs[name] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True

@@ -1,50 +1,73 @@
-"""Streaming ingest (counterpart of keystone_tpu/core/ingest.py, the subset
-the VOC tar path runs).
+"""Streaming ingest (counterpart of keystone_tpu/core/ingest.py).
 
 ``stream_batches(path, batch_size)`` turns tar -> decode -> featurize into a
 bounded pipeline:
 
 * one **producer thread** reads the tar serially, submits each kept member's
-  decode to a thread pool under an in-order FIFO window of
-  ``config.window()`` decodes, buckets the results by shape (host pixels)
-  or by :class:`~..ops.jpeg_device.JpegGeometry` (coefficients), and puts
-  every full bucket as a chunk into a **ring** of ``ring_capacity`` chunks.
-  A full ring blocks the producer, so decode never runs unboundedly ahead.
-  At end of stream the partial buckets are flushed in the order of their
-  first image.
+  decode under an in-order FIFO window of ``config.window()`` decodes,
+  buckets the results by shape (host pixels) or by
+  :class:`~..ops.jpeg_device.JpegGeometry` (coefficients), and puts every
+  full bucket as a chunk into a **ring** of ``ring_capacity`` chunks.  A
+  full ring blocks the producer, so decode never runs unboundedly ahead.  At
+  end of stream the partial buckets are flushed in the order of their first
+  image.
+* the host decode runs on a **thread pool** (``decode_backend="thread"``)
+  or on spawned **worker processes** that return pixels in shared memory
+  (``"process"``, ``core.decode_workers``), free of the interpreter lock.
+  Both run ``image_loaders.decode_image``, so they give the same pixels.
 * under ``decode_mode="device"`` each decode is the host **entropy pass**
-  only (:func:`~..ops.jpeg_device.entropy_decode`); the ring carries int16
-  coefficient chunks and :meth:`StreamBatch.apply` decodes them on the card
-  straight into the featurizer.  JPEGs outside the baseline subset are
-  decoded on the host instead, counted per reason; damaged scans are
-  counted skips.
+  only (:func:`~..ops.jpeg_device.entropy_decode`, always on the thread
+  pool); the ring carries int16 coefficient chunks and
+  :meth:`StreamBatch.apply` decodes them on the card straight into the
+  featurizer.  JPEGs outside the baseline subset are decoded on the host
+  instead, counted per reason; damaged scans are counted skips.
+* with ``snapshot_dir`` set (``core.snapshot``) the first pass tees its
+  chunks to disk and later passes stream the shards at IO speed:
+  ``decoded`` shards hold the host pixels, ``device`` shards the same
+  pixels padded and dtype-final, copied to the card as they are.  A pass
+  that tees a snapshot, or re-decodes after a corrupt shard, decodes on the
+  host even under ``decode_mode="device"``; device decode with a *decoded*
+  snapshot is refused, counted ``snapshot_mode_unsupported``.  A corrupt
+  shard falls back to live decode (``snapshot_fallback``), which re-checks
+  the prefix the consumer already received and raises
+  :class:`SnapshotFallbackDivergence` rather than scramble ordinals.
 * the **consumer** iterates :class:`StreamBatch` chunks in emission order;
   each carries the global image ordinals (``indices``, decode-survival
-  order) and member ``names``.  A producer exception re-raises in the
-  consumer, never as a silent end of stream; leaving the ``with`` block
-  stops the producer, and ``join()`` proves every thread exited.
+  order) and member ``names``.  On a CUDA device every chunk leaves the
+  ring into pinned host buffers and a ``non_blocking`` copy on the stream's
+  own copy stream, two chunks in flight: chunk *i+1* crosses while the
+  consumer works on chunk *i*, whose stream waits on the copy's event
+  first.  On the CPU the chunk's arrays are used in place.  A producer
+  exception re-raises in the consumer, never as a silent end of stream;
+  leaving the ``with`` block stops the producer, and ``join()`` proves
+  every thread and worker process exited.
 
 Events are counted in ``core.resilience.counters`` under the JAX
-package's names: ``corrupt_image``, ``jpeg_corrupt_entropy``,
-``device_decode_fallback`` and ``device_decode_fallback_<reason>``.  With
+package's names (``corrupt_image``, ``decode_worker_respawn``,
+``decode_worker_lost``, ``jpeg_corrupt_entropy``, ``device_decode_fallback``
+and ``device_decode_fallback_<reason>``, ``snapshot_stale``,
+``snapshot_fallback``, ``snapshot_write_failed``,
+``snapshot_mode_unsupported``, ``snapshot_fallback_divergence``).  With
 tracing on (``core.trace``) the stream records the JAX package's spans:
-``ingest.produce`` on the producer lane, ``ingest.decode`` /
+``ingest.produce``, ``ingest.snapshot_read`` and
+``ingest.spawn_decode_procs`` on the producer lane, ``ingest.decode`` /
 ``ingest.entropy_decode`` per member on the decode lanes,
-``ingest.ring_put`` (its length is the backpressure stall),
-``ingest.ring_get`` and ``ingest.consume`` (the consumer's work on one
-chunk) on the consumer lane.  With the numerics observatory on, each
-chunk's featurize output is a probe site named by its tar members.  Not
-ported (ROADMAP Queue 1 item 10): the autotuner, the process decode
-backend, snapshots, two-in-flight H2D on CUDA streams and environment
-knobs.
+``snapshot.write_shard`` per teed shard, ``ingest.ring_put`` (its length
+is the backpressure stall), ``ingest.ring_get`` and ``ingest.consume`` on
+the consumer lane; each chunk boundary publishes the ``ingest_*`` gauges.
+With the numerics observatory on, each chunk's featurize output is a probe
+site named by its tar members.  The environment knobs are read by
+:meth:`StreamConfig.from_env`.  Not ported: the autotuner
+(``KEYSTONE_AUTOTUNE`` raises).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import logging
-import queue
+import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -54,35 +77,92 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..loaders import image_loaders
+from ..loaders import image_loaders, native_decode
 from ..ops import jpeg_device as jdev
 from . import numerics as knum
 from . import profiler as kprof
-from . import trace
+from . import snapshot as ksnap
+from . import telemetry, trace
+from .decode_workers import ProcessDecodePool, ShmArray
 from .resilience import counters
 
 _logger = logging.getLogger(__name__)
 
+#: Process-unique sequence of the streams' ``/statusz`` provider names.
+_stream_seq = itertools.count()
+
 #: Assembled chunks the ring holds before the producer blocks.
 DEFAULT_RING_CAPACITY = 4
+
+#: Chunks whose host-to-device copy is in flight on a CUDA stream: the one
+#: the consumer works on and the next, whose copy overlaps that work.
+DEVICE_BUFFERS = 2
+
+#: Host decode backends: the thread pool, or spawned worker processes that
+#: return pixels in shared memory.
+DECODE_BACKENDS = ("thread", "process")
 
 #: Where pixels are born: ``host`` (full decode on the host) or ``device``
 #: (entropy pass on the host, the rest on the card).
 DECODE_MODES = ("host", "device")
 
-#: Every blocking wait polls at this period, so stop flags are observed.
+#: Every blocking wait polls at this period, so stop flags are observed and
+#: a ``resilience.deadline`` interrupts a hung stream.
 _POLL_SECONDS = 0.05
+
+#: How long ``close`` waits for the producer to stop its decode pools (a
+#: process pool's shutdown escalates to a kill within a few seconds).
+_CLOSE_SECONDS = 30.0
+
+
+def ring_capacity() -> int:
+    """Ring depth: ``KEYSTONE_RING_CAPACITY`` or the default."""
+    return image_loaders.env_int("KEYSTONE_RING_CAPACITY", DEFAULT_RING_CAPACITY, 1)
+
+
+def decode_backend_env() -> str:
+    """``KEYSTONE_DECODE_BACKEND``: ``thread`` (default) or ``process``."""
+    raw = os.environ.get("KEYSTONE_DECODE_BACKEND", "").strip() or "thread"
+    if raw not in DECODE_BACKENDS:
+        raise ValueError(f"KEYSTONE_DECODE_BACKEND={raw!r} must be one of {DECODE_BACKENDS}")
+    return raw
+
+
+def decode_mode_env() -> str:
+    """``KEYSTONE_DEVICE_DECODE``: ``1`` (or ``device``) turns on device
+    decode; default ``host``."""
+    raw = os.environ.get("KEYSTONE_DEVICE_DECODE", "").strip().lower()
+    if raw in ("", "0", "off", "false", "host"):
+        return "host"
+    if raw in ("1", "on", "true", "device", "yes"):
+        return "device"
+    raise ValueError(f"KEYSTONE_DEVICE_DECODE={raw!r} must be 0/1 (or host/device)")
 
 
 @dataclasses.dataclass
 class StreamConfig:
-    """The knobs of one stream: they change concurrency and buffering only,
-    never the order or content of what the stream yields."""
+    """The knobs of one stream: they change concurrency, buffering and where
+    the bytes come from, never the order or content of what the stream
+    yields."""
 
     decode_threads: int = dataclasses.field(default_factory=image_loaders.decode_threads)
     decode_ahead: int = dataclasses.field(default_factory=image_loaders.decode_ahead)
     ring_capacity: int = DEFAULT_RING_CAPACITY
+    #: Host decode backend (:data:`DECODE_BACKENDS`); device decode's
+    #: entropy pass runs on the thread pool whatever this says.
+    decode_backend: str = "thread"
+    #: Process-backend workers; 0 resolves to ``decode_threads``.
+    decode_procs: int = 0
     decode_mode: str = "host"
+    #: Snapshot root (``core.snapshot``); None turns snapshots off.
+    snapshot_dir: str | None = None
+    #: ``decoded`` or ``device`` shards in the stream; ``featurized`` is
+    #: the workload helpers' (``fv_common.stream_features_snapshot``).
+    snapshot_mode: str = "decoded"
+    #: Key material for what selects the members (a ``keep`` filter's
+    #: label file): a stream with a ``keep`` filter and no extra writes no
+    #: snapshot, since different filters would share a key.
+    snapshot_extra: str | None = None
 
     def __post_init__(self):
         if self.decode_threads < 1:
@@ -91,10 +171,47 @@ class StreamConfig:
             raise ValueError(f"decode_ahead must be >= 0, got {self.decode_ahead}")
         if self.ring_capacity < 1:
             raise ValueError(f"ring_capacity must be >= 1, got {self.ring_capacity}")
+        if self.decode_backend not in DECODE_BACKENDS:
+            raise ValueError(
+                f"decode_backend={self.decode_backend!r} must be one of {DECODE_BACKENDS}"
+            )
+        if self.decode_procs < 0:
+            raise ValueError(f"decode_procs must be >= 0, got {self.decode_procs}")
+        if self.decode_procs == 0:
+            self.decode_procs = self.decode_threads
         if self.decode_mode not in DECODE_MODES:
             raise ValueError(
                 f"decode_mode={self.decode_mode!r} must be one of {DECODE_MODES}"
             )
+        if self.snapshot_mode not in ksnap.MODES:
+            raise ValueError(
+                f"snapshot_mode={self.snapshot_mode!r} must be one of {ksnap.MODES}"
+            )
+
+    @classmethod
+    def from_env(cls, **overrides) -> "StreamConfig":
+        """The environment's knobs (``KEYSTONE_DECODE_THREADS``,
+        ``KEYSTONE_DECODE_AHEAD``, ``KEYSTONE_RING_CAPACITY``,
+        ``KEYSTONE_DECODE_BACKEND``, ``KEYSTONE_DECODE_PROCS``,
+        ``KEYSTONE_DEVICE_DECODE``, ``KEYSTONE_SNAPSHOT_DIR``,
+        ``KEYSTONE_SNAPSHOT_MODE``), each overridden by a keyword that is
+        not None.  ``KEYSTONE_AUTOTUNE`` raises: the ingest autotuner is
+        not ported."""
+        if os.environ.get("KEYSTONE_AUTOTUNE", "").strip() in ("1", "true", "on", "yes"):
+            raise ValueError("KEYSTONE_AUTOTUNE is not supported by keystone_tpu_torch "
+                             "(the ingest autotuner is not ported)")
+        cfg = {
+            "decode_threads": image_loaders.decode_threads(),
+            "decode_ahead": image_loaders.decode_ahead(),
+            "ring_capacity": ring_capacity(),
+            "decode_backend": decode_backend_env(),
+            "decode_procs": image_loaders.env_int("KEYSTONE_DECODE_PROCS", 0, 0),
+            "decode_mode": decode_mode_env(),
+            "snapshot_dir": ksnap.snapshot_dir_env(),
+            "snapshot_mode": ksnap.snapshot_mode_env(),
+        }
+        cfg.update({k: v for k, v in overrides.items() if v is not None})
+        return cls(**cfg)
 
     def window(self) -> int:
         """In-flight decode window: pool width + decode-ahead."""
@@ -103,6 +220,14 @@ class StreamConfig:
 
 class _Cancelled(Exception):
     """Internal: the consumer stopped the stream — unwind the producer."""
+
+
+class SnapshotFallbackDivergence(RuntimeError):
+    """The live re-decode behind a corrupt-shard fallback stopped matching
+    the chunks the consumer already received from the snapshot (a counted
+    skip in one pass shifted the survivors).  Going on would give the same
+    ordinals to different images, so the stream dies typed (and counted,
+    ``snapshot_fallback_divergence``)."""
 
 
 class _FallbackPixels:
@@ -140,9 +265,9 @@ def _timed(task, data: bytes, name: str, span_name: str):
 def _entropy_decode_task(data: bytes):
     """One member's device-mode decode task: the entropy pass into a
     ``CoeffImage``.  A JPEG the device path cannot claim is decoded on the
-    host (``_FallbackPixels``; where PIL is missing that raises, and the
-    stream fails), a damaged scan comes back as ``_CorruptEntropy``, and an
-    image under ``MIN_DIM`` as None, the host decoder's reject rule."""
+    host (``_FallbackPixels``), a damaged scan comes back as
+    ``_CorruptEntropy``, and an image under ``MIN_DIM`` as None, the host
+    decoder's reject rule."""
     try:
         ci = jdev.entropy_decode(data)
     except jdev.JpegEntropyCorrupt as e:
@@ -166,6 +291,61 @@ class CoeffChunk:
     def nbytes(self) -> int:
         return sum(int(c.nbytes) for c in self.coeffs) + int(self.qt.nbytes)
 
+    def arrays(self) -> tuple:
+        return (*self.coeffs, self.qt)
+
+
+class _PinnedCopier:
+    """Host-to-device copies of one CUDA stream's chunks: each host array is
+    staged into a pinned buffer and copied ``non_blocking`` on a dedicated
+    copy stream, with one event per chunk.
+
+    A pinned buffer is reused only once the event of the copy that last
+    read it has completed.  The device tensors are allocated on the copy
+    stream; the consumer's stream waits on the chunk's event and records
+    itself on each tensor (:meth:`StreamBatch.device_arrays`), so the
+    caching allocator hands no block out before the consumer's work on it
+    is done."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self._slots: list = []  # [pinned uint8 tensor, event of its last copy]
+
+    def _slot(self, nbytes: int, taken: set) -> list:
+        fits = [s for s in self._slots if id(s) not in taken and s[0].numel() >= nbytes]
+        for slot in fits:
+            if slot[1] is None or slot[1].query():
+                return slot
+        if fits:  # every buffer that fits is still being read: wait for one
+            fits[0][1].synchronize()
+            return fits[0]
+        slot = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True), None]
+        self._slots.append(slot)
+        return slot
+
+    def copy(self, arrays) -> tuple:
+        """``(device tensors, event)`` for the host ``arrays``: each copied
+        once into a pinned buffer (no cast), then to the card on the copy
+        stream."""
+        taken: set = set()
+        slots, out = [], []
+        with torch.cuda.stream(self.stream):
+            for a in arrays:
+                a = np.ascontiguousarray(a)
+                slot = self._slot(a.nbytes, taken)
+                taken.add(id(slot))
+                slots.append(slot)
+                dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+                host = slot[0][: a.nbytes].view(dtype).view(a.shape)
+                host.numpy()[...] = a
+                out.append(host.to(self.device, non_blocking=True))
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        for slot in slots:
+            slot[1] = event
+        return tuple(out), event
+
 
 @dataclasses.dataclass
 class StreamBatch:
@@ -178,6 +358,8 @@ class StreamBatch:
     host: np.ndarray | None  #: [b, H, W, C] f32 host pixels (None for coeff)
     device: torch.device  #: where :meth:`dev` / :meth:`apply` put the pixels
     coeff: CoeffChunk | None = None
+    #: (device tensors, event or None) once the stream copied the chunk
+    staged: tuple | None = None
 
     @property
     def shape(self) -> tuple:
@@ -189,12 +371,39 @@ class StreamBatch:
     def __len__(self) -> int:
         return len(self.names)
 
+    def host_arrays(self) -> tuple:
+        """What crosses to the device: the pixels, or the coefficients and
+        quant tables."""
+        return self.coeff.arrays() if self.coeff is not None else (self.host,)
+
+    def device_arrays(self) -> tuple:
+        """:meth:`host_arrays` on :attr:`device`: on a CUDA device the
+        stream's copies, once the current stream waited on their event; on
+        the CPU the host arrays themselves."""
+        if self.staged is not None:
+            tensors, event = self.staged
+            if event is not None:
+                consumer = torch.cuda.current_stream(self.device)
+                consumer.wait_event(event)
+                for t in tensors:
+                    t.record_stream(consumer)
+                self.staged = (tensors, None)
+            return tensors
+        if self.device.type != "cpu":
+            raise RuntimeError(
+                f"chunk {self.index} was never copied to {self.device}: chunks reach a "
+                "card only through the stream's pinned copies"
+            )
+        arrays = self.host_arrays()
+        return tuple(torch.from_numpy(a) for a in arrays)
+
     def dev(self) -> torch.Tensor:
         """The pixel batch on the stream's device (decoded there for
         coefficient chunks)."""
+        arrays = self.device_arrays()
         if self.coeff is not None:
-            return jdev.decode_batch(self.coeff.geom, self.coeff.coeffs, self.coeff.qt, self.device)
-        return torch.from_numpy(self.host).to(self.device)
+            return jdev.decode_batch(self.coeff.geom, arrays[:-1], arrays[-1], self.device)
+        return arrays[0]
 
     def apply(self, transform):
         """``transform(pixels)`` for this chunk; for coefficient chunks the
@@ -204,8 +413,9 @@ class StreamBatch:
         (``core.profiler.attributed_call``) with the transform's stated
         cost where it has one (``launch_cost``)."""
         if self.coeff is not None:
+            arrays = self.device_arrays()
             out = jdev.fused_apply(
-                transform, self.coeff.geom, self.coeff.coeffs, self.coeff.qt, self.device
+                transform, self.coeff.geom, arrays[:-1], arrays[-1], self.device
             )
         elif not kprof.enabled():
             out = transform(self.dev())
@@ -239,66 +449,111 @@ class StreamStats:
     decoded: int = 0  #: images kept
     skipped: int = 0  #: members skipped (also counted in ``counters``)
     batches: int = 0  #: chunks emitted into the ring
+    ring_capacity: int = 0
+    ring_max_depth: int = 0  #: most chunks queued in the ring at once
+    producer_stalls: int = 0  #: puts that blocked on a full ring (backpressure)
+    consumer_stalls: int = 0  #: gets that found the ring empty (decode-bound)
+    #: what decoded the live pass: "thread" or "process" (host pixels) or
+    #: "device" (entropy pass on the host); "" when a snapshot served it all
+    decoder: str = ""
+    #: the host pixel decoder of the live pass: "native" (libjpeg) or "pil"
+    host_decoder: str = ""
+    snapshot_chunks_read: int = 0  #: chunks served from a snapshot
+    snapshot_chunks_written: int = 0  #: chunks teed into a snapshot writer
+    worker_respawns: int = 0  #: process-backend workers respawned
     entropy_decoded: int = 0  #: images entropy-decoded (device mode)
     entropy_backend: str = ""  #: scan loop backend ("native"/"python")
     entropy_corrupt: int = 0  #: damaged scans skipped
     device_fallbacks: int = 0  #: JPEGs decoded on the host instead
     coeff_bytes: int = 0  #: int16 coefficient bytes carried by the ring
-    decode_seconds: float = 0.0  #: host decode time summed over the pool's threads
+    snapshot_dma_bytes: int = 0  #: device-format shard bytes served to the copy
+    h2d_bytes: int = 0  #: bytes copied to the card from pinned buffers
+    decode_seconds: float = 0.0  #: host decode time summed over the pool's workers
 
 
 class _Ring:
-    """Bounded FIFO between the producer thread and the consumer.  The
-    producer ends the stream with :meth:`close` (after :meth:`fail` when it
-    raised); :meth:`stop` is the consumer's early exit."""
+    """Bounded FIFO between the producer thread and the consumer.  Every
+    wait polls at ``_POLL_SECONDS``, so the consumer's thread stays
+    interruptible and the producer observes :meth:`stop`.  The producer
+    ends the stream with :meth:`close` (after :meth:`fail` when it
+    raised); the error re-raises on the consumer's next :meth:`get`."""
 
     _END = object()
 
-    def __init__(self, capacity: int):
-        self._q: queue.Queue = queue.Queue(maxsize=capacity)
-        self._stopped = threading.Event()
+    def __init__(self, capacity: int, stats: StreamStats):
+        self._q: collections.deque = collections.deque()
+        self._cond = threading.Condition()
+        self._capacity = capacity
+        self._stats = stats
+        self._closed = False
+        self._stopped = False
+        self._error: BaseException | None = None
 
     @property
     def stopped(self) -> bool:
-        return self._stopped.is_set()
+        return self._stopped
+
+    def depth(self) -> int:
+        with self._cond:
+            return len(self._q)
 
     def put(self, item) -> bool:
         """Blocks while full; False when the consumer stopped the stream."""
-        while not self._stopped.is_set():
-            try:
-                self._q.put(item, timeout=_POLL_SECONDS)
-                return True
-            except queue.Full:
-                continue
-        return False
+        with self._cond:
+            stalled = False
+            while len(self._q) >= self._capacity and not self._stopped:
+                if not stalled:
+                    self._stats.producer_stalls += 1
+                    stalled = True
+                self._cond.wait(_POLL_SECONDS)
+            if self._stopped:
+                return False
+            self._q.append(item)
+            self._stats.ring_max_depth = max(self._stats.ring_max_depth, len(self._q))
+            self._cond.notify_all()
+            return True
 
-    def get(self, producer: threading.Thread):
+    def get(self):
         """The next chunk, ``_Ring._END`` at end of stream; re-raises a
         producer failure."""
-        while True:
-            try:
-                item = self._q.get(timeout=_POLL_SECONDS)
-            except queue.Empty:
-                if not producer.is_alive() and self._q.empty():
-                    raise RuntimeError("ingest producer exited without ending the stream")
-                continue
-            if isinstance(item, BaseException):
-                raise item
-            return item
-
-    def fail(self, error: BaseException) -> None:
-        self.put(error)
+        with self._cond:
+            stalled = False
+            while True:
+                if self._q:
+                    item = self._q.popleft()
+                    self._cond.notify_all()
+                    return item
+                if self._error is not None:
+                    err, self._error = self._error, None
+                    raise err
+                if self._closed or self._stopped:
+                    return self._END
+                if not stalled:
+                    self._stats.consumer_stalls += 1
+                    stalled = True
+                self._cond.wait(_POLL_SECONDS)
 
     def close(self) -> None:
-        self.put(self._END)
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+
+    def fail(self, error: BaseException) -> None:
+        with self._cond:
+            self._error = error
+            self._closed = True
+            self._cond.notify_all()
 
     def stop(self) -> None:
-        self._stopped.set()
+        with self._cond:
+            self._stopped = True
+            self._cond.notify_all()
 
 
 class IngestStream:
     """The streaming pipeline: iterate to consume, ``with`` (or ``close``)
-    to guarantee shutdown, ``join()`` to assert no thread leaked."""
+    to guarantee shutdown, ``join()`` to assert no thread or process
+    leaked."""
 
     def __init__(
         self,
@@ -314,18 +569,32 @@ class IngestStream:
         self._path = path
         self._batch_size = batch_size
         self._keep = keep
-        self.config = config if config is not None else StreamConfig()
+        self.config = config if config is not None else StreamConfig.from_env()
         self.device = torch.device(device)
-        self.stats = StreamStats()
-        self._ring = _Ring(self.config.ring_capacity)
+        self.stats = StreamStats(ring_capacity=self.config.ring_capacity)
+        self._ring = _Ring(self.config.ring_capacity, self.stats)
+        self._copier = _PinnedCopier(self.device) if self.device.type == "cuda" else None
         self._workers: list[threading.Thread] = []
         self._pool: ThreadPoolExecutor | None = None
+        self._proc_pool: ProcessDecodePool | None = None
+        self._writer = None  #: core.snapshot.SnapshotWriter while teeing
+        self._skip_chunks = 0
+        #: (names, indices) of each chunk a snapshot served before a corrupt
+        #: shard forced the live fallback: what the re-decode must reproduce
+        self._served_prefix: list = []
         self._chunk_counter = 0
         _logger.info(
-            "streaming ingest %s: batch=%d threads=%d ahead=%d ring=%d mode=%s",
+            "streaming ingest %s: batch=%d threads=%d ahead=%d ring=%d mode=%s backend=%s "
+            "snapshot=%s",
             path, batch_size, self.config.decode_threads, self.config.decode_ahead,
-            self.config.ring_capacity, self.config.decode_mode,
+            self.config.ring_capacity, self.config.decode_mode, self.config.decode_backend,
+            self.config.snapshot_dir and self.config.snapshot_mode,
         )
+        # The stream's live state on the /statusz page, one row per stream.
+        self._statusz_name = f"stream:{os.path.basename(path)}#{next(_stream_seq)}"
+        self._statusz_provider = lambda: {
+            "path": path, "batch_size": batch_size, **dataclasses.asdict(self.stats)}
+        telemetry.register_statusz(self._statusz_name, self._statusz_provider)
         self._iter = self._drain()
         self._thread = threading.Thread(
             target=self._produce, name="keystone-ingest-producer", daemon=True
@@ -351,30 +620,198 @@ class IngestStream:
     def _produce(self):
         clean = False
         try:
-            self._produce_live()
-            clean = True
-        except _Cancelled:
-            pass
+            clean = self._run_producer()
         except BaseException as e:  # noqa: BLE001 — re-raised by the consumer
             self._ring.fail(e)
         finally:
             self._ring.close()
+            if self._writer is not None:
+                # A no-op after a commit; a cancelled or failed pass leaves
+                # no partial snapshot behind.
+                self._writer.abort()
             if self._pool is not None:
                 self._pool.shutdown(wait=clean, cancel_futures=not clean)
+            if self._proc_pool is not None:
+                self._proc_pool.shutdown(clean)
 
-    def _produce_live(self):
-        device_mode = self.config.decode_mode == "device"
+    def _snapshot_plan(self):
+        """``(root, key, mode)`` when the stream's snapshot tier applies:
+        ``decoded`` or ``device`` shards (``featurized`` is the workload
+        helpers').  Device decode with a decoded snapshot is refused,
+        counted: the cached host pixels are not the pixels a device decode
+        gives, so serving them would change the stream's bits."""
+        cfg = self.config
+        if not cfg.snapshot_dir or cfg.snapshot_mode not in ("decoded", "device"):
+            return None
+        if cfg.decode_mode == "device" and cfg.snapshot_mode == "decoded":
+            counters.record(
+                "snapshot_mode_unsupported",
+                f"{self._path}: decoded-pixel snapshots do not compose with device decode "
+                "(different IDCT rounding) — use snapshot_mode='device' for a DMA-format cache",
+            )
+            return None
+        if self._keep is not None and cfg.snapshot_extra is None:
+            _logger.warning(
+                "snapshot cache disabled for %s: the stream has a keep filter but no "
+                "snapshot_extra key material — an unkeyed filter would alias different "
+                "member subsets", self._path,
+            )
+            return None
+        key = ksnap.snapshot_key(
+            self._path, batch_size=self._batch_size, mode=cfg.snapshot_mode,
+            extra=cfg.snapshot_extra,
+        )
+        return cfg.snapshot_dir, key, cfg.snapshot_mode
+
+    def _run_producer(self) -> bool:
+        """Produce the chunks: from a valid snapshot, else by live decode
+        (teeing a fresh snapshot when the tier applies).  True at a clean
+        end of stream, False when the consumer cancelled."""
+        plan = self._snapshot_plan()
+        skip = 0
+        if plan is not None:
+            root, key, snap_mode = plan
+            snap, reason = ksnap.lookup(root, key, tar_path=self._path, mode=snap_mode)
+            if reason == "stale":
+                counters.record(
+                    "snapshot_stale",
+                    f"{self._path}: committed snapshot exists under a different key (input "
+                    "or decode config moved) — live decode, fresh snapshot written",
+                )
+            if snap is not None:
+                try:
+                    emitted = self._emit_from_snapshot(snap)
+                except _Cancelled:
+                    return False
+                if emitted is True:
+                    return True
+                # A corrupt shard after `emitted` chunks: those were
+                # hash-checked, so re-decode from the top, suppress that
+                # prefix, and rewrite the snapshot.
+                skip = emitted
+                counters.record(
+                    "snapshot_fallback",
+                    f"{snap.path}: corrupt shard after {skip} chunk(s) — falling back to "
+                    "live decode (bit-equal), rewriting",
+                )
+                trace.instant("snapshot_fallback", path=snap.path, emitted=skip)
+            try:
+                self._writer = ksnap.SnapshotWriter(
+                    root, key, mode=snap_mode,
+                    meta={"tar": ksnap.tar_identity(self._path), "path": self._path,
+                          "batch_size": self._batch_size, "extra": self.config.snapshot_extra},
+                )
+            except (OSError, ksnap.SnapshotError) as e:
+                # An unusable snapshot root never kills a live stream.
+                counters.record(
+                    "snapshot_write_failed", f"{self._path}: cannot open snapshot writer: {e}"
+                )
+        try:
+            self._produce_live(skip)
+        except _Cancelled:
+            return False
+        if self._writer is not None:
+            try:
+                self._writer.commit()
+            except (OSError, ksnap.SnapshotError) as e:
+                # Every chunk reached the consumer: a failed commit loses
+                # only the cache.
+                counters.record("snapshot_write_failed", f"{self._path}: commit failed: {e}")
+                self._writer.abort()
+        return True
+
+    def _emit_from_snapshot(self, snap) -> bool | int:
+        """Stream a committed snapshot's chunks into the ring.  True when the
+        whole snapshot streamed; the count of chunks already emitted when a
+        corrupt shard forces the live fallback."""
+        emitted = images = 0
+        served: list = []
+        with trace.span(
+            "ingest.snapshot_read", cat="ingest", path=snap.path,
+            chunks=len(snap.manifest["chunks"]),
+        ) as sp:
+            try:
+                for _entry, arrays in snap.iter_chunks():
+                    if self._ring.stopped:
+                        raise _Cancelled()
+                    payload = arrays["payload"]
+                    if snap.mode == "device":
+                        # Dtype-final f32, padded: the valid rows are a view,
+                        # copied to the card as they are.
+                        self.stats.snapshot_dma_bytes += int(payload.nbytes)
+                        valid = int(arrays.get("valid", len(payload)))
+                        payload = payload[:valid]
+                    chunk = StreamBatch(
+                        index=self._chunk_counter,
+                        indices=np.asarray(arrays["indices"], np.int64),
+                        names=[str(n) for n in arrays["names"].tolist()],
+                        host=payload, device=self.device,
+                    )
+                    self._chunk_counter += 1
+                    self._put(chunk)
+                    self.stats.decoded += len(chunk)
+                    self.stats.snapshot_chunks_read += 1
+                    emitted += 1
+                    images += len(chunk)
+                    served.append((chunk.names, chunk.indices))
+            except ksnap.SnapshotCorrupt as e:
+                sp.set(fallback_after=emitted, corrupt=str(e)[:200])
+                # The fallback re-decodes and re-counts from the top.
+                self.stats.decoded -= images
+                self._chunk_counter = 0
+                self._served_prefix = served
+                return emitted
+            sp.set(chunks_read=emitted, images=images)
+        return True
+
+    def _host_task(self):
+        """The host pixel decode of this pass: the thread pool's task, or
+        the process pool's submit."""
+        self.stats.host_decoder = "native" if native_decode.available() else "pil"
+        if self.config.decode_backend == "process":
+            if self._proc_pool is None:
+                with trace.span("ingest.spawn_decode_procs", cat="ingest",
+                                procs=self.config.decode_procs):
+                    self._proc_pool = ProcessDecodePool(
+                        self.config.decode_procs, on_respawn=self._count_respawn
+                    )
+                _logger.info("process decode backend: %d spawned worker(s)",
+                             self.config.decode_procs)
+            return None
+        return image_loaders.decode_image
+
+    def _count_respawn(self) -> None:
+        self.stats.worker_respawns += 1
+
+    def _produce_live(self, skip_chunks: int = 0):
+        self._skip_chunks = skip_chunks
+        # A pass that tees a snapshot, or re-decodes after a corrupt shard,
+        # decodes on the host: the writer stores host pixels, and the prefix
+        # check compares pixel chunks.
+        device_mode = (
+            self.config.decode_mode == "device" and self._writer is None and skip_chunks == 0
+        )
         if device_mode:
             # Build the native scan loop before the pool spins up, and
             # record which backend this pass runs.
             self.stats.entropy_backend = jdev.entropy_backend()
-        task = _entropy_decode_task if device_mode else image_loaders.decode_image
-        span_name = "ingest.entropy_decode" if device_mode else "ingest.decode"
-        self._pool = ThreadPoolExecutor(
-            max_workers=self.config.decode_threads,
-            thread_name_prefix="keystone-decode",
-            initializer=self._register_worker,
-        )
+            task, span_name = _entropy_decode_task, "ingest.entropy_decode"
+            self.stats.decoder = "device"
+        else:
+            task, span_name = self._host_task(), "ingest.decode"
+            self.stats.decoder = self.config.decode_backend
+        if task is not None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=self.config.decode_threads,
+                thread_name_prefix="keystone-decode",
+                initializer=self._register_worker,
+            )
+
+        def submit(name, data):
+            if task is None:
+                return self._proc_pool.submit(name, data)
+            return self._pool.submit(_timed, task, data, name, span_name)
+
         # shape or geometry -> (ordinals, names, images); insertion-ordered
         buckets: dict = {}
         window: collections.deque = collections.deque()
@@ -414,7 +851,9 @@ class IngestStream:
                 self.stats.device_fallbacks += 1
                 img = img.img
             if img is None:
-                counters.record("corrupt_image", name)
+                # "corrupt_image", or the process backend's
+                # "decode_worker_lost" (a member that kept killing workers).
+                counters.record(getattr(fut, "skip_reason", None) or "corrupt_image", name)
                 self.stats.skipped += 1
                 return
             keep_decoded(name, img)
@@ -426,9 +865,7 @@ class IngestStream:
                         raise _Cancelled()
                     if self._keep is not None and not self._keep(name):
                         continue
-                    window.append(
-                        (name, self._pool.submit(_timed, task, data, name, span_name))
-                    )
+                    window.append((name, submit(name, data)))
                     while len(window) >= self.config.window():
                         drain_one()
                 while window:
@@ -454,13 +891,51 @@ class IngestStream:
             coeffs, qt = jdev.stack_coeff_images(imgs)
             host, coeff = None, CoeffChunk(geom=imgs[0].geom, coeffs=coeffs, qt=qt)
         else:
-            host, coeff = np.stack(imgs), None
+            # np.stack copies straight out of the process backend's shared
+            # memory; each block is released once the chunk owns its pixels.
+            host = np.stack([i.arr if isinstance(i, ShmArray) else i for i in imgs])
+            for i in imgs:
+                if isinstance(i, ShmArray):
+                    i.release()
+            coeff = None
         chunk = StreamBatch(
             index=self._chunk_counter, indices=np.asarray(idx, np.int64),
             names=names, host=host, device=self.device, coeff=coeff,
         )
         self._chunk_counter += 1
-        attrs = {"coeff_bytes": coeff.nbytes()} if coeff is not None else {}
+        if self._writer is not None:
+            try:
+                # pad_to pads device-format shards only.
+                self._writer.add_chunk(chunk.index, chunk.indices, chunk.names, chunk.host,
+                                       pad_to=self._batch_size)
+                self.stats.snapshot_chunks_written += 1
+            except (OSError, ksnap.SnapshotError) as e:
+                # The cache is an optimisation: a failed shard write drops
+                # the writer, counted, and the pass goes on.
+                counters.record("snapshot_write_failed", f"{self._path}: {e}")
+                self._writer.abort()
+                self._writer = None
+        if chunk.index < self._skip_chunks:
+            # The fallback re-decode of a prefix the snapshot already served:
+            # rewritten above, not emitted again, provided it reproduces the
+            # served chunk exactly (the consumer scatters rows by ordinal).
+            names, indices = self._served_prefix[chunk.index]
+            if chunk.names != names or not np.array_equal(chunk.indices, indices):
+                counters.record(
+                    "snapshot_fallback_divergence",
+                    f"{self._path}: live re-decode chunk {chunk.index} != snapshot prefix "
+                    "already served",
+                )
+                raise SnapshotFallbackDivergence(
+                    f"{self._path}: chunk {chunk.index} of the fallback re-decode does not "
+                    "match the snapshot prefix the consumer already received (survivor "
+                    "sequences diverged — see the counted skip that shifted them)"
+                )
+            return
+        self._put(chunk)
+
+    def _put(self, chunk: StreamBatch) -> None:
+        attrs = {"coeff_bytes": chunk.coeff.nbytes()} if chunk.coeff is not None else {}
         # The put span's duration is the backpressure stall: a full ring
         # blocks here.
         with trace.span(
@@ -473,22 +948,56 @@ class IngestStream:
 
     # -- consumer side --------------------------------------------------------
 
+    def _publish_metrics(self) -> None:
+        """Chunk-boundary gauges of the stream, read by dashboards and
+        ``core.telemetry``."""
+        m = trace.metrics
+        st = self.stats
+        m.gauge("ingest_ring_depth", self._ring.depth())
+        m.gauge("ingest_decode_threads", self.config.decode_threads)
+        m.gauge("ingest_decode_ahead", self.config.decode_ahead)
+        m.gauge("ingest_ring_capacity", self.config.ring_capacity)
+        m.gauge("ingest_producer_stalls", st.producer_stalls)
+        m.gauge("ingest_consumer_stalls", st.consumer_stalls)
+        m.gauge("ingest_decoded", st.decoded)
+        m.gauge("ingest_snapshot_chunks_read", st.snapshot_chunks_read)
+        m.gauge("ingest_worker_respawns", st.worker_respawns)
+        m.gauge("ingest_entropy_decoded", st.entropy_decoded)
+        m.gauge("ingest_entropy_native", 1 if st.entropy_backend == "native" else 0)
+        m.gauge("ingest_coeff_bytes", st.coeff_bytes)
+        m.gauge("ingest_device_fallbacks", st.device_fallbacks)
+        m.gauge("ingest_snapshot_dma_bytes", st.snapshot_dma_bytes)
+
     def _drain(self):
+        pending: collections.deque = collections.deque()
         try:
             while True:
                 with trace.span("ingest.ring_get", cat="ingest"):
-                    item = self._ring.get(self._thread)
+                    item = self._ring.get()
                 if item is _Ring._END:
                     break
-                # The consume span runs from the consumer receiving the
-                # chunk until it asks for the next one: its work on THAT
-                # chunk.  Decode spans inside its interval are the overlap.
-                with trace.span(
-                    "ingest.consume", cat="ingest", index=item.index, images=len(item)
-                ):
-                    yield item
+                if self._copier is not None:
+                    # The copy starts now, on the copy stream, and overlaps
+                    # the consumer's work on the chunk before this one.
+                    arrays = item.host_arrays()
+                    item.staged = self._copier.copy(arrays)
+                    self.stats.h2d_bytes += sum(int(a.nbytes) for a in arrays)
+                self._publish_metrics()
+                pending.append(item)
+                if len(pending) >= DEVICE_BUFFERS:
+                    yield from self._consume(pending.popleft())
+            while pending:
+                yield from self._consume(pending.popleft())
         finally:
-            self._ring.stop()
+            self.close()
+
+    @staticmethod
+    def _consume(item):
+        # The consume span runs from the consumer receiving the chunk until
+        # it asks for the next one: its work on THAT chunk.  Decode spans
+        # inside its interval are the overlap.
+        with trace.span("ingest.consume", cat="ingest", index=item.index, images=len(item)):
+            yield item
 
     def __iter__(self):
         return self
@@ -503,19 +1012,35 @@ class IngestStream:
         self.close()
 
     def close(self) -> None:
-        """Stop the producer.  Idempotent; called on exhaustion, on a
-        consumer exception, and on leaving the ``with`` block."""
+        """Stop the producer and wait for it to shut its decode pools down,
+        so no worker process outlives the stream.  Idempotent; called on a
+        consumer exception and on leaving the ``with`` block.  A hung
+        decode thread is abandoned, not waited for (``join`` says whether
+        every thread exited)."""
+        telemetry.unregister_statusz(self._statusz_name, self._statusz_provider)
         self._ring.stop()
-        self._iter.close()
+        try:
+            self._iter.close()
+        except ValueError:  # closed from inside the running generator
+            pass
+        if threading.current_thread() is not self._thread:
+            self._thread.join(_CLOSE_SECONDS)
 
     def join(self, timeout: float = 10.0) -> bool:
-        """Wait for the producer and every decode thread; True when none is
-        left alive."""
+        """Wait for the producer, every decode thread and every decode
+        worker process; True when none is left alive."""
         end = time.monotonic() + timeout
         self._thread.join(max(0.0, end - time.monotonic()))
         for t in list(self._workers):
             t.join(max(0.0, end - time.monotonic()))
-        return not (self._thread.is_alive() or any(t.is_alive() for t in self._workers))
+        procs_ok = True
+        if self._proc_pool is not None:
+            while not self._proc_pool.joined() and time.monotonic() < end:
+                time.sleep(_POLL_SECONDS / 5)
+            procs_ok = self._proc_pool.joined()
+        return procs_ok and not (
+            self._thread.is_alive() or any(t.is_alive() for t in self._workers)
+        )
 
 
 def stream_batches(
@@ -528,8 +1053,9 @@ def stream_batches(
 ) -> IngestStream:
     """Stream shape-bucketed chunks of ``batch_size`` images from a tar (or
     a directory of tars).  ``keep`` filters member names before decode;
-    ``config`` holds the knobs (:class:`StreamConfig` defaults when None);
+    ``config`` holds the knobs (:meth:`StreamConfig.from_env` when None);
     ``device`` is where :meth:`StreamBatch.dev` / :meth:`StreamBatch.apply`
     put the pixels.  Use it as a context manager (or iterate to the end) so
-    the threads are released, and ``join()`` to assert they exited."""
+    the threads and worker processes are released, and ``join()`` to
+    assert they exited."""
     return IngestStream(path, batch_size, keep=keep, config=config, device=device)

@@ -1,12 +1,15 @@
 """VOC and ImageNet tar loaders (counterpart of
 keystone_tpu/loaders/image_loaders.py, eager subset).
 
-Images decode on the host with PIL into ``f32[H, W, 3]`` BGR arrays in
-[0, 255]; grayscale images are tripled, and images under ``MIN_DIM`` pixels
-on a side are rejected.  Members that cannot be read or decoded are skipped
-and counted in ``core.resilience.counters`` (``tar_stream_error``,
-``tar_member_error``, ``corrupt_image``).  Images of differing sizes stay per-image
-arrays; the workloads bucket them by shape.
+Images decode on the host into ``f32[H, W, 3]`` BGR arrays in [0, 255]:
+JPEGs through the native libjpeg decoder (``loaders.native_decode``), and
+with PIL whatever it declines or when it is unavailable.  Grayscale images
+are tripled, and images under ``MIN_DIM`` pixels on a side are rejected.
+Members that cannot be read or decoded are skipped and counted in
+``core.resilience.counters`` (``tar_stream_error``, ``tar_member_error``,
+``corrupt_image``); a host with neither decoder raises
+:class:`HostDecoderUnavailable` rather than skip.  Images of differing
+sizes stay per-image arrays; the workloads bucket them by shape.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core.resilience import counters, retry
+from . import native_decode
 
 VOC_NUM_CLASSES = 20
 IMAGENET_NUM_CLASSES = 1000
@@ -31,18 +35,45 @@ MIN_DIM = 36
 _DECODE_AHEAD = 8
 
 
-def decode_threads() -> int:
-    """Decoder pool width: the host cores this process may run on."""
+class HostDecoderUnavailable(RuntimeError):
+    """Neither host decoder can decode this member: the native libjpeg
+    decoder is unavailable (or the bytes are not a JPEG) and PIL is not
+    installed.  Raised, never turned into a skip."""
+
+
+def env_int(name: str, default: int, minimum: int) -> int:
+    """Integer environment knob ``name``: ``default`` when unset, else
+    validated to be an integer of at least ``minimum``."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        val = int(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not an integer") from None
+    if val < minimum:
+        raise ValueError(f"{name}={raw!r} must be >= {minimum}")
+    return val
+
+
+def host_cores() -> int:
+    """The host cores this process may run on."""
     try:  # affinity-aware (cgroup/container limits), not the raw core count
         return len(os.sched_getaffinity(0)) or 1
     except AttributeError:  # platforms without sched_getaffinity
         return os.cpu_count() or 1
 
 
+def decode_threads() -> int:
+    """Decoder pool width: ``KEYSTONE_DECODE_THREADS`` or the host cores."""
+    return env_int("KEYSTONE_DECODE_THREADS", host_cores(), 1)
+
+
 def decode_ahead() -> int:
-    """Decode-ahead slots beyond the pool width: in-flight decodes per
-    stream = ``decode_threads() + decode_ahead()``."""
-    return _DECODE_AHEAD
+    """Decode-ahead slots beyond the pool width (``KEYSTONE_DECODE_AHEAD``,
+    default :data:`_DECODE_AHEAD`): in-flight decodes per stream =
+    ``decode_threads() + decode_ahead()``."""
+    return env_int("KEYSTONE_DECODE_AHEAD", _DECODE_AHEAD, 0)
 
 
 @dataclass
@@ -67,9 +98,27 @@ class LabeledImages:
 
 def decode_image(data: bytes) -> np.ndarray | None:
     """JPEG/PNG bytes -> f32[H, W, 3] BGR in [0, 255], or None when the
-    image does not decode or is smaller than ``MIN_DIM``."""
-    from PIL import Image as PILImage
+    image does not decode or is smaller than ``MIN_DIM``.
 
+    A JPEG decodes through the native libjpeg decoder first; PIL (imported
+    only then) takes what it declines, and every other format.  A JPEG the
+    native decoder rejected on a host without PIL is None (it rejects
+    corrupt streams, images under ``MIN_DIM`` and channel counts other than
+    1 or 3); with neither decoder, :class:`HostDecoderUnavailable`."""
+    is_jpeg = data[:2] == b"\xff\xd8"
+    if is_jpeg:
+        arr = native_decode.decode_jpeg_native(data)
+        if arr is not None:
+            return arr
+    try:
+        from PIL import Image as PILImage
+    except ImportError:
+        if is_jpeg and native_decode.available():
+            return None
+        raise HostDecoderUnavailable(
+            "no host image decoder: the native libjpeg decoder "
+            f"({'unavailable' if is_jpeg else 'JPEG only'}) and PIL (not installed)"
+        ) from None
     try:
         img = PILImage.open(io.BytesIO(data))
         if img.mode not in ("RGB", "L"):
@@ -127,10 +176,12 @@ def _iter_tar_members(path: str):
 def _iter_tar_images(path: str, num_threads: int | None = None):
     """Yield (member_name, image) for each decodable image in the tar(s),
     in member order.  The tar is read serially; the decode runs on a
-    thread pool (PIL releases the GIL inside libjpeg) under an in-order
+    thread pool (both decoders release the GIL) under an in-order
     window of ``num_threads + decode_ahead()`` futures.  An undecodable
-    member is counted ``corrupt_image`` and skipped."""
+    member is counted ``corrupt_image`` and skipped.  The native decoder is
+    built before the pool starts, so no worker waits behind the build."""
     num_threads = num_threads or decode_threads()
+    native_decode.available()
     if num_threads <= 1:
         for name, data in _iter_tar_members(path):
             img = decode_image(data)

@@ -17,12 +17,18 @@ next chunk overlaps the featurize of this one); with ``--deviceDecode`` the
 host runs only the entropy pass and the pixels are born on the card
 (``decode_pixels``, the K3 kernel) before the fused featurizer (K1).
 ``--streamTrainTar`` decodes the train split through the same stream, bit
-for bit the eager tar loader's images.  ``--trace out.json`` writes the
-run's stage and ingest spans as a Chrome trace.  ``--pipelineFile stem``
-saves the fitted servable chain (``core.checkpoint``, with the test
-predictions' output sketch as its numerics baseline); when the checkpoint
-exists, the run restores it instead, loads no training data, fits nothing
-and scores the eager test split in featurize chunks.
+for bit the eager tar loader's images.  ``--decodeBackend process`` decodes
+on spawned worker processes.  ``--snapshotDir`` keeps what a stream made on
+disk (``core.snapshot``): decoded chunks, device-format shards under
+``KEYSTONE_SNAPSHOT_MODE=device``, or for the test split under
+``featurized`` the conv features, keyed by the fitted featurizer's digest,
+so a repeat run neither decodes nor featurizes the test tar.
+``--trace out.json`` writes the run's stage and ingest spans as a Chrome
+trace.  ``--pipelineFile stem`` saves the fitted servable chain
+(``core.checkpoint``, with the test predictions' output sketch as its
+numerics baseline); when the checkpoint exists, the run restores it
+instead, loads no training data, fits nothing and scores the eager test
+split in featurize chunks.
 
 Run: ``python -m keystone_tpu_torch.workloads.cifar_random_patch
 --trainLocation train.bin --testLocation test.bin [--device cpu]``.
@@ -39,6 +45,7 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
+from ..core import snapshot as ksnap
 from ..core import trace
 from ..core.checkpoint import checkpoint_exists, load_pipeline, save_pipeline
 from ..core.ingest import StreamConfig, stream_batches
@@ -58,7 +65,7 @@ from ..solvers.block import BlockLeastSquaresEstimator
 from ..solvers.whitening import ZCAWhitener, ZCAWhitenerEstimator
 from ..utils.platform import resolve_device, synchronize
 from ..utils.stats import normalize_rows
-from .fv_common import stream_config_from_flags
+from .fv_common import stream_config_from_flags, stream_features_snapshot
 
 _log = logging.getLogger(__name__)
 
@@ -89,6 +96,12 @@ class RandomCifarConfig:
     #: With ``stream_test_tar``: the host runs the entropy pass only and
     #: the pixels are decoded on the device, straight into the featurizer.
     device_decode: bool = False
+    #: Host decode backend of the streams ("thread" / "process"); None
+    #: defers to ``KEYSTONE_DECODE_BACKEND``.
+    decode_backend: str | None = None
+    #: Snapshot root of the streams (``core.snapshot``); None defers to
+    #: ``KEYSTONE_SNAPSHOT_DIR``.
+    snapshot_dir: str | None = None
     #: Checkpoint stem of the fitted servable chain: saved after a fit,
     #: restored (no fit) when it exists.
     pipeline_file: str | None = None
@@ -224,9 +237,10 @@ def cifar_tar_stream_loader(
 def _pad_to_chunk(batch, chunk: int) -> torch.Tensor:
     """One streamed batch as a ``chunk``-row pixel block on the stream's
     device, zero rows after the batch's own, as :func:`featurize_chunked`
-    pads its tail.  A coefficient chunk (device decode) is decoded on the
-    device first and padded there: its pixels never cross to the host, and
-    the decode kernel only ever sees JPEG rows."""
+    pads its tail.  The batch reaches the device first (the stream's copy,
+    or for a coefficient chunk its decode there) and is padded there: the
+    copy carries only the batch's rows, and the decode kernel only ever
+    sees JPEG rows."""
     rows = len(batch)
     pad = chunk - rows
     if pad < 0:
@@ -234,11 +248,8 @@ def _pad_to_chunk(batch, chunk: int) -> torch.Tensor:
             f"streamed batch of {rows} rows exceeds the featurize chunk {chunk} "
             "— stream with batch_size == featurize_chunk"
         )
-    if batch.host is None:
-        pixels = batch.dev()
-        return torch.nn.functional.pad(pixels, (0, 0, 0, 0, 0, 0, 0, pad)) if pad else pixels
-    block = np.pad(batch.host, ((0, pad), (0, 0), (0, 0), (0, 0))) if pad else batch.host
-    return torch.from_numpy(np.ascontiguousarray(block, np.float32)).to(batch.device)
+    pixels = batch.dev()
+    return torch.nn.functional.pad(pixels, (0, 0, 0, 0, 0, 0, 0, pad)) if pad else pixels
 
 
 def featurize_stream(fn, stream, chunk: int) -> tuple[torch.Tensor, list]:
@@ -264,6 +275,38 @@ def featurize_stream(fn, stream, chunk: int) -> tuple[torch.Tensor, list]:
     for i, name in name_pairs:
         names[i] = name
     return out, names
+
+
+def _stream_test_features(conf: RandomCifarConfig, conv_pipe, dev) -> tuple:
+    """The streamed test split's conv features on ``dev``, its member names
+    and the stream's stats.  With a snapshot root and
+    ``KEYSTONE_SNAPSHOT_MODE=featurized`` the features come from (or are
+    teed into) a featurized snapshot keyed by the fitted featurizer's
+    digest and the decode mode, which changes the pixels the features were
+    computed from."""
+    cfg = stream_config_from_flags(
+        decode_backend=conf.decode_backend, snapshot_dir=conf.snapshot_dir,
+        device_decode=conf.device_decode, supports_featurized=True,
+    )
+    chunk = conf.featurize_chunk
+    tar = conf.stream_test_tar
+
+    def make_stream():
+        return stream_batches(tar, chunk, config=cfg, device=dev)
+
+    if not (cfg.snapshot_dir and cfg.snapshot_mode == "featurized"):
+        with make_stream() as st:
+            feats, names = featurize_stream(conv_pipe, st, chunk)
+        return feats, names, st.stats
+    key = ksnap.snapshot_key(
+        tar, batch_size=chunk, mode="featurized",
+        featurizer=ksnap.featurizer_digest(conv_pipe), extra=f"decode_mode={cfg.decode_mode}",
+    )
+    feats, names, stats = stream_features_snapshot(
+        make_stream, lambda b: conv_pipe(_pad_to_chunk(b, chunk))[: len(b)].cpu().numpy(),
+        root=cfg.snapshot_dir, key=key, tar_path=tar,
+    )
+    return torch.from_numpy(feats).to(dev), names, stats
 
 
 def apply_servable_chunked(servable, images: np.ndarray, chunk: int) -> np.ndarray:
@@ -332,12 +375,8 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
             train_pred, torch.from_numpy(train.labels).to(dev), conf.num_classes
         )
         if conf.stream_test_tar is not None:
-            cfg = stream_config_from_flags(device_decode=conf.device_decode)
-            with stream_batches(
-                conf.stream_test_tar, conf.featurize_chunk, config=cfg, device=dev
-            ) as st:
-                test_conv, names = featurize_stream(conv_pipe, st, conf.featurize_chunk)
-            ingest_stats = asdict(st.stats)
+            test_conv, names, stats = _stream_test_features(conf, conv_pipe, dev)
+            ingest_stats = asdict(stats)
             test_labels = np.asarray([cifar_tar_label(n) for n in names], np.int32)
         else:
             test_labels = test.labels
@@ -448,6 +487,17 @@ def main(argv=None) -> dict:
         help="with --streamTestTar: host entropy pass only, pixels decoded on the device",
     )
     p.add_argument(
+        "--decodeBackend", default=None, choices=("thread", "process"),
+        help="host decode of the streamed tars on the thread pool or on spawned worker "
+        "processes (KEYSTONE_DECODE_BACKEND)",
+    )
+    p.add_argument(
+        "--snapshotDir", default=None,
+        help="snapshot root of the streamed tars: the first pass writes decoded chunks "
+        "(KEYSTONE_SNAPSHOT_MODE=device: device-format shards; featurized: the test "
+        "split's conv features), a repeat run reads them (KEYSTONE_SNAPSHOT_DIR)",
+    )
+    p.add_argument(
         "--pipelineFile", default=None,
         help="checkpoint stem of the fitted servable chain (featurizer + scaler + "
         "model + classifier): saved after a fit, restored without a fit when it exists",
@@ -466,6 +516,8 @@ def main(argv=None) -> dict:
         p.error("one of --testLocation / --streamTestTar is required")
     if a.deviceDecode and a.streamTestTar is None:
         p.error("--deviceDecode needs --streamTestTar")
+    if (a.decodeBackend or a.snapshotDir) and not (a.streamTestTar or a.streamTrainTar):
+        p.error("--decodeBackend and --snapshotDir need --streamTestTar or --streamTrainTar")
     if a.trace:
         trace.enable(a.trace)
     configure_logging()
@@ -484,6 +536,8 @@ def main(argv=None) -> dict:
         device=a.device,
         stream_test_tar=a.streamTestTar,
         device_decode=a.deviceDecode,
+        decode_backend=a.decodeBackend,
+        snapshot_dir=a.snapshotDir,
         pipeline_file=a.pipelineFile,
     )
     resolve_device(conf.device)
@@ -496,7 +550,9 @@ def main(argv=None) -> dict:
             elif a.streamTrainTar is not None:
                 train = cifar_tar_stream_loader(
                     a.streamTrainTar, batch=conf.featurize_chunk,
-                    config=stream_config_from_flags(),
+                    config=stream_config_from_flags(
+                        decode_backend=conf.decode_backend, snapshot_dir=conf.snapshot_dir,
+                    ),
                 )
             else:
                 train = _load_split(conf.train_location)

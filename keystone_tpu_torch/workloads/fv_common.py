@@ -3,7 +3,9 @@ keystone_tpu/workloads/fv_common.py, eager single-device subset).
 
 Images of one shape are stacked into a bucket and featurized together; the
 fixed-width feature rows are scattered back to the original image order.
-The streaming helpers build the same buckets from a ``core.ingest`` stream.
+The streaming helpers build the same buckets from a ``core.ingest`` stream,
+and :func:`stream_features_snapshot` serves a streamed featurize pass from
+a featurized snapshot (``core.snapshot``) when one is committed.
 """
 
 from __future__ import annotations
@@ -14,8 +16,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..core.ingest import StreamConfig, stream_batches
+from ..core import snapshot as ksnap
+from ..core.ingest import StreamConfig, StreamStats, stream_batches
 from ..core.pipeline import Pipeline
+from ..core.resilience import counters
 from ..ops.fisher import FisherVector
 from ..ops.images import GrayScaler, PixelScaler
 from ..ops.stats import NormalizeRows, SignedHellingerMapper
@@ -110,11 +114,115 @@ def scatter_features(buckets: dict, transform, n_total: int, feature_dim: int) -
     return out
 
 
-def stream_config_from_flags(*, device_decode: bool = False) -> StreamConfig:
-    """The ``StreamConfig`` of a workload's streams: the defaults, with
-    ``--deviceDecode`` selecting ``decode_mode="device"`` (the entropy pass
-    on the host, the pixels born on the card)."""
-    return StreamConfig(decode_mode="device" if device_decode else "host")
+def stream_config_from_flags(
+    *, decode_backend: str | None = None, snapshot_dir: str | None = None,
+    snapshot_extra: str | None = None, supports_featurized: bool = False,
+    device_decode: bool = False,
+) -> StreamConfig:
+    """The ``StreamConfig`` of a workload's streams: the environment's
+    ``KEYSTONE_*`` knobs (:meth:`StreamConfig.from_env`), overridden by the
+    workload's ``--decodeBackend`` / ``--snapshotDir`` / ``--deviceDecode``
+    flags (``decode_mode="device"``: the entropy pass on the host, the
+    pixels born on the card).  ``snapshot_extra`` keys the stream's member
+    selection (keep filters, label files) into the snapshot key.
+
+    ``supports_featurized``: set by callers that wrap the stream in
+    :func:`stream_features_snapshot`.  Everywhere else a
+    ``KEYSTONE_SNAPSHOT_MODE=featurized`` request caches decoded chunks
+    instead, counted ``snapshot_mode_unsupported``."""
+    cfg = StreamConfig.from_env(
+        decode_backend=decode_backend, snapshot_dir=snapshot_dir,
+        snapshot_extra=snapshot_extra, decode_mode="device" if device_decode else None,
+    )
+    if cfg.snapshot_dir and cfg.snapshot_mode == "featurized" and not supports_featurized:
+        counters.record(
+            "snapshot_mode_unsupported",
+            "featurized snapshots are not implemented on this stream — caching decoded "
+            "chunks instead",
+        )
+        cfg.snapshot_mode = "decoded"
+    return cfg
+
+
+def stream_features_snapshot(make_stream, per_batch, *, root=None, key=None,
+                             tar_path=None) -> tuple[np.ndarray, list, StreamStats]:
+    """A streamed featurize pass served from a featurized snapshot.
+
+    ``per_batch``: ``StreamBatch -> [b, D]`` feature rows (numpy).  With
+    ``root`` and ``key`` set and a committed featurized snapshot under the
+    key, the features come from its shards: no tar read, no decode, no
+    featurize.  ``key`` must fold in the fitted featurizer's digest
+    (``core.snapshot.featurizer_digest``), so a refit never replays stale
+    features.  Otherwise the live pass runs (``make_stream()``) and its
+    feature rows are teed into a fresh snapshot, committed only at a clean
+    end.  A corrupt shard is a counted ``snapshot_fallback`` to the live
+    pass; a committed featurized snapshot of the same tar under another key
+    is counted ``snapshot_stale``.
+
+    Returns ``(features [n, D] f32, names, stats)``: the live stream's
+    ``StreamStats``, or one that counts the chunks the snapshot served."""
+    if root is not None and key is not None:
+        snap, reason = ksnap.lookup(root, key, tar_path=tar_path, mode="featurized")
+        if reason == "stale":
+            counters.record(
+                "snapshot_stale",
+                f"{root}: featurized snapshot keyed differently (featurizer or input "
+                "moved) — recomputing",
+            )
+        if snap is not None:
+            parts, name_pairs, n = [], [], 0
+            stats = StreamStats()
+            try:
+                for _entry, arrays in snap.iter_chunks():
+                    idx = np.asarray(arrays["indices"], np.int64)
+                    parts.append((idx, np.asarray(arrays["payload"], np.float32)))
+                    name_pairs.extend(zip(idx.tolist(), [str(x) for x in arrays["names"]]))
+                    n += len(idx)
+                    stats.snapshot_chunks_read += 1
+                stats.decoded, stats.batches = n, stats.snapshot_chunks_read
+                feats, names = _scatter_parts(parts, name_pairs, n)
+                return feats, names, stats
+            except ksnap.SnapshotCorrupt as e:
+                counters.record("snapshot_fallback", f"{snap.path}: {e} — recomputing features live")
+
+    writer = None
+    if root is not None and key is not None:
+        # The manifest's tar identity classifies a later lookup under
+        # another key as stale rather than a plain miss.
+        meta = {"tar": ksnap.tar_identity(tar_path)} if tar_path is not None else {}
+        try:
+            writer = ksnap.SnapshotWriter(root, key, mode="featurized", meta=meta)
+        except (OSError, ksnap.SnapshotError) as e:
+            counters.record("snapshot_write_failed",
+                            f"cannot open featurized snapshot writer: {e}")
+    parts, name_pairs, n = [], [], 0
+    try:
+        with make_stream() as st:
+            for batch in st:
+                feats = np.asarray(per_batch(batch), np.float32)[: len(batch)]
+                parts.append((batch.indices, feats))
+                name_pairs.extend(zip(batch.indices.tolist(), batch.names))
+                n += len(batch)
+                if writer is not None:
+                    try:
+                        writer.add_chunk(batch.index, batch.indices, batch.names, feats)
+                        st.stats.snapshot_chunks_written += 1
+                    except (OSError, ksnap.SnapshotError) as e:
+                        # The cache is an optimisation: a failed shard write
+                        # drops the writer, counted, never the pass.
+                        counters.record("snapshot_write_failed", str(e))
+                        writer.abort()
+                        writer = None
+        if writer is not None:
+            try:
+                writer.commit()
+            except (OSError, ksnap.SnapshotError) as e:
+                counters.record("snapshot_write_failed", f"commit failed: {e}")
+    finally:
+        if writer is not None:
+            writer.abort()  # a no-op after the commit; drops partials on error
+    feats, names = _scatter_parts(parts, name_pairs, n)
+    return feats, names, st.stats
 
 
 @dataclass
@@ -133,6 +241,13 @@ class StreamSource:
     batch_size: int = 32
     #: ``--deviceDecode``: entropy pass on the host, pixels born on the card
     device_decode: bool = False
+    #: ``--decodeBackend``: None defers to ``KEYSTONE_DECODE_BACKEND``
+    decode_backend: str | None = None
+    #: ``--snapshotDir``: decoded (or device-format) chunks keyed by the tar,
+    #: the decode config and ``snapshot_extra``
+    snapshot_dir: str | None = None
+    #: the snapshot key's record of what ``keep`` selects (the label file)
+    snapshot_extra: str | None = None
 
     def __post_init__(self):
         self._names: list | None = None
@@ -173,7 +288,10 @@ class StreamSource:
         names in stream-ordinal order)) over the kept members, decoded for
         ``device``.  Records the names and the pass's stats; returns the
         result."""
-        cfg = stream_config_from_flags(device_decode=self.device_decode)
+        cfg = stream_config_from_flags(
+            decode_backend=self.decode_backend, snapshot_dir=self.snapshot_dir,
+            snapshot_extra=self.snapshot_extra, device_decode=self.device_decode,
+        )
         with stream_batches(self.data_path, self.batch_size, keep=self.keep, config=cfg,
                             device=device) as st:
             out, names = consume(st)

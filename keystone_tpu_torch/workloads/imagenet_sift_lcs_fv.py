@@ -11,7 +11,8 @@ BlockWeightedLeastSquares(4096, 1, lambda, w); evaluation is top-5 error.
 
 Run: ``python -m keystone_tpu_torch.workloads.imagenet_sift_lcs_fv
 --trainLocation train/ --testLocation test/ --labelPath labels.txt
-[--streamIngest [--deviceDecode] [--streamBatchSize 32]] [--device cpu]``,
+[--streamIngest [--deviceDecode] [--decodeBackend process] [--snapshotDir DIR]
+[--streamBatchSize 32]] [--device cpu]``,
 where each location is a tar or a directory of tars holding synset
 directories, and the labels file maps ``synset class-id`` per line.
 
@@ -21,6 +22,9 @@ as it projects them, and the test split is featurized chunk by chunk
 feature.  ``--streamIngest`` streams each tar set through ``core.ingest``
 once per branch and per split; with ``--deviceDecode`` the host runs only
 the JPEG entropy pass and the pixels are decoded on the card.
+``--decodeBackend process`` decodes on spawned worker processes, and with
+``--snapshotDir`` the first pass over a split writes its decoded chunks, so
+the second branch's pass (and a repeat run) streams them from disk.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
+from ..core import snapshot as ksnap
 from ..core import trace
 from ..core.logging import configure_logging, stage_timer
 from ..core.memory import log_fit_report
@@ -72,11 +77,13 @@ BRANCHES = ("sift", "lcs")
 
 
 def imagenet_stream_source(
-    data_path: str, labels_path: str, batch_size: int = 32, device_decode: bool = False
+    data_path: str, labels_path: str, batch_size: int = 32, device_decode: bool = False,
+    decode_backend: str | None = None, snapshot_dir: str | None = None,
 ) -> StreamSource:
     """Streaming stand-in for :func:`imagenet_loader`: the members whose
     synset directory the labels file names, labelled with its id, decoded
-    while the device featurizes."""
+    while the device featurizes.  The snapshot key's extra is the JAX
+    package's: the label file's identity."""
     lm = imagenet_labels_map(labels_path)
 
     def synset(name: str) -> str:
@@ -84,7 +91,9 @@ def imagenet_stream_source(
 
     return StreamSource(
         data_path, keep=lambda name: synset(name) in lm, label=lambda name: lm[synset(name)],
-        batch_size=batch_size, device_decode=device_decode,
+        batch_size=batch_size, device_decode=device_decode, decode_backend=decode_backend,
+        snapshot_dir=snapshot_dir,
+        snapshot_extra=f"imagenet:{ksnap.file_identity(labels_path)}",
     )
 
 
@@ -356,6 +365,17 @@ def main(argv=None) -> dict:
         help="with --streamIngest: host entropy pass only, pixels decoded on the device",
     )
     p.add_argument(
+        "--decodeBackend", default=None, choices=("thread", "process"),
+        help="with --streamIngest: host decode on the thread pool or on spawned worker "
+        "processes (KEYSTONE_DECODE_BACKEND)",
+    )
+    p.add_argument(
+        "--snapshotDir", default=None,
+        help="with --streamIngest: snapshot root; the first pass writes the decoded chunks "
+        "(device-format shards under KEYSTONE_SNAPSHOT_MODE=device), a repeat pass or run "
+        "reads them (KEYSTONE_SNAPSHOT_DIR)",
+    )
+    p.add_argument(
         "--trace", default=None, metavar="PATH",
         help="write a Chrome-trace JSON (.jsonl for the JSONL event log) of the run",
     )
@@ -363,8 +383,9 @@ def main(argv=None) -> dict:
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
     a = p.parse_args(argv)
-    if a.deviceDecode and not a.streamIngest:
-        p.error("--deviceDecode needs --streamIngest")
+    for flag in ("deviceDecode", "decodeBackend", "snapshotDir"):
+        if getattr(a, flag) and not a.streamIngest:
+            p.error(f"--{flag} needs --streamIngest")
     if a.trace:
         trace.enable(a.trace)
     configure_logging()
@@ -398,7 +419,9 @@ def main(argv=None) -> dict:
         if a.streamIngest:
             train, test = (
                 imagenet_stream_source(path, conf.label_path, batch_size=a.streamBatchSize,
-                                       device_decode=a.deviceDecode)
+                                       device_decode=a.deviceDecode,
+                                       decode_backend=a.decodeBackend,
+                                       snapshot_dir=a.snapshotDir)
                 for path in (conf.train_location, conf.test_location)
             )
         else:

@@ -10,12 +10,17 @@ Fisher features -> model`` is the servable pipeline.
 
 Run: ``python -m keystone_tpu_torch.workloads.voc_sift_fisher
 --trainLocation train.tar --testLocation test.tar --labelPath labels.csv
-[--streamIngest [--deviceDecode] [--streamBatchSize 64]] [--device cpu]``.
+[--streamIngest [--deviceDecode] [--decodeBackend process] [--snapshotDir DIR]
+[--streamBatchSize 64]] [--device cpu]``.
 
 ``--streamIngest`` streams each tar through ``core.ingest`` (decode of the
 next chunks overlaps SIFT of this one); with ``--deviceDecode`` the host
 runs only the JPEG entropy pass and the pixels are decoded on the card
 (``ops.jpeg_device``, the IDCT through the idct CUDA kernel).
+``--decodeBackend process`` decodes on spawned worker processes;
+``--snapshotDir`` keeps the decoded chunks (``KEYSTONE_SNAPSHOT_MODE=device``:
+device-format shards) so a repeat run streams them from disk.  The
+snapshot key folds in the label file's identity.
 
 ``--pipelineFile stem`` saves the fitted ``{pca, gmm, model}`` bundle
 (``core.checkpoint``, with the test scores' output sketch as its numerics
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from ..core import trace
+from ..core import snapshot as ksnap
 from ..core.checkpoint import checkpoint_exists, load_pipeline, save_pipeline
 from ..core.logging import configure_logging, stage_timer
 from ..core.memory import log_fit_report
@@ -73,15 +79,19 @@ SIFT_CHUNK = 32
 
 def voc_stream_source(
     data_path: str, labels_path: str, name_prefix: str = "VOCdevkit/VOC2007/JPEGImages/",
-    batch_size: int = 64, device_decode: bool = False,
+    batch_size: int = 64, device_decode: bool = False, decode_backend: str | None = None,
+    snapshot_dir: str | None = None,
 ) -> StreamSource:
     """Streaming stand-in for :func:`voc_loader`: the members under
     ``name_prefix`` that the labels CSV names, labelled with their class
-    lists, decoded while the device runs SIFT."""
+    lists, decoded while the device runs SIFT.  The snapshot key's extra is
+    the JAX package's: the prefix and the label file's identity."""
     lm = voc_labels_map(labels_path)
     return StreamSource(
         data_path, keep=lambda name: name.startswith(name_prefix) and name in lm,
         label=lm.__getitem__, batch_size=batch_size, device_decode=device_decode,
+        decode_backend=decode_backend, snapshot_dir=snapshot_dir,
+        snapshot_extra=f"voc:{name_prefix}:{ksnap.file_identity(labels_path)}",
     )
 
 
@@ -313,6 +323,17 @@ def main(argv=None) -> dict:
         help="with --streamIngest: host entropy pass only, pixels decoded on the device",
     )
     p.add_argument(
+        "--decodeBackend", default=None, choices=("thread", "process"),
+        help="with --streamIngest: host decode on the thread pool or on spawned worker "
+        "processes (KEYSTONE_DECODE_BACKEND)",
+    )
+    p.add_argument(
+        "--snapshotDir", default=None,
+        help="with --streamIngest: snapshot root; the first pass writes the decoded chunks "
+        "(device-format shards under KEYSTONE_SNAPSHOT_MODE=device), a repeat run reads "
+        "them (KEYSTONE_SNAPSHOT_DIR)",
+    )
+    p.add_argument(
         "--pipelineFile", default=None,
         help="checkpoint stem of the fitted {pca, gmm, model} bundle: saved after "
         "a fit, restored without a fit when it exists",
@@ -325,8 +346,9 @@ def main(argv=None) -> dict:
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
     a = p.parse_args(argv)
-    if a.deviceDecode and not a.streamIngest:
-        p.error("--deviceDecode needs --streamIngest")
+    for flag in ("deviceDecode", "decodeBackend", "snapshotDir"):
+        if getattr(a, flag) and not a.streamIngest:
+            p.error(f"--{flag} needs --streamIngest")
     if a.trace:
         trace.enable(a.trace)
     configure_logging()
@@ -353,7 +375,9 @@ def main(argv=None) -> dict:
     def load(path: str):
         if a.streamIngest:
             return voc_stream_source(path, conf.label_path, batch_size=a.streamBatchSize,
-                                     device_decode=a.deviceDecode)
+                                     device_decode=a.deviceDecode,
+                                     decode_backend=a.decodeBackend,
+                                     snapshot_dir=a.snapshotDir)
         return voc_loader(path, conf.label_path)
 
     try:

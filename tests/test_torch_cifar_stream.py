@@ -169,8 +169,9 @@ def test_cli_stream_test_tar_device_decode_on_cpu(tars, monkeypatch):
     ["--streamTestTar", "x.tar"],                               # no train split
     ["--trainLocation", "x.tar"],                               # no test split
     ["--trainLocation", "x.tar", "--testLocation", "y.tar", "--deviceDecode"],
-    ["--trainLocation", "x.tar", "--streamTestTar", "y.tar", "--decodeBackend", "thread"],
-    ["--trainLocation", "x.tar", "--streamTestTar", "y.tar", "--snapshotDir", "s"],
+    # --decodeBackend and --snapshotDir need a streamed split
+    ["--trainLocation", "x.tar", "--testLocation", "y.tar", "--decodeBackend", "thread"],
+    ["--trainLocation", "x.tar", "--testLocation", "y.tar", "--snapshotDir", "s"],
     ["--trainLocation", "x.tar", "--streamTestTar", "y.tar", "--autoTune"],
 ])
 def test_cli_usage_errors(argv):

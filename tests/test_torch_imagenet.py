@@ -315,7 +315,7 @@ def _cpu_decoded(path, labels):
 @pytest.mark.parametrize("flags", [
     ["--pipelineFile", "ck"], ["--autoCache"], ["--autoShard"], ["--mesh", "8"],
     ["--serveBench"], ["--streamIngest", "--autoTune"],
-    ["--streamIngest", "--decodeBackend", "thread"], ["--streamIngest", "--snapshotDir", "s"],
+    ["--decodeBackend", "thread"], ["--snapshotDir", "s"],  # both need --streamIngest
     ["--deviceDecode"],
 ])
 def test_cli_rejects_unported_flags(tars, flags):
