@@ -11,10 +11,10 @@ which raises (and so exits non-zero) on failure:
 2. every kernel entry against its plain PyTorch version on the card, at
    the main path's shape and at the odd shapes, timed with CUDA events:
    rect+pool on activations and fused with the Convolver's epilogue (the
-   fused entry with every flag on and off, also at served batches of 1
-   and 64 images and at phase 22's [2048, 43, 43, 100] grid of 48 px
-   images), the Fisher statistics (also at served batches of 1 and
-   16 images, each as a share of its bound, and at ImageNetSiftLcsFV's
+   fused entry with every flag on and off, also at the served buckets of
+   1, 4, 16 and 64 images and at phase 22's [2048, 43, 43, 100] grid of 48
+   px images), the Fisher statistics (also at the served buckets of 1, 4,
+   16 and 64 images, each as a share of its bound, and at ImageNetSiftLcsFV's
    shapes, d 64 and k 16 over the SIFT and LCS descriptors of a 375x500
    image, timed with the plain version at 1, 32 and 1,000 images), the
    IDCT (also beside one ``torch.einsum`` call, its library yardstick) and
@@ -111,7 +111,7 @@ which raises (and so exits non-zero) on failure:
    naive-Bayes scores card against CPU within 1e-5·max with equal
    predictions on 2,000 documents.  The kernels' counters do not move;
 16. one JSON line per the kernels, the card line, and the final JSON
-   line, printed last, after phases 17-23;
+   line, printed last, after phases 17-25;
 17. ImageNetSiftLcsFV at BASELINE config 5's width (1,000 classes; SIFT
    step 3 at scale step 1 with bf16 intermediates, then a signed square
    root; LCS (4, 16, 6); PCA to 64; 16 Gaussians; 4,096 features; the
@@ -206,6 +206,24 @@ which raises (and so exits non-zero) on failure:
    device tier's warm pass, else a device-decode pass): every copy the
    stream made is ``Pinned -> Device`` on one stream that runs no kernel;
    prints the share of copy time that kernels on other streams overlap.
+25. serving (``core.serve``, ``core.frontend``, ``core.wire``) on the
+   checkpoints phase 23 restores, at the default buckets 1, 4, 16 and 64,
+   every bucket a captured CUDA graph.  With the kernel counts set to 0:
+   ``--serve`` through the Cifar and MNIST CLIs and ``voc.run`` (phase 6's
+   bundle, the most populous shape), each through the shape router with
+   answers equal to the offline apply (VOC: equal, or with parity
+   unverified deterministic); the SLO bench (4 clients, depth 4) on 1,024
+   Cifar requests, batched and unbatched answers equal to the offline
+   apply; 256 Cifar requests over localhost through ``WireServer`` and
+   ``WireClient``, equal; and a warm add of an engine for VOC's second
+   shape while Cifar traffic is live, no request lost.  K1 and K2 on this
+   path are the wrappers' launches (warm runs, oracles) plus each graph's
+   recorded launches times its replays.  Then, counted nowhere: per
+   bucket, each chain's replay ``torch.equal`` to the eager chain at that
+   batch, both timed per micro-batch (CUDA events, median of 20), and one
+   profiled replay per graph kind whose trace names the K1 and K2 kernels.
+   Prints each engine's cold start, live buckets and parity, and the
+   bench's p50/p99, QPS, batched/unbatched QPS and occupancy.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -227,6 +245,7 @@ import subprocess
 import sys
 import tarfile
 import tempfile
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
@@ -235,8 +254,11 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch import _build, convert
+from keystone_tpu_torch.core import frontend as kfrontend
 from keystone_tpu_torch.core import profiler as kprof
-from keystone_tpu_torch.core import resilience, trace
+from keystone_tpu_torch.core import resilience, trace, wire
+from keystone_tpu_torch.core import serve as kserve
+from keystone_tpu_torch.core.checkpoint import load_pipeline
 from keystone_tpu_torch.core import snapshot as ksnap
 from keystone_tpu_torch.core.logging import stage_timer
 from keystone_tpu_torch.core.pipeline import Pipeline
@@ -307,9 +329,9 @@ PROD = (2048, 27, 27, 100, 13, 14, 0.25, 0.0)
 CIFAR48 = (2048, 43, 43, 100, 13, 14, 0.25, 0.0)
 ODD = [(64, 20, 24, 7, 4, 6, 0.25, 0.0), (64, 16, 16, 3, 5, 5, 0.1, 0.05)]
 # The fused entry's flags (normalize_patches, whitener means), and the
-# served batches it is also timed at.
+# served buckets it is also timed at.
 FUSED_FLAGS = [(True, True), (True, False), (False, True), (False, False)]
-K1_SERVED = (1, 64)
+K1_SERVED = (1, 4, 16, 64)
 
 # fv_stats (n, d, D, k, ragged): 32 images of the VOC production shape (a
 # 500x375 image gives 73,866 descriptors of 80 dims after PCA, k=256; 32
@@ -317,8 +339,8 @@ K1_SERVED = (1, 64)
 # then ragged counts and a D that is not a multiple of the kernel's tile.
 FV_PROD = (32, 80, 73866, 256, False)
 FV_ODD = [(3, 24, 700, 8, True), (3, 24, 333, 8, False)]
-# fv_stats is also timed at served batches of one and 16 such images.
-FV_SERVED = (1, 16)
+# fv_stats is also timed at the served buckets of such images.
+FV_SERVED = (1, 4, 16, 64)
 # fv_stats at ImageNetSiftLcsFV's shapes (d 64, k 16): the descriptors of a
 # 375x500 image in the SIFT branch (step 3, scale step 1) and in the LCS
 # branch (stride 4, border 16), checked on 8 images (LCS's with ragged
@@ -2554,6 +2576,261 @@ def run_snapshots(card: str, data_dir: Path, c22: dict, fitted: dict) -> dict:
     return out
 
 
+# Serving (phase 25): the default buckets, the bench's requests and clients.
+SERVE_BUCKETS = kserve.DEFAULT_BUCKETS
+SERVE_BENCH_REQUESTS, SERVE_BENCH_CLIENTS = 1024, 4
+# The K1 and K2 kernels' function names in the sources, which a profiled
+# replay's trace must hold.
+GRAPH_KERNEL_NAMES = {"conv_rect_pool": "pool_kernel", "fv_stats": "fv_stats_kernel"}
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def graph_ms(bucket, reps: int = 20, warmup: int = 2) -> float:
+    """Median of ``reps`` replays of one bucket's graph, each between two
+    CUDA events on the graph's stream."""
+    s = bucket.stream
+    with torch.cuda.stream(s):
+        for _ in range(warmup):
+            bucket.graph.replay()
+    s.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(s):
+            start.record()
+            bucket.graph.replay()
+            end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def replay_against_eager(engine, pipe, requests: np.ndarray) -> dict:
+    """Per bucket of ``engine`` (built without its parity drop, so every
+    configured bucket has its graph): the replay on ``bucket`` rows
+    ``torch.equal`` to ``pipe`` at that batch on the same rows, and both
+    timed per micro-batch."""
+    out = {}
+    for bucket, g in sorted(engine._exec.items()):
+        x = torch.from_numpy(np.ascontiguousarray(requests[:bucket])).cuda()
+        eager = pipe(x)
+        replay = engine._execute(bucket, x)
+        if not torch.equal(replay, eager):
+            raise AssertionError(f"{engine.label}: bucket {bucket}'s replay differs from the "
+                                 "eager chain at that batch")
+        eager_ms = cuda_ms(lambda: pipe(x), reps=20, warmup=2)
+        out[str(bucket)] = {"replay_ms": graph_ms(g), "eager_ms": eager_ms,
+                            "kernels": {k: v["launches"] for k, v in g.kernels.items()}}
+    return out
+
+
+def profiled_replay(bucket) -> str:
+    """The names of the CUDA kernels one replay of the graph ran, from a
+    ``torch.profiler`` window around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bucket.stream.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.cuda.stream(bucket.stream):
+            bucket.graph.replay()
+        bucket.stream.synchronize()
+    return " ".join(sorted({e.key for e in prof.key_averages()}))
+
+
+def batch_dependent_nodes(pipe, x: torch.Tensor) -> list:
+    """The nodes of ``pipe`` whose first output row differs between the
+    whole batch ``x`` and its first row alone, each node fed the same
+    input row either way."""
+    out, a, b = [], x, x[:1]
+    for node in pipe.nodes:
+        a, b = node(a), node(b)
+        if not torch.equal(a[:1], b):
+            out.append(type(node).__name__ if not hasattr(node, "name") else node.name)
+        b = a[:1].clone()
+    return out
+
+
+def engine_line(rec: dict, cold: dict) -> dict:
+    return {"label": rec["label"], "cold_start": cold, "live_buckets": rec["live_buckets"],
+            "parity_ok": rec["parity_ok"], "parity": rec["parity"],
+            "capture_seconds": rec["capture_seconds"], "warmup_seconds": rec["warmup_seconds"],
+            "graph_launches": rec["graph_launches"],
+            "capture_bytes": {b: p["reported"] for b, p in rec["memory_plans"].items()}}
+
+
+def check_served(name: str, serving: dict) -> dict:
+    s = serving["served"]
+    healthy = s["predictions_bit_identical"] or (s.get("parity_unverified")
+                                                 and s.get("predictions_deterministic"))
+    if not healthy or s["batcher"]["answered"] != s["requests"]:
+        raise AssertionError(f"{name}: served answers differ from the offline apply: {s}")
+    return {**engine_line(serving["engine"], serving["cold_start"]),
+            "requests": s["requests"], "p50_latency_ms": s["p50_latency_ms"],
+            "p99_latency_ms": s["p99_latency_ms"], "qps": s["qps"],
+            "predictions_bit_identical": s["predictions_bit_identical"],
+            "predictions_deterministic": s.get("predictions_deterministic")}
+
+
+def run_serving(card: str, data_dir: Path, fitted: dict) -> dict:
+    """Phase 25: the serving tier on the checkpoints of phases 3, 6 and 9.
+    The served path runs with the kernel counts set to 0 just before it and
+    read just after (wrapper launches plus graph replays); the replay
+    comparisons and timings come after and count nowhere.  Returns the
+    served path's launches by kernel."""
+    t_phase = time.perf_counter()
+    absent = str(data_dir / "absent")
+    rec: dict = {"phase": "25: serving (CUDA-graph buckets, batcher, router, wire)",
+                 "card": card, "buckets": list(SERVE_BUCKETS)}
+    rp.launches = rp.fused_launches = fs.launches = jd.launches = jd.decode_launches = 0
+    graphs: dict = {}
+
+    # (a) --serve through the CLIs (VOC through run): restore, serve through
+    # the router, answers against the offline apply.
+    res = cifar.main(["--trainLocation", absent, "--testLocation", str(fitted["cifar_test"]),
+                      *MAIN_FLAGS, "--pipelineFile", str(fitted["cifar_stem"]), "--serve"])
+    rec["cifar"] = check_served("cifar", res["serving"])
+    add_launches(graphs, res["serving"]["engine"]["graph_launches"])
+    mres = mnist.main(["--trainLocation", absent, "--testLocation",
+                       str(fitted["mnist"]["test_csv"]), *MNIST_FLAGS,
+                       "--pipelineFile", str(fitted["mnist"]["stem"]), "--serve"])
+    rec["mnist"] = check_served("mnist", mres["serving"])
+    add_launches(graphs, mres["serving"]["engine"]["graph_launches"])
+    vconf = voc.SIFTFisherConfig(**VOC_CONF, pipeline_file=str(fitted["voc_stem"]), serve=True)
+    vres = voc.run(vconf, MultiLabeledImages([], [], []), fitted["voc_test"])
+    rec["voc"] = {**check_served("voc", vres["serving"]),
+                  "request_shape": vres["serving"]["request_shape"]}
+    add_launches(graphs, vres["serving"]["engine"]["graph_launches"])
+
+    # (b) The SLO bench on 1,024 Cifar requests.
+    images = cifar_loader(str(fitted["cifar_test"])).images
+    cifar_req = np.asarray(images[:SERVE_BENCH_REQUESTS], np.float32)
+    ceng, ccold = kserve.load_engine(str(fitted["cifar_stem"]), np.empty((32, 32, 3), np.float32),
+                                     label="cifar_bench")
+    bench = kserve.serve_bench(ceng, cifar_req, clients=SERVE_BENCH_CLIENTS, depth=4)
+    if not (bench["predictions_bit_identical"] and bench["unbatched_bit_identical"]):
+        raise AssertionError(f"bench answers differ from the offline apply: {bench}")
+    rec["bench"] = {**{k: bench[k] for k in ("requests", "clients", "qps", "p50_latency_ms",
+                                             "p99_latency_ms", "max_latency_ms", "unbatched_qps",
+                                             "batched_vs_unbatched_qps")},
+                    "mean_occupancy": bench["batcher"]["mean_occupancy"],
+                    "batches": bench["batcher"]["batches"],
+                    "phase_breakdown": bench["phase_breakdown"],
+                    "engine": engine_line(ceng.record(), ccold)}
+    offline = ceng.offline(cifar_req)
+
+    # (c) A wire round trip over localhost.
+    with kfrontend.ShapeRouter(label="cifar_wire") as router:
+        router.add_engine(ceng)
+        with wire.WireServer(router, port=0) as ws:
+            with wire.WireClient(port=ws.port, timeout=60.0) as client:
+                ping = client.ping()
+                got = np.stack(client.predict_many(list(cifar_req[:256]), window=16))
+            wire_stats = ws.record()["stats"]
+    if not np.array_equal(got, offline[:256]):
+        raise AssertionError("answers over the wire differ from the offline apply")
+    rec["wire"] = {"requests": 256, "ping_ms": 1e3 * ping, "equal": True, **wire_stats}
+
+    # (d) A warm add of an engine for VOC's second shape while Cifar
+    # traffic is live: every Cifar request answered, equal.
+    shapes = sorted({img.shape for img in fitted["voc_test"].images},
+                    key=lambda sh: -sum(img.shape == sh for img in fitted["voc_test"].images))
+    second = np.asarray([img for img in fitted["voc_test"].images if img.shape == shapes[1]][:1],
+                        np.float32)
+    warmed: list = []
+
+    def factory(shape, dtype):
+        eng, cold = kserve.load_engine(
+            str(fitted["voc_stem"]), np.empty(shape, np.float32),
+            label=kfrontend.shape_label("voc", shape),
+            wrap=lambda bundle: voc.servable_pipeline(vconf, bundle))
+        warmed.append((eng, cold))
+        return eng
+
+    answers: list = []
+    errors: list = []
+    stop = threading.Event()
+    with kfrontend.ShapeRouter(factory, label="warm_add",
+                               config=kfrontend.RouterConfig(warm_threshold=1)) as router:
+        router.add_engine(ceng)
+
+        def traffic():
+            try:
+                i = 0
+                while not stop.is_set():
+                    futs = [(j % len(cifar_req), router.submit(cifar_req[j % len(cifar_req)]))
+                            for j in range(i, i + 16)]
+                    answers.extend((j, f.result(60.0)) for j, f in futs)
+                    i += 16
+            except BaseException as e:  # noqa: BLE001 — surfaced below
+                errors.append(e)
+
+        t = threading.Thread(target=traffic)
+        t.start()
+        time.sleep(0.2)
+        before = len(answers)
+        t0 = time.perf_counter()
+        voc_answer = router.predict(second[0], timeout=300.0)
+        warm_secs = time.perf_counter() - t0
+        during = len(answers) - before
+        stop.set()
+        t.join(120.0)
+        router_stats = router.record()["stats"]
+    if errors or not all(np.array_equal(a, offline[j]) for j, a in answers):
+        raise AssertionError(f"Cifar traffic during the warm add: {errors[:1]}, "
+                             f"{len(answers)} answers")
+    veng, vcold = warmed[0]
+    if not (router_stats["warm_adds"] == 1 and voc_answer.shape == (VOC_NUM_CLASSES,)):
+        raise AssertionError(f"warm add: {router_stats}, answer {voc_answer.shape}")
+    rec["warm_add"] = {"shape": list(shapes[1]), "seconds": warm_secs,
+                       "cifar_answers": len(answers), "cifar_answers_during_warm": during,
+                       "lost": 0, "router": router_stats, "engine": engine_line(veng.record(), vcold)}
+    add_launches(graphs, ceng.graph_launches())
+    add_launches(graphs, veng.graph_launches())
+    served = {"conv_rect_pool": rp.fused_launches + graphs.get("conv_rect_pool", 0),
+              "fv_stats": fs.launches + graphs.get("fv_stats", 0)}
+    rec["launches"] = {"served_path": served, "graph_replays": graphs,
+                       "eager": {"conv_rect_pool": rp.fused_launches, "fv_stats": fs.launches}}
+    if not (graphs.get("conv_rect_pool") and graphs.get("fv_stats")) or rp.launches or jd.launches:
+        raise AssertionError(f"the served path's launches: {rec['launches']}, unfused "
+                             f"{rp.launches} {jd.launches}")
+    rec["served_path_seconds"] = time.perf_counter() - t_phase
+
+    # (e) Not counted: each chain's replay against its eager run at every
+    # bucket, timed, and one profiled replay per kernel.
+    chains = {
+        "cifar": (load_pipeline(str(fitted["cifar_stem"])), cifar_req),
+        "mnist": (load_pipeline(str(fitted["mnist"]["stem"])),
+                  np.asarray(fitted["mnist"]["test"].data[:64], np.float32)),
+        "voc": (voc.servable_pipeline(vconf, load_pipeline(str(fitted["voc_stem"]))),
+                np.asarray([img for img in fitted["voc_test"].images
+                            if img.shape == shapes[0]][:64], np.float32)),
+    }
+    rec["replay_against_eager"] = {}
+    for name, (pipe, reqs) in chains.items():
+        eng = kserve.ServingEngine(pipe, np.empty(reqs.shape[1:], np.float32), warmup=False,
+                                   label=f"{name}_timed")
+        rec["replay_against_eager"][name] = replay_against_eager(eng, pipe, reqs)
+        rec["replay_against_eager"][name]["batch_dependent_nodes_1_vs_64"] = (
+            batch_dependent_nodes(pipe, torch.from_numpy(np.ascontiguousarray(reqs[:64])).cuda()))
+        for kernel, fn in GRAPH_KERNEL_NAMES.items():
+            g = eng._exec[SERVE_BUCKETS[-1]]
+            if kernel in g.kernels:
+                names = profiled_replay(g)
+                if fn not in names:
+                    raise AssertionError(f"{name}: a profiled replay names no {fn}: {names[:500]}")
+                rec["replay_against_eager"][name]["profiled_replay_names"] = fn
+        del eng
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps(rec))
+    return served
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -2707,6 +2984,7 @@ def smoke(data_dir: Path) -> int:
     restored = run_restored(card, data_dir, fitted)
     snaps = run_snapshots(card, data_dir, cifar_tar, fitted)
     del cifar_tar
+    serving = run_serving(card, data_dir, fitted)
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -2716,12 +2994,13 @@ def smoke(data_dir: Path) -> int:
         "replaces": "keystone_tpu/ops/rect_pool_pallas.py:78",
         "launches": (main_launches + random_cifar_rec["launches"]
                      + tar_launches["conv_rect_pool"] + restored["conv_rect_pool"]
-                     + snaps["conv_rect_pool"]),
+                     + snaps["conv_rect_pool"] + serving["conv_rect_pool"]),
         "launches_by_path": {"random_patch_cifar": main_launches,
                              "random_cifar": random_cifar_rec["launches"],
                              "random_patch_cifar_jpeg_tar": tar_launches["conv_rect_pool"],
                              "random_patch_cifar_restored": restored["conv_rect_pool"],
-                             "snapshots_and_backends": snaps["conv_rect_pool"]},
+                             "snapshots_and_backends": snaps["conv_rect_pool"],
+                             "serving_graphs_and_eager": serving["conv_rect_pool"]},
         "max_abs_err": max(r["max_abs_err"] for r in [
             fused_prod, fused_prod_f32, fused_cifar48, *fused_odd, random_cifar_rec]),
         "ms": fused_prod["ms"],
@@ -2752,13 +3031,14 @@ def smoke(data_dir: Path) -> int:
         "replaces": "keystone_tpu/ops/fv_pallas.py:95",
         "launches": (voc_launches + tar_fv_launches + inet_launches + inet_tar_fv
                      + restored["fv_stats_in_memory"] + restored["fv_stats_jpeg_tars"]
-                     + snaps["fv_stats"]),
+                     + snaps["fv_stats"] + serving["fv_stats"]),
         "launches_by_path": {"voc_in_memory": voc_launches, "voc_jpeg_tars": tar_fv_launches,
                              "imagenet_in_memory": inet_launches,
                              "imagenet_jpeg_tars": inet_tar_fv,
                              "voc_restored_in_memory": restored["fv_stats_in_memory"],
                              "voc_restored_jpeg_tars": restored["fv_stats_jpeg_tars"],
-                             "snapshots_and_backends": snaps["fv_stats"]},
+                             "snapshots_and_backends": snaps["fv_stats"],
+                             "serving_graphs_and_eager": serving["fv_stats"]},
         "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd, *fv_imagenet.values()]),
         "ms": fv_prod["ms"],
         "plain_ms": fv_prod["plain_ms"],

@@ -207,6 +207,7 @@ def plan_program(
     min_temp_bytes: int = 0,
     resident_bytes: int = 0,
     require_analysis: bool = False,
+    meta_run: bool = True,
     **kwargs,
 ) -> MemoryPlan:
     """Preflight ``fn`` on ``args`` (tensors of any device, ``meta``
@@ -219,6 +220,9 @@ def plan_program(
     device are credited against a live budget (:func:`budget_is_live`).
     Argument bytes are the tensors' own; output bytes come from a ``meta``
     run of ``fn`` (0, with the reason in ``error``, where it has none).
+    ``meta_run=False`` skips that run, for a function that holds tensors on
+    a device: mixed with a ``meta`` argument it can only fail, and its first
+    failure in a process imports ``torch._dynamo`` (seconds).
     With no budget and no ``require_analysis`` the plan is a pass-through:
     admitted, unanalyzed.  Denials are counted (``hbm_preflight_denied``)."""
     if budget is _UNSET:
@@ -235,7 +239,9 @@ def plan_program(
     key = _cache_key(fn, args, kwargs)
     cached = _plan_cache.get(key)
     if cached is None:
-        out_bytes, err = _output_bytes(fn, args, kwargs)
+        out_bytes, err = (
+            _output_bytes(fn, args, kwargs) if meta_run else (0, "no meta run (meta_run=False)")
+        )
         cached = _plan_cache[key] = {
             "argument": array_bytes(*(a for a in (*args, *kwargs.values()) if isinstance(a, torch.Tensor))),
             "output": out_bytes,

@@ -9,7 +9,8 @@ composition.  Fitted node classes are registered by name with their data
 and meta fields (:func:`register_node`, the JAX package's names and
 fields), the schema ``core.checkpoint`` saves and rebuilds them by.  With
 the numerics observatory on (``core.numerics``), every node boundary of
-``Pipeline.__call__`` is a tensor-stat probe site.  The profiling,
+``Pipeline.__call__`` is a tensor-stat probe site (but not while the
+stream captures a CUDA graph).  The profiling,
 reuse-tracking and Cacher machinery of the JAX package is not ported.
 """
 
@@ -115,8 +116,10 @@ class Pipeline(Transformer):
 
     def __call__(self, batch):
         # One flag check when the observatory is off; a probe never
-        # changes the value it reads.
-        probing = numerics.active()
+        # changes the value it reads.  A stream capturing a CUDA graph
+        # (core.serve) is not probed: a probe reads its stats on the host,
+        # which capture forbids; the engine probes the answered rows.
+        probing = numerics.active() and not _capturing()
         for n in self.nodes:
             batch = n(batch)
             if probing:
@@ -130,6 +133,12 @@ class Pipeline(Transformer):
 
     def __repr__(self):
         return "Pipeline(" + " >> ".join(repr(n) for n in self.nodes) + ")"
+
+
+def _capturing() -> bool:
+    import torch
+
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 def _node_label(n: Transformer) -> str:

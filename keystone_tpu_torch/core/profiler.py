@@ -39,6 +39,12 @@ the per-program ledger, the HBM watermark sampler, and triggered
   :func:`close_capture`.  While a window is open, each hand-kernel launch
   on its thread runs inside a ``record_function`` range named after the
   wrapper (:func:`launch`), so the trace names the kernels.
+* **Graph capture** — inside :func:`graph_tally` (``core.serve``
+  captures each batch bucket into a CUDA graph there) a launch is recorded,
+  not run: nothing may synchronize, so :func:`launch` and
+  :func:`attributed_call` skip the attribution and :func:`launch` tallies
+  each kernel's name and stated cost instead.  The engine attributes every
+  synced replay of the graph as one program with the summed costs.
 
 Overhead discipline: :func:`enabled` is one flag/env check; with the
 profiler off every hook in the execution paths is that one check, and a
@@ -330,7 +336,10 @@ def attributed_call(label: str, cost, fn, *args):
     idiom of the streaming paths (``StreamBatch.apply``,
     ``jpeg_device.fused_apply``); callers gate on :func:`enabled`, so this
     is never on the off path.  Syncing trades the caller's pipelining for
-    measurement; values are unchanged."""
+    measurement; values are unchanged.  Inside :func:`graph_tally` it is
+    ``fn(*args)`` alone (a capture may not synchronize)."""
+    if recording_graph():
+        return fn(*args)
     _poll_capture()
     sync_device()
     t0 = time.perf_counter()
@@ -836,12 +845,44 @@ def launch(name: str, cost, fn):
     on this thread, and, while the profiler is on, attributed to the
     ledger under ``name`` with ``cost()`` (the wrapper's stated
     ``(flops, bytes)``, evaluated only then) and a synchronized wall.  With
-    both off it is two flag checks around the call."""
+    both off it is two flag checks around the call.  Inside
+    :func:`graph_tally` the launch goes into the graph and ``name`` and
+    ``cost()`` into the tally; nothing is attributed."""
+    tally = getattr(_graph, "tally", None)
+    if tally is not None:
+        flops, nbytes = cost()
+        row = tally.setdefault(name, {"launches": 0, "flops": 0.0, "bytes": 0.0})
+        row["launches"] += 1
+        row["flops"] += flops or 0.0
+        row["bytes"] += nbytes or 0.0
+        return fn()
     if enabled():
         return attributed_call(name, cost(), _ranged, name, fn)
     if not _capture_active:
         return fn()
     return _ranged(name, fn)
+
+
+_graph = threading.local()
+
+
+def recording_graph() -> bool:
+    """True inside :func:`graph_tally` on this thread: launches are being
+    recorded into a CUDA graph, not run (the wrappers count no launch)."""
+    return getattr(_graph, "tally", None) is not None
+
+
+@contextlib.contextmanager
+def graph_tally():
+    """The block captures a CUDA graph on this thread: yields the dict that
+    :func:`launch` fills, kernel name -> ``{"launches", "flops",
+    "bytes"}`` over the launches the graph records."""
+    prev = getattr(_graph, "tally", None)
+    _graph.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _graph.tally = prev
 
 
 def _ranged(name: str, fn):

@@ -25,8 +25,9 @@ import torch
 from .. import _build
 from ..core import profiler as kprof
 
-#: Kernel launches made by :func:`fv_stats` (never by the plain version):
-#: one per group of images (see :func:`launch_geometry`).
+#: Kernel launches made by :func:`fv_stats` (never by the plain version,
+#: nor while a CUDA graph records it: ``core.serve`` counts the graph's
+#: replays): one per group of images (see :func:`launch_geometry`).
 launches = 0
 
 #: The kernel's envelope: ``2d`` rows of ``[x; x*x]`` and ``k`` components
@@ -199,7 +200,8 @@ def fv_stats(x, counts, means, variances, weights):
         )
         if rc != 0:
             raise RuntimeError(f"fv_stats kernel launch failed: cudaError {rc}")
-        launches += 1
+        if not kprof.recording_graph():  # a graph's replays launch it (core.serve)
+            launches += 1
     s1 = out[:, k : k + d * k].reshape(n, d, k)
     s2 = out[:, k + d * k :].reshape(n, d, k)
     return out[:, :k], s1, s2

@@ -31,9 +31,11 @@ from .. import _build
 from ..core import profiler as kprof
 from .images import convolver_epilogue
 
-#: Kernel launches made by :func:`rect_pool` (never by the plain version).
+#: Kernel launches made by :func:`rect_pool` (never by the plain version,
+#: nor while a CUDA graph records it: the graph's replays are counted by
+#: ``core.serve``).
 launches = 0
-#: Kernel launches made by :func:`conv_rect_pool` (never by the plain version).
+#: Kernel launches made by :func:`conv_rect_pool` (the same rules).
 fused_launches = 0
 
 _SIGNATURES = {
@@ -165,7 +167,8 @@ def rect_pool(
     if rc != 0:
         raise RuntimeError(f"rect_pool kernel launch failed: cudaError {rc}")
     global launches
-    launches += 1
+    if not kprof.recording_graph():  # a graph's replays launch it (core.serve)
+        launches += 1
     return out
 
 
@@ -264,5 +267,6 @@ def conv_rect_pool(
     if rc != 0:
         raise RuntimeError(f"conv_rect_pool kernel launch failed: cudaError {rc}")
     global fused_launches
-    fused_launches += 1
+    if not kprof.recording_graph():  # a graph's replays launch it (core.serve)
+        fused_launches += 1
     return out

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.pipeline import Transformer, node
+from ..utils.platform import device_constant
 
 MAGNIF = 6.0
 CONTRAST_THRESHOLD = 0.005
@@ -64,17 +65,31 @@ def _binned_sampling_matrix(
     return s
 
 
+def _sampling_matrix(length, positions, kernel, dtype, device) -> torch.Tensor:
+    """:func:`_binned_sampling_matrix` in ``dtype`` on ``device``."""
+    key = ("sift.sampling", length, positions.tobytes(), kernel.tobytes(), str(dtype))
+    return device_constant(
+        key,
+        lambda: torch.from_numpy(_binned_sampling_matrix(length, positions, kernel)).to(dtype),
+        device,
+    )
+
+
 def _conv1d_axis(batch: torch.Tensor, kernel: np.ndarray, axis: int) -> torch.Tensor:
     """Convolve [N, H, W] along ``axis`` (1 = rows/y, 2 = columns/x) with
     edge padding.  The kernel is rounded to the batch's dtype, the
     convolution sums in f32 and the result is stored in the batch's dtype."""
-    k = torch.as_tensor(kernel).to(batch.dtype).to(torch.float32).flip(0)
-    klen = k.shape[0]
+    klen = len(kernel)
     r = (klen - 1) // 2
     pad = (0, 0, r, klen - 1 - r) if axis == 1 else (r, klen - 1 - r, 0, 0)
     x = F.pad(batch[:, None].to(torch.float32), pad, mode="replicate")
-    weight = k.reshape(1, 1, klen, 1) if axis == 1 else k.reshape(1, 1, 1, klen)
-    return F.conv2d(x, weight.to(x.device))[:, 0].to(batch.dtype)
+
+    def weight():
+        k = torch.as_tensor(kernel).to(batch.dtype).to(torch.float32).flip(0)
+        return k.reshape(1, 1, klen, 1) if axis == 1 else k.reshape(1, 1, 1, klen)
+
+    key = ("sift.conv1d", kernel.tobytes(), str(batch.dtype), axis)
+    return F.conv2d(x, device_constant(key, weight, x.device))[:, 0].to(batch.dtype)
 
 
 def _smooth(batch: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -181,8 +196,8 @@ class SIFTExtractor(Transformer):
             bin_off = np.arange(NUM_BIN_XY) * b
             yy = (ys[:, None] + bin_off[None, :]).ravel()  # [Fy*4]
             xx = (xs[:, None] + bin_off[None, :]).ravel()  # [Fx*4]
-            s_y = torch.from_numpy(_binned_sampling_matrix(h, yy, tri)).to(batch.device, cdt)
-            s_x = torch.from_numpy(_binned_sampling_matrix(w, xx, tri)).to(batch.device, cdt)
+            s_y = _sampling_matrix(h, yy, tri, cdt, batch.device)
+            s_x = _sampling_matrix(w, xx, tri, cdt, batch.device)
             part = _f32_matmul(s_y, planes, cdt)  # [N, 8, Fy*4, W]
             del planes
             sampled = _f32_matmul(part, s_x.T, cdt)  # [N, 8, Fy*4, Fx*4]

@@ -11,6 +11,9 @@ that needs every f32 bit (ops/images.py).
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 _F32_PINNED = False
@@ -54,3 +57,36 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued work on ``device`` (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+_constants = threading.local()
+
+
+@contextlib.contextmanager
+def retained_constants():
+    """Inside the block, :func:`device_constant` makes and copies each of its
+    constants once and keeps it in the yielded dict.  A CUDA graph cannot
+    copy from the host while it captures, and it reads each tensor at the
+    address it was captured with: ``core.serve`` warms a bucket up and
+    captures it in one such block and holds the dict as long as the
+    graph."""
+    prev = getattr(_constants, "store", None)
+    _constants.store = store = {}
+    try:
+        yield store
+    finally:
+        _constants.store = prev
+
+
+def device_constant(key, make, device) -> torch.Tensor:
+    """``make()`` (a CPU tensor built from host data) on ``device``.
+    Outside :func:`retained_constants` it is made and copied on every call;
+    inside, once per ``key`` and device."""
+    store = getattr(_constants, "store", None)
+    if store is None:
+        return make().to(device)
+    k = (key, str(device))
+    t = store.get(k)
+    if t is None:
+        t = store[k] = make().to(device)
+    return t

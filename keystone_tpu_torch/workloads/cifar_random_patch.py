@@ -28,7 +28,10 @@ trace.  ``--pipelineFile stem`` saves the fitted servable chain
 (``core.checkpoint``, with the test predictions' output sketch as its
 numerics baseline); when the checkpoint exists, the run restores it
 instead, loads no training data, fits nothing and scores the eager test
-split in featurize chunks.
+split in featurize chunks.  ``--serve`` / ``--serveBench`` (with
+``--pipelineFile``) then load the chain into the serving tier
+(``workloads.serve_common``: per-bucket CUDA graphs on the card) and answer
+requests drawn from the eager test split.
 
 Run: ``python -m keystone_tpu_torch.workloads.cifar_random_patch
 --trainLocation train.bin --testLocation test.bin [--device cpu]``.
@@ -65,6 +68,7 @@ from ..solvers.block import BlockLeastSquaresEstimator
 from ..solvers.whitening import ZCAWhitener, ZCAWhitenerEstimator
 from ..utils.platform import resolve_device, synchronize
 from ..utils.stats import normalize_rows
+from . import serve_common
 from .fv_common import stream_config_from_flags, stream_features_snapshot
 
 _log = logging.getLogger(__name__)
@@ -105,6 +109,12 @@ class RandomCifarConfig:
     #: Checkpoint stem of the fitted servable chain: saved after a fit,
     #: restored (no fit) when it exists.
     pipeline_file: str | None = None
+    #: Serving modes (core.serve via serve_common); both need
+    #: ``pipeline_file`` and draw requests from the eager test split.
+    serve: bool = False
+    serve_bench: bool = False
+    serve_clients: int = 4
+    serve_requests: int = 256
 
 
 def learn_filters(
@@ -415,6 +425,7 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
     _log.info("Training error is: %s", train_eval.total_error)
     _log.info("Test error is: %s", test_eval.total_error)
     _log.info("Pipeline took %.3f s", secs)
+    _maybe_serve(conf, test, results)
     return results
 
 
@@ -439,10 +450,34 @@ def _run_restored(conf: RandomCifarConfig, test: LabeledImageBatch, t0: float) -
         "test_error": 100.0 * test_eval.total_error,
         "test_predictions": test_pred,
         "servable": servable,
-        "seconds": time.perf_counter() - t0,
     }
     _log.info("Test error is: %s (restored pipeline)", test_eval.total_error)
+    _maybe_serve(conf, test, results)
+    results["seconds"] = time.perf_counter() - t0
     return results
+
+
+def _maybe_serve(conf: RandomCifarConfig, test: LabeledImageBatch, results: dict) -> None:
+    """``--serve`` / ``--serveBench``: the saved servable chain behind the
+    serving tier, answering requests drawn from the eager test split."""
+    if not (conf.serve or conf.serve_bench):
+        return
+    serve_common.require_pipeline_file(conf.pipeline_file)
+    if len(test.labels) == 0:
+        raise ValueError(
+            "serving draws its requests from the EAGER test split — "
+            "provide --testLocation"
+        )
+    requests = np.asarray(test.images[: conf.serve_requests], np.float32)
+    results["serving"] = serve_common.serve_fitted(
+        conf.pipeline_file,
+        np.empty(requests.shape[1:], np.float32),
+        requests,
+        label="random_patch_cifar",
+        bench=conf.serve_bench,
+        clients=conf.serve_clients,
+        device=conf.device,
+    )
 
 
 def _load_split(location: str) -> LabeledImageBatch:
@@ -509,7 +544,9 @@ def main(argv=None) -> dict:
     p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
+    serve_common.add_serve_args(p)
     a = p.parse_args(argv)
+    serve_common.check_serve_args(p, a)
     if a.trainLocation is None and a.streamTrainTar is None:
         p.error("one of --trainLocation / --streamTrainTar is required")
     if a.testLocation is None and a.streamTestTar is None:
@@ -539,6 +576,10 @@ def main(argv=None) -> dict:
         decode_backend=a.decodeBackend,
         snapshot_dir=a.snapshotDir,
         pipeline_file=a.pipelineFile,
+        serve=a.serve,
+        serve_bench=a.serveBench,
+        serve_clients=a.serveClients,
+        serve_requests=a.serveRequests,
     )
     resolve_device(conf.device)
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)

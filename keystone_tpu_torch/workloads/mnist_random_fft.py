@@ -12,7 +12,9 @@ MulticlassClassifierEvaluator.  The fitted chain
 servable pipeline.  ``--pipelineFile stem`` saves it (``core.checkpoint``,
 with the test predictions' output sketch as its numerics baseline); when
 the checkpoint exists, the run restores it instead, loads no training
-data, fits nothing and scores the test split.
+data, fits nothing and scores the test split.  ``--serve`` /
+``--serveBench`` (with ``--pipelineFile``) then load the chain into the
+serving tier (``workloads.serve_common``) and answer test rows through it.
 
 Run: ``python -m keystone_tpu_torch.workloads.mnist_random_fft
 --trainLocation train.csv --testLocation test.csv [--device cpu]``.
@@ -47,6 +49,7 @@ from ..ops.util import (
 )
 from ..solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
 from ..utils.platform import resolve_device, synchronize
+from . import serve_common
 
 _log = logging.getLogger(__name__)
 
@@ -65,6 +68,12 @@ class MnistRandomFFTConfig:
     #: Checkpoint stem of the fitted servable chain: saved after a fit,
     #: restored (no fit) when it exists.
     pipeline_file: str | None = None
+    #: Serving modes (core.serve via serve_common): both need
+    #: ``pipeline_file`` and draw requests from the test split.
+    serve: bool = False
+    serve_bench: bool = False
+    serve_clients: int = 4
+    serve_requests: int = 256
 
 
 def fft_chain(signs) -> Pipeline:
@@ -175,6 +184,7 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
         )
         _log.info("saved fitted servable pipeline to %s", conf.pipeline_file)
     _log.info("Pipeline took %.3f s", results["seconds"])
+    _maybe_serve(conf, test, results)
     return results
 
 
@@ -195,10 +205,29 @@ def _run_restored(conf: MnistRandomFFTConfig, test: LabeledData, t0: float) -> d
         "test_error": 100.0 * metrics.total_error,
         "test_predictions": predicted.cpu().numpy(),
         "servable": servable,
-        "seconds": time.perf_counter() - t0,
     }
     _log.info("TEST Error is %s%% (restored pipeline)", results["test_error"])
+    _maybe_serve(conf, test, results)
+    results["seconds"] = time.perf_counter() - t0
     return results
+
+
+def _maybe_serve(conf: MnistRandomFFTConfig, test: LabeledData, results: dict) -> None:
+    """``--serve`` / ``--serveBench``: the saved servable chain behind the
+    serving tier, answering rows of the test split."""
+    if not (conf.serve or conf.serve_bench):
+        return
+    serve_common.require_pipeline_file(conf.pipeline_file)
+    requests = np.asarray(test.data[: conf.serve_requests], np.float32)
+    results["serving"] = serve_common.serve_fitted(
+        conf.pipeline_file,
+        np.empty((requests.shape[1],), np.float32),
+        requests,
+        label="mnist_random_fft",
+        bench=conf.serve_bench,
+        clients=conf.serve_clients,
+        device=conf.device,
+    )
 
 
 def main(argv=None) -> dict:
@@ -221,7 +250,9 @@ def main(argv=None) -> dict:
     p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
+    serve_common.add_serve_args(p)
     a = p.parse_args(argv)
+    serve_common.check_serve_args(p, a)
     if a.blockSize <= 0 or a.blockSize % 512 != 0:
         p.error("--blockSize must be a positive multiple of 512")
     if a.trace:
@@ -236,6 +267,10 @@ def main(argv=None) -> dict:
         seed=a.seed,
         device=a.device,
         pipeline_file=a.pipelineFile,
+        serve=a.serve,
+        serve_bench=a.serveBench,
+        serve_clients=a.serveClients,
+        serve_requests=a.serveRequests,
     )
     resolve_device(conf.device)
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)

@@ -26,6 +26,11 @@ snapshot key folds in the label file's identity.
 (``core.checkpoint``, with the test scores' output sketch as its numerics
 baseline); when the checkpoint exists, the run restores it instead, loads
 (or streams) no training data, fits nothing and scores the test split.
+``--serve`` / ``--serveBench`` (with ``--pipelineFile``, without
+``--streamIngest``) then load the bundle into the serving tier
+(``workloads.serve_common``, the chain of :func:`servable_pipeline`) and
+answer the images of the eager test split's most populous shape through
+it (one engine serves one request shape).
 """
 
 from __future__ import annotations
@@ -59,8 +64,10 @@ from ..solvers.block import BlockLeastSquaresEstimator
 from ..solvers.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from ..solvers.pca import BatchPCATransformer, compute_pca
 from ..utils.platform import resolve_device, synchronize
+from . import serve_common
 from .fv_common import (
     StreamSource,
+    bucket_by_shape,
     chunked,
     describe_buckets,
     fisher_feature_pipeline,
@@ -116,6 +123,12 @@ class SIFTFisherConfig:
     #: Checkpoint stem of the fitted {pca, gmm, model} bundle: saved after a
     #: fit, restored (no fit) when it exists.
     pipeline_file: str | None = None
+    #: Serving modes (core.serve via serve_common): both need
+    #: ``pipeline_file`` and the eager test split.
+    serve: bool = False
+    serve_bench: bool = False
+    serve_clients: int = 4
+    serve_requests: int = 64
 
 
 def make_sift(conf: SIFTFisherConfig) -> SIFTExtractor:
@@ -276,6 +289,7 @@ def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledIma
         _log.info("saved fitted pipeline to %s", conf.pipeline_file)
     if ingest_stats:
         results["ingest"] = ingest_stats
+    _maybe_serve(conf, test, results)
     _log.info("TEST APs are: %s", ",".join(str(a) for a in aps))
     _log.info("TEST MAP is: %s", results["map"])
     _log.info("Pipeline took %.3f s", results["seconds"])
@@ -293,6 +307,37 @@ def servable_pipeline(conf: SIFTFisherConfig, bundle: dict) -> Pipeline:
         fisher_feature_pipeline(bundle["gmm"]),
         bundle["model"],
     ])
+
+
+def _maybe_serve(conf: SIFTFisherConfig, test, results: dict) -> None:
+    """``--serve`` / ``--serveBench``: the saved bundle behind the serving
+    tier, answering images of the eager test split's most populous shape
+    bucket."""
+    if not (conf.serve or conf.serve_bench):
+        return
+    serve_common.require_pipeline_file(conf.pipeline_file)
+    images = getattr(test, "images", None)
+    if isinstance(images, StreamSource) or not hasattr(images, "__len__"):
+        raise ValueError(
+            "serving draws requests from the EAGER test split — run "
+            "--serve/--serveBench without --streamIngest"
+        )
+    buckets = bucket_by_shape(images)
+    _shape, (_idx, batch) = max(buckets.items(), key=lambda kv: len(kv[1][0]))
+    requests = np.asarray(batch, np.float32)[: conf.serve_requests]
+    record = serve_common.serve_fitted(
+        conf.pipeline_file,
+        np.empty(requests.shape[1:], np.float32),
+        requests,
+        label="voc_sift_fisher",
+        wrap=lambda bundle: servable_pipeline(conf, bundle),
+        bench=conf.serve_bench,
+        clients=conf.serve_clients,
+        device=conf.device,
+    )
+    record["request_shape"] = list(requests.shape[1:])
+    record["shape_buckets_total"] = len(buckets)
+    results["serving"] = record
 
 
 def main(argv=None) -> dict:
@@ -345,7 +390,9 @@ def main(argv=None) -> dict:
     p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
+    serve_common.add_serve_args(p)
     a = p.parse_args(argv)
+    serve_common.check_serve_args(p, a)
     for flag in ("deviceDecode", "decodeBackend", "snapshotDir"):
         if getattr(a, flag) and not a.streamIngest:
             p.error(f"--{flag} needs --streamIngest")
@@ -368,6 +415,10 @@ def main(argv=None) -> dict:
         num_gmm_samples=a.numGmmSamples,
         device=a.device,
         pipeline_file=a.pipelineFile,
+        serve=a.serve,
+        serve_bench=a.serveBench,
+        serve_clients=a.serveClients,
+        serve_requests=a.serveRequests,
     )
     resolve_device(conf.device)
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)

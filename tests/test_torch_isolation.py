@@ -67,7 +67,8 @@ def test_port_and_smoke_import_no_jax():
                  "ops.fv_stats", "ops.sift", "solvers.gmm", "loaders.image_loaders",
                  "ops.jpeg_device", "ops.native_entropy", "core.ingest",
                  "testing.jpeg_encode", "ops.lcs", "solvers.weighted",
-                 "workloads.imagenet_sift_lcs_fv", *OBSERVABILITY):
+                 "workloads.imagenet_sift_lcs_fv", "core.serve", "core.frontend",
+                 "core.wire", "workloads.serve_common", *OBSERVABILITY):
         assert f"keystone_tpu_torch.{name}" in rec["imported"]
     mods = rec["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]

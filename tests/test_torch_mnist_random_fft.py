@@ -204,7 +204,8 @@ def test_cli_needs_a_card_by_default(csv_files, monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "8"], ["--autoShard"], ["--solveCheckpoint", "bcd"],
-    ["--autoCache"], ["--serve"], ["--serveBench"], ["--blockSize", "300"],
+    ["--autoCache"], ["--serveMesh", "2x1"], ["--serve", "--serveMesh", "1x1"],
+    ["--blockSize", "300"],
     ["--blockSize", "0"],
 ])
 def test_cli_usage_errors(csv_files, flags):
