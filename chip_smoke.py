@@ -111,7 +111,7 @@ which raises (and so exits non-zero) on failure:
    naive-Bayes scores card against CPU within 1e-5·max with equal
    predictions on 2,000 documents.  The kernels' counters do not move;
 16. one JSON line per the kernels, the card line, and the final JSON
-   line, printed last, after phases 17-25;
+   line, printed last, after phases 17-26;
 17. ImageNetSiftLcsFV at BASELINE config 5's width (1,000 classes; SIFT
    step 3 at scale step 1 with bf16 intermediates, then a signed square
    root; LCS (4, 16, 6); PCA to 64; 16 Gaussians; 4,096 features; the
@@ -224,6 +224,25 @@ which raises (and so exits non-zero) on failure:
    profiled replay per graph kind whose trace names the K1 and K2 kernels.
    Prints each engine's cold start, live buckets and parity, and the
    bench's p50/p99, QPS, batched/unbatched QPS and occupancy.
+26. the block solvers' degradation ladder (fused -> stepwise ->
+   host_staged) and the resumable block solve, with K2's launches counted
+   from 0: (a) VOCSIFTFisher at phase 6's configuration and images through
+   ``voc.run`` with ``solve_checkpoint``, the fit killed after block 4 of
+   10 (the state writer wrapped for the run), then run again: it must
+   resume at epoch 0 block 5, reach phase 6's MAP with test scores within
+   1e-5·max of phase 6's (printed whether bit-equal), remove its state, and
+   launch K2 in both runs; (b) the same run under two capacity budgets
+   read from the reports, below phase 6's fused total and then below the
+   stepwise total: ``stepwise``, then ``host_staged``, each MAP within 1e-4
+   of phase 6's, with each fit's seconds and peak device memory; (c)
+   TimitPipeline at config 4 on phase 12's frames through ``timit.run``
+   under a 16 GB budget that denies both device tiers, so the host-staged
+   floor streams the 50 blocks from host RAM: a finite model, test error
+   within 0.05 points of phase 12's, its peak and solve seconds beside
+   phase 12's; (d) the class-weighted solve of seeded features at
+   ImageNet's width (2,000 x 4,096, 1,000 classes, config 5's lambda and
+   mixture weight; blocks of 1,024) under each tier: within rtol 1e-4,
+   atol 1e-5·max of the fused fit, seconds per tier.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -291,7 +310,9 @@ from keystone_tpu_torch.ops.sift import SIFTExtractor
 from keystone_tpu_torch.ops.stats import SignedHellingerMapper, StandardScaler
 from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
 from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
+from keystone_tpu_torch.solvers import block as block_mod
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
+from keystone_tpu_torch.solvers.weighted import BlockWeightedLeastSquaresEstimator
 from keystone_tpu_torch.testing.corpus import write_newsgroups_tree
 from keystone_tpu_torch.testing.jpeg_encode import encode_jpeg
 from keystone_tpu_torch.utils.platform import resolve_device
@@ -840,8 +861,8 @@ def featurize_breakdown(featurizer, images: np.ndarray) -> dict:
 def run_voc(card: str, stem: Path) -> tuple:
     """Phases 6 and 7: the VOCSIFTFisher main path (its fitted bundle saved
     at ``stem``), its servable apply, and card against CPU.  Returns the
-    fv_stats launches of the path, the two splits, the MAP and the run's
-    seconds."""
+    fv_stats launches of the path, the two splits, the MAP, the run's
+    seconds, its test scores and its fit report."""
     rng = np.random.default_rng(7)
     t = time.perf_counter()
     train = voc_images(rng, VOC_SHAPES)
@@ -928,7 +949,8 @@ def run_voc(card: str, stem: Path) -> tuple:
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5 * b.abs().max().item())
     if not card_err <= cpu_err + 1e-3:
         raise AssertionError(f"card features {card_err} further from f64 than the cpu's {cpu_err}")
-    return main_launches, train, test, res["map"], res["seconds"]
+    return (main_launches, train, test, res["map"], res["seconds"], res["test_scores"],
+            res["fit_report"])
 
 
 JPEG_PREFIX = "VOCdevkit/VOC2007/JPEGImages/"
@@ -1271,10 +1293,11 @@ def timit_peak_estimate(n: int, blocks: int, width: int) -> float:
     return (2 * n * blocks * width + blocks * width * width + 3 * n * width) * 4 / 1e9
 
 
-def run_timit(card: str) -> None:
+def run_timit(card: str) -> dict:
     """Phases 12-13: TimitPipeline at BASELINE config 4 through the CLI on
     CSVs, a Cauchy run at depth 4, then card against CPU and the servable
-    chain at served batches.  No hand kernel may launch in them."""
+    chain at served batches.  No hand kernel may launch in them.  Returns
+    phase 12's record and its frames (phase 26 refits them)."""
     rng = np.random.default_rng(13)
     centres = rng.normal(0.0, TIMIT_CENTRE_SCALE, (TIMIT_NUM_CLASSES, TIMIT_DIMENSION))
     train_frames, train_labels = timit_split(rng, TIMIT_TRAIN, centres)
@@ -1299,12 +1322,13 @@ def run_timit(card: str) -> None:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     estimate_gb = timit_peak_estimate(TIMIT_TRAIN, 50, 4096)
     servable, offline = res["servable"], res["test_scores"].argmax(axis=1)
+    rec12 = timit_record(res, peak_gb, estimate_gb)
     log(json.dumps({
         "main_path": "TimitPipeline BASELINE config 4 (--numCosines 50, 4096 features each, "
                      "--numEpochs 5, lambda 0)",
         "card": card, "train_rows": TIMIT_TRAIN, "test_rows": TIMIT_TEST,
         "csv_write_seconds": write_secs, "csv_bytes": csv_bytes,
-        "csv_load_seconds": res["load_seconds"], **timit_record(res, peak_gb, estimate_gb),
+        "csv_load_seconds": res["load_seconds"], **rec12,
     }))
     del res
     torch.cuda.empty_cache()
@@ -1358,6 +1382,7 @@ def run_timit(card: str) -> None:
     if after != before:
         raise AssertionError(f"hand kernels launched in the TIMIT phases: {before} -> {after}")
     log(f"TIMIT phases: kernel launch counters unchanged {after}")
+    return {**rec12, "data": data}
 
 
 def run_cifar_variants(card: str, train_path: Path, test_path: Path) -> dict:
@@ -2831,6 +2856,227 @@ def run_serving(card: str, data_dir: Path, fitted: dict) -> dict:
     return served
 
 
+# Phase 26, the solver ladder: VOC's fit killed after block VOC_KILL_BLOCK of
+# its 10 and resumed; TIMIT config 4's solve under TIMIT_FLOOR_BUDGET, which
+# denies both device tiers (fused charges the caller's 26.8 GB of blocks and
+# their concatenation, stepwise the blocks and the 3.4 GB factor cache), so
+# the host-staged floor runs; the weighted solve at ImageNet's width (config
+# 5: 4,096 features, 1,000 classes, two rows each) in blocks of BWLS_BLOCK,
+# four blocks, where each tier's total differs (at the workload's one block
+# of 4,096 fused and stepwise hold the same memory).
+VOC_KILL_BLOCK = 4
+TIMIT_FLOOR_BUDGET = "16G"
+BWLS_ROWS, BWLS_WIDTH, BWLS_BLOCK = 2000, 4096, 1024
+
+
+class Preempted(RuntimeError):
+    """Phase 26's simulated preemption of the VOC fit."""
+
+
+class SolvePeak:
+    """Seconds and peak device memory of each block-solver fit while
+    active (it wraps ``BlockLeastSquaresEstimator.fit``; the peak statistics
+    are reset as the fit starts)."""
+
+    def __enter__(self) -> list:
+        self.fits = []
+        self._orig = orig = BlockLeastSquaresEstimator.fit
+
+        def fit(est, *args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            try:
+                return orig(est, *args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.fits.append({"seconds": time.perf_counter() - t,
+                                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+        BlockLeastSquaresEstimator.fit = fit
+        return self.fits
+
+    def __exit__(self, *exc) -> None:
+        BlockLeastSquaresEstimator.fit = self._orig
+
+
+def killing_writer(real, written: list, kill_block):
+    """A stand-in for ``solvers.block.bcd_checkpoint_writer``: the real
+    writer, recording each state's (epoch, block), that raises
+    :class:`Preempted` once block ``kill_block`` is written (never when
+    None)."""
+
+    def make(path):
+        write = real(path)
+
+        def cb(state):
+            write(state)
+            written.append((state["epoch"], state["block"]))
+            if state["block"] == kill_block:
+                raise Preempted(f"preempted after block {kill_block}")
+
+        return cb
+
+    return make
+
+
+def run_ladder(card: str, data_dir: Path, phase6: dict, timit12: dict) -> dict:
+    """Phase 26: the block solvers' ladder and the resumable state on the
+    card.  (a) VOCSIFTFisher at phase 6's configuration and images through
+    ``voc.run`` with ``solve_checkpoint``, killed after block 4, then run
+    again: it resumes at epoch 0 block 5, with phase 6's MAP, test scores
+    within 1e-5·max of phase 6's, and the state removed; (b) the same run
+    under two capacity budgets read from the reports (below phase 6's
+    fused total, then below the stepwise total): stepwise, then
+    host_staged, each MAP within 1e-4 of phase 6's; (c) TIMIT config 4 on
+    phase 12's frames through ``timit.run`` on the host-staged floor: test
+    error within 0.05 points of phase 12's and a finite model; (d) the
+    weighted solve of seeded features at ImageNet's width under each tier,
+    within rtol 1e-4, atol 1e-5·max of the fused fit.  K2 must launch in
+    every VOC run.  Returns the phase's K2 launches."""
+    launches = 0
+    train, test = phase6["train"], phase6["test"]
+    state = data_dir / "voc_solve_state"
+    conf = voc.SIFTFisherConfig(**VOC_CONF, solve_checkpoint=str(state))
+    real_writer = block_mod.bcd_checkpoint_writer
+    records = {}
+
+    # (a) Killed after block 4, then resumed from the state on disk.
+    for name, kill in (("killed", VOC_KILL_BLOCK), ("resumed", None)):
+        written: list = []
+        block_mod.bcd_checkpoint_writer = killing_writer(real_writer, written, kill)
+        fs.launches = 0
+        try:
+            with SolvePeak() as fits:
+                try:
+                    res = voc.run(conf, train, test)
+                except Preempted:
+                    res = None
+        finally:
+            block_mod.bcd_checkpoint_writer = real_writer
+        launches += fs.launches
+        torch.cuda.empty_cache()
+        if not fs.launches:
+            raise AssertionError(f"VOC {name} run launched no fv_stats")
+        if name == "killed":
+            if res is not None or written[-1] != (0, VOC_KILL_BLOCK) or not os.path.exists(
+                    block_mod.bcd_checkpoint_path(state)):
+                raise AssertionError(f"VOC fit was not killed after block {VOC_KILL_BLOCK} "
+                                     f"with its state on disk: states {written}")
+            records[name] = {"states_written": len(written), "fv_stats_launches": fs.launches,
+                             **fits[0]}
+            continue
+        if written[0] != (0, VOC_KILL_BLOCK + 1):
+            raise AssertionError(f"the resumed VOC fit started at {written[0]}, expected "
+                                 f"(0, {VOC_KILL_BLOCK + 1})")
+        if os.path.exists(block_mod.bcd_checkpoint_path(state)):
+            raise AssertionError("the VOC solve state was not removed after the fit")
+        scores, want = res["test_scores"], phase6["scores"]
+        err = float(np.abs(scores - want).max())
+        if res["map"] != phase6["map"] or not err <= 1e-5 * np.abs(want).max():
+            raise AssertionError(f"resumed VOC MAP {res['map']} vs phase 6's {phase6['map']}, "
+                                 f"scores max abs err {err}")
+        records[name] = {"resumed_at": list(written[0]), "map": res["map"],
+                         "map_equal_phase6": True, "scores_max_abs_err": err,
+                         "scores_bit_equal_phase6": bool(np.array_equal(scores, want)),
+                         "chosen_tier": res["fit_report"]["chosen_tier"],
+                         "solve_seconds": res["solve_seconds"], "fv_stats_launches": fs.launches,
+                         **fits[0]}
+
+    # (b) Two budgets between the tiers' totals, read from the reports (the
+    # reports round to 1 MiB; the totals are tens of MB apart).
+    conf = voc.SIFTFisherConfig(**VOC_CONF)
+    total_gb = phase6["fit_report"]["tiers"]["fused"]["total_gb"]
+    for tier in ("stepwise", "host_staged"):
+        budget = int((total_gb - 0.002) * 2**30)
+        fs.launches = 0
+        with env_set(KEYSTONE_HBM_BUDGET=str(budget)), SolvePeak() as fits:
+            res = voc.run(conf, train, test)
+        launches += fs.launches
+        torch.cuda.empty_cache()
+        rep = res["fit_report"]
+        if rep["chosen_tier"] != tier or not fs.launches:
+            raise AssertionError(f"VOC under a {budget} B budget ran {rep['chosen_tier']}, "
+                                 f"expected {tier}; fv_stats launches {fs.launches}")
+        if not abs(res["map"] - phase6["map"]) <= 1e-4:
+            raise AssertionError(f"VOC {tier} MAP {res['map']} vs phase 6's {phase6['map']}")
+        records[tier] = {"budget_bytes": budget, "denials": rep["denials"], "map": res["map"],
+                         "solve_seconds": res["solve_seconds"],
+                         "fv_stats_launches": fs.launches, **fits[0]}
+        if tier == "stepwise":
+            total_gb = rep["tiers"]["stepwise"]["total_gb"]
+    blocks = math.ceil(2 * VOC_CONF["desc_dim"] * VOC_CONF["vocab_size"] / 4096)
+    log(json.dumps({"phase": "26 VOC solver ladder", "card": card, "blocks": blocks,
+                    "phase6_map": phase6["map"], "runs": records}))
+
+    # (c) TIMIT config 4 on the host-staged floor.
+    torch.cuda.empty_cache()
+    n, nb, bs = TIMIT_TRAIN, 50, 4096
+    with env_set(KEYSTONE_HBM_BUDGET=TIMIT_FLOOR_BUDGET), SolvePeak() as fits:
+        res = timit.run(timit.TimitConfig(device="cuda"), timit12["data"])
+    rep = res["fit_report"]
+    if rep["chosen_tier"] != "host_staged" or rep["denials"] != ["fused", "stepwise"]:
+        raise AssertionError(f"TIMIT under {TIMIT_FLOOR_BUDGET} ran {rep['chosen_tier']} "
+                             f"(denied {rep['denials']}), expected host_staged")
+    # The caller's blocks, the factor cache and one uploaded block and its
+    # centred copy.
+    estimate_gb = (n * nb * bs + nb * bs * bs + 2 * n * bs) * 4 / 1e9
+    rec = timit_record(res, fits[0]["peak_memory_gb"], estimate_gb)
+    if not abs(rec["test_error"] - timit12["test_error"]) <= 0.05:
+        raise AssertionError(f"TIMIT host-staged test error {rec['test_error']} vs phase 12's "
+                             f"{timit12['test_error']}")
+    log(json.dumps({"phase": "26 TIMIT config 4 on the host-staged floor", "card": card,
+                    "budget": TIMIT_FLOOR_BUDGET, "denials": rep["denials"], **rec,
+                    "solve_wall_seconds": fits[0]["seconds"],
+                    "phase12_fused": {k: timit12[k] for k in (
+                        "test_error", "solve_seconds", "peak_memory_gb")}}))
+    del res
+    torch.cuda.empty_cache()
+
+    # (d) The weighted solve at ImageNet's width under each tier.
+    inet_conf = inet.ImageNetSiftLcsFVConfig()
+    labels = np.random.default_rng(29).permutation(
+        np.repeat(np.arange(IMAGENET_CLASSES), BWLS_ROWS // IMAGENET_CLASSES))
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    x = torch.randn((BWLS_ROWS, BWLS_WIDTH), generator=gen, device="cuda")
+    y = torch.as_tensor(2.0 * np.eye(IMAGENET_CLASSES, dtype=np.float32)[labels] - 1.0,
+                        device="cuda")
+    budget, bwls = "64G", {}
+    for tier in ("fused", "stepwise", "host_staged"):
+        est = BlockWeightedLeastSquaresEstimator(BWLS_BLOCK, 1, inet_conf.lam,
+                                                 inet_conf.mixture_weight)
+        with env_set(KEYSTONE_HBM_BUDGET=budget):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model = est.fit(x, y)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        if est.last_fit_report.chosen != tier:
+            raise AssertionError(f"BWLS under {budget} B ran {est.last_fit_report.chosen}, "
+                                 f"expected {tier}")
+        weights = torch.cat(model.xs)
+        bwls[tier] = {"seconds": secs, "weights": weights,
+                      "total_bytes": est.last_fit_report.plans[tier].total_bytes}
+        budget = str(bwls[tier]["total_bytes"] - 1)
+    want = bwls["fused"]["weights"]
+    errs = {}
+    for tier in ("stepwise", "host_staged"):
+        got = bwls[tier]["weights"]
+        errs[tier] = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+    log(json.dumps({"phase": "26 weighted solve at ImageNet's width", "card": card,
+                    "rows": BWLS_ROWS, "features": BWLS_WIDTH, "block": BWLS_BLOCK,
+                    "classes": IMAGENET_CLASSES, "lam": inet_conf.lam,
+                    "mixture_weight": inet_conf.mixture_weight,
+                    "seconds": {t: r["seconds"] for t, r in bwls.items()},
+                    "total_bytes": {t: r["total_bytes"] for t, r in bwls.items()},
+                    "max_abs_err_vs_fused": errs,
+                    "stepwise_equal_fused": bool(torch.equal(bwls["stepwise"]["weights"], want))}))
+    del x, y, bwls
+    torch.cuda.empty_cache()
+    return {"fv_stats": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -2963,15 +3209,19 @@ def smoke(data_dir: Path) -> int:
     if not (w_err <= 1e-3 and s_err <= 1e-3):
         raise AssertionError("the solve differs between card and CPU beyond 1e-3")
 
-    voc_launches, voc_train, voc_test, voc_map, voc_secs = run_voc(card, data_dir / "voc_bundle")
+    voc_launches, voc_train, voc_test, voc_map, voc_secs, voc_scores, voc_report = run_voc(
+        card, data_dir / "voc_bundle")
     decode_launches, tar_fv_launches, decode_times, tar_map, tar_secs = run_voc_tar(
         card, voc_train, voc_test, voc_map, data_dir / "voc_tars")
-    del voc_train
     fitted.update(voc_stem=data_dir / "voc_bundle", voc_test=voc_test, voc_map=voc_map,
                   voc_seconds=voc_secs, voc_tars=data_dir / "voc_tars", voc_tar_map=tar_map,
                   voc_tar_seconds=tar_secs)
+    # Phase 26 refits phase 6 on the same images.
+    phase6 = {"train": voc_train, "test": voc_test, "map": voc_map, "scores": voc_scores,
+              "fit_report": voc_report}
+    del voc_train
     fitted["mnist"] = run_mnist(card, data_dir / "mnist")
-    run_timit(card)
+    timit12 = run_timit(card)
     random_cifar_rec = run_cifar_variants(card, train_path, test_path)
     run_newsgroups(card)
     torch.cuda.empty_cache()
@@ -2985,6 +3235,8 @@ def smoke(data_dir: Path) -> int:
     snaps = run_snapshots(card, data_dir, cifar_tar, fitted)
     del cifar_tar
     serving = run_serving(card, data_dir, fitted)
+    ladder = run_ladder(card, data_dir, phase6, timit12)
+    del phase6, timit12
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -3031,14 +3283,15 @@ def smoke(data_dir: Path) -> int:
         "replaces": "keystone_tpu/ops/fv_pallas.py:95",
         "launches": (voc_launches + tar_fv_launches + inet_launches + inet_tar_fv
                      + restored["fv_stats_in_memory"] + restored["fv_stats_jpeg_tars"]
-                     + snaps["fv_stats"] + serving["fv_stats"]),
+                     + snaps["fv_stats"] + serving["fv_stats"] + ladder["fv_stats"]),
         "launches_by_path": {"voc_in_memory": voc_launches, "voc_jpeg_tars": tar_fv_launches,
                              "imagenet_in_memory": inet_launches,
                              "imagenet_jpeg_tars": inet_tar_fv,
                              "voc_restored_in_memory": restored["fv_stats_in_memory"],
                              "voc_restored_jpeg_tars": restored["fv_stats_jpeg_tars"],
                              "snapshots_and_backends": snaps["fv_stats"],
-                             "serving_graphs_and_eager": serving["fv_stats"]},
+                             "serving_graphs_and_eager": serving["fv_stats"],
+                             "voc_solver_ladder": ladder["fv_stats"]},
         "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd, *fv_imagenet.values()]),
         "ms": fv_prod["ms"],
         "plain_ms": fv_prod["plain_ms"],

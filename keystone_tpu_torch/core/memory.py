@@ -491,6 +491,7 @@ def run_ladder(label: str, tiers: Sequence[Tier], report: FitReport):
                     "below it — attempting anyway", label, tier.name, plan.reason,
                 )
             counted = {"flops": None}
+            failed = None
             try:
                 with trace.span(
                     f"tier:{tier.name}", cat="solve", solve=label, admitted=plan.admitted,
@@ -512,7 +513,11 @@ def run_ladder(label: str, tiers: Sequence[Tier], report: FitReport):
                     f"{label}/{tier.name}: out of device memory at runtime "
                     f"(preflight said: {plan.reason}) — stepping down one tier",
                 )
-                last_oom = e
+                # Drop the traceback: its frames hold the failed tier's
+                # tensors, which must be freed before the next tier runs.
+                failed = e.with_traceback(None)
+            if failed is not None:
+                last_oom = failed
                 if torch.cuda.is_available():
                     torch.cuda.empty_cache()
                 continue

@@ -1,27 +1,57 @@
 """Block linear models (counterpart of keystone_tpu/solvers/block.py).
 
-Only the single-device fused tier is ported: centering, per-block
-regularised grams, Cholesky factors (once) and ``num_iter`` epochs of block
-coordinate descent, as a Python loop over epochs and blocks.  The fit runs
-through the degradation ladder (``core.memory.run_ladder``) with that one
-tier, which is also the floor: its preflight charges the reckoned working
-set, and ``last_fit_report`` records the decision.  The mesh, autoshard,
-host-staged and stepwise/checkpoint tiers of the JAX package are not
-ported.
+The block-least-squares fit (centering, per-block regularised grams and
+their Cholesky factors, ``num_iter`` epochs of block coordinate descent)
+runs through the single-device degradation ladder of the JAX package,
+``core.memory.run_ladder`` over three tiers:
+
+* ``fused``: one blocked design matrix on the device (the caller's blocks
+  concatenated, or a monolithic input padded to whole blocks); every
+  block's mean and factor first, then the epochs;
+* ``stepwise``: the caller's own blocks on their device, never
+  concatenated; each factor made when its block first comes up.  This is
+  also the resumable tier: ``fit(checkpoint=, resume_from=)`` runs it alone,
+  with a state after every completed block in the JAX package's ``.npz``
+  format (:func:`save_bcd_checkpoint`), so either package resumes the
+  other's interrupted fit;
+* ``host_staged``: the blocks copied to host RAM, one ``[N, bs]`` block on
+  the device at a time (uploaded through two reused pinned buffers), the
+  means and factors cached on the device.  The floor.
+
+Every tier calls the same per-block functions (:func:`_bcd_block_mean`,
+:func:`_bcd_block_factor`, :func:`_bcd_block_solve`; they take the block
+itself, so they are also the JAX package's host-staged ``_hs_block_*``
+twins), and the centred block
+each of them works on is a fresh contiguous tensor whatever the layout of
+the block it came from, so on one device the fused and stepwise tiers give
+the same bits, and the host-staged tier does too where its blocks are the
+same values.  Each tier is preflighted (``last_fit_report`` records the
+plans); a runtime out-of-memory error steps down one tier, anything else
+propagates.
+
+Not ported: the mesh tiers and the placement search (``plan=True`` raises).
 """
 
 from __future__ import annotations
 
+import io
+import logging
+import os
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from ..core import memory as kmem
 from ..core import numerics as knum
 from ..core import profiler as kprof
+from ..core import trace
+from ..core.checkpoint import CheckpointError, _atomic_write_bytes
 from ..core.pipeline import Identity, LabelEstimator, Transformer
 from ..ops.stats import StandardScalerModel
 from .normal_equations import cho_factor, cho_solve
+
+_logger = logging.getLogger("keystone_tpu_torch.solvers.block")
 
 
 class BlockLinearMapper(Transformer):
@@ -120,10 +150,10 @@ def _design_is_copy(features, widths) -> bool:
 
 
 def _blocked_design_matrix(features, block_size: int, num_features=None):
-    """(x, widths): the [N, B*bs] zero-padded blocked layout the fit
-    consumes, from a monolithic [N, d] tensor or a list of feature blocks.
-    A monolithic input whose width is a block multiple passes through
-    uncopied."""
+    """(x, widths): the [N, B*bs] zero-padded blocked layout the fused
+    tier consumes, from a monolithic [N, d] tensor or a list of feature
+    blocks.  A monolithic input whose width is a block multiple passes
+    through uncopied."""
     widths = _block_widths(features, block_size, num_features)
     bs = max(widths)
     if isinstance(features, (list, tuple)):
@@ -140,6 +170,23 @@ def _blocked_design_matrix(features, block_size: int, num_features=None):
     return features, widths
 
 
+def _caller_blocks(features, widths) -> list[torch.Tensor]:
+    """The caller's feature blocks, uncopied: the list itself, or the
+    column slices of a monolithic matrix (block ``i`` is columns
+    ``[i*bs, i*bs + widths[i])``)."""
+    if isinstance(features, (list, tuple)):
+        return list(features)
+    bs = max(widths)
+    return [features[:, i * bs : i * bs + w] for i, w in enumerate(widths)]
+
+
+def _padded(block: torch.Tensor, bs: int) -> torch.Tensor:
+    """``block`` zero-padded on the right to ``bs`` columns (itself when
+    it is that wide already)."""
+    w = int(block.shape[1])
+    return block if w == bs else torch.nn.functional.pad(block, (0, bs - w))
+
+
 def _device_bytes(*tensors) -> int:
     """Bytes of the tensors among ``tensors`` that live on a CUDA card
     (the inputs a live budget already excludes)."""
@@ -153,45 +200,413 @@ def _features_device(features) -> torch.device:
     return first.device
 
 
-def _fused_bcd_impl(x, labels, lam: float, nvalid: int, num_iter: int, widths):
-    """The block-least-squares fit.
+def _feature_list(features) -> list:
+    return list(features) if isinstance(features, (list, tuple)) else [features]
 
-    x: [N, B*bs] with feature block i in columns [i*bs, i*bs + widths[i]);
-    pad columns and rows at index >= nvalid must be zero.  Pad columns get a
-    unit diagonal shift, so their solutions are exactly zero and every block
-    gram stays positive definite even at lam = 0.
 
-    Returns (models [B, bs, k], label_mean [k], means [B, bs]).
-    """
-    bs = max(widths)
-    nb = len(widths)
-    dtype, dev = labels.dtype, labels.device
+def _check_sources(*tensors) -> None:
+    """Raise :class:`core.memory.LadderSourceLost` when a caller tensor a
+    tier reads has had its storage freed (a ``donate=True`` fit, or the
+    caller): no tier can rebuild its inputs from it."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.numel() and t.untyped_storage().nbytes() == 0:
+            raise kmem.LadderSourceLost(
+                f"a {tuple(t.shape)} input on {t.device} has been freed (donate=True "
+                "or by the caller) — no ladder tier can rebuild it; refit with "
+                "donate=False to keep the out-of-memory step-down possible"
+            )
+
+
+def _release(*tensors) -> None:
+    """Free the storage of caller tensors handed over with ``donate=True``
+    (card tensors through ``core.memory.free_buffers``; a CPU storage that
+    cannot be resized, such as one numpy owns, is left alone)."""
+    cuda = [t for t in tensors if isinstance(t, torch.Tensor) and t.device.type == "cuda"]
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.device.type == "cpu":
+            try:
+                t.untyped_storage().resize_(0)
+            except RuntimeError:
+                pass
+    kmem.free_buffers(*cuda)
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in host RAM: the tensor itself when it is there already."""
+    return t if t.device.type == "cpu" else t.cpu()
+
+
+class _Uploader:
+    """Block ``i`` of a matrix held in host RAM, on ``device``.  To a card,
+    each block is copied into one of two reused pinned buffers and from
+    there with a copy on the current stream; a buffer is refilled only once
+    the copy that last read it has completed, so the host copy of the next
+    block overlaps the upload and use of this one.  On the CPU the host
+    block itself is returned."""
+
+    def __init__(self, host_blocks: Sequence[torch.Tensor], device: torch.device):
+        self.blocks = host_blocks
+        self.device = device
+        self._bufs: list = []
+        self._done: list = [None, None]
+        self._calls = 0
+
+    def __call__(self, i: int) -> torch.Tensor:
+        block = self.blocks[i]
+        if self.device.type != "cuda":
+            return block
+        if not self._bufs:
+            self._bufs = [torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
+                          for _ in range(2)]
+        slot = self._calls % 2
+        self._calls += 1
+        if self._done[slot] is not None:
+            self._done[slot].synchronize()
+        buf = self._bufs[slot]
+        buf.copy_(block)
+        out = buf.to(self.device, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._done[slot] = done
+        return out
+
+
+# -- the per-block steps: one copy of the arithmetic for every tier -----------
+
+
+def _bcd_block_mean(xi: torch.Tensor, mask: torch.Tensor, nvalid: int) -> torch.Tensor:
+    """Per-column means of block ``xi`` ``[N, bs]`` over the valid rows.
+    The product runs on a contiguous copy, so its bits do not depend on
+    whether the block is a slice of a wider matrix or a tensor of its own."""
+    return (mask[:, 0] @ xi.contiguous()) / nvalid
+
+
+def _centred(xi, mu_i, mask) -> torch.Tensor:
+    """The centred, row-masked block: one new ``[N, bs]`` tensor (the mask
+    is applied in place, so the block is never held twice over)."""
+    return (xi - mu_i).mul_(mask)
+
+
+def _bcd_block_factor(xi, mu_i, mask, lam: float, pad_diag_i) -> torch.Tensor:
+    """Cholesky factor of block ``xi``'s regularised centred gram: made
+    once per block and reused across epochs.  Pad columns get a unit
+    diagonal shift, so their solutions are exactly zero and the gram stays
+    positive definite even at lam = 0."""
+    a_i = _centred(xi, mu_i, mask)
+    return cho_factor(a_i.T @ a_i + torch.diag(lam + pad_diag_i))
+
+
+def _bcd_block_solve(xi, mu_i, mask, residual, m_old, c_i):
+    """One BCD block update given the cached factor: ``(m_new,
+    residual')``."""
+    a_i = _centred(xi, mu_i, mask)
+    r_i = residual + a_i @ m_old
+    m_new = cho_solve(c_i, a_i.T @ r_i)
+    return m_new, r_i - a_i @ m_new
+
+
+def _centred_labels(labels: torch.Tensor, nvalid: int):
+    """(row mask ``[N, 1]``, label mean ``[k]``, centred masked labels)."""
     n = labels.shape[0]
-
-    mask = (torch.arange(n, device=dev) < nvalid).to(dtype)[:, None]
+    mask = (torch.arange(n, device=labels.device) < nvalid).to(labels.dtype)[:, None]
     label_mean = (labels * mask).sum(dim=0) / nvalid
-    residual = (labels - label_mean) * mask
-    mu = (mask[:, 0] @ x) / nvalid  # [B*bs]
-    means = mu.reshape(nb, bs)
+    return mask, label_mean, (labels - label_mean) * mask
 
-    def centered_block(i):
-        return (x[:, i * bs : (i + 1) * bs] - means[i]) * mask
 
-    chol = []
-    for i, w in enumerate(widths):
-        a_i = centered_block(i)
-        pad_diag = (torch.arange(bs, device=dev) >= w).to(dtype)
-        chol.append(cho_factor(a_i.T @ a_i + torch.diag(lam + pad_diag)))
+def _pad_diagonals(widths, dtype, device) -> torch.Tensor:
+    """``[B, bs]``: 1 on each block's pad columns, 0 on its real ones."""
+    bs = max(widths)
+    cols = torch.arange(bs, device=device)[None, :]
+    return (cols >= torch.tensor(widths, device=device)[:, None]).to(dtype)
 
+
+def _fused_bcd_impl(x, labels, lam: float, nvalid: int, num_iter: int, widths):
+    """The fused tier: BCD over the one blocked design matrix ``x``
+    ``[N, B*bs]`` (feature block i in columns ``[i*bs, i*bs + widths[i])``;
+    pad columns and rows at index >= nvalid zero).  Every block's mean and
+    factor first, then the epochs.
+
+    Returns (models [B, bs, k], label_mean [k], means [B, bs])."""
+    bs, nb = max(widths), len(widths)
+    mask, label_mean, residual = _centred_labels(labels, nvalid)
+    pad = _pad_diagonals(widths, labels.dtype, labels.device)
+
+    def block(i):
+        return x[:, i * bs : (i + 1) * bs]
+
+    means = torch.stack([_bcd_block_mean(block(i), mask, nvalid) for i in range(nb)])
+    chol = [_bcd_block_factor(block(i), means[i], mask, lam, pad[i]) for i in range(nb)]
+    models = torch.zeros((nb, bs, labels.shape[1]), dtype=labels.dtype, device=labels.device)
+    for _ in range(num_iter):
+        for i in range(nb):
+            models[i], residual = _bcd_block_solve(
+                block(i), means[i], mask, residual, models[i], chol[i]
+            )
+    return models, label_mean, means
+
+
+# -- the resumable BCD state (the JAX package's on-disk format) ---------------
+
+BCD_STATE_VERSION = 1
+
+
+def bcd_checkpoint_path(path) -> str:
+    """Canonical on-disk location of a BCD state for a stem or path (the
+    one place the ``.npz`` suffix rule lives)."""
+    path = os.fspath(path)
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _host_array(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def save_bcd_checkpoint(path, state: dict) -> str:
+    """Write a resumable BCD state: one ``.npz``, written atomically, with
+    the keys and dtypes the JAX package writes."""
+    buf = io.BytesIO()
+    np.savez(
+        buf,
+        version=np.int64(state.get("version", BCD_STATE_VERSION)),
+        epoch=np.int64(state["epoch"]),
+        block=np.int64(state["block"]),
+        models=_host_array(state["models"]),
+        residual=_host_array(state["residual"]),
+        widths=np.asarray(state["widths"], np.int64),
+        num_iter=np.int64(state["num_iter"]),
+        lam=np.float64(state["lam"]),
+        nvalid=np.int64(state["nvalid"]),
+        data_sum=np.asarray(state["data_sum"], np.float64),
+    )
+    path = bcd_checkpoint_path(path)
+    _atomic_write_bytes(path, buf.getvalue())
+    return path
+
+
+def load_bcd_checkpoint(path) -> dict:
+    """Read a state written by :func:`save_bcd_checkpoint` (or by the JAX
+    package's)."""
+    path = bcd_checkpoint_path(path)
+    try:
+        with np.load(path) as zf:
+            state = {k: zf[k] for k in zf.files}
+    except (OSError, ValueError) as e:
+        raise CheckpointError(f"cannot read BCD checkpoint {path}: {e}") from e
+    version = int(state.get("version", -1))
+    if version != BCD_STATE_VERSION:
+        raise CheckpointError(
+            f"{path}: BCD state version {version} (this build reads {BCD_STATE_VERSION})"
+        )
+    return {
+        "version": version,
+        "epoch": int(state["epoch"]),
+        "block": int(state["block"]),
+        "models": state["models"],
+        "residual": state["residual"],
+        "widths": tuple(int(w) for w in state["widths"]),
+        "num_iter": int(state["num_iter"]),
+        "lam": float(state["lam"]),
+        "nvalid": int(state["nvalid"]),
+        "data_sum": tuple(float(v) for v in state["data_sum"]),
+    }
+
+
+def bcd_checkpoint_writer(path) -> Callable[[dict], None]:
+    """Per-block callback that persists each completed block's state to
+    ``path`` (atomically: a preemption mid-write loses at most one block)."""
+
+    def write(state: dict) -> None:
+        save_bcd_checkpoint(path, state)
+
+    return write
+
+
+def _state_tensor(v, dtype, device) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype)
+    return torch.from_numpy(np.asarray(v)).to(device=device, dtype=dtype)
+
+
+def _resume_point(state: dict, widths, num_iter, nvalid, lam, data_sum, models_shape,
+                  residual_shape, dtype, device):
+    """Check ``state`` against this fit and return (models, residual,
+    epoch, block) to continue from; :class:`CheckpointError` when the state
+    belongs to another fit."""
+    for field, want in (
+        ("widths", tuple(widths)),
+        ("num_iter", int(num_iter)),
+        ("nvalid", int(nvalid)),
+        ("lam", float(lam)),
+    ):
+        got = state.get(field)
+        if got != want:
+            raise CheckpointError(
+                f"resume_from state disagrees with this fit: {field} is {got!r} in "
+                f"the checkpoint, {want!r} here"
+            )
+    got_sum = state.get("data_sum")
+    if got_sum is not None and not np.allclose(got_sum, data_sum, rtol=1e-5, atol=1e-6):
+        raise CheckpointError(
+            "resume_from state was written for DIFFERENT data (input fingerprint "
+            f"{tuple(got_sum)} vs {data_sum}) — refusing to resume a fit against "
+            "features it was not computing on"
+        )
+    models = _state_tensor(state["models"], dtype, device)
+    residual = _state_tensor(state["residual"], dtype, device)
+    if tuple(models.shape) != tuple(models_shape) or tuple(residual.shape) != tuple(
+        residual_shape
+    ):
+        raise CheckpointError(
+            "resume_from state shapes do not match this fit "
+            f"(models {tuple(models.shape)}, residual {tuple(residual.shape)})"
+        )
+    epoch, block = int(state["epoch"]), int(state["block"]) + 1  # block last COMPLETED
+    if block >= len(widths):
+        epoch, block = epoch + 1, 0
+    _logger.info(
+        "resuming BCD fit at epoch %d block %d (of %d epochs x %d blocks)",
+        epoch, block, num_iter, len(widths),
+    )
+    return models, residual, epoch, block
+
+
+def _stepwise_bcd_fit(
+    blocks: Sequence[torch.Tensor],
+    labels,
+    lam: float,
+    nvalid: int,
+    num_iter: int,
+    widths,
+    checkpoint_cb: Callable[[dict], None] | None = None,
+    resume_state: dict | None = None,
+):
+    """The stepwise tier: BCD over the caller's own blocks (``blocks[i]``
+    ``[N, widths[i]]``, padded to ``bs`` one at a time when short), never
+    concatenated.  ``checkpoint_cb`` gets the state after every completed
+    block; ``resume_state`` (a state from such a callback or from
+    :func:`load_bcd_checkpoint`) restarts at the block after the last
+    completed one, once it has been checked against this fit: ``widths``,
+    ``num_iter``, ``nvalid`` and ``lam`` must agree, the inputs' sums
+    (``data_sum``) within rtol 1e-5, atol 1e-6, and the shapes of
+    ``models`` and ``residual``.  Factors are cached across epochs.
+
+    Returns (models [B, bs, k], label_mean [k], means [B, bs])."""
+    bs, nb = max(widths), len(widths)
+    dtype, dev = labels.dtype, labels.device
+    mask, label_mean, residual = _centred_labels(labels, nvalid)
+    pad = _pad_diagonals(widths, dtype, dev)
+
+    def block(i):
+        return _padded(blocks[i], bs)
+
+    means = torch.stack([_bcd_block_mean(block(i), mask, nvalid) for i in range(nb)])
+    # Cheap content fingerprint of the inputs: shapes alone cannot tell
+    # "same fit, resumed" from "different data of the same shape".
+    data_sum = (
+        float(sum(b.sum(dtype=torch.float64) for b in blocks)),
+        float(labels.sum(dtype=torch.float64)),
+    )
+    models = torch.zeros((nb, bs, labels.shape[1]), dtype=dtype, device=dev)
+    e0, b0 = 0, 0
+    if resume_state is not None:
+        models, residual, e0, b0 = _resume_point(
+            resume_state, widths, num_iter, nvalid, lam, data_sum, models.shape,
+            residual.shape, dtype, dev,
+        )
+    chol: dict[int, torch.Tensor] = {}
+    for e in range(e0, num_iter):
+        for i in range(b0 if e == e0 else 0, nb):
+            xi = block(i)
+            if i not in chol:
+                chol[i] = _bcd_block_factor(xi, means[i], mask, lam, pad[i])
+            models[i], residual = _bcd_block_solve(xi, means[i], mask, residual, models[i],
+                                                   chol[i])
+            del xi
+            if checkpoint_cb is not None:
+                # models is a snapshot: later blocks update it in place.
+                checkpoint_cb({
+                    "version": BCD_STATE_VERSION,
+                    "epoch": e,
+                    "block": i,
+                    "models": models.clone(),
+                    "residual": residual,
+                    "widths": tuple(widths),
+                    "num_iter": int(num_iter),
+                    "lam": float(lam),
+                    "nvalid": int(nvalid),
+                    "data_sum": data_sum,
+                })
+    return models, label_mean, means
+
+
+def _host_blocks(features, widths, release: bool) -> list[torch.Tensor]:
+    """The design matrix in host RAM, one ``[N, bs]`` CPU tensor per block
+    (short blocks zero-padded on the host).  A list of card blocks is
+    copied block by block, never concatenated on the card; with
+    ``release`` each card block is freed once it is on the host."""
+    bs = max(widths)
+    if isinstance(features, (list, tuple)):
+        out = []
+        for b in features:
+            out.append(_padded(_host_copy(b), bs))
+            if release and b.device.type != "cpu":
+                _release(b)
+        return out
+    host = _host_copy(features)
+    if release and features.device.type != "cpu":
+        _release(features)
+    return [_padded(b, bs) for b in _caller_blocks(host, widths)]
+
+
+def _host_staged_bcd_fit(host_blocks: Sequence[torch.Tensor], labels, lam: float,
+                         nvalid: int, num_iter: int, widths):
+    """The host-staged tier, the floor: ``host_blocks[i]`` (``[N, bs]`` in
+    host RAM) is uploaded once per epoch and freed before the next, so one
+    block of the matrix is on the device at a time beside the residual and
+    the cached means and factors.  The arithmetic stays on ``labels``'
+    device.
+
+    Returns (models [B, bs, k], label_mean [k], means [B, bs])."""
+    bs, nb = max(widths), len(widths)
+    dtype, dev = labels.dtype, labels.device
+    mask, label_mean, residual = _centred_labels(labels, nvalid)
+    pad = _pad_diagonals(widths, dtype, dev)
+    upload = _Uploader(host_blocks, dev)
+    means: dict[int, torch.Tensor] = {}
+    chol: dict[int, torch.Tensor] = {}
     models = torch.zeros((nb, bs, labels.shape[1]), dtype=dtype, device=dev)
     for _ in range(num_iter):
         for i in range(nb):
-            a_i = centered_block(i)
-            r_i = residual + a_i @ models[i]
-            m_new = cho_solve(chol[i], a_i.T @ r_i)
-            residual = r_i - a_i @ m_new
-            models[i] = m_new
-    return models, label_mean, means
+            xi = upload(i)
+            if i not in means:
+                means[i] = _bcd_block_mean(xi, mask, nvalid)
+                chol[i] = _bcd_block_factor(xi, means[i], mask, lam, pad[i])
+            models[i], residual = _bcd_block_solve(xi, means[i], mask, residual, models[i],
+                                                   chol[i])
+            del xi  # the one block on the device, freed before the next upload
+    return models, label_mean, torch.stack([means[i] for i in range(nb)])
+
+
+def _reject_plan(plan) -> None:
+    """``plan=True`` or a placement plan asks for the placement search,
+    which is not ported (ROADMAP Queue 1 item 13)."""
+    if plan is not None and plan is not False:
+        raise ValueError(
+            f"plan={plan!r} asks for the placement search (core.autoshard), which "
+            "keystone_tpu_torch does not have yet (ROADMAP Queue 1 item 13); "
+            "plan=None or plan=False runs the hand ladder fused -> stepwise -> "
+            "host_staged"
+        )
+
+
+def _probe_matrix(features, widths):
+    """A row-capped blocked design matrix for the conditioning probe: the
+    monolithic input itself (the probe caps the rows), or the first rows of
+    each block concatenated, so no tier's full matrix is formed for it."""
+    if not isinstance(features, (list, tuple)):
+        return features
+    cap = knum.COND_ROWS_CAP
+    return torch.cat([_padded(b[:cap], max(widths)) for b in features], dim=1)
 
 
 class BlockLeastSquaresEstimator(LabelEstimator):
@@ -208,65 +623,183 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         self.lam = lam
         self.last_fit_report: kmem.FitReport | None = None
 
+    def _shapes(self, features, labels, widths) -> dict:
+        """The byte terms every tier's preflight shares."""
+        bs, nb = max(widths), len(widths)
+        n, k = int(labels.shape[0]), int(labels.shape[1])
+        feats = _feature_list(features)
+        it = feats[0].element_size()
+        return dict(
+            bs=bs, nb=nb, n=n, k=k, it=it, feats=feats,
+            # labels, the models stack and the cached Cholesky factors
+            persist=it * (n * k + nb * bs * k + nb * bs * bs),
+            resident=_device_bytes(*feats, labels),
+            budget=kmem.hbm_budget(_features_device(features)),
+        )
+
     def plan_fused(self, features, labels, widths) -> kmem.MemoryPlan:
-        """Preflight of the fused fit from the shapes alone.  Charged: the
+        """Preflight of the fused tier from the shapes alone.  Charged: the
         caller's feature blocks and their concatenation (the blocked design
         matrix is a new allocation unless it is a view of the input), the
         labels, then the transients (two centered [N, bs] blocks, the
         residual and its update, two [bs, bs] grams, the Cholesky stack),
         and the outputs (models, means, intercept)."""
-        bs, nb = max(widths), len(widths)
-        rows = labels.shape[0]
-        k = labels.shape[1]
-        feats = list(features) if isinstance(features, (list, tuple)) else [features]
-        it = feats[0].element_size()
-        x_bytes = it * rows * nb * bs if _design_is_copy(features, widths) else 0
+        s = self._shapes(features, labels, widths)
+        bs, nb, n, k, it = s["bs"], s["nb"], s["n"], s["k"], s["it"]
+        x_bytes = it * n * nb * bs if _design_is_copy(features, widths) else 0
         return kmem.plan_bytes(
             "bcd_fused",
-            argument_bytes=kmem.array_bytes(*feats) + x_bytes + it * rows * k,
-            temp_bytes=it * (2 * rows * bs + 2 * rows * k + 2 * bs * bs + nb * bs * bs + rows),
+            argument_bytes=kmem.array_bytes(*s["feats"]) + x_bytes + it * n * k,
+            temp_bytes=it * (2 * n * bs + 2 * n * k + 2 * bs * bs + nb * bs * bs + n),
             output_bytes=it * (nb * bs * k + nb * bs + k),
-            resident_bytes=_device_bytes(*feats, labels),
-            budget=kmem.hbm_budget(_features_device(features)),
+            resident_bytes=s["resident"],
+            budget=s["budget"],
+        )
+
+    def plan_stepwise(self, features, labels, widths) -> kmem.MemoryPlan:
+        """Preflight of the stepwise tier.  Charged: the caller's blocks
+        (never concatenated) and one padded copy of a short block, the
+        per-block step's other arguments (the means, the row mask, the
+        residual, one model block, one factor), its transients (the centred
+        block and the updated residual) and outputs, and what persists
+        across steps: the labels, the models stack and the cached factors."""
+        s = self._shapes(features, labels, widths)
+        bs, nb, n, k, it = s["bs"], s["nb"], s["n"], s["k"], s["it"]
+        pad_copy = it * n * bs if min(widths) < bs else 0
+        return kmem.plan_bytes(
+            "bcd_stepwise",
+            argument_bytes=kmem.array_bytes(*s["feats"]) + pad_copy
+            + it * (nb * bs + n + n * k + bs * k + bs * bs),
+            temp_bytes=it * (n * bs + n * k),
+            output_bytes=it * (bs * k + n * k),
+            extra_bytes=s["persist"],
+            resident_bytes=s["resident"],
+            budget=s["budget"],
+        )
+
+    def plan_host_staged(self, features, labels, widths) -> kmem.MemoryPlan:
+        """Preflight of the host-staged tier.  Charged: one [N, bs] block and
+        the per-block step's other arguments, transients and outputs, what
+        persists (the labels, the models stack, the cached factors and
+        means), and the caller's inputs that stay on the device."""
+        s = self._shapes(features, labels, widths)
+        bs, nb, n, k, it = s["bs"], s["nb"], s["n"], s["k"], s["it"]
+        return kmem.plan_bytes(
+            "bcd_host_staged",
+            argument_bytes=it * (n * bs + bs + n + n * k + bs * k + bs * bs),
+            temp_bytes=it * (n * bs + n * k),
+            output_bytes=it * (bs * k + n * k),
+            extra_bytes=s["persist"] + it * nb * bs + s["resident"],
+            resident_bytes=s["resident"],
+            budget=s["budget"],
         )
 
     def fit(
         self,
-        features: torch.Tensor,
+        features,
         labels: torch.Tensor,
         num_features: int | None = None,
         nvalid: int | None = None,
+        checkpoint=None,
+        resume_from=None,
+        donate: bool | None = None,
+        plan=None,
     ) -> BlockLinearMapper:
         """``nvalid``: true row count when the inputs carry zero pad rows.
-        The fit runs inside the profiler phase ``bcd_fit`` through the
-        ladder; its decision trail is ``self.last_fit_report``."""
+
+        ``checkpoint`` is a path (the state written atomically after every
+        completed block, :func:`bcd_checkpoint_writer`) or a callback that
+        gets the state dict; ``resume_from`` is a path or a state dict of an
+        interrupted fit, which restarts at the block after the last
+        completed one.  Either runs the stepwise tier alone, in the trace
+        span ``tier:stepwise[checkpoint]``.
+
+        Otherwise the fit runs the ladder fused -> stepwise -> host_staged
+        inside the profiler phase ``bcd_fit``; the decision trail is
+        ``self.last_fit_report``.  ``donate=True`` hands the caller's card
+        feature blocks to the fit: the host-staged tier frees each one once
+        it is on the host (PyTorch has no aliasing to donate into, so it
+        has no other effect).  ``plan``: None or False run the hand ladder;
+        anything else asks for the placement search and raises."""
+        _reject_plan(plan)
         widths = _block_widths(features, self.block_size, num_features)
         bs, nb = max(widths), len(widths)
         rows, k = int(labels.shape[0]), int(labels.shape[1])
+        nv = rows if nvalid is None else int(nvalid)
+        lam = float(self.lam)
+        if knum.active():
+            # Per-block κ estimates on a row-capped probe matrix; one flag
+            # check when the observatory is off.
+            knum.design_conditioning(_probe_matrix(features, widths), widths, lam,
+                                     label="bcd_fit")
+
+        def y_on(dev, dtype):
+            _check_sources(labels)
+            return labels.to(device=dev, dtype=dtype)
+
+        def caller_blocks():
+            feats = _feature_list(features)
+            _check_sources(*feats)
+            return _caller_blocks(features, widths)
+
+        if checkpoint is not None or resume_from is not None:
+            self.last_fit_report = kmem.FitReport(label="bcd_fit", chosen="stepwise[checkpoint]")
+            cb = checkpoint if callable(checkpoint) or checkpoint is None else (
+                bcd_checkpoint_writer(checkpoint)
+            )
+            state = resume_from if isinstance(resume_from, dict) or resume_from is None else (
+                load_bcd_checkpoint(resume_from)
+            )
+            # The resumable path bypasses run_ladder (its tier is forced), so
+            # it opens its own tier span.
+            with kprof.phase("bcd_fit"), trace.span(
+                "tier:stepwise[checkpoint]", cat="solve", solve="bcd_fit",
+                resuming=state is not None,
+            ):
+                blocks = caller_blocks()
+                out = _stepwise_bcd_fit(
+                    blocks, y_on(blocks[0].device, blocks[0].dtype), lam, nv,
+                    self.num_iter, widths, checkpoint_cb=cb, resume_state=state,
+                )
+            return self._mapper(out, widths)
 
         def run_fused(plan):
+            _check_sources(*_feature_list(features))
             x, _ = _blocked_design_matrix(features, self.block_size, num_features)
-            if knum.active():
-                # Per-block κ estimates on the design matrix this fit formed
-                # (row-capped probe); one flag check when the observatory is off.
-                knum.design_conditioning(x, widths, float(self.lam), label="bcd_fit")
-            y = labels.to(device=x.device, dtype=x.dtype)
-            models, label_mean, means = _fused_bcd_impl(
-                x, y, float(self.lam), rows if nvalid is None else nvalid,
-                self.num_iter, widths,
-            )
-            return BlockLinearMapper(
-                [models[i, :w] for i, w in enumerate(widths)],
-                self.block_size,
-                label_mean,
-                [StandardScalerModel(means[i, :w]) for i, w in enumerate(widths)],
-            )
+            return _fused_bcd_impl(x, y_on(x.device, x.dtype), lam, nv, self.num_iter, widths)
+
+        def run_stepwise(plan):
+            blocks = caller_blocks()
+            return _stepwise_bcd_fit(blocks, y_on(blocks[0].device, blocks[0].dtype), lam, nv,
+                                     self.num_iter, widths)
+
+        def run_host(plan):
+            feats = _feature_list(features)
+            _check_sources(*feats)
+            host = _host_blocks(features, widths, release=bool(donate))
+            return _host_staged_bcd_fit(host, y_on(feats[0].device, feats[0].dtype), lam, nv,
+                                        self.num_iter, widths)
 
         report = kmem.FitReport(label="bcd_fit")
         self.last_fit_report = report
-        tier = kmem.Tier(
-            "fused", lambda: self.plan_fused(features, labels, widths), run_fused,
-            flops=2.0 * rows * bs * bs * nb + self.num_iter * 4.0 * rows * bs * k * nb,
-        )
+        flops = 2.0 * rows * bs * bs * nb + self.num_iter * 4.0 * rows * bs * k * nb
+        tiers = [
+            kmem.Tier("fused", lambda: self.plan_fused(features, labels, widths), run_fused,
+                      flops=flops),
+            kmem.Tier("stepwise", lambda: self.plan_stepwise(features, labels, widths),
+                      run_stepwise, flops=flops),
+            kmem.Tier("host_staged", lambda: self.plan_host_staged(features, labels, widths),
+                      run_host, flops=flops),
+        ]
         with kprof.phase("bcd_fit"):
-            return kmem.run_ladder("bcd_fit", [tier], report)
+            out = kmem.run_ladder("bcd_fit", tiers, report)
+        return self._mapper(out, widths)
+
+    def _mapper(self, out, widths) -> BlockLinearMapper:
+        models, label_mean, means = out
+        return BlockLinearMapper(
+            [models[i, :w] for i, w in enumerate(widths)],
+            self.block_size,
+            label_mean,
+            [StandardScalerModel(means[i, :w]) for i, w in enumerate(widths)],
+        )

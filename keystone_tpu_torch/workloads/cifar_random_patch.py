@@ -93,6 +93,12 @@ class RandomCifarConfig:
     whitener_size: int = 100000
     featurize_chunk: int = 2048
     device: str = "cuda"
+    #: Resumable block solve, forwarded to
+    #: ``BlockLeastSquaresEstimator.fit(checkpoint=, resume_from=)``: a path
+    #: or callback for the per-block state, and a path or state to resume
+    #: from (no CLI flag, as in the JAX package).
+    solve_checkpoint: object = None
+    solve_resume: object = None
     #: Score the test split from this JPEG tar through ``core.ingest``
     #: (labels from the member names, "<label>/x.jpg") instead of the
     #: eagerly loaded ``test`` batch.
@@ -368,7 +374,8 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
     t_solve = time.perf_counter()
     with stage_timer("solve"):
         solver = BlockLeastSquaresEstimator(4096, 1, conf.lam or 0.0)
-        model = solver.fit(train_features, labels)
+        model = solver.fit(train_features, labels, checkpoint=conf.solve_checkpoint,
+                           resume_from=conf.solve_resume)
         log_fit_report(solver, _log, "cifar random-patch solve")
         # Typed failure (FloatingPointError) instead of NaN predictions.
         assert_all_finite(model, "cifar random-patch model")

@@ -9,7 +9,10 @@ BlockLeastSquares(blockSize, 1 pass, lambda) on the list of group batches
 test split (the last call sees the full model) -> MaxClassifier ->
 MulticlassClassifierEvaluator.  The fitted chain
 ``GroupConcatFeaturizer(groups) >> model >> MaxClassifier`` is the
-servable pipeline.  ``--pipelineFile stem`` saves it (``core.checkpoint``,
+servable pipeline.  ``--solveCheckpoint path`` writes the block solve's
+state after every completed block and ``--resumeFrom path`` resumes an
+interrupted fit from it (``BlockLeastSquaresEstimator.fit(checkpoint=,
+resume_from=)``).  ``--pipelineFile stem`` saves it (``core.checkpoint``,
 with the test predictions' output sketch as its numerics baseline); when
 the checkpoint exists, the run restores it instead, loads no training
 data, fits nothing and scores the test split.  ``--serve`` /
@@ -68,6 +71,12 @@ class MnistRandomFFTConfig:
     #: Checkpoint stem of the fitted servable chain: saved after a fit,
     #: restored (no fit) when it exists.
     pipeline_file: str | None = None
+    #: Resumable block solve, forwarded to
+    #: ``BlockLeastSquaresEstimator.fit(checkpoint=, resume_from=)``: a path
+    #: (the state written after every completed block) or a callback, and a
+    #: path or state to resume an interrupted fit from.
+    solve_checkpoint: object = None
+    solve_resume: object = None
     #: Serving modes (core.serve via serve_common): both need
     #: ``pipeline_file`` and draw requests from the test split.
     serve: bool = False
@@ -136,7 +145,8 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
     t_solve = time.perf_counter()
     with stage_timer("solve"):
         solver = BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0)
-        model = solver.fit(training_batches, labels)
+        model = solver.fit(training_batches, labels, checkpoint=conf.solve_checkpoint,
+                           resume_from=conf.solve_resume)
         log_fit_report(solver, _log, "mnist random-fft solve")
         assert_all_finite(model, "mnist random-fft model")
     solve_secs = time.perf_counter() - t_solve
@@ -244,6 +254,15 @@ def main(argv=None) -> dict:
         "classifier): saved after a fit, restored without a fit when it exists",
     )
     p.add_argument(
+        "--solveCheckpoint", default=None,
+        help="path of the resumable block-solve state, written atomically after every "
+        "completed block (the stepwise tier)",
+    )
+    p.add_argument(
+        "--resumeFrom", default=None,
+        help="block-solve state to resume an interrupted fit from",
+    )
+    p.add_argument(
         "--trace", default=None, metavar="PATH",
         help="write a Chrome-trace JSON (.jsonl for the JSONL event log) of the run",
     )
@@ -267,6 +286,8 @@ def main(argv=None) -> dict:
         seed=a.seed,
         device=a.device,
         pipeline_file=a.pipelineFile,
+        solve_checkpoint=a.solveCheckpoint,
+        solve_resume=a.resumeFrom,
         serve=a.serve,
         serve_bench=a.serveBench,
         serve_clients=a.serveClients,

@@ -155,6 +155,7 @@ def run(conf: TimitConfig, data: TimitFeaturesData, random_features=None) -> dic
         solve_seconds=solve_secs,
         eval_seconds=eval_secs,
         servable=servable_pipeline(featurizers, model),
+        fit_report=solver.last_fit_report.record(),
     )
     _log.info("Pipeline took %.3f s", results["seconds"])
     return results

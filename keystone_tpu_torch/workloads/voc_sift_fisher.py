@@ -22,6 +22,10 @@ runs only the JPEG entropy pass and the pixels are decoded on the card
 device-format shards) so a repeat run streams them from disk.  The
 snapshot key folds in the label file's identity.
 
+``--solveCheckpoint path`` makes the block solve resumable: its state is
+written after every completed block, a run that finds the state resumes
+from it, and a completed fit removes it.
+
 ``--pipelineFile stem`` saves the fitted ``{pca, gmm, model}`` bundle
 (``core.checkpoint``, with the test scores' output sketch as its numerics
 baseline); when the checkpoint exists, the run restores it instead, loads
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
 from dataclasses import asdict, dataclass
 
@@ -60,7 +65,7 @@ from ..loaders.image_loaders import (
 )
 from ..ops.sift import SIFTExtractor
 from ..ops.util import ClassLabelIndicatorsFromIntArrayLabels
-from ..solvers.block import BlockLeastSquaresEstimator
+from ..solvers.block import BlockLeastSquaresEstimator, bcd_checkpoint_path
 from ..solvers.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from ..solvers.pca import BatchPCATransformer, compute_pca
 from ..utils.platform import resolve_device, synchronize
@@ -123,6 +128,10 @@ class SIFTFisherConfig:
     #: Checkpoint stem of the fitted {pca, gmm, model} bundle: saved after a
     #: fit, restored (no fit) when it exists.
     pipeline_file: str | None = None
+    #: Resumable block solve: the state is written here after every
+    #: completed block, an existing state is resumed, and the state is
+    #: removed once the fit completes.
+    solve_checkpoint: str | None = None
     #: Serving modes (core.serve via serve_common): both need
     #: ``pipeline_file`` and the eager test split.
     serve: bool = False
@@ -211,13 +220,25 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict,
         fisher_secs = lap(t)
     del pca_desc  # the training descriptors are no longer needed
 
+    # With a solve checkpoint the block fit writes its state after every
+    # block and resumes from an existing one (a preempted run).
+    solve_kwargs, state_path = {}, None
+    if conf.solve_checkpoint is not None:
+        solve_kwargs["checkpoint"] = conf.solve_checkpoint
+        state_path = bcd_checkpoint_path(conf.solve_checkpoint)
+        if os.path.exists(state_path):
+            solve_kwargs["resume_from"] = conf.solve_checkpoint
     t = time.perf_counter()
     with stage_timer("solve"):
         solver = BlockLeastSquaresEstimator(4096, 1, conf.lam)
-        model = solver.fit(train_features, train_labels, num_features=feat_dim)
+        model = solver.fit(train_features, train_labels, num_features=feat_dim, **solve_kwargs)
         log_fit_report(solver, _log, "VOC SIFT-Fisher solve")
         assert_all_finite(model, "VOC block least-squares fit")
         solve_secs = lap(t)
+    if state_path is not None and os.path.exists(state_path):
+        # The state is for resuming, not a model cache: left behind, a later
+        # run on other features would try to resume into it.
+        os.unlink(state_path)
     secs = {
         "sift_seconds": sift_secs,
         "pca_seconds": pca_secs,
@@ -384,6 +405,11 @@ def main(argv=None) -> dict:
         "a fit, restored without a fit when it exists",
     )
     p.add_argument(
+        "--solveCheckpoint", default=None,
+        help="resumable block-solve state: written after every completed block, "
+        "resumed when it exists, removed once the fit completes",
+    )
+    p.add_argument(
         "--trace", default=None, metavar="PATH",
         help="write a Chrome-trace JSON (.jsonl for the JSONL event log) of the run",
     )
@@ -415,6 +441,7 @@ def main(argv=None) -> dict:
         num_gmm_samples=a.numGmmSamples,
         device=a.device,
         pipeline_file=a.pipelineFile,
+        solve_checkpoint=a.solveCheckpoint,
         serve=a.serve,
         serve_bench=a.serveBench,
         serve_clients=a.serveClients,

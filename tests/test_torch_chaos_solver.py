@@ -1,0 +1,169 @@
+"""The solver families of the chaos harness (``tests/chaos.py``) on the
+port: ``solver_oom``, ``oom_cascade``, ``preempt_resume`` and ``deadline``,
+each on the port's MnistRandomFFT and RandomPatchCifar at the harness's case
+sizes (``chaos._mnist_case`` and ``chaos._run_cifar``'s files and
+settings), with the harness's fault parameters (``chaos.make_schedule``).
+
+The harness's invariant: every faulted run either completes with
+predictions equal to the fault-free run's, or fails with a typed error
+that the fault ledger counted.  The injection points are the port's:
+``solvers.block._fused_bcd_impl`` for the fused tier, and
+``_bcd_block_solve``, every tier's block update, whose first call once the
+fused tier has failed is the stepwise tier's.  An injected out-of-memory
+error is ``torch.OutOfMemoryError``."""
+
+import contextlib
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import chaos
+from keystone_tpu_torch.core.resilience import DeadlineExceeded, counters, deadline
+from keystone_tpu_torch.loaders.cifar import cifar_loader
+from keystone_tpu_torch.loaders.csv_loader import LabeledData
+from keystone_tpu_torch.solvers import block as block_mod
+from keystone_tpu_torch.workloads import cifar_random_patch as pcifar
+from keystone_tpu_torch.workloads import mnist_random_fft as pmnist
+
+FAMILIES = ("solver_oom", "oom_cascade", "preempt_resume", "deadline")
+
+
+def _schedule(kind: str) -> chaos.Fault:
+    """The harness's fault of family ``kind`` (its first seed)."""
+    return chaos.make_schedule(chaos.FAMILIES.index(kind))
+
+
+@pytest.fixture(scope="module")
+def cases(tmp_path_factory):
+    """The harness's MNIST split and Cifar files, and a runner per
+    workload at the harness's settings, on the CPU."""
+    train, test = chaos._mnist_case()
+    mnist = [LabeledData(labels=s.labels, data=s.data) for s in (train, test)]
+    root = tmp_path_factory.mktemp("chaos_cifar")
+    rng = np.random.default_rng(chaos._DATA_SEED)
+    palette = rng.uniform(40, 215, (4, 3))
+    chaos._write_synthetic_cifar(root / "train.bin", 72, rng, base=palette)
+    chaos._write_synthetic_cifar(root / "test.bin", 36, rng, base=palette)
+    cifar = [cifar_loader(str(root / name)) for name in ("train.bin", "test.bin")]
+
+    def run_mnist(**kw):
+        conf = pmnist.MnistRandomFFTConfig(num_ffts=2, block_size=512, lam=1e-2,
+                                           mnist_image_size=64, num_classes=5,
+                                           device="cpu", **kw)
+        return pmnist.run(conf, *mnist)
+
+    def run_cifar(**kw):
+        conf = pcifar.RandomCifarConfig(num_filters=8, patch_size=6, patch_steps=4, lam=10.0,
+                                        whitener_size=300, featurize_chunk=36,
+                                        num_classes=4, device="cpu", **kw)
+        return pcifar.run(conf, *cifar)
+
+    runners = {"mnist": run_mnist, "cifar": run_cifar}
+    return runners, {name: run()["test_predictions"] for name, run in runners.items()}
+
+
+class _OomFaults:
+    """Replace ``block_mod.<name>`` by a wrapper whose first ``failures``
+    calls raise ``torch.OutOfMemoryError``."""
+
+    def __init__(self, name: str, failures: int):
+        self.name, self.failures, self.calls = name, failures, 0
+
+    def __enter__(self):
+        self.real = getattr(block_mod, self.name)
+
+        def faulty(*args, **kw):
+            self.calls += 1
+            if self.calls <= self.failures:
+                raise torch.OutOfMemoryError("CUDA out of memory (injected)")
+            return self.real(*args, **kw)
+
+        setattr(block_mod, self.name, faulty)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(block_mod, self.name, self.real)
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    real = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+class _Preempted(RuntimeError):
+    """The injected preemption between two BCD blocks."""
+
+
+def _faulted(kind: str, run, tmp_path):
+    """One schedule of the family ``kind``; returns the run's results or
+    raises its error."""
+    fault = _schedule(kind)
+    if kind == "solver_oom":
+        with _OomFaults("_fused_bcd_impl", fault.params["failures"]):
+            return run()
+    if kind == "oom_cascade":
+        # Fused dies, then the stepwise tier's first block update: the ladder must walk
+        # fused -> stepwise -> host_staged.
+        with _OomFaults("_fused_bcd_impl", 1), _OomFaults("_bcd_block_solve", 1):
+            return run()
+    if kind == "preempt_resume":
+        path = str(tmp_path / "bcd_state")
+        write = block_mod.bcd_checkpoint_writer(path)
+        calls = {"n": 0}
+
+        def preempting(state):
+            write(state)
+            calls["n"] += 1
+            if calls["n"] >= fault.params["preempt_after_blocks"]:
+                raise _Preempted(f"preempted after block {state['block']}")
+
+        with pytest.raises(_Preempted):
+            run(solve_checkpoint=preempting)
+        return run(solve_checkpoint=path, solve_resume=path)
+    assert kind == "deadline"
+    real = block_mod._fused_bcd_impl
+
+    def hang(*args, **kw):
+        time.sleep(600.0)  # interrupted by the deadline watchdog
+        return real(*args, **kw)
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_patched(block_mod, "_fused_bcd_impl", hang))
+        stack.enter_context(deadline(fault.params["seconds"], phase="solve"))
+        return run()
+
+
+@pytest.mark.parametrize("workload", ["mnist", "cifar"])
+@pytest.mark.parametrize("kind", FAMILIES)
+def test_faulted_run_is_equal_or_typed(kind, workload, cases, tmp_path):
+    runners, baseline = cases
+    before = counters.snapshot()
+    t0 = time.monotonic()
+    try:
+        res = _faulted(kind, runners[workload], tmp_path)
+    except DeadlineExceeded as e:
+        outcome, counted = "typed_error", counters.get("deadline_exceeded") - before.get(
+            "deadline_exceeded", 0)
+        assert e.phase == "solve" and counted == 1
+    else:
+        outcome = ("completed_equal" if np.array_equal(res["test_predictions"], baseline[workload])
+                   else "SILENT_WRONG_MODEL")
+    assert outcome == chaos.expected_outcome(_schedule(kind)), outcome
+    assert time.monotonic() - t0 < 60.0
+    delta = {k: v - before.get(k, 0) for k, v in counters.snapshot().items()
+             if v != before.get(k, 0)}
+    if kind in ("solver_oom", "oom_cascade"):
+        assert delta.get("solver_oom_retry") == (1 if kind == "solver_oom" else 2), delta
+        assert res["fit_report"]["chosen_tier"] == (
+            "stepwise" if kind == "solver_oom" else "host_staged")
+    if kind == "preempt_resume":
+        assert os.path.exists(str(tmp_path / "bcd_state.npz"))
+        assert res["fit_report"]["chosen_tier"] == "stepwise[checkpoint]"

@@ -226,9 +226,11 @@ class TestSolverReports:
         monkeypatch.setenv(kmem.HBM_BUDGET_ENV, "1K")
         before = counters.get("hbm_preflight_denied")
         est, pinched = _fit(a, b)
-        assert counters.get("hbm_preflight_denied") == before + 1
-        assert not est.last_fit_report.plans["fused"].admitted
-        assert est.last_fit_report.chosen == "fused"
+        # Every tier is denied and counted; the floor is host_staged.
+        tiers = ["fused", "stepwise", "host_staged"]
+        assert counters.get("hbm_preflight_denied") == before + len(tiers)
+        assert [t for t, p in est.last_fit_report.plans.items() if not p.admitted] == tiers
+        assert est.last_fit_report.chosen == "host_staged"
         assert torch.equal(clean, pinched)
 
     def test_weighted_fit_report(self, rng):
