@@ -111,7 +111,7 @@ which raises (and so exits non-zero) on failure:
    naive-Bayes scores card against CPU within 1e-5·max with equal
    predictions on 2,000 documents.  The kernels' counters do not move;
 16. one JSON line per the kernels, the card line, and the final JSON
-   line, printed last, after phases 17-26;
+   line, printed last, after phases 17-27;
 17. ImageNetSiftLcsFV at BASELINE config 5's width (1,000 classes; SIFT
    step 3 at scale step 1 with bf16 intermediates, then a signed square
    root; LCS (4, 16, 6); PCA to 64; 16 Gaussians; 4,096 features; the
@@ -211,8 +211,8 @@ which raises (and so exits non-zero) on failure:
    every bucket a captured CUDA graph.  With the kernel counts set to 0:
    ``--serve`` through the Cifar and MNIST CLIs and ``voc.run`` (phase 6's
    bundle, the most populous shape), each through the shape router with
-   answers equal to the offline apply (VOC: equal, or with parity
-   unverified deterministic); the SLO bench (4 clients, depth 4) on 1,024
+   answers equal to the offline apply, VOC with every bucket live at
+   parity (its products keep each row's bits at any row count); the SLO bench (4 clients, depth 4) on 1,024
    Cifar requests, batched and unbatched answers equal to the offline
    apply; 256 Cifar requests over localhost through ``WireServer`` and
    ``WireClient``, equal; and a warm add of an engine for VOC's second
@@ -242,7 +242,24 @@ which raises (and so exits non-zero) on failure:
    phase 12's; (d) the class-weighted solve of seeded features at
    ImageNet's width (2,000 x 4,096, 1,000 classes, config 5's lambda and
    mixture weight; blocks of 1,024) under each tier: within rtol 1e-4,
-   atol 1e-5·max of the fused fit, seconds per tier.
+   atol 1e-5·max of the fused fit, seconds per tier;
+27. the optimizer (``core.optimize``), each path with the kernel counts
+   set to 0 just before it: (a) RandomPatchCifar with ``--autoCache`` on
+   phase 3's files: the plan caches the conv features, K1 launches phase
+   3's count plus the optimizer's four one-chunk sample passes (the
+   training split featurized once, not twice), predictions
+   ``np.array_equal`` to phase 3's; prints the decision table, the fit
+   seconds and the peak beside phase 3's; (b) phase 22's tar with the
+   ingest autotuner evaluating every chunk: predictions equal to phase
+   22's, K3 and K1 launched, the retunes and the final config printed;
+   (c) VOCSIFTFisher with ``--autoCache`` on phase 6's images, the
+   projected descriptors priced at the default 1 GB/s (the plan's verdict
+   printed), then at 1,000 GB/s admitted, then at 1,000 GB/s denied under
+   a 16 GB capacity budget: each run phase 6's MAP with test scores
+   bit-equal and K2 launched, the peaks printed; (d) phase 17's ImageNetSiftLcsFV bundle,
+   saved with ``pipeline_file``, restored and applied to phase 17's test
+   split: scores ``np.array_equal`` and the same top-5 error, K2
+   launched, seconds beside the fitted run's.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -1625,16 +1642,19 @@ def imagenet_record(res: dict) -> dict:
                                 "branch_stage_seconds")}
 
 
-def run_imagenet(card: str) -> tuple:
-    """Phases 17 and 18: ImageNetSiftLcsFV in memory at full width, its
-    fitted branches applied to served batches, then card against CPU.
-    Returns the fv_stats launches of the path (fit, eval and served
-    batches) and the two splits."""
+def run_imagenet(card: str, stem: Path) -> tuple:
+    """Phases 17 and 18: ImageNetSiftLcsFV in memory at full width (its
+    fitted bundle saved at ``stem``), its fitted branches applied to served
+    batches, then card against CPU.  Returns the fv_stats launches of the
+    path (fit, eval and served batches), the two splits, and what phase
+    27(d) restores against: the stem, the run's test scores, top-5 error
+    and seconds."""
     t = time.perf_counter()
     train = imagenet_split(19, IMAGENET_TRAIN_PER_CLASS)
     test = imagenet_split(23, IMAGENET_TEST_PER_CLASS)
     data_secs = time.perf_counter() - t
-    conf = inet.ImageNetSiftLcsFVConfig(num_classes=IMAGENET_CLASSES, device="cuda")
+    conf = inet.ImageNetSiftLcsFVConfig(num_classes=IMAGENET_CLASSES, device="cuda",
+                                        pipeline_file=str(stem))
     bound_gb = imagenet_peak_lower_bound(train, conf)
     log(f"ImageNet data: {len(train)} train / {len(test)} test images in {data_secs:.1f} s; "
         f"reckoned peak at least {bound_gb:.2f} GB (raw SIFT descriptors and the PCA sample "
@@ -1678,10 +1698,12 @@ def run_imagenet(card: str) -> tuple:
         "fv_stats_launches_serve": main_launches - fit_launches,
     }))
     arrays = convert.imagenet_to_arrays(res["bundle"], conf)
+    saved = {"stem": stem, "scores": res["test_scores"], "seconds": res["seconds"],
+             "top5_err_percent": res["top5_err_percent"]}
     del res, fitted
     torch.cuda.empty_cache()
     imagenet_card_vs_cpu(arrays, [test.images[j] for j in land[:4]])
-    return main_launches, train, test
+    return main_launches, train, test, saved
 
 
 def imagenet_card_vs_cpu(arrays: dict, images: list) -> dict:
@@ -2729,6 +2751,12 @@ def run_serving(card: str, data_dir: Path, fitted: dict) -> dict:
     vres = voc.run(vconf, MultiLabeledImages([], [], []), fitted["voc_test"])
     rec["voc"] = {**check_served("voc", vres["serving"]),
                   "request_shape": vres["serving"]["request_shape"]}
+    # The served VOC rows no longer round with the row count
+    # (utils.stats.matmul_rows), so every bucket holds parity and stays live.
+    veng_rec = vres["serving"]["engine"]
+    if veng_rec["live_buckets"] != list(SERVE_BUCKETS) or not veng_rec["parity_ok"]:
+        raise AssertionError(f"VOC serving kept buckets {veng_rec['live_buckets']} of "
+                             f"{list(SERVE_BUCKETS)} (parity {veng_rec['parity']})")
     add_launches(graphs, vres["serving"]["engine"]["graph_launches"])
 
     # (b) The SLO bench on 1,024 Cifar requests.
@@ -3077,6 +3105,152 @@ def run_ladder(card: str, data_dir: Path, phase6: dict, timit12: dict) -> dict:
     return {"fv_stats": launches}
 
 
+# Phase 27, the optimizer.  At the default exchange rate (1 GB/s) holding
+# phase 6's 12.1 GB of projected training descriptors (512 x 80 x 73,866
+# f32) is priced far above the card's re-projection, so the plan declines
+# it; VOC_CACHE_GBPS prices memory at about a third of the card's bandwidth,
+# where the plan wants the cache and the admission gate decides.
+# VOC_DENY_BUDGET is a capacity whose half (the gate's headroom) is below
+# 12.1 GB and far above every other admission of the run (the fused solve
+# holds 84 MB of features).
+VOC_CACHE_GBPS = "1000"
+VOC_DENY_BUDGET = "16G"
+
+
+def run_optimizer(card: str, fitted: dict, c22: dict, phase6: dict) -> dict:
+    """Phase 27(a)-(c): ``--autoCache`` on RandomPatchCifar (phase 3's files)
+    and on VOCSIFTFisher (phase 6's images, admitted and denied), and
+    ``--autoTune`` on phase 22's streamed tar, each against the run without
+    the flag.  Each path runs with the kernel counts set to 0 just before
+    it and read just after.  Returns the launches by kernel."""
+    rec: dict = {"phase": "27: the auto-Cacher and the ingest autotuner", "card": card}
+    total = {"conv_rect_pool": 0, "fv_stats": 0, "decode_pixels": 0}
+
+    # (a) Cifar: the conv features of the fit replayed for the fitted apply.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rp.launches = rp.fused_launches = 0
+    res = cifar.main(["--trainLocation", str(fitted["cifar_train"]), "--testLocation",
+                      str(fitted["cifar_test"]), *MAIN_FLAGS, "--autoCache"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    k1 = rp.fused_launches
+    total["conv_rect_pool"] += k1
+    plan = res["cache_plan"]
+    train_chunks = math.ceil(N_TRAIN / 2048)
+    rec["cifar_auto_cache"] = {
+        "cached": plan["cached"], "decisions": plan["decisions"],
+        "dataset_rows": plan["dataset_rows"], "sample_rows": plan["sample_rows"],
+        "conv_rect_pool_launches": k1,
+        "phase3_conv_rect_pool_launches": fitted["cifar_fit_launches"],
+        "uncached_training_featurize_launches": train_chunks,
+        "featurize_seconds": res["featurize_seconds"],
+        "phase3_featurize_seconds": fitted["cifar_featurize_seconds"],
+        "seconds": res["seconds"], "phase3_seconds": fitted["cifar_seconds"],
+        "peak_memory_gb": peak_gb, "phase3_peak_memory_gb": fitted["cifar_peak_gb"],
+        "predictions_equal_phase3": bool(np.array_equal(res["test_predictions"],
+                                                        fitted["cifar_pred"])),
+    }
+    log(json.dumps(rec["cifar_auto_cache"]))
+    # Phase 3's fit path featurizes the training split once; the cached chain
+    # adds the optimizer's four passes over its one-chunk sample (warm-up,
+    # profile, and the fit pattern's two applications), where an uncached
+    # chain would featurize the training split twice.
+    if plan["cached"] != ["conv_featurize"] or k1 != fitted["cifar_fit_launches"] + 4:
+        raise AssertionError(f"Cifar --autoCache: cached {plan['cached']}, K1 {k1} against "
+                             f"phase 3's {fitted['cifar_fit_launches']} + 4")
+    if not rec["cifar_auto_cache"]["predictions_equal_phase3"]:
+        raise AssertionError("Cifar --autoCache predictions differ from phase 3's")
+
+    # (b) Phase 22's tar with the autotuner evaluating every chunk.
+    rp.launches = rp.fused_launches = jd.launches = jd.decode_launches = 0
+    train = c22["train"]
+    with env_set(KEYSTONE_AUTOTUNE_INTERVAL="1"):
+        tuned = cifar.run(dataclasses.replace(c22["conf"], stream_test_tar=str(c22["tar"]),
+                                              auto_tune=True),
+                          train, LabeledImageBatch(train.images[:0], train.labels[:0]))
+    launches = {"conv_rect_pool": rp.fused_launches, "decode_pixels": jd.decode_launches,
+                "rect_pool": rp.launches, "idct_blocks": jd.launches}
+    total["conv_rect_pool"] += launches["conv_rect_pool"]
+    total["decode_pixels"] += launches["decode_pixels"]
+    at = tuned["autotune"]
+    rec["cifar_tar_auto_tune"] = {
+        "retunes": at["retunes"], "trajectory": at["trajectory"],
+        "final_config": at["final_config"], "launches": launches,
+        "seconds": tuned["seconds"], "ingest": tuned["ingest"],
+        "predictions_equal_phase22": bool(np.array_equal(tuned["test_predictions"],
+                                                         c22["predictions"])),
+    }
+    log(json.dumps(rec["cifar_tar_auto_tune"]))
+    if not (rec["cifar_tar_auto_tune"]["predictions_equal_phase22"]
+            and launches["conv_rect_pool"] and launches["decode_pixels"]
+            and not (launches["rect_pool"] or launches["idct_blocks"])):
+        raise AssertionError(f"Cifar --autoTune: {rec['cifar_tar_auto_tune']}")
+
+    # (c) VOC: the projected training descriptors at the default rate, then
+    # wanted and admitted, then wanted and denied by the budget.
+    runs = (("default_rate", {}),
+            ("admitted", {"KEYSTONE_CACHE_GBPS": VOC_CACHE_GBPS}),
+            ("denied", {"KEYSTONE_CACHE_GBPS": VOC_CACHE_GBPS,
+                        "KEYSTONE_HBM_BUDGET": VOC_DENY_BUDGET}))
+    for label, env in runs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fs.launches = 0
+        conf = voc.SIFTFisherConfig(**VOC_CONF, auto_cache=True)
+        with env_set(**env):
+            vres = voc.run(conf, phase6["train"], phase6["test"])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        total["fv_stats"] += fs.launches
+        vplan = vres["cache_plan"]
+        rec[f"voc_auto_cache_{label}"] = {
+            "cached": vplan["cached"], "dropped": vplan["dropped"],
+            "decisions": vplan["decisions"],
+            "budget_bytes": vplan["budget_bytes"], "map": vres["map"],
+            "phase6_map": phase6["map"], "fv_stats_launches": fs.launches,
+            "peak_memory_gb": peak_gb, "seconds": vres["seconds"],
+            **{k: vres[k] for k in ("sift_seconds", "pca_seconds", "gmm_seconds",
+                                    "fisher_seconds", "solve_seconds")},
+            "scores_equal_phase6": bool(np.array_equal(vres["test_scores"], phase6["scores"])),
+        }
+        log(json.dumps(rec[f"voc_auto_cache_{label}"]))
+        # The default rate's verdict follows the measured seconds; the
+        # other two are fixed by the rate and the budget.
+        want = {"admitted": (["voc_pca_descriptors"], []),
+                "denied": ([], ["voc_pca_descriptors"])}.get(label)
+        if not ((want is None or (vplan["cached"], vplan["dropped"]) == want)
+                and vres["map"] == phase6["map"] and fs.launches
+                and rec[f"voc_auto_cache_{label}"]["scores_equal_phase6"]):
+            raise AssertionError(f"VOC --autoCache ({label}): {rec[f'voc_auto_cache_{label}']}")
+    return total
+
+
+def run_imagenet_restored(card: str, test: LabeledImages, saved: dict) -> int:
+    """Phase 27(d): phase 17's ImageNetSiftLcsFV bundle restored from its
+    ``--pipelineFile`` checkpoint (no training data, no fit) and applied to
+    phase 17's test split: scores ``np.array_equal`` to phase 17's, the same
+    top-5 error, K2 launched.  Returns K2's launches."""
+    conf = inet.ImageNetSiftLcsFVConfig(num_classes=IMAGENET_CLASSES, device="cuda",
+                                        pipeline_file=str(saved["stem"]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fs.launches = 0
+    res = inet.run(conf, LabeledImages([], np.zeros(0, np.int32), []), test)
+    launches = fs.launches
+    rec = {"phase": "27(d): ImageNetSiftLcsFV restored (--pipelineFile)", "card": card,
+           "restored": res.get("restored", False), "test_images": len(test),
+           "top5_err_percent": res["top5_err_percent"],
+           "phase17_top5_err_percent": saved["top5_err_percent"],
+           "seconds": res["seconds"], "phase17_fitted_seconds": saved["seconds"],
+           "fv_stats_launches": launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "scores_equal_phase17": bool(np.array_equal(res["test_scores"], saved["scores"]))}
+    log(json.dumps(rec))
+    if not (rec["restored"] and rec["scores_equal_phase17"] and launches
+            and res["top5_err_percent"] == saved["top5_err_percent"]):
+        raise AssertionError(f"ImageNet restored: {rec}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -3149,11 +3323,16 @@ def smoke(data_dir: Path) -> int:
 
     # 3. + 4. The main path: fit, eval, then the servable apply.
     rp.launches = rp.fused_launches = 0
+    torch.cuda.reset_peak_memory_stats()
     res = cifar.main(["--trainLocation", str(train_path), "--testLocation", str(test_path),
                       *MAIN_FLAGS, "--pipelineFile", str(data_dir / "cifar_servable")])
     fit_launches = rp.fused_launches
-    fitted = {"cifar_test": test_path, "cifar_stem": data_dir / "cifar_servable",
-              "cifar_pred": res["test_predictions"], "cifar_seconds": res["seconds"]}
+    fitted = {"cifar_train": train_path, "cifar_test": test_path,
+              "cifar_stem": data_dir / "cifar_servable",
+              "cifar_pred": res["test_predictions"], "cifar_seconds": res["seconds"],
+              "cifar_fit_launches": fit_launches,
+              "cifar_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "cifar_featurize_seconds": res["featurize_seconds"]}
     servable = res["servable"]
     for chunk in (1, 4, 16, 64):
         served = cifar.apply_servable_chunked(servable, test_images[:256], chunk)
@@ -3176,6 +3355,7 @@ def smoke(data_dir: Path) -> int:
         "solve_seconds": res["solve_seconds"], "seconds": res["seconds"],
         "conv_rect_pool_launches_fit": fit_launches,
         "conv_rect_pool_launches_serve": main_launches - fit_launches,
+        "peak_memory_gb": fitted["cifar_peak_gb"],
         "rect_pool_launches": unfused_launches,
     }))
     log("featurize breakdown " + json.dumps(
@@ -3225,18 +3405,21 @@ def smoke(data_dir: Path) -> int:
     random_cifar_rec = run_cifar_variants(card, train_path, test_path)
     run_newsgroups(card)
     torch.cuda.empty_cache()
-    inet_launches, inet_train, inet_test = run_imagenet(card)
+    inet_launches, inet_train, inet_test, inet_fitted = run_imagenet(
+        card, data_dir / "imagenet_bundle")
     inet_tar_decode, inet_tar_fv = run_imagenet_tar(card, inet_train, inet_test)
-    del inet_train, inet_test
+    del inet_train
+    inet_restored = run_imagenet_restored(card, inet_test, inet_fitted)
+    del inet_test, inet_fitted
     run_descriptors(card)
     run_text(card)
     tar_launches, cifar_tar = run_cifar_tar(card, train_path, test_path, data_dir)
     restored = run_restored(card, data_dir, fitted)
     snaps = run_snapshots(card, data_dir, cifar_tar, fitted)
-    del cifar_tar
     serving = run_serving(card, data_dir, fitted)
     ladder = run_ladder(card, data_dir, phase6, timit12)
-    del phase6, timit12
+    optimizer = run_optimizer(card, fitted, cifar_tar, phase6)
+    del phase6, timit12, cifar_tar
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -3246,13 +3429,15 @@ def smoke(data_dir: Path) -> int:
         "replaces": "keystone_tpu/ops/rect_pool_pallas.py:78",
         "launches": (main_launches + random_cifar_rec["launches"]
                      + tar_launches["conv_rect_pool"] + restored["conv_rect_pool"]
-                     + snaps["conv_rect_pool"] + serving["conv_rect_pool"]),
+                     + snaps["conv_rect_pool"] + serving["conv_rect_pool"]
+                     + optimizer["conv_rect_pool"]),
         "launches_by_path": {"random_patch_cifar": main_launches,
                              "random_cifar": random_cifar_rec["launches"],
                              "random_patch_cifar_jpeg_tar": tar_launches["conv_rect_pool"],
                              "random_patch_cifar_restored": restored["conv_rect_pool"],
                              "snapshots_and_backends": snaps["conv_rect_pool"],
-                             "serving_graphs_and_eager": serving["conv_rect_pool"]},
+                             "serving_graphs_and_eager": serving["conv_rect_pool"],
+                             "auto_cache_and_auto_tune": optimizer["conv_rect_pool"]},
         "max_abs_err": max(r["max_abs_err"] for r in [
             fused_prod, fused_prod_f32, fused_cifar48, *fused_odd, random_cifar_rec]),
         "ms": fused_prod["ms"],
@@ -3283,7 +3468,8 @@ def smoke(data_dir: Path) -> int:
         "replaces": "keystone_tpu/ops/fv_pallas.py:95",
         "launches": (voc_launches + tar_fv_launches + inet_launches + inet_tar_fv
                      + restored["fv_stats_in_memory"] + restored["fv_stats_jpeg_tars"]
-                     + snaps["fv_stats"] + serving["fv_stats"] + ladder["fv_stats"]),
+                     + snaps["fv_stats"] + serving["fv_stats"] + ladder["fv_stats"]
+                     + optimizer["fv_stats"] + inet_restored),
         "launches_by_path": {"voc_in_memory": voc_launches, "voc_jpeg_tars": tar_fv_launches,
                              "imagenet_in_memory": inet_launches,
                              "imagenet_jpeg_tars": inet_tar_fv,
@@ -3291,7 +3477,9 @@ def smoke(data_dir: Path) -> int:
                              "voc_restored_jpeg_tars": restored["fv_stats_jpeg_tars"],
                              "snapshots_and_backends": snaps["fv_stats"],
                              "serving_graphs_and_eager": serving["fv_stats"],
-                             "voc_solver_ladder": ladder["fv_stats"]},
+                             "voc_solver_ladder": ladder["fv_stats"],
+                             "voc_auto_cache": optimizer["fv_stats"],
+                             "imagenet_restored": inet_restored},
         "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd, *fv_imagenet.values()]),
         "ms": fv_prod["ms"],
         "plain_ms": fv_prod["plain_ms"],
@@ -3314,12 +3502,14 @@ def smoke(data_dir: Path) -> int:
         "source": "keystone_tpu_torch/csrc/idct.cu",
         "replaces": "keystone_tpu/ops/jpeg_device.py:743",
         "launches": (decode_launches + inet_tar_decode + tar_launches["decode_pixels"]
-                     + restored["decode_pixels"] + snaps["decode_pixels"]),
+                     + restored["decode_pixels"] + snaps["decode_pixels"]
+                     + optimizer["decode_pixels"]),
         "launches_by_path": {"voc_jpeg_tars": decode_launches,
                              "imagenet_jpeg_tars": inet_tar_decode,
                              "cifar_jpeg_tar": tar_launches["decode_pixels"],
                              "voc_restored_jpeg_tars": restored["decode_pixels"],
-                             "snapshots_and_backends": snaps["decode_pixels"]},
+                             "snapshots_and_backends": snaps["decode_pixels"],
+                             "cifar_jpeg_tar_auto_tune": optimizer["decode_pixels"]},
         "max_abs_err": max(r["max_abs_err"] for r in decode_checks),
         "ms": decode_times[64]["ms"],
         "plain_ms": decode_times[64]["plain_ms"],

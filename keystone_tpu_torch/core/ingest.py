@@ -57,8 +57,16 @@ is the backpressure stall), ``ingest.ring_get`` and ``ingest.consume`` on
 the consumer lane; each chunk boundary publishes the ``ingest_*`` gauges.
 With the numerics observatory on, each chunk's featurize output is a probe
 site named by its tar members.  The environment knobs are read by
-:meth:`StreamConfig.from_env`.  Not ported: the autotuner
-(``KEYSTONE_AUTOTUNE`` raises).
+:meth:`StreamConfig.from_env`.
+
+The :class:`StreamConfig` is live: the producer reads the decode window
+per member, the backend per member and the ring bound per put, so a
+mutation retunes the running stream.  That is the surface of the
+closed-loop autotuner (``core.optimize.IngestAutotuner``;
+``StreamConfig.autotune`` / ``KEYSTONE_AUTOTUNE=1``, or ``tuner=``), which
+reads the stall counters at every chunk boundary.  Retuning changes
+concurrency and buffering only: the stream's output is bit-identical at
+any knob trajectory.
 """
 
 from __future__ import annotations
@@ -115,6 +123,10 @@ _POLL_SECONDS = 0.05
 _CLOSE_SECONDS = 30.0
 
 
+def _env_flag(name: str) -> bool:
+    return os.environ.get(name, "").strip() in ("1", "true", "on", "yes")
+
+
 def ring_capacity() -> int:
     """Ring depth: ``KEYSTONE_RING_CAPACITY`` or the default."""
     return image_loaders.env_int("KEYSTONE_RING_CAPACITY", DEFAULT_RING_CAPACITY, 1)
@@ -141,13 +153,24 @@ def decode_mode_env() -> str:
 
 @dataclasses.dataclass
 class StreamConfig:
-    """The knobs of one stream: they change concurrency, buffering and where
-    the bytes come from, never the order or content of what the stream
-    yields."""
+    """The live knobs of one stream: they change concurrency, buffering and
+    where the bytes come from, never the order or content of what the
+    stream yields.  The stream reads them at every decision point, so a
+    mutation retunes it mid-run.
+
+    ``decode_threads`` is the number of decodes kept in flight (the
+    effective pool width); ``max_decode_threads`` caps how far a tuner may
+    raise it (the thread pool is created at the cap, 0 resolves to the
+    host cores or the width, whichever is larger)."""
 
     decode_threads: int = dataclasses.field(default_factory=image_loaders.decode_threads)
     decode_ahead: int = dataclasses.field(default_factory=image_loaders.decode_ahead)
     ring_capacity: int = DEFAULT_RING_CAPACITY
+    max_decode_threads: int = 0
+    #: Attach a ``core.optimize.IngestAutotuner`` to the stream.
+    autotune: bool = False
+    #: Chunks between the controller's evaluations.
+    autotune_interval: int = 4
     #: Host decode backend (:data:`DECODE_BACKENDS`); device decode's
     #: entropy pass runs on the thread pool whatever this says.
     decode_backend: str = "thread"
@@ -171,6 +194,8 @@ class StreamConfig:
             raise ValueError(f"decode_ahead must be >= 0, got {self.decode_ahead}")
         if self.ring_capacity < 1:
             raise ValueError(f"ring_capacity must be >= 1, got {self.ring_capacity}")
+        if self.autotune_interval < 1:
+            raise ValueError(f"autotune_interval must be >= 1, got {self.autotune_interval}")
         if self.decode_backend not in DECODE_BACKENDS:
             raise ValueError(
                 f"decode_backend={self.decode_backend!r} must be one of {DECODE_BACKENDS}"
@@ -187,6 +212,15 @@ class StreamConfig:
             raise ValueError(
                 f"snapshot_mode={self.snapshot_mode!r} must be one of {ksnap.MODES}"
             )
+        if self.max_decode_threads == 0:
+            self.max_decode_threads = max(self.decode_threads, image_loaders.host_cores())
+        elif self.max_decode_threads < self.decode_threads:
+            # An explicit cap below the width is a contradiction, never
+            # silently widened past the caller's bound.
+            raise ValueError(
+                f"max_decode_threads={self.max_decode_threads} is below "
+                f"decode_threads={self.decode_threads}"
+            )
 
     @classmethod
     def from_env(cls, **overrides) -> "StreamConfig":
@@ -194,16 +228,15 @@ class StreamConfig:
         ``KEYSTONE_DECODE_AHEAD``, ``KEYSTONE_RING_CAPACITY``,
         ``KEYSTONE_DECODE_BACKEND``, ``KEYSTONE_DECODE_PROCS``,
         ``KEYSTONE_DEVICE_DECODE``, ``KEYSTONE_SNAPSHOT_DIR``,
-        ``KEYSTONE_SNAPSHOT_MODE``), each overridden by a keyword that is
-        not None.  ``KEYSTONE_AUTOTUNE`` raises: the ingest autotuner is
-        not ported."""
-        if os.environ.get("KEYSTONE_AUTOTUNE", "").strip() in ("1", "true", "on", "yes"):
-            raise ValueError("KEYSTONE_AUTOTUNE is not supported by keystone_tpu_torch "
-                             "(the ingest autotuner is not ported)")
+        ``KEYSTONE_SNAPSHOT_MODE``, ``KEYSTONE_AUTOTUNE``,
+        ``KEYSTONE_AUTOTUNE_INTERVAL``), each overridden by a keyword that
+        is not None.  They are only the initial values of a live config."""
         cfg = {
             "decode_threads": image_loaders.decode_threads(),
             "decode_ahead": image_loaders.decode_ahead(),
             "ring_capacity": ring_capacity(),
+            "autotune": _env_flag("KEYSTONE_AUTOTUNE"),
+            "autotune_interval": image_loaders.env_int("KEYSTONE_AUTOTUNE_INTERVAL", 4, 1),
             "decode_backend": decode_backend_env(),
             "decode_procs": image_loaders.env_int("KEYSTONE_DECODE_PROCS", 0, 0),
             "decode_mode": decode_mode_env(),
@@ -215,7 +248,10 @@ class StreamConfig:
 
     def window(self) -> int:
         """In-flight decode window: pool width + decode-ahead."""
-        return self.decode_threads + self.decode_ahead
+        return max(1, self.decode_threads) + max(0, self.decode_ahead)
+
+    def record(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 class _Cancelled(Exception):
@@ -480,10 +516,10 @@ class _Ring:
 
     _END = object()
 
-    def __init__(self, capacity: int, stats: StreamStats):
+    def __init__(self, config: StreamConfig, stats: StreamStats):
         self._q: collections.deque = collections.deque()
         self._cond = threading.Condition()
-        self._capacity = capacity
+        self._config = config  # its ring_capacity is read at every put
         self._stats = stats
         self._closed = False
         self._stopped = False
@@ -501,7 +537,7 @@ class _Ring:
         """Blocks while full; False when the consumer stopped the stream."""
         with self._cond:
             stalled = False
-            while len(self._q) >= self._capacity and not self._stopped:
+            while len(self._q) >= self._config.ring_capacity and not self._stopped:
                 if not stalled:
                     self._stats.producer_stalls += 1
                     stalled = True
@@ -563,16 +599,37 @@ class IngestStream:
         keep: Callable[[str], bool] | None = None,
         config: StreamConfig | None = None,
         device="cuda",
+        tuner=None,
+        num_threads: int | None = None,
+        decode_ahead_slots: int | None = None,
+        capacity: int | None = None,
     ):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self._path = path
         self._batch_size = batch_size
         self._keep = keep
-        self.config = config if config is not None else StreamConfig.from_env()
+        # The config object is shared with the caller and the tuner: a
+        # mutation retunes the running stream.  The per-stream keywords
+        # override its initial values, under the same validation.
+        if config is None:
+            config = StreamConfig.from_env(
+                decode_threads=num_threads, decode_ahead=decode_ahead_slots,
+                ring_capacity=capacity,
+            )
+        elif (num_threads, decode_ahead_slots, capacity) != (None, None, None):
+            if num_threads is not None:
+                config.decode_threads = num_threads
+                config.max_decode_threads = max(config.max_decode_threads, num_threads)
+            if decode_ahead_slots is not None:
+                config.decode_ahead = decode_ahead_slots
+            if capacity is not None:
+                config.ring_capacity = capacity
+            config.__post_init__()
+        self.config = config
         self.device = torch.device(device)
         self.stats = StreamStats(ring_capacity=self.config.ring_capacity)
-        self._ring = _Ring(self.config.ring_capacity, self.stats)
+        self._ring = _Ring(self.config, self.stats)
         self._copier = _PinnedCopier(self.device) if self.device.type == "cuda" else None
         self._workers: list[threading.Thread] = []
         self._pool: ThreadPoolExecutor | None = None
@@ -583,12 +640,21 @@ class IngestStream:
         #: shard forced the live fallback: what the re-decode must reproduce
         self._served_prefix: list = []
         self._chunk_counter = 0
+        self.tuner = tuner
+        if self.tuner is None and self.config.autotune:
+            # optimize imports this module: the reverse edge resolves only
+            # when a stream autotunes.
+            from .optimize import IngestAutotuner
+
+            self.tuner = IngestAutotuner()
+        if self.tuner is not None:
+            self.tuner.attach(self)
         _logger.info(
             "streaming ingest %s: batch=%d threads=%d ahead=%d ring=%d mode=%s backend=%s "
-            "snapshot=%s",
+            "snapshot=%s autotune=%s",
             path, batch_size, self.config.decode_threads, self.config.decode_ahead,
             self.config.ring_capacity, self.config.decode_mode, self.config.decode_backend,
-            self.config.snapshot_dir and self.config.snapshot_mode,
+            self.config.snapshot_dir and self.config.snapshot_mode, bool(self.tuner),
         )
         # The stream's live state on the /statusz page, one row per stream.
         self._statusz_name = f"stream:{os.path.basename(path)}#{next(_stream_seq)}"
@@ -764,21 +830,29 @@ class IngestStream:
             sp.set(chunks_read=emitted, images=images)
         return True
 
-    def _host_task(self):
-        """The host pixel decode of this pass: the thread pool's task, or
-        the process pool's submit."""
-        self.stats.host_decoder = "native" if native_decode.available() else "pil"
-        if self.config.decode_backend == "process":
-            if self._proc_pool is None:
-                with trace.span("ingest.spawn_decode_procs", cat="ingest",
-                                procs=self.config.decode_procs):
-                    self._proc_pool = ProcessDecodePool(
-                        self.config.decode_procs, on_respawn=self._count_respawn
-                    )
-                _logger.info("process decode backend: %d spawned worker(s)",
-                             self.config.decode_procs)
-            return None
-        return image_loaders.decode_image
+    def _ensure_thread_pool(self) -> ThreadPoolExecutor:
+        # Sized at the retune ceiling: the effective width is the in-flight
+        # window (config.decode_threads), read per member, so a tuner
+        # widens or narrows decode without rebuilding the pool.
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=self.config.max_decode_threads,
+                thread_name_prefix="keystone-decode",
+                initializer=self._register_worker,
+            )
+        return self._pool
+
+    def _ensure_proc_pool(self) -> ProcessDecodePool:
+        if self._proc_pool is None:
+            with trace.span("ingest.spawn_decode_procs", cat="ingest",
+                            procs=self.config.decode_procs):
+                self._proc_pool = ProcessDecodePool(
+                    self.config.decode_procs, on_respawn=self._count_respawn
+                )
+            _logger.info("process decode backend: %d spawned worker(s)",
+                         self.config.decode_procs)
+            self.stats.decoder = "process"
+        return self._proc_pool
 
     def _count_respawn(self) -> None:
         self.stats.worker_respawns += 1
@@ -798,19 +872,17 @@ class IngestStream:
             task, span_name = _entropy_decode_task, "ingest.entropy_decode"
             self.stats.decoder = "device"
         else:
-            task, span_name = self._host_task(), "ingest.decode"
+            self.stats.host_decoder = "native" if native_decode.available() else "pil"
+            task, span_name = image_loaders.decode_image, "ingest.decode"
             self.stats.decoder = self.config.decode_backend
-        if task is not None:
-            self._pool = ThreadPoolExecutor(
-                max_workers=self.config.decode_threads,
-                thread_name_prefix="keystone-decode",
-                initializer=self._register_worker,
-            )
 
         def submit(name, data):
-            if task is None:
-                return self._proc_pool.submit(name, data)
-            return self._pool.submit(_timed, task, data, name, span_name)
+            # The backend is read per member: a tuner may promote a running
+            # stream to process decode; both kinds of future drain through
+            # the same in-order window.
+            if not device_mode and self.config.decode_backend == "process":
+                return self._ensure_proc_pool().submit(name, data)
+            return self._ensure_thread_pool().submit(_timed, task, data, name, span_name)
 
         # shape or geometry -> (ordinals, names, images); insertion-ordered
         buckets: dict = {}
@@ -983,6 +1055,10 @@ class IngestStream:
                     item.staged = self._copier.copy(arrays)
                     self.stats.h2d_bytes += sum(int(a.nbytes) for a in arrays)
                 self._publish_metrics()
+                if self.tuner is not None:
+                    # Chunk boundary: the controller reads the stall counts
+                    # and may retune the config.
+                    self.tuner.on_chunk(self)
                 pending.append(item)
                 if len(pending) >= DEVICE_BUFFERS:
                     yield from self._consume(pending.popleft())
@@ -1050,12 +1126,21 @@ def stream_batches(
     keep: Callable[[str], bool] | None = None,
     config: StreamConfig | None = None,
     device="cuda",
+    tuner=None,
+    num_threads: int | None = None,
+    decode_ahead_slots: int | None = None,
+    capacity: int | None = None,
 ) -> IngestStream:
     """Stream shape-bucketed chunks of ``batch_size`` images from a tar (or
     a directory of tars).  ``keep`` filters member names before decode;
     ``config`` holds the knobs (:meth:`StreamConfig.from_env` when None);
     ``device`` is where :meth:`StreamBatch.dev` / :meth:`StreamBatch.apply`
-    put the pixels.  Use it as a context manager (or iterate to the end) so
-    the threads and worker processes are released, and ``join()`` to
-    assert they exited."""
-    return IngestStream(path, batch_size, keep=keep, config=config, device=device)
+    put the pixels; ``tuner`` is an explicit controller (anything with
+    ``attach(stream)`` and ``on_chunk(stream)``), else one is made when
+    ``config.autotune`` is set; ``num_threads``, ``decode_ahead_slots`` and
+    ``capacity`` override the config's initial values.  Use it as a
+    context manager (or iterate to the end) so the threads and worker
+    processes are released, and ``join()`` to assert they exited."""
+    return IngestStream(path, batch_size, keep=keep, config=config, device=device,
+                        tuner=tuner, num_threads=num_threads,
+                        decode_ahead_slots=decode_ahead_slots, capacity=capacity)

@@ -21,10 +21,11 @@ keystone_tpu/core/memory.py).
   steps down exactly one tier.  The last tier is the floor.
 * :class:`FitReport` — the audit trail estimators expose as
   ``last_fit_report``.
+* :func:`plan_cache_bytes` — the auto-Cacher's admission gate
+  (``core.optimize``), on one device.
 
-Not ported: the mesh mode (``min_chip_budget``, ``shard_bytes``), the
-cache admission of the auto-Cacher (``plan_cache_bytes``) and the compile
-cache (the port compiles nothing).
+Not ported: the mesh mode (``min_chip_budget``, ``shard_bytes``) and the
+compile cache (the port compiles nothing).
 """
 
 from __future__ import annotations
@@ -345,6 +346,58 @@ def plan_batch(
                 error=f"{type(e).__name__}: {e}"[:300],
             ))
     return out
+
+
+def plan_cache_bytes(
+    label: str,
+    nbytes: int,
+    *,
+    budget: int | None | object = _UNSET,
+    headroom: float = 0.5,
+) -> MemoryPlan:
+    """Admit or deny holding ``nbytes`` of materialized intermediates
+    resident on the card — the auto-Cacher's admission gate
+    (core.optimize).  Data only, so admission is a straight byte comparison
+    against ``headroom`` of :func:`hbm_budget`: a cache that fills all free
+    memory starves the very solve it was meant to speed up, so the default
+    admits at most half.  No budget known -> admitted unanalysed (the CPU),
+    never guessed.  Denials are counted under ``cache_admission_denied``
+    and every verdict is an ``hbm_admission`` trace event."""
+    if budget is _UNSET:
+        budget = hbm_budget()
+    if budget is None:
+        return _admission_event(MemoryPlan(
+            label=label,
+            admitted=True,
+            # The JAX package's words: a decision table reads the same in
+            # either package.
+            reason=(
+                "no HBM budget known (no device memory_stats and "
+                f"{HBM_BUDGET_ENV} unset) — cache admission skipped"
+            ),
+            output_bytes=int(nbytes),
+            total_bytes=int(nbytes),
+        ))
+    allowed = int(budget * headroom)
+    admitted = int(nbytes) <= allowed
+    h = fmt_bytes
+    reason = (
+        ("fits: " if admitted else "DENIED: ")
+        + f"cached {h(nbytes)} vs {h(allowed)} "
+        f"(budget {h(budget)} x headroom {headroom})"
+    )
+    plan = MemoryPlan(
+        label=label,
+        admitted=admitted,
+        reason=reason,
+        budget_bytes=allowed,
+        output_bytes=int(nbytes),
+        total_bytes=int(nbytes),
+        analyzed=True,
+    )
+    if not admitted:
+        counters.record("cache_admission_denied", f"{label}: {reason}")
+    return _admission_event(plan)
 
 
 # -- OOM detection / recovery -------------------------------------------------

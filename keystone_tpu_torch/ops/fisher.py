@@ -20,18 +20,19 @@ import torch
 
 from ..core.pipeline import Transformer, node
 from ..solvers.gmm import GaussianMixtureModel, _log_resp
+from ..utils.stats import sqrt_rn
 from .fv_stats import fv_stats
 
 
 def _fv_from_stats(s0, s1, s2, means, variances, weights, n_valid):
     """Mean/variance gradients from sufficient statistics.
     Batched: s0 [..., k], s1/s2 [..., d, k], n_valid [...]."""
-    sigma = torch.sqrt(variances)
+    sigma = sqrt_rn(variances)
     n_safe = torch.clamp_min(n_valid, 1.0)[..., None, None]
     s0e = s0[..., None, :]
-    g_mean = (s1 - means * s0e) / (sigma * torch.sqrt(weights) * n_safe)
+    g_mean = (s1 - means * s0e) / (sigma * sqrt_rn(weights) * n_safe)
     g_var = (s2 - 2.0 * means * s1 + (means * means - variances) * s0e) / (
-        variances * torch.sqrt(2.0 * weights) * n_safe
+        variances * sqrt_rn(2.0 * weights) * n_safe
     )
     return torch.cat([g_mean, g_var], dim=-1)  # [..., d, 2K]
 

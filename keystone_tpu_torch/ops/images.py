@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ..core.pipeline import FunctionNode, Transformer, node
 from ..utils.platform import resolve_device
+from ..utils.stats import sqrt_rn
 
 
 @node()
@@ -215,7 +216,7 @@ class Convolver(Transformer):
         psumsq = F.conv2d(x * x, self._ones)[:, 0]
         mu = psum / d
         var = (psumsq - d * mu * mu) / (d - 1.0)
-        return mu, torch.sqrt(var + self.var_constant)
+        return mu, sqrt_rn(var + self.var_constant)
 
     def terms(self, batch):
         """The raw terms of the epilogue: ``(conv_fp, mu, sigma)``, with
@@ -256,7 +257,7 @@ class GrayScaler(Transformer):
         if batch.shape[-1] == 3:
             out = batch[..., 0] * 0.1140 + batch[..., 1] * 0.5870 + batch[..., 2] * 0.2989
         else:
-            out = torch.sqrt(torch.mean(batch * batch, dim=-1))
+            out = sqrt_rn(torch.mean(batch * batch, dim=-1))
         return out[..., None]
 
 

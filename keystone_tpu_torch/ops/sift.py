@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..core.pipeline import Transformer, node
 from ..utils.platform import device_constant
+from ..utils.stats import sqrt_rn
 
 MAGNIF = 6.0
 CONTRAST_THRESHOLD = 0.005
@@ -116,7 +117,7 @@ def _orientation_planes(gy: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
     tent weight between the two adjacent orientation bins."""
     gy = gy.to(torch.float32)
     gx = gx.to(torch.float32)
-    mag = torch.sqrt(gx * gx + gy * gy)
+    mag = sqrt_rn(gx * gx + gy * gy)
     a = torch.atan2(gy, gx) * (NUM_BIN_T / (2.0 * math.pi))  # bin units
     t = torch.arange(NUM_BIN_T, dtype=a.dtype, device=a.device)[:, None, None]
     d = torch.abs(

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from ..core.pipeline import Estimator, Transformer, node
+from ..utils.stats import sqrt_rn, sum_rows
 
 
 @node(data_fields=("mean", "std"))
@@ -36,7 +37,7 @@ class StandardScaler(Estimator):
         if not self.normalize_std_dev:
             return StandardScalerModel(mean, None)
         var = ((data * data).sum(dim=0) - cnt * mean * mean) / (cnt - 1.0)
-        std = torch.sqrt(var)
+        std = sqrt_rn(var)
         bad = torch.isnan(std) | torch.isinf(std) | (torch.abs(std) < self.eps)
         std = torch.where(bad, torch.ones_like(std), std)
         return StandardScalerModel(mean, std)
@@ -89,10 +90,13 @@ class ColumnSampler:
 
 @node()
 class NormalizeRows(Transformer):
-    """L2-normalise each row, the norm floored at 2.2e-16."""
+    """L2-normalise each row, the norm floored at 2.2e-16.  The squares are
+    summed pairwise in a fixed order and rooted correctly rounded
+    (``utils.stats.sum_rows``, ``sqrt_rn``): a served row's bits do not
+    depend on how many rows share its batch, nor on the device."""
 
     def __call__(self, batch):
-        norm = torch.linalg.vector_norm(batch, dim=-1, keepdim=True)
+        norm = sqrt_rn(sum_rows(batch * batch))[..., None]
         return batch / torch.clamp_min(norm, 2.2e-16)
 
 
@@ -101,7 +105,7 @@ class SignedHellingerMapper(Transformer):
     """Signed square root ``sign(x) * sqrt(|x|)``, elementwise."""
 
     def __call__(self, batch):
-        return torch.sign(batch) * torch.sqrt(torch.abs(batch))
+        return torch.sign(batch) * sqrt_rn(torch.abs(batch))
 
 
 @node(data_fields=("W", "b"))

@@ -49,6 +49,7 @@ from ..core import trace
 from ..core.checkpoint import CheckpointError, _atomic_write_bytes
 from ..core.pipeline import Identity, LabelEstimator, Transformer
 from ..ops.stats import StandardScalerModel
+from ..utils.stats import matmul_rows
 from .normal_equations import cho_factor, cho_solve
 
 _logger = logging.getLogger("keystone_tpu_torch.solvers.block")
@@ -59,6 +60,8 @@ class BlockLinearMapper(Transformer):
 
     xs: list of [d_i, k] weight blocks; b: optional [k] intercept;
     feature_scalers: per-block transformers applied before the product.
+    Each block's product is ``utils.stats.matmul_rows``: a served row's
+    scores do not depend on how many rows share its batch.
     """
 
     def __init__(
@@ -84,7 +87,7 @@ class BlockLinearMapper(Transformer):
             )
         out = None
         for blk, x, scaler in zip(blocks, self.xs, self.feature_scalers):
-            part = scaler(blk) @ x
+            part = matmul_rows(scaler(blk), x)
             out = part if out is None else out + part
         if self.b is not None:
             out = out + self.b
@@ -120,7 +123,7 @@ class BlockLinearMapper(Transformer):
             )
         running = None
         for blk, x, scaler in zip(blocks, self.xs, self.feature_scalers):
-            part = scaler(blk) @ x
+            part = matmul_rows(scaler(blk), x)
             running = part if running is None else running + part
             evaluator(running if self.b is None else running + self.b)
 

@@ -15,30 +15,44 @@ import numpy as np
 import torch
 
 from ..core.pipeline import Estimator, LabelEstimator, Transformer, node
+from ..utils.stats import matmul_rows, sqrt_rn
 from .linear import LinearMapper
 
 
 @node(data_fields=("pca_mat",))
 class PCATransformer(Transformer):
-    """Project row vectors: ``batch @ pca_mat``."""
+    """Project row vectors: ``batch @ pca_mat``, each row's bits
+    independent of the row count (``utils.stats.matmul_rows``)."""
 
     def __init__(self, pca_mat: torch.Tensor):
         self.pca_mat = pca_mat
 
     def __call__(self, batch):
-        return batch @ self.pca_mat
+        lead = batch.shape[:-1]
+        out = matmul_rows(batch.reshape(-1, batch.shape[-1]), self.pca_mat)
+        return out.reshape(*lead, out.shape[-1])
 
 
 @node(data_fields=("pca_mat",))
 class BatchPCATransformer(Transformer):
     """Project descriptor matrices whose descriptors are columns:
-    ``[N, d, cols] -> [N, dims, cols]`` (``einsum("dk,ndc->nkc")``)."""
+    ``[N, d, cols] -> [N, dims, cols]`` (``einsum("dk,ndc->nkc")``).
+
+    One product of the same shape per matrix: a batched or folded product
+    may pick its kernel by ``N``, and a served row must not round with the
+    batch it rides in."""
 
     def __init__(self, pca_mat: torch.Tensor):
         self.pca_mat = pca_mat
 
     def __call__(self, batch):
-        return torch.matmul(self.pca_mat.T, batch)
+        if batch.dim() == 2:
+            return self.pca_mat.T @ batch
+        proj = self.pca_mat.T
+        out = batch.new_empty((batch.shape[0], proj.shape[0], batch.shape[-1]))
+        for i in range(batch.shape[0]):
+            torch.matmul(proj, batch[i], out=out[i])
+        return out
 
 
 def compute_pca(data_mat: torch.Tensor, dims: int) -> torch.Tensor:
@@ -97,7 +111,7 @@ class LinearDiscriminantAnalysis(LabelEstimator):
         class_means = sums.index_add_(0, rows, data) / counts[:, None]
         centered = data - class_means[rows]
         sw = centered.T @ centered
-        dm = (class_means - data.mean(dim=0)) * torch.sqrt(counts)[:, None]
+        dm = (class_means - data.mean(dim=0)) * sqrt_rn(counts)[:, None]
         sb = dm.T @ dm
 
         chol, info = torch.linalg.cholesky_ex(sw)

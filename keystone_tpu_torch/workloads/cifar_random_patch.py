@@ -49,13 +49,13 @@ import numpy as np
 import torch
 
 from ..core import snapshot as ksnap
-from ..core import trace
+from ..core import optimize, trace
 from ..core.checkpoint import checkpoint_exists, load_pipeline, save_pipeline
 from ..core.ingest import StreamConfig, stream_batches
 from ..core.logging import configure_logging, stage_timer
 from ..core.memory import log_fit_report
 from ..core.numerics import OutputSketch
-from ..core.pipeline import Pipeline
+from ..core.pipeline import FunctionTransformer, Pipeline
 from ..core.resilience import assert_all_finite, counters
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
 from ..loaders.cifar import LabeledImageBatch, cifar_loader
@@ -121,6 +121,15 @@ class RandomCifarConfig:
     serve_bench: bool = False
     serve_clients: int = 4
     serve_requests: int = 256
+    #: Cost-based auto-Cacher (core.optimize) on the conv featurizer of the
+    #: ``featurize then StandardScaler`` chain: fitting pushes the images
+    #: through it once and applying the fitted chain again, so a memoizing
+    #: Cacher is inserted when the measured recompute beats the cost of
+    #: holding the features.  The decision table is ``results["cache_plan"]``.
+    auto_cache: bool = False
+    #: The closed-loop ingest autotuner on the ``stream_test_tar`` stream;
+    #: its record is ``results["autotune"]``.
+    auto_tune: bool = False
 
 
 def learn_filters(
@@ -294,8 +303,8 @@ def featurize_stream(fn, stream, chunk: int) -> tuple[torch.Tensor, list]:
 
 
 def _stream_test_features(conf: RandomCifarConfig, conv_pipe, dev) -> tuple:
-    """The streamed test split's conv features on ``dev``, its member names
-    and the stream's stats.  With a snapshot root and
+    """The streamed test split's conv features on ``dev``, its member names,
+    the stream's stats and its autotuner (None without ``conf.auto_tune``).  With a snapshot root and
     ``KEYSTONE_SNAPSHOT_MODE=featurized`` the features come from (or are
     teed into) a featurized snapshot keyed by the fitted featurizer's
     digest and the decode mode, which changes the pixels the features were
@@ -303,17 +312,20 @@ def _stream_test_features(conf: RandomCifarConfig, conv_pipe, dev) -> tuple:
     cfg = stream_config_from_flags(
         decode_backend=conf.decode_backend, snapshot_dir=conf.snapshot_dir,
         device_decode=conf.device_decode, supports_featurized=True,
+        autotune=conf.auto_tune,
     )
     chunk = conf.featurize_chunk
     tar = conf.stream_test_tar
+    streams: list = []
 
     def make_stream():
-        return stream_batches(tar, chunk, config=cfg, device=dev)
+        streams.append(stream_batches(tar, chunk, config=cfg, device=dev))
+        return streams[-1]
 
     if not (cfg.snapshot_dir and cfg.snapshot_mode == "featurized"):
         with make_stream() as st:
             feats, names = featurize_stream(conv_pipe, st, chunk)
-        return feats, names, st.stats
+        return feats, names, st.stats, st.tuner
     key = ksnap.snapshot_key(
         tar, batch_size=chunk, mode="featurized",
         featurizer=ksnap.featurizer_digest(conv_pipe), extra=f"decode_mode={cfg.decode_mode}",
@@ -322,7 +334,9 @@ def _stream_test_features(conf: RandomCifarConfig, conv_pipe, dev) -> tuple:
         make_stream, lambda b: conv_pipe(_pad_to_chunk(b, chunk))[: len(b)].cpu().numpy(),
         root=cfg.snapshot_dir, key=key, tar_path=tar,
     )
-    return torch.from_numpy(feats).to(dev), names, stats
+    # A snapshot that served the features streamed nothing: no tuner.
+    tuner = streams[-1].tuner if streams else None
+    return torch.from_numpy(feats).to(dev), names, stats, tuner
 
 
 def apply_servable_chunked(servable, images: np.ndarray, chunk: int) -> np.ndarray:
@@ -359,14 +373,46 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
     featurize_chunked(conv_pipe, train.images[:1], conf.featurize_chunk, dev)
     synchronize(dev)
 
-    t_feat = time.perf_counter()
-    with stage_timer("featurize"):
-        train_conv = featurize_chunked(conv_pipe, train.images, conf.featurize_chunk, dev)
-        synchronize(dev)
-    feat_secs = time.perf_counter() - t_feat
+    cache_plan = None
+    if conf.auto_cache:
+        # The KeystoneML optimizer pass over ``featurize then_estimator
+        # StandardScaler``: the fit and the fitted application each push
+        # the images through the featurizer (reuse 2, measured on a
+        # sample), and a memoizing Cacher replays the fit's features when
+        # the recompute beats holding them.  The memo is keyed on the
+        # identity of the pipeline's input, so the fit and the fitted
+        # chain get the very same host array.
+        images = train.images
+        feat_node = FunctionTransformer(
+            lambda imgs: featurize_chunked(conv_pipe, imgs, conf.featurize_chunk, dev),
+            name="conv_featurize",
+        )
+        chain, cache_plan = optimize.auto_cache_chain(
+            feat_node.then_estimator(StandardScaler()),
+            images[: min(len(images), conf.featurize_chunk)],
+            dataset_rows=len(images),
+        )
+        t_feat = time.perf_counter()
+        with stage_timer("featurize"):
+            fitted_feats = chain.fit(images)
+            train_features = fitted_feats(images)
+            synchronize(dev)
+        # Covers the featurize, the scaler's fit and its application: one
+        # chain here, where the plain path times the featurize alone.
+        feat_secs = time.perf_counter() - t_feat
+        scaler = fitted_feats.nodes[-1]
+        # The memo kept the features alive for the replay: free them
+        # before the solve claims the card's memory.
+        optimize.release_caches(fitted_feats)
+    else:
+        t_feat = time.perf_counter()
+        with stage_timer("featurize"):
+            train_conv = featurize_chunked(conv_pipe, train.images, conf.featurize_chunk, dev)
+            synchronize(dev)
+        feat_secs = time.perf_counter() - t_feat
 
-    scaler = StandardScaler().fit(train_conv)
-    train_features = scaler(train_conv)
+        scaler = StandardScaler().fit(train_conv)
+        train_features = scaler(train_conv)
 
     labels = ClassLabelIndicatorsFromIntLabels(conf.num_classes)(
         torch.from_numpy(train.labels).to(dev)
@@ -385,14 +431,14 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
     def predict(features):
         return MaxClassifier()(model(features))
 
-    ingest_stats = names = None
+    ingest_stats = names = tuner = None
     with stage_timer("eval"):
         train_pred = predict(train_features)
         train_eval = MulticlassClassifierEvaluator(
             train_pred, torch.from_numpy(train.labels).to(dev), conf.num_classes
         )
         if conf.stream_test_tar is not None:
-            test_conv, names, stats = _stream_test_features(conf, conv_pipe, dev)
+            test_conv, names, stats, tuner = _stream_test_features(conf, conv_pipe, dev)
             ingest_stats = asdict(stats)
             test_labels = np.asarray([cifar_tar_label(n) for n in names], np.int32)
         else:
@@ -421,6 +467,12 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
         results["ingest"] = ingest_stats
         results["test_labels"] = test_labels
         results["test_filenames"] = names
+    if cache_plan is not None:
+        results["cache_plan"] = cache_plan.record()
+    if tuner is not None:
+        results["autotune"] = tuner.record()
+        _log.info("ingest autotune: %d retune(s), final config %s",
+                  results["autotune"]["retunes"], results["autotune"]["final_config"])
     if conf.pipeline_file is not None:
         # The predicted-class distribution rides the manifest as the
         # reference a serving tier's drift monitor judges answers against.
@@ -540,6 +592,17 @@ def main(argv=None) -> dict:
         "split's conv features), a repeat run reads them (KEYSTONE_SNAPSHOT_DIR)",
     )
     p.add_argument(
+        "--autoCache", action="store_true",
+        help="cost-based auto-Cacher (core.optimize): profile the conv featurizer on a "
+        "sample and cache its training features when the recompute beats holding them "
+        "(env KEYSTONE_AUTOCACHE=1)",
+    )
+    p.add_argument(
+        "--autoTune", action="store_true",
+        help="with --streamTestTar: the closed-loop ingest autotuner retunes decode width, "
+        "decode-ahead, ring depth and the decode backend from the stall counters",
+    )
+    p.add_argument(
         "--pipelineFile", default=None,
         help="checkpoint stem of the fitted servable chain (featurizer + scaler + "
         "model + classifier): saved after a fit, restored without a fit when it exists",
@@ -560,6 +623,8 @@ def main(argv=None) -> dict:
         p.error("one of --testLocation / --streamTestTar is required")
     if a.deviceDecode and a.streamTestTar is None:
         p.error("--deviceDecode needs --streamTestTar")
+    if a.autoTune and a.streamTestTar is None:
+        p.error("--autoTune needs --streamTestTar")
     if (a.decodeBackend or a.snapshotDir) and not (a.streamTestTar or a.streamTrainTar):
         p.error("--decodeBackend and --snapshotDir need --streamTestTar or --streamTrainTar")
     if a.trace:
@@ -587,6 +652,8 @@ def main(argv=None) -> dict:
         serve_bench=a.serveBench,
         serve_clients=a.serveClients,
         serve_requests=a.serveRequests,
+        auto_cache=a.autoCache or optimize.auto_cache_env(),
+        auto_tune=a.autoTune,
     )
     resolve_device(conf.device)
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)

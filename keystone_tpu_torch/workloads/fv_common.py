@@ -6,10 +6,13 @@ fixed-width feature rows are scattered back to the original image order.
 The streaming helpers build the same buckets from a ``core.ingest`` stream,
 and :func:`stream_features_snapshot` serves a streamed featurize pass from
 a featurized snapshot (``core.snapshot``) when one is committed.
+:func:`plan_pca_materialization` is the auto-Cacher's decision on the
+PCA-projected training descriptors (``--autoCache``).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable
 
@@ -67,11 +70,15 @@ def grayscale(batch: torch.Tensor) -> torch.Tensor:
     return GrayScaler()(PixelScaler()(batch))[..., 0]
 
 
-def sample_columns(desc_buckets: dict, num_samples: int, seed: int = 42) -> torch.Tensor:
+def sample_columns(desc_buckets: dict, num_samples: int, seed: int = 42,
+                   project=None) -> torch.Tensor:
     """Uniform sample of descriptor columns over per-bucket [n, d, cols]
     arrays -> [d, <= num_samples].  Each bucket gives its proportional quota,
     drawn by ``np.random.default_rng(seed)`` as in the JAX package, so the
-    same descriptors give the same columns."""
+    same descriptors give the same columns.  ``project`` (a bucket's
+    ``[n, d, cols] -> [n, d', cols]`` projection) samples the projected
+    buckets without holding them all: one bucket is projected at a time,
+    with the bits of the whole projected set."""
     rng = np.random.default_rng(seed)
     totals = {
         shape: len(idx) * descs.shape[2] for shape, (idx, descs) in desc_buckets.items()
@@ -87,6 +94,8 @@ def sample_columns(desc_buckets: dict, num_samples: int, seed: int = 42) -> torc
             quota = min(total, max(1, int(num_samples * total / grand_total)))
             idx = np.sort(rng.choice(total, quota, replace=False))
         im, col = np.divmod(idx, c)
+        if project is not None:
+            descs = project(descs)
         im = torch.from_numpy(im).to(descs.device)
         col = torch.from_numpy(col).to(descs.device)
         picks.append(descs[im, :, col].T)  # [d, quota]
@@ -114,16 +123,53 @@ def scatter_features(buckets: dict, transform, n_total: int, feature_dim: int) -
     return out
 
 
+def plan_pca_materialization(desc_buckets: dict, batch_pca, reuse: int, *,
+                             label: str = "pca_descriptors"):
+    """The auto-Cacher's decision (``core.optimize``) on the PCA-projected
+    training descriptors, which GMM sampling and the Fisher features both
+    consume.  The projection is timed on the smallest bucket, after one
+    warm-up call (a first call on the card can hold a kernel's first-use
+    build and the BLAS set-up, which the dataset ratio would scale up);
+    seconds and bytes scale to the whole set, and the caching inequality
+    runs through the card's admission gate.
+
+    Returns ``(CachePlan, materialize)``.  ``materialize`` keeps the
+    projected set whole between its consumers (the raw buckets dropped
+    once projected); otherwise each consumer projects one bucket at a time
+    from the raw set — the same products on the same buckets, so the
+    samples and features are bit-identical."""
+    from ..core import optimize
+    from ..core.pipeline import _synchronize
+
+    _shape, (_idx, probe) = min(desc_buckets.items(), key=lambda kv: kv[1][1].numel())
+    _synchronize(batch_pca(probe))
+    t0 = time.perf_counter()
+    out = batch_pca(probe)
+    _synchronize(out)
+    probe_secs = time.perf_counter() - t0
+    probe_cols = int(probe.shape[0]) * int(probe.shape[2])
+    total_cols = sum(int(d.shape[0]) * int(d.shape[2]) for _, d in desc_buckets.values())
+    scale = total_cols / max(1, probe_cols)
+    plan = optimize.plan_caches([
+        optimize.CacheCandidate(
+            index=0, name=label, seconds=probe_secs * scale,
+            output_bytes=int(out.nbytes * scale), reuse=reuse,
+        )
+    ])
+    return plan, plan.decisions[0].cached
+
+
 def stream_config_from_flags(
     *, decode_backend: str | None = None, snapshot_dir: str | None = None,
     snapshot_extra: str | None = None, supports_featurized: bool = False,
-    device_decode: bool = False,
+    device_decode: bool = False, autotune: bool = False,
 ) -> StreamConfig:
     """The ``StreamConfig`` of a workload's streams: the environment's
     ``KEYSTONE_*`` knobs (:meth:`StreamConfig.from_env`), overridden by the
     workload's ``--decodeBackend`` / ``--snapshotDir`` / ``--deviceDecode``
-    flags (``decode_mode="device"``: the entropy pass on the host, the
-    pixels born on the card).  ``snapshot_extra`` keys the stream's member
+    / ``--autoTune`` flags (``decode_mode="device"``: the entropy pass on
+    the host, the pixels born on the card; ``autotune``: the closed-loop
+    ingest autotuner on every stream).  ``snapshot_extra`` keys the stream's member
     selection (keep filters, label files) into the snapshot key.
 
     ``supports_featurized``: set by callers that wrap the stream in
@@ -133,6 +179,7 @@ def stream_config_from_flags(
     cfg = StreamConfig.from_env(
         decode_backend=decode_backend, snapshot_dir=snapshot_dir,
         snapshot_extra=snapshot_extra, decode_mode="device" if device_decode else None,
+        autotune=True if autotune else None,
     )
     if cfg.snapshot_dir and cfg.snapshot_mode == "featurized" and not supports_featurized:
         counters.record(
@@ -248,11 +295,15 @@ class StreamSource:
     snapshot_dir: str | None = None
     #: the snapshot key's record of what ``keep`` selects (the label file)
     snapshot_extra: str | None = None
+    #: ``--autoTune``: the closed-loop ingest autotuner on every pass
+    autotune: bool = False
 
     def __post_init__(self):
         self._names: list | None = None
         #: the ``core.ingest.StreamStats`` of every pass, in order
         self.stream_stats: list = []
+        #: each tuned pass's ``IngestAutotuner.record()``, in order
+        self.autotune_records: list = []
 
     @property
     def images(self) -> "StreamSource":
@@ -291,13 +342,26 @@ class StreamSource:
         cfg = stream_config_from_flags(
             decode_backend=self.decode_backend, snapshot_dir=self.snapshot_dir,
             snapshot_extra=self.snapshot_extra, device_decode=self.device_decode,
+            autotune=self.autotune,
         )
         with stream_batches(self.data_path, self.batch_size, keep=self.keep, config=cfg,
                             device=device) as st:
             out, names = consume(st)
         self.record_names(names)
         self.stream_stats.append(st.stats)
+        if st.tuner is not None:
+            self.autotune_records.append(st.tuner.record())
         return out
+
+
+def collect_autotune(train, test) -> dict:
+    """The ``results["autotune"]`` section: each streamed split's list of
+    autotuner records, one per pass (empty when nothing was tuned)."""
+    return {
+        split: src.autotune_records
+        for split, src in (("train", train), ("test", test))
+        if getattr(src, "autotune_records", None)
+    }
 
 
 def _ordered_names(pairs: list, n: int) -> list:

@@ -24,7 +24,14 @@ once per branch and per split; with ``--deviceDecode`` the host runs only
 the JPEG entropy pass and the pixels are decoded on the card.
 ``--decodeBackend process`` decodes on spawned worker processes, and with
 ``--snapshotDir`` the first pass over a split writes its decoded chunks, so
-the second branch's pass (and a repeat run) streams them from disk.
+the second branch's pass (and a repeat run) streams them from disk;
+``--autoTune`` retunes each stream's decode from its stall counters.
+``--autoCache`` lets the auto-Cacher (``core.optimize``) decide per branch
+whether the projected training descriptors stay whole between GMM
+sampling and the Fisher features or are re-projected for each consumer.
+``--pipelineFile`` saves the fitted ``{sift_pca, sift_gmm, lcs_pca,
+lcs_gmm, model}`` bundle in the JAX package's checkpoint format, and a run
+that finds it restores it and reads no training data.
 """
 
 from __future__ import annotations
@@ -37,8 +44,9 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
+from ..core import optimize, trace
 from ..core import snapshot as ksnap
-from ..core import trace
+from ..core.checkpoint import checkpoint_exists, load_pipeline, save_pipeline
 from ..core.logging import configure_logging, stage_timer
 from ..core.memory import log_fit_report
 from ..core.resilience import assert_all_finite
@@ -55,9 +63,11 @@ from ..utils.stats import get_err_percent
 from .fv_common import (
     StreamSource,
     chunked,
+    collect_autotune,
     describe_buckets,
     fisher_feature_pipeline,
     grayscale,
+    plan_pca_materialization,
     sample_columns,
     scatter_features,
     scatter_features_streaming,
@@ -79,6 +89,7 @@ BRANCHES = ("sift", "lcs")
 def imagenet_stream_source(
     data_path: str, labels_path: str, batch_size: int = 32, device_decode: bool = False,
     decode_backend: str | None = None, snapshot_dir: str | None = None,
+    autotune: bool = False,
 ) -> StreamSource:
     """Streaming stand-in for :func:`imagenet_loader`: the members whose
     synset directory the labels file names, labelled with its id, decoded
@@ -94,6 +105,7 @@ def imagenet_stream_source(
         batch_size=batch_size, device_decode=device_decode, decode_backend=decode_backend,
         snapshot_dir=snapshot_dir,
         snapshot_extra=f"imagenet:{ksnap.file_identity(labels_path)}",
+        autotune=autotune,
     )
 
 
@@ -123,6 +135,13 @@ class ImageNetSiftLcsFVConfig:
     num_classes: int = 1000
     seed: int = 42
     device: str = "cuda"
+    #: Checkpoint stem of the fitted bundle: saved after a fit, restored
+    #: (no fit, no training data read) when it exists.
+    pipeline_file: str | None = None
+    #: Cost-based auto-Cacher (core.optimize) on each branch's projected
+    #: training descriptors; the decision tables are
+    #: ``results["cache_plan"]``.
+    auto_cache: bool = False
 
     def branch_files(self, branch: str) -> tuple:
         """(pca_file, (mean, var, wts) files) of ``branch``."""
@@ -165,8 +184,11 @@ def _fit_branch(conf: ImageNetSiftLcsFVConfig, desc_buckets: dict, branch: str, 
     """Fit (or load) the branch's PCA and GMM from the training descriptors
     and project them.  ``desc_buckets`` is consumed: each raw bucket is
     dropped as soon as its projection exists, so the raw set and the
-    projected set never both stay whole.  Returns (batch_pca, gmm,
-    projected buckets, seconds by stage)."""
+    projected set never both stay whole.  With ``conf.auto_cache`` the
+    auto-Cacher decides that materialization; denied, the raw buckets stay
+    and each consumer projects one bucket at a time (the same bits), and
+    the projected buckets come back as None.  Returns (batch_pca, gmm,
+    projected buckets or None, seconds by stage, the cache plan or None)."""
     dev = resolve_device(conf.device)
     pca_file, (mean_f, var_f, wts_f) = conf.branch_files(branch)
     seed = conf.branch_seed(branch)
@@ -182,26 +204,40 @@ def _fit_branch(conf: ImageNetSiftLcsFVConfig, desc_buckets: dict, branch: str, 
     batch_pca = BatchPCATransformer(pca_mat)
     secs["pca_fit"] = lap(t)
 
+    materialize, plan = True, None
+    if conf.auto_cache:
+        # GMM sampling (when a GMM is fitted) and the Fisher features.
+        reuse = (0 if mean_f is not None else 1) + 1
+        plan, materialize = plan_pca_materialization(
+            desc_buckets, batch_pca, reuse, label=f"{branch}_pca_descriptors")
+        _log.info("%s branch %s", branch, plan.summary())
+
     t = time.perf_counter()
-    pca_desc = {}
-    for shape in list(desc_buckets):
-        idx, descs = desc_buckets.pop(shape)
-        pca_desc[shape] = (idx, batch_pca(descs))
-        del descs
+    pca_desc = None
+    if materialize:
+        pca_desc = {}
+        for shape in list(desc_buckets):
+            idx, descs = desc_buckets.pop(shape)
+            pca_desc[shape] = (idx, batch_pca(descs))
+            del descs
     secs["project"] = lap(t)
 
     t = time.perf_counter()
     if mean_f is not None:
         gmm = GaussianMixtureModel.load(mean_f, var_f, wts_f, device=dev)
     else:
-        gmm_samples = sample_columns(pca_desc, conf.num_gmm_samples, seed + 1)
+        if pca_desc is not None:
+            gmm_samples = sample_columns(pca_desc, conf.num_gmm_samples, seed + 1)
+        else:
+            gmm_samples = sample_columns(desc_buckets, conf.num_gmm_samples, seed + 1,
+                                         project=batch_pca)
         if gmm_samples.shape[1] > GMM_FIT_CAP:
             gmm_samples = gmm_samples[:, :GMM_FIT_CAP].clone()
         gmm = GaussianMixtureModelEstimator(conf.vocab_size).fit(gmm_samples.T)
         del gmm_samples
     assert_all_finite(gmm, f"{branch} branch GMM fit")
     secs["gmm"] = lap(t)
-    return batch_pca, gmm, pca_desc, secs
+    return batch_pca, gmm, pca_desc, secs, plan
 
 
 def branch_test_features(
@@ -228,7 +264,8 @@ def branch_test_features(
 def branch_features(conf: ImageNetSiftLcsFVConfig, train_images, test_images, branch: str):
     """Fit ``branch`` on the training images and featurize both splits.
     Returns (train features, test features, batch_pca, gmm, seconds by
-    stage); the raw training descriptors are gone when it returns."""
+    stage, cache plan or None); the raw training descriptors are gone when
+    it returns."""
     dev = resolve_device(conf.device)
 
     def lap(start: float) -> float:
@@ -238,27 +275,32 @@ def branch_features(conf: ImageNetSiftLcsFVConfig, train_images, test_images, br
     t = time.perf_counter()
     train_desc = descriptor_buckets(conf, train_images, branch)
     describe_secs = lap(t)
-    batch_pca, gmm, pca_desc, secs = _fit_branch(conf, train_desc, branch, lap)
+    batch_pca, gmm, pca_desc, secs, plan = _fit_branch(conf, train_desc, branch, lap)
     secs["describe"] = describe_secs
     t = time.perf_counter()
     feat_dim = 2 * conf.desc_dim * conf.vocab_size
-    train_feats = scatter_features(
-        pca_desc, fisher_feature_pipeline(gmm), len(train_images), feat_dim
-    )
-    del pca_desc
+    fisher = fisher_feature_pipeline(gmm)
+    if pca_desc is not None:
+        train_feats = scatter_features(pca_desc, fisher, len(train_images), feat_dim)
+    else:
+        train_feats = scatter_features(
+            train_desc, lambda d: fisher(batch_pca(d)), len(train_images), feat_dim)
+    del pca_desc, train_desc
     secs["fisher"] = lap(t)
     t = time.perf_counter()
     test_feats = branch_test_features(conf, test_images, branch, batch_pca, gmm)
     secs["test"] = lap(t)
-    return train_feats, test_feats, batch_pca, gmm, secs
+    return train_feats, test_feats, batch_pca, gmm, secs, plan
 
 
 def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages) -> dict:
-    """Fit on ``train``, score ``test``.  The results carry the top-5 and
-    top-1 errors, the stage seconds, the test scores and the fitted
-    ``{sift_pca, sift_gmm, lcs_pca, lcs_gmm, model}`` under ``"bundle"``.
-    Each stage (``sift_branch``, ``lcs_branch``, ``solve``, ``eval``) is a
-    ``stage_timer`` span that ends after a synchronize."""
+    """Fit on ``train`` (or, with an existing ``conf.pipeline_file``,
+    restore the fitted bundle and never read ``train``), score ``test``.
+    The results carry the top-5 and top-1 errors, the stage seconds, the
+    test scores and the fitted ``{sift_pca, sift_gmm, lcs_pca, lcs_gmm,
+    model}`` under ``"bundle"``.  Each stage (``sift_branch``,
+    ``lcs_branch``, ``solve``, ``eval``) is a ``stage_timer`` span that
+    ends after a synchronize."""
     configure_logging()
     dev = resolve_device(conf.device)
     t0 = time.perf_counter()
@@ -267,31 +309,51 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
         synchronize(dev)
         return time.perf_counter() - start
 
-    feats, fitted, stage, branch_secs = {}, {}, {}, {}
+    restored = conf.pipeline_file is not None and checkpoint_exists(conf.pipeline_file)
+    feats, fitted, stage, branch_secs, plans = {}, {}, {}, {}, {}
+    if restored:
+        _log.info("restoring fitted pipeline from %s", conf.pipeline_file)
+        fitted = load_pipeline(conf.pipeline_file, device=dev)
     for branch in BRANCHES:
         t = time.perf_counter()
         with stage_timer(f"{branch}_branch"):
-            train_f, test_f, batch_pca, gmm, stage[branch] = branch_features(
-                conf, train.images, test.images, branch
-            )
-            feats[branch] = (train_f, test_f)
-            fitted[f"{branch}_pca"], fitted[f"{branch}_gmm"] = batch_pca, gmm
+            if restored:
+                feats[branch] = (None, branch_test_features(
+                    conf, test.images, branch, fitted[f"{branch}_pca"],
+                    fitted[f"{branch}_gmm"]))
+            else:
+                train_f, test_f, batch_pca, gmm, stage[branch], plan = branch_features(
+                    conf, train.images, test.images, branch
+                )
+                feats[branch] = (train_f, test_f)
+                fitted[f"{branch}_pca"], fitted[f"{branch}_gmm"] = batch_pca, gmm
+                if plan is not None:
+                    plans[branch] = plan.record()
             branch_secs[branch] = lap(t)
 
-    train_features = ZipVectors.apply([feats[b][0] for b in BRANCHES])
     test_features = ZipVectors.apply([feats[b][1] for b in BRANCHES])
-    del feats
-    labels = ClassLabelIndicatorsFromIntLabels(conf.num_classes)(train.labels).to(dev)
+    solve_secs = None
+    if restored:
+        model = fitted["model"]
+        del feats
+    else:
+        train_features = ZipVectors.apply([feats[b][0] for b in BRANCHES])
+        del feats
+        labels = ClassLabelIndicatorsFromIntLabels(conf.num_classes)(train.labels).to(dev)
 
-    t = time.perf_counter()
-    with stage_timer("solve"):
-        solver = BlockWeightedLeastSquaresEstimator(4096, 1, conf.lam, conf.mixture_weight)
-        model = solver.fit(
-            train_features, labels, num_features=2 * 2 * conf.desc_dim * conf.vocab_size
-        )
-        log_fit_report(solver, _log, "ImageNet weighted block solve")
-        assert_all_finite(model, "ImageNet weighted block solve")
-        solve_secs = lap(t)
+        t = time.perf_counter()
+        with stage_timer("solve"):
+            solver = BlockWeightedLeastSquaresEstimator(4096, 1, conf.lam, conf.mixture_weight)
+            model = solver.fit(
+                train_features, labels, num_features=2 * 2 * conf.desc_dim * conf.vocab_size
+            )
+            log_fit_report(solver, _log, "ImageNet weighted block solve")
+            assert_all_finite(model, "ImageNet weighted block solve")
+            solve_secs = lap(t)
+        del train_features
+        if conf.pipeline_file is not None:
+            save_pipeline(conf.pipeline_file, {**fitted, "model": model})
+            _log.info("saved fitted pipeline to %s", conf.pipeline_file)
 
     t = time.perf_counter()
     with stage_timer("eval"):
@@ -302,24 +364,31 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
         eval_secs = lap(t)
     test_labels = np.asarray(test.labels)
 
-    featurize = sum(stage[b][s] for b in BRANCHES for s in ("describe", "project", "fisher"))
     results = {
         "top5_err_percent": get_err_percent(topk, test_labels, k),
         "top1_err_percent": get_err_percent(topk, test_labels, 1),
         "seconds": time.perf_counter() - t0,
         "sift_branch_seconds": branch_secs["sift"],
         "lcs_branch_seconds": branch_secs["lcs"],
-        "solve_seconds": solve_secs,
         "eval_seconds": eval_secs,
-        "branch_stage_seconds": stage,
-        # Descriptors -> PCA projection -> Fisher features of the training
-        # split, both branches.
-        "featurize_images_per_sec": len(train) / featurize,
         "test_scores": scores,
         "test_labels": test_labels,
         "test_filenames": list(test.filenames),
         "bundle": {**fitted, "model": model},
     }
+    if restored:
+        results["restored"] = True
+    else:
+        featurize = sum(stage[b][s] for b in BRANCHES for s in ("describe", "project", "fisher"))
+        results.update({
+            "solve_seconds": solve_secs,
+            "branch_stage_seconds": stage,
+            # Descriptors -> PCA projection -> Fisher features of the
+            # training split, both branches.
+            "featurize_images_per_sec": len(train) / featurize,
+        })
+    if plans:
+        results["cache_plan"] = plans
     ingest = {
         split: [asdict(s) for s in src.stream_stats]
         for split, src in (("train", train), ("test", test))
@@ -327,6 +396,10 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
     }
     if ingest:
         results["ingest"] = ingest
+    autotune = collect_autotune(train, test)
+    if autotune:
+        results["autotune"] = autotune
+        _log.info("ingest autotune: %s", autotune)
     _log.info("TEST Top-%d error is: %s %%", k, results["top5_err_percent"])
     _log.info("TEST Top-1 error is: %s %%", results["top1_err_percent"])
     _log.info("Pipeline took %.3f s", results["seconds"])
@@ -376,6 +449,23 @@ def main(argv=None) -> dict:
         "reads them (KEYSTONE_SNAPSHOT_DIR)",
     )
     p.add_argument(
+        "--autoTune", action="store_true",
+        help="with --streamIngest: the closed-loop ingest autotuner retunes decode width, "
+        "decode-ahead, ring depth and the decode backend from the stall counters",
+    )
+    p.add_argument(
+        "--autoCache", action="store_true",
+        help="cost-based auto-Cacher (core.optimize): per branch, keep the projected "
+        "training descriptors whole or re-project per consumer, decided from a timed probe "
+        "through the card's admission gate (env KEYSTONE_AUTOCACHE=1)",
+    )
+    p.add_argument(
+        "--pipelineFile", default=None,
+        help="checkpoint stem of the fitted {sift_pca, sift_gmm, lcs_pca, lcs_gmm, model} "
+        "bundle: saved after a fit, restored without a fit (or a read of the training "
+        "data) when it exists",
+    )
+    p.add_argument(
         "--trace", default=None, metavar="PATH",
         help="write a Chrome-trace JSON (.jsonl for the JSONL event log) of the run",
     )
@@ -383,7 +473,7 @@ def main(argv=None) -> dict:
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
     a = p.parse_args(argv)
-    for flag in ("deviceDecode", "decodeBackend", "snapshotDir"):
+    for flag in ("deviceDecode", "decodeBackend", "snapshotDir", "autoTune"):
         if getattr(a, flag) and not a.streamIngest:
             p.error(f"--{flag} needs --streamIngest")
     if a.trace:
@@ -413,21 +503,25 @@ def main(argv=None) -> dict:
         num_gmm_samples=a.numGmmSamples,
         num_classes=a.numClasses,
         device=a.device,
+        pipeline_file=a.pipelineFile,
+        auto_cache=a.autoCache or optimize.auto_cache_env(),
     )
     resolve_device(conf.device)
-    try:
+    restoring = conf.pipeline_file is not None and checkpoint_exists(conf.pipeline_file)
+
+    def load(path: str):
         if a.streamIngest:
-            train, test = (
-                imagenet_stream_source(path, conf.label_path, batch_size=a.streamBatchSize,
-                                       device_decode=a.deviceDecode,
-                                       decode_backend=a.decodeBackend,
-                                       snapshot_dir=a.snapshotDir)
-                for path in (conf.train_location, conf.test_location)
-            )
-        else:
-            train = imagenet_loader(conf.train_location, conf.label_path)
-            test = imagenet_loader(conf.test_location, conf.label_path)
-        return run(conf, train, test)
+            return imagenet_stream_source(path, conf.label_path, batch_size=a.streamBatchSize,
+                                          device_decode=a.deviceDecode,
+                                          decode_backend=a.decodeBackend,
+                                          snapshot_dir=a.snapshotDir, autotune=a.autoTune)
+        return imagenet_loader(path, conf.label_path)
+
+    try:
+        # A restored run never reads (or streams) the training split.
+        train = (LabeledImages([], np.zeros(0, np.int32), []) if restoring
+                 else load(conf.train_location))
+        return run(conf, train, load(conf.test_location))
     finally:
         if a.trace:
             trace.flush()

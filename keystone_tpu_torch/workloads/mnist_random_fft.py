@@ -34,7 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core import trace
+from ..core import optimize, trace
 from ..core.checkpoint import checkpoint_exists, load_pipeline, save_pipeline
 from ..core.logging import configure_logging, stage_timer
 from ..core.memory import log_fit_report
@@ -83,6 +83,13 @@ class MnistRandomFFTConfig:
     serve_bench: bool = False
     serve_clients: int = 4
     serve_requests: int = 256
+    #: Cost-based auto-Cacher (core.optimize): whether the featurized
+    #: training batches stay resident from the solve to the train-split
+    #: eval, decided from the measured featurize seconds and their bytes
+    #: through the card's admission gate; denied, they are freed after the
+    #: solve and rebuilt at eval (the same bits).  The decision table is
+    #: ``results["cache_plan"]``.
+    auto_cache: bool = False
 
 
 def fft_chain(signs) -> Pipeline:
@@ -142,6 +149,21 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
         synchronize(dev)
     feat_secs = time.perf_counter() - t_feat
 
+    cache_plan = None
+    keep_features = True
+    if conf.auto_cache:
+        # The featurized training batches are consumed twice: the block
+        # solve, then the train-split eval.
+        cache_plan = optimize.plan_caches(
+            [optimize.CacheCandidate(
+                index=0, name="fft_features", seconds=feat_secs,
+                output_bytes=sum(int(b.nbytes) for b in training_batches), reuse=2,
+            )],
+            dataset_rows=len(train.labels),
+        )
+        keep_features = cache_plan.decisions[0].cached
+        _log.info("%s", cache_plan.summary())
+
     t_solve = time.perf_counter()
     with stage_timer("solve"):
         solver = BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0)
@@ -150,8 +172,14 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
         log_fit_report(solver, _log, "mnist random-fft solve")
         assert_all_finite(model, "mnist random-fft model")
     solve_secs = time.perf_counter() - t_solve
+    if not keep_features:
+        # Residency priced above a recompute: free the batches through the
+        # solve-to-eval gap and rebuild them at eval.
+        training_batches = None
 
     results: dict = {}
+    if cache_plan is not None:
+        results["cache_plan"] = cache_plan.record()
 
     def train_eval(pred):
         metrics = MulticlassClassifierEvaluator(
@@ -168,6 +196,8 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
     # Streaming evaluation after each block; the last call sees the full model.
     t_eval = time.perf_counter()
     with stage_timer("eval"):
+        if training_batches is None:
+            training_batches = featurize_groups(groups, train_data)
         model.apply_and_evaluate(training_batches, train_eval)
         _log.info("Train Error is %s%%", results["train_error"])
         del training_batches
@@ -263,6 +293,12 @@ def main(argv=None) -> dict:
         help="block-solve state to resume an interrupted fit from",
     )
     p.add_argument(
+        "--autoCache", action="store_true",
+        help="cost-based auto-Cacher (core.optimize): keep the featurized training batches "
+        "from the solve to the eval, or rebuild them, decided from the measured featurize "
+        "time and their bytes through the card's admission gate (env KEYSTONE_AUTOCACHE=1)",
+    )
+    p.add_argument(
         "--trace", default=None, metavar="PATH",
         help="write a Chrome-trace JSON (.jsonl for the JSONL event log) of the run",
     )
@@ -292,6 +328,7 @@ def main(argv=None) -> dict:
         serve_bench=a.serveBench,
         serve_clients=a.serveClients,
         serve_requests=a.serveRequests,
+        auto_cache=a.autoCache or optimize.auto_cache_env(),
     )
     resolve_device(conf.device)
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)

@@ -48,7 +48,7 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
-from ..core import trace
+from ..core import optimize, trace
 from ..core import snapshot as ksnap
 from ..core.checkpoint import checkpoint_exists, load_pipeline, save_pipeline
 from ..core.logging import configure_logging, stage_timer
@@ -76,7 +76,9 @@ from .fv_common import (
     chunked,
     describe_buckets,
     fisher_feature_pipeline,
+    collect_autotune,
     grayscale,
+    plan_pca_materialization,
     sample_columns,
     scatter_features,
     stream_descriptor_buckets,
@@ -92,7 +94,7 @@ SIFT_CHUNK = 32
 def voc_stream_source(
     data_path: str, labels_path: str, name_prefix: str = "VOCdevkit/VOC2007/JPEGImages/",
     batch_size: int = 64, device_decode: bool = False, decode_backend: str | None = None,
-    snapshot_dir: str | None = None,
+    snapshot_dir: str | None = None, autotune: bool = False,
 ) -> StreamSource:
     """Streaming stand-in for :func:`voc_loader`: the members under
     ``name_prefix`` that the labels CSV names, labelled with their class
@@ -104,6 +106,7 @@ def voc_stream_source(
         label=lm.__getitem__, batch_size=batch_size, device_decode=device_decode,
         decode_backend=decode_backend, snapshot_dir=snapshot_dir,
         snapshot_extra=f"voc:{name_prefix}:{ksnap.file_identity(labels_path)}",
+        autotune=autotune,
     )
 
 
@@ -138,6 +141,11 @@ class SIFTFisherConfig:
     serve_bench: bool = False
     serve_clients: int = 4
     serve_requests: int = 64
+    #: Cost-based auto-Cacher (core.optimize): whether the PCA-projected
+    #: training descriptors stay whole between GMM sampling and the Fisher
+    #: features, decided from a timed probe through the card's admission
+    #: gate.  The decision table is ``results["cache_plan"]``.
+    auto_cache: bool = False
 
 
 def make_sift(conf: SIFTFisherConfig) -> SIFTExtractor:
@@ -170,7 +178,10 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict,
     """Fit PCA, the GMM and the linear model on ``train``.  Returns the
     ``{pca, gmm, model}`` bundle and the stage seconds (each stage, ``sift``,
     ``pca``, ``gmm``, ``fisher_features``, ``solve``, a ``stage_timer``
-    span that ends after a synchronize)."""
+    span that ends after a synchronize).  With ``conf.auto_cache`` the
+    seconds carry the ``cache_plan`` record; a denied materialization
+    keeps the raw descriptors and projects one bucket at a time for each
+    consumer, with the same bits."""
     dev = resolve_device(conf.device)
     feat_dim = 2 * conf.desc_dim * conf.vocab_size
 
@@ -194,11 +205,20 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict,
             pca_mat = compute_pca(samples.T, conf.desc_dim)
             del samples
         batch_pca = BatchPCATransformer(pca_mat)
+        materialize, cache_plan = True, None
+        if conf.auto_cache:
+            # GMM sampling (when a GMM is fitted) and the Fisher features.
+            reuse = (0 if conf.gmm_mean_file is not None else 1) + 1
+            cache_plan, materialize = plan_pca_materialization(
+                train_desc, batch_pca, reuse, label="voc_pca_descriptors")
+            _log.info("%s", cache_plan.summary())
         t_proj = time.perf_counter()
-        pca_desc = {shape: (idx, batch_pca(descs)) for shape, (idx, descs) in train_desc.items()}
+        if materialize:
+            pca_desc = {shape: (idx, batch_pca(descs))
+                        for shape, (idx, descs) in train_desc.items()}
+            del train_desc
         project_secs = lap(t_proj)
         pca_secs = lap(t)
-    del train_desc
 
     t = time.perf_counter()
     with stage_timer("gmm"):
@@ -207,7 +227,11 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict,
                 conf.gmm_mean_file, conf.gmm_var_file, conf.gmm_wts_file, device=dev
             )
         else:
-            gmm_samples = sample_columns(pca_desc, conf.num_gmm_samples, conf.seed + 1)
+            if materialize:
+                gmm_samples = sample_columns(pca_desc, conf.num_gmm_samples, conf.seed + 1)
+            else:
+                gmm_samples = sample_columns(train_desc, conf.num_gmm_samples, conf.seed + 1,
+                                             project=batch_pca)
             gmm = GaussianMixtureModelEstimator(conf.vocab_size).fit(gmm_samples.T)
             del gmm_samples
         assert_all_finite(gmm, "VOC GMM fit")
@@ -216,9 +240,16 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict,
     t = time.perf_counter()
     with stage_timer("fisher_features"):
         fisher = fisher_feature_pipeline(gmm)
-        train_features = scatter_features(pca_desc, fisher, len(train), feat_dim)
+        if materialize:
+            train_features = scatter_features(pca_desc, fisher, len(train), feat_dim)
+            del pca_desc  # the training descriptors are no longer needed
+        else:
+            t_proj = time.perf_counter()
+            train_features = scatter_features(
+                train_desc, lambda d: fisher(batch_pca(d)), len(train), feat_dim)
+            project_secs += lap(t_proj)
+            del train_desc
         fisher_secs = lap(t)
-    del pca_desc  # the training descriptors are no longer needed
 
     # With a solve checkpoint the block fit writes its state after every
     # block and resumes from an existing one (a preempted run).
@@ -249,6 +280,8 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict,
         "featurize_images_per_sec": len(train) / (sift_secs + project_secs + fisher_secs),
         "fit_report": solver.last_fit_report.record(),
     }
+    if cache_plan is not None:
+        secs["cache_plan"] = cache_plan.record()
     return {"pca": batch_pca, "gmm": gmm, "model": model}, secs
 
 
@@ -310,6 +343,10 @@ def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledIma
         _log.info("saved fitted pipeline to %s", conf.pipeline_file)
     if ingest_stats:
         results["ingest"] = ingest_stats
+    autotune = collect_autotune(train, test)
+    if autotune:
+        results["autotune"] = autotune
+        _log.info("ingest autotune: %s", autotune)
     _maybe_serve(conf, test, results)
     _log.info("TEST APs are: %s", ",".join(str(a) for a in aps))
     _log.info("TEST MAP is: %s", results["map"])
@@ -400,6 +437,17 @@ def main(argv=None) -> dict:
         "them (KEYSTONE_SNAPSHOT_DIR)",
     )
     p.add_argument(
+        "--autoCache", action="store_true",
+        help="cost-based auto-Cacher (core.optimize): keep the PCA-projected training "
+        "descriptors whole, or re-project per consumer, decided from a timed probe through "
+        "the card's admission gate (env KEYSTONE_AUTOCACHE=1)",
+    )
+    p.add_argument(
+        "--autoTune", action="store_true",
+        help="with --streamIngest: the closed-loop ingest autotuner retunes decode width, "
+        "decode-ahead, ring depth and the decode backend from the stall counters",
+    )
+    p.add_argument(
         "--pipelineFile", default=None,
         help="checkpoint stem of the fitted {pca, gmm, model} bundle: saved after "
         "a fit, restored without a fit when it exists",
@@ -419,7 +467,7 @@ def main(argv=None) -> dict:
     serve_common.add_serve_args(p)
     a = p.parse_args(argv)
     serve_common.check_serve_args(p, a)
-    for flag in ("deviceDecode", "decodeBackend", "snapshotDir"):
+    for flag in ("deviceDecode", "decodeBackend", "snapshotDir", "autoTune"):
         if getattr(a, flag) and not a.streamIngest:
             p.error(f"--{flag} needs --streamIngest")
     if a.trace:
@@ -446,6 +494,7 @@ def main(argv=None) -> dict:
         serve_bench=a.serveBench,
         serve_clients=a.serveClients,
         serve_requests=a.serveRequests,
+        auto_cache=a.autoCache or optimize.auto_cache_env(),
     )
     resolve_device(conf.device)
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)
@@ -455,7 +504,7 @@ def main(argv=None) -> dict:
             return voc_stream_source(path, conf.label_path, batch_size=a.streamBatchSize,
                                      device_decode=a.deviceDecode,
                                      decode_backend=a.decodeBackend,
-                                     snapshot_dir=a.snapshotDir)
+                                     snapshot_dir=a.snapshotDir, autotune=a.autoTune)
         return voc_loader(path, conf.label_path)
 
     try:

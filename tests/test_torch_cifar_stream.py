@@ -172,7 +172,7 @@ def test_cli_stream_test_tar_device_decode_on_cpu(tars, monkeypatch):
     # --decodeBackend and --snapshotDir need a streamed split
     ["--trainLocation", "x.tar", "--testLocation", "y.tar", "--decodeBackend", "thread"],
     ["--trainLocation", "x.tar", "--testLocation", "y.tar", "--snapshotDir", "s"],
-    ["--trainLocation", "x.tar", "--streamTestTar", "y.tar", "--autoTune"],
+    ["--trainLocation", "x.tar", "--testLocation", "y.tar", "--autoTune"],  # needs the stream
 ])
 def test_cli_usage_errors(argv):
     with pytest.raises(SystemExit):

@@ -123,7 +123,10 @@ def _unfused_convolver(conv, batch):
         psum = torch.nn.functional.conv2d(x, ones).permute(0, 2, 3, 1)
         psumsq = torch.nn.functional.conv2d(x * x, ones).permute(0, 2, 3, 1)
         mu = psum / d
-        sigma = torch.sqrt((psumsq - d * mu * mu) / (d - 1.0) + conv.var_constant)
+        # The correctly rounded root, as XLA's (the host's f32 torch.sqrt
+        # is not, utils/stats.sqrt_rn).
+        var = (psumsq - d * mu * mu) / (d - 1.0) + conv.var_constant
+        sigma = torch.sqrt(var.double()).float()
         out = (out - mu * filters.sum(dim=(1, 2, 3))) / sigma
     if conv.filter_means_dot is not None:
         out = out - conv.filter_means_dot

@@ -138,7 +138,9 @@ def jax_state(tars, tmp_path_factory):
             path = str(d / f"{branch}_{flag}.csv")
             np.savetxt(path, a, delimiter=",", fmt="%.9e")
             files[f"{branch}_{key}"] = path
-    conf = dataclasses.replace(conf, **files)
+    # The run also writes the JAX package's fitted bundle, which the port
+    # restores with --pipelineFile.
+    conf = dataclasses.replace(conf, **files, pipeline_file=str(d / "jax_bundle"))
     errors = jinet.run(conf, train, test)
 
     feats = []
@@ -154,7 +156,8 @@ def jax_state(tars, tmp_path_factory):
     arrays["model_xs"] = [np.asarray(x) for x in model.xs]
     arrays["model_b"] = np.asarray(model.b)
     return {"files": files, "errors": errors, "arrays": arrays,
-            "scores": np.asarray(model(jnp.asarray(test_f))), "test_labels": test.labels}
+            "scores": np.asarray(model(jnp.asarray(test_f))), "test_labels": test.labels,
+            "bundle": conf.pipeline_file}
 
 
 def _flags(files):
@@ -312,9 +315,88 @@ def _cpu_decoded(path, labels):
     return ploaders.LabeledImages(images, eager.labels, eager.filenames)
 
 
+def test_pipeline_file_restores_the_fitted_predictions(tars, tmp_path):
+    """A fit saves the bundle; the run that finds it reads no training data,
+    fits nothing and gives the fitted run's scores and errors."""
+    stem = str(tmp_path / "inet")
+    argv = [*_base(tars), *SMALL, "--device", "cpu", "--pipelineFile", stem]
+    fitted = pinet.main(argv)
+    assert "restored" not in fitted
+    missing = ["--trainLocation", str(tmp_path / "absent")]
+    restored = pinet.main([*argv, *missing])
+    assert restored["restored"] is True
+    np.testing.assert_array_equal(restored["test_scores"], fitted["test_scores"])
+    assert restored["top5_err_percent"] == fitted["top5_err_percent"]
+    assert restored["top1_err_percent"] == fitted["top1_err_percent"]
+
+
+def test_jax_bundle_restores_in_the_port(tars, jax_state, tmp_path):
+    """The JAX package's saved bundle loads into the port, which scores the
+    test split at the JAX run's errors, within the f64 bar of
+    :func:`test_run_matches_jax_with_shared_pca_and_gmm`."""
+    port = pinet.main(["--trainLocation", str(tmp_path / "absent"), *_base(tars)[2:], *SMALL,
+                       "--device", "cpu", "--pipelineFile", jax_state["bundle"]])
+    assert port["restored"] is True
+    errors = jax_state["errors"]
+    assert port["top5_err_percent"] == errors["top5_err_percent"]
+    assert port["top1_err_percent"] == errors["top1_err_percent"]
+    exact, _ = _f64_run_scores(tars, jax_state["arrays"])
+    _within(port["test_scores"], exact)
+
+
+def test_auto_cache_with_shared_pca_and_gmm_matches_jax(tars, jax_state):
+    """With the PCA and GMM loaded the projected descriptors feed one
+    consumer, so the auto-Cacher keeps nothing (reuse 1) and each branch
+    re-projects per bucket: the scores equal the plain run's, the errors
+    the JAX run's."""
+    argv = [*_base(tars), *SMALL, *_flags(jax_state["files"]), "--device", "cpu"]
+    plain = pinet.main(argv)
+    cached = pinet.main([*argv, "--autoCache"])
+    np.testing.assert_array_equal(cached["test_scores"], plain["test_scores"])
+    for branch in pinet.BRANCHES:
+        (dec,) = cached["cache_plan"][branch]["decisions"]
+        assert (dec["name"], dec["reuse"], dec["cached"]) == (f"{branch}_pca_descriptors", 1,
+                                                               False)
+    errors = jax_state["errors"]
+    assert cached["top5_err_percent"] == errors["top5_err_percent"]
+    assert cached["top1_err_percent"] == errors["top1_err_percent"]
+
+
+@pytest.mark.parametrize("budget", [None, "1K"])
+def test_auto_cache_fitting_branches_is_bit_equal(tars, port_run, budget, monkeypatch):
+    """Fitting the GMMs (reuse 2): materialized with no budget known, or
+    re-projected per consumer when the budget denies it, the scores are the
+    plain run's bit for bit."""
+    if budget is None:
+        monkeypatch.delenv("KEYSTONE_HBM_BUDGET", raising=False)
+    else:
+        monkeypatch.setenv("KEYSTONE_HBM_BUDGET", budget)
+    res = pinet.main([*_base(tars), *SMALL, "--device", "cpu", "--autoCache"])
+    _, _, plain = port_run
+    np.testing.assert_array_equal(res["test_scores"], plain["test_scores"])
+    for branch in pinet.BRANCHES:
+        assert res["cache_plan"][branch]["cached"] == (
+            [] if budget else [f"{branch}_pca_descriptors"])
+
+
+def test_cli_auto_tune_streams_equal(tars, port_run, monkeypatch):
+    """``--autoTune`` with the controller evaluating every chunk: each
+    streamed pass carries its tuner's record, and the scores equal the
+    eager run's."""
+    monkeypatch.setenv("KEYSTONE_AUTOTUNE_INTERVAL", "1")
+    _, _, res = port_run
+    tuned = pinet.main([*_base(tars), *SMALL, "--device", "cpu", "--streamIngest",
+                        "--streamBatchSize", "3", "--autoTune"])
+    np.testing.assert_array_equal(tuned["test_scores"], res["test_scores"])
+    for split in ("train", "test"):
+        records = tuned["autotune"][split]
+        assert len(records) == 2  # one stream per branch
+        assert all(set(r) == {"retunes", "trajectory", "final_config"} for r in records)
+
+
 @pytest.mark.parametrize("flags", [
-    ["--pipelineFile", "ck"], ["--autoCache"], ["--autoShard"], ["--mesh", "8"],
-    ["--serveBench"], ["--streamIngest", "--autoTune"],
+    ["--serve"], ["--autoTune"], ["--autoShard"], ["--mesh", "8"],
+    ["--serveBench"], ["--streamIngest", "--serveMesh", "2x1"],
     ["--decodeBackend", "thread"], ["--snapshotDir", "s"],  # both need --streamIngest
     ["--deviceDecode"],
 ])

@@ -155,8 +155,12 @@ def test_device_decode_env(monkeypatch, raw, mode):
 
 
 def test_autotune_env_raises(monkeypatch):
+    # KEYSTONE_AUTOTUNE seeds the autotuner; a bad interval raises, as in
+    # the JAX package.
     monkeypatch.setenv("KEYSTONE_AUTOTUNE", "1")
-    with pytest.raises(ValueError, match="KEYSTONE_AUTOTUNE"):
+    assert ingest.StreamConfig.from_env().autotune == jingest.StreamConfig.from_env().autotune
+    monkeypatch.setenv("KEYSTONE_AUTOTUNE_INTERVAL", "0")
+    with pytest.raises(ValueError, match="KEYSTONE_AUTOTUNE_INTERVAL"):
         ingest.StreamConfig.from_env()
 
 

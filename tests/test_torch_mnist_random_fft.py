@@ -204,7 +204,7 @@ def test_cli_needs_a_card_by_default(csv_files, monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "8"], ["--autoShard"], ["--solveCheckpoint"],  # the flag needs its path
-    ["--autoCache"], ["--serveMesh", "2x1"], ["--serve", "--serveMesh", "1x1"],
+    ["--resumeFrom"], ["--serveMesh", "2x1"], ["--serve", "--serveMesh", "1x1"],
     ["--blockSize", "300"],
     ["--blockSize", "0"],
 ])

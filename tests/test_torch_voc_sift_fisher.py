@@ -162,10 +162,9 @@ def test_cli_rejects_unported_stream_flags(voc_tar, flags):
     tar, labels = voc_tar
     base = ["--trainLocation", tar, "--testLocation", tar, "--labelPath", labels,
             "--device", "cpu"]
-    # --autoTune is not ported; the others need --streamIngest.
-    stream = ["--streamIngest"] if flags == ["--autoTune"] else []
+    # Each of these stream flags needs --streamIngest.
     with pytest.raises(SystemExit):
-        pvoc.main([*base, *stream, *flags])
+        pvoc.main([*base, *flags])
 
 
 def test_cli_rejects_unported_flags_and_needs_a_card(voc_tar, monkeypatch):
