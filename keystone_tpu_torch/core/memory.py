@@ -318,7 +318,7 @@ def plan_bytes(
         + f"analytic args {h(argument_bytes)} + temp {h(temp_bytes)} + "
         f"out {h(output_bytes)} + extra {h(extra_bytes)} = {h(total)}"
         + (f" (- {h(credit)} already resident)" if credit else "")
-        + f" vs budget {h(budget)}"
+        + f" vs budget {h(budget)} (no compile)"
     )
     plan = MemoryPlan(
         label=label, admitted=admitted, reason=reason, budget_bytes=budget,
@@ -487,6 +487,16 @@ class FitReport:
     #: the profiler's plan audit of the chosen tier (charge against the
     #: phase watermark), when the profiler was on.
     plan_audit: dict | None = None
+    #: the placement search's program fingerprint (set by
+    #: ``autoshard.run_search``): the key the profiler's watermark drift
+    #: rows join the same program family as the time outcomes under.
+    fingerprint: str | None = None
+    #: the (data, model) axis sizes of the mesh that ran the solve; None on
+    #: one device (the mesh tiers are ROADMAP Queue 1 item 15).
+    mesh_shape: dict | None = None
+    #: the ``autoshard.PlacementPlan`` record of the searched ranking this
+    #: fit ran through; None when the fit walked the hand ladder.
+    placement: dict | None = None
 
     def record(self) -> dict:
         """JSON-able form."""
@@ -494,16 +504,20 @@ class FitReport:
 
         return {
             "chosen_tier": self.chosen,
+            "mesh_shape": dict(self.mesh_shape) if self.mesh_shape else None,
             "budget_gb": round(self.budget_bytes / 2**30, 3) if self.budget_bytes else None,
             "denials": list(self.denials),
             "oom_retries": list(self.oom_retries),
             "tiers": {k: p.breakdown() for k, p in self.plans.items()},
+            "placement": self.placement,
             "plan_audit": self.plan_audit,
             "postmortems": telemetry.postmortem_paths(),
         }
 
     def summary(self) -> str:
         s = f"{self.label}: tier={self.chosen}"
+        if self.mesh_shape:
+            s += f", mesh={self.mesh_shape}"
         if self.denials:
             s += f", denied={self.denials}"
         if self.oom_retries:
@@ -583,7 +597,8 @@ def run_ladder(label: str, tiers: Sequence[Tier], report: FitReport):
                 profiler.record_program(name, wall, flops=counted["flops"])
                 profiler.audit_flops(name, tier.flops, counted["flops"])
                 report.plan_audit = profiler.audit_plan(
-                    name, plan, phase_name=f"solve:{label}"
+                    name, plan, phase_name=f"solve:{label}",
+                    fingerprint=report.fingerprint,
                 )
             solve_sp.set(report=report.record())
             return out

@@ -28,7 +28,7 @@ through the stream's live ``StreamConfig``.  Retuning changes concurrency
 and buffering only: the stream's output is bit-identical at any knob
 trajectory (the ``autotune_thrash`` chaos family holds it to that).
 
-Also here, for the placement search (``core.autoshard``, not ported yet):
+Also here, for the placement search (``core.autoshard``):
 the analytic :class:`CostModel` over the port's device rates
 (``core.profiler.DEVICE_RATES``) and the cross-program
 :class:`CalibrationModel`, and the snapshot advisor

@@ -630,13 +630,24 @@ def watermark(phase_name: str | None = None) -> int | None:
     return s.watermark(phase_name) if s is not None else None
 
 
-def audit_plan(label: str, plan, *, phase_name: str | None = None) -> dict | None:
+def audit_plan(
+    label: str,
+    plan,
+    *,
+    phase_name: str | None = None,
+    fingerprint: str | None = None,
+    features: dict | None = None,
+) -> dict | None:
     """Compare the watermark the sampler saw in ``phase_name`` (default
     ``label``) against what the ``core.memory`` plan charged.  Drift beyond
     ``KEYSTONE_PLAN_DRIFT_TOL`` (relative, either direction) is counted
-    (``plan_drift``).  Returns the audit row, or None when either side is
-    unknown (no sampler, no allocator statistics, no charge): skipped,
-    never guessed from the process-lifetime peak."""
+    (``plan_drift``), and the row is appended to the plan-outcome log as an
+    ``outcome: "hbm_drift"`` record under ``fingerprint`` (``hbm:<label>``
+    without one), with ``features`` (default: ``autoshard.hbm_features`` of
+    the plan's byte composition) — the byte-side calibration evidence
+    ``core.autoshard.drift_rows`` reads.  Returns the audit row, or None
+    when either side is unknown (no sampler, no allocator statistics, no
+    charge): skipped, never guessed from the process-lifetime peak."""
     if not enabled():
         return None
     charged = int(getattr(plan, "total_bytes", 0) or 0)
@@ -669,6 +680,28 @@ def audit_plan(label: str, plan, *, phase_name: str | None = None) -> dict | Non
     trace.metrics.gauge(f"profiler_{_NAME_RE.sub('_', label)}_plan_drift", round(drift, 4))
     with _audit_lock:
         _plan_audits[label] = dict(audit)
+    # One row per audited run, read back by the NEXT process's byte-drift
+    # calibration (the log is read once per process).
+    from . import autoshard
+
+    if features is None:
+        features = autoshard.hbm_features(
+            getattr(plan, "argument_bytes", 0),
+            getattr(plan, "temp_bytes", 0),
+            getattr(plan, "output_bytes", 0),
+            getattr(plan, "mesh_axes", None),
+        )
+    autoshard.append_outcome({
+        "fingerprint": fingerprint or f"hbm:{label}",
+        "label": label,
+        "candidate": label,
+        "outcome": "hbm_drift",
+        "charged_bytes": charged,
+        "watermark_bytes": int(wm),
+        "drift_ratio": drift,
+        "features": features,
+        "ts": time.time(),
+    })
     return audit
 
 

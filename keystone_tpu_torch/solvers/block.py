@@ -29,7 +29,12 @@ same values.  Each tier is preflighted (``last_fit_report`` records the
 plans); a runtime out-of-memory error steps down one tier, anything else
 propagates.
 
-Not ported: the mesh tiers and the placement search (``plan=True`` raises).
+The three tiers are the candidates of the placement search
+(``core.autoshard.run_search``, on by default), with the JAX package's
+cost hints: with an empty plan log it ranks them in the hand order above,
+bit for bit; ``last_fit_report.placement`` records the searched table.
+
+Not ported: the mesh tiers (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..core import autoshard
 from ..core import memory as kmem
 from ..core import numerics as knum
 from ..core import profiler as kprof
@@ -590,16 +596,10 @@ def _host_staged_bcd_fit(host_blocks: Sequence[torch.Tensor], labels, lam: float
     return models, label_mean, torch.stack([means[i] for i in range(nb)])
 
 
-def _reject_plan(plan) -> None:
-    """``plan=True`` or a placement plan asks for the placement search,
-    which is not ported (ROADMAP Queue 1 item 13)."""
-    if plan is not None and plan is not False:
-        raise ValueError(
-            f"plan={plan!r} asks for the placement search (core.autoshard), which "
-            "keystone_tpu_torch does not have yet (ROADMAP Queue 1 item 13); "
-            "plan=None or plan=False runs the hand ladder fused -> stepwise -> "
-            "host_staged"
-        )
+def _dtype_name(dtype: torch.dtype) -> str:
+    """``'float32'`` for ``torch.float32``: the numpy name the JAX package's
+    plan fingerprints fold in."""
+    return str(dtype).removeprefix("torch.")
 
 
 def _probe_matrix(features, widths):
@@ -722,9 +722,17 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         ``self.last_fit_report``.  ``donate=True`` hands the caller's card
         feature blocks to the fit: the host-staged tier frees each one once
         it is on the host (PyTorch has no aliasing to donate into, so it
-        has no other effect).  ``plan``: None or False run the hand ladder;
-        anything else asks for the placement search and raises."""
-        _reject_plan(plan)
+        has no other effect).
+
+        Placement search (``core.autoshard``, on by default): the fit runs
+        the cost-model RANKED tier list, pruned by the analytic preflight,
+        with the hand order as the untrained tie-break and host_staged
+        pinned last; a runtime out-of-memory error steps down the ranked
+        list (counted ``autoshard_stepdown``).  ``plan``: None honours
+        ``KEYSTONE_AUTOSHARD``, False walks the hand ladder, True forces the
+        search, a ``PlacementPlan`` or a list of tier names replays a
+        ranking; anything else raises ``TypeError``.  The searched table is
+        ``last_fit_report.placement``."""
         widths = _block_widths(features, self.block_size, num_features)
         bs, nb = max(widths), len(widths)
         rows, k = int(labels.shape[0]), int(labels.shape[1])
@@ -785,17 +793,74 @@ class BlockLeastSquaresEstimator(LabelEstimator):
 
         report = kmem.FitReport(label="bcd_fit")
         self.last_fit_report = report
+        # The JAX package's cost hints, term for term (its
+        # ``_fit_ladder``), but for ``alias_bytes``: PyTorch donates nothing
+        # into an alias, so no argument bytes are credited out of the prune.
+        feats = _feature_list(features)
+        it = labels.element_size()
+        itx = feats[0].element_size()
+        x_bytes, y_bytes = itx * rows * nb * bs, it * rows * k
+        persist = it * (rows * k + nb * bs * k + nb * bs * bs)
+        fused_floor = it * (rows * bs + nb * bs * bs + 2 * rows * k + nb * bs * k)
+        resident = _device_bytes(*feats, labels)
         flops = 2.0 * rows * bs * bs * nb + self.num_iter * 4.0 * rows * bs * k * nb
-        tiers = [
-            kmem.Tier("fused", lambda: self.plan_fused(features, labels, widths), run_fused,
-                      flops=flops),
-            kmem.Tier("stepwise", lambda: self.plan_stepwise(features, labels, widths),
-                      run_stepwise, flops=flops),
-            kmem.Tier("host_staged", lambda: self.plan_host_staged(features, labels, widths),
-                      run_host, flops=flops),
+        per_block_dispatches = nb * (self.num_iter + 1) + 2
+        cands = [
+            autoshard.Candidate(
+                "fused", "fused", lambda: self.plan_fused(features, labels, widths), run_fused,
+                hints={
+                    "arg_bytes": x_bytes + y_bytes,
+                    "temp_bytes": fused_floor,
+                    "out_bytes": it * (nb * bs * k + k + nb * bs),
+                    "resident_bytes": resident,
+                    "flops": flops,
+                    "dispatches": 1,
+                    "hbm_passes": self.num_iter + 1,
+                },
+                prior_rank=0,
+            ),
+            autoshard.Candidate(
+                "stepwise", "stepwise", lambda: self.plan_stepwise(features, labels, widths),
+                run_stepwise,
+                hints={
+                    "arg_bytes": x_bytes + y_bytes,
+                    "temp_bytes": it * (rows * bs + rows * k),
+                    "out_bytes": it * nb * bs * k,
+                    "extra_bytes": persist,
+                    "resident_bytes": resident,
+                    "flops": flops,
+                    "dispatches": per_block_dispatches,
+                    "hbm_passes": self.num_iter + 1,
+                },
+                prior_rank=1,
+            ),
+            autoshard.Candidate(
+                "host_staged", "host_staged",
+                lambda: self.plan_host_staged(features, labels, widths), run_host,
+                hints={
+                    "arg_bytes": itx * rows * bs + y_bytes,
+                    "temp_bytes": it * rows * k,
+                    "extra_bytes": persist + it * nb * bs,
+                    "resident_bytes": resident,
+                    "flops": flops,
+                    "dispatches": per_block_dispatches,
+                    # Each epoch re-streams every block to the card: the
+                    # term that keeps the floor last in an untrained ranking.
+                    "h2d_bytes": self.num_iter * x_bytes,
+                },
+                prior_rank=2, floor=True,
+            ),
         ]
         with kprof.phase("bcd_fit"):
-            out = kmem.run_ladder("bcd_fit", tiers, report)
+            out = autoshard.run_search(
+                "bcd_fit", cands, report,
+                fingerprint=autoshard.fingerprint(
+                    "bcd_fit", rows, k, widths, self.num_iter, _dtype_name(feats[0].dtype),
+                    _dtype_name(labels.dtype), None, autoshard.device_fingerprint(),
+                ),
+                plan=plan,
+                budget=kmem.hbm_budget(_features_device(features)),
+            )
         return self._mapper(out, widths)
 
     def _mapper(self, out, widths) -> BlockLinearMapper:

@@ -28,11 +28,12 @@ of the JAX package, three tiers over one solve loop
 
 Each tier is preflighted; a runtime out-of-memory error steps down one
 tier, anything else propagates.  ``donate=True`` frees the caller's
-inputs once their sorted copies exist.
+inputs once their sorted copies exist.  The three tiers are the candidates
+of the placement search (``core.autoshard.run_search``, on by default),
+with the JAX package's cost hints.
 
-Not ported: the mesh tiers and the ``all_to_all`` class regroup, the
-placement search (``plan=True`` raises) and the conditioning monitor of
-the solves.
+Not ported: the mesh tiers and the ``all_to_all`` class regroup (ROADMAP
+Queue 1 item 15) and the conditioning monitor of the solves.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..core import autoshard
 from ..core import memory as kmem
 from ..core import numerics as knum
 from ..core import profiler as kprof
@@ -56,12 +58,12 @@ from .block import (
     _check_sources,
     _design_is_copy,
     _device_bytes,
+    _dtype_name,
     _feature_list,
     _features_device,
     _host_copy,
     _padded,
     _probe_matrix,
-    _reject_plan,
     _release,
 )
 
@@ -374,10 +376,11 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         ``self.last_fit_report``.  ``donate=True`` frees the caller's
         ``features`` and ``labels`` once their sorted copies exist (a tier
         below one that ran out of memory then has no source and raises
-        ``core.memory.LadderSourceLost``).  ``plan``: None or False run
-        the hand ladder; anything else asks for the placement search and
-        raises."""
-        _reject_plan(plan)
+        ``core.memory.LadderSourceLost``).  ``plan`` selects the placement
+        search as in ``BlockLeastSquaresEstimator.fit``: None honours
+        ``KEYSTONE_AUTOSHARD``, False walks the hand ladder, True forces the
+        search, a ``PlacementPlan`` or a list of tier names replays a
+        ranking; the searched table is ``last_fit_report.placement``."""
         widths = _block_widths(features, self.block_size, num_features)
         bs, nb = max(widths), len(widths)
         rows, n_classes = int(labels.shape[0]), int(labels.shape[1])
@@ -428,17 +431,90 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
 
         report = kmem.FitReport(label="bwls_fit")
         self.last_fit_report = report
-        flops = nb * (2.0 * rows * bs * bs) + self.num_iter * nb * (
+        # The flops this solve counts (held by the profiled ladder's audit).
+        counted_flops = nb * (2.0 * rows * bs * bs) + self.num_iter * nb * (
             2.0 * rows * bs * bs + 4.0 * rows * bs * n_classes)
-        tiers = [
-            kmem.Tier("fused", lambda: self.plan_fused(features, labels, widths), run_fused,
-                      flops=flops),
-            kmem.Tier("stepwise", lambda: self.plan_stepwise(features, labels, widths),
-                      run_stepwise, flops=flops),
-            kmem.Tier("host_staged", lambda: self.plan_host_staged(features, labels, widths),
-                      run_host, flops=flops),
+        # The JAX package's cost hints, term for term (its ``_fit_ladder``).
+        it = dtype.itemsize
+        itx = feats[0].element_size()
+        n_max, p_tot, chunk = ctx.n_max, ctx.p_tot, ctx.chunk
+        d_tot = nb * bs
+        stats_bytes = it * nb * (bs * bs + bs + n_classes * bs)
+        models_bytes = it * nb * bs * n_classes
+        labels_bytes = it * p_tot * n_classes
+        src_bytes = _device_bytes(*feats, labels)
+        fused_floor = it * (
+            2 * p_tot * n_classes + p_tot * bs + chunk * n_max * bs
+        ) + stats_bytes + models_bytes
+        slab_floor = it * chunk * n_max * bs
+        sorted_x_bytes = itx * p_tot * d_tot
+        sorted_y_bytes = it * p_tot * n_classes
+        flops = self.num_iter * nb * (
+            2.0 * p_tot * bs * (bs + 2 * n_classes) + n_classes * n_max * bs * (bs + 2)
+        )
+        per_block_dispatches = nb * (3 * self.num_iter + 1) + 2
+        cands = [
+            autoshard.Candidate(
+                "fused", "fused", lambda: self.plan_fused(features, labels, widths), run_fused,
+                hints={
+                    "arg_bytes": sorted_x_bytes + sorted_y_bytes + it * p_tot,
+                    # The sorted copies are the fit's own; the JAX program
+                    # donates them, and the prune credits them the same way.
+                    "alias_bytes": sorted_x_bytes + sorted_y_bytes,
+                    "temp_bytes": fused_floor,
+                    "out_bytes": it * (nb * bs * n_classes + n_classes),
+                    "extra_bytes": src_bytes,
+                    "resident_bytes": src_bytes,
+                    "flops": flops,
+                    "dispatches": 1,
+                    "hbm_passes": self.num_iter + 1,
+                },
+                prior_rank=0, audit_flops=counted_flops,
+            ),
+            autoshard.Candidate(
+                "stepwise", "stepwise", lambda: self.plan_stepwise(features, labels, widths),
+                run_stepwise,
+                hints={
+                    "arg_bytes": itx * p_tot * bs + sorted_y_bytes,
+                    "temp_bytes": slab_floor,
+                    "out_bytes": it * bs * n_classes,
+                    "extra_bytes": (
+                        sorted_x_bytes + labels_bytes + stats_bytes + models_bytes + src_bytes
+                    ),
+                    "resident_bytes": src_bytes,
+                    "flops": flops,
+                    "dispatches": per_block_dispatches,
+                    "hbm_passes": self.num_iter + 1,
+                },
+                prior_rank=1, audit_flops=counted_flops,
+            ),
+            autoshard.Candidate(
+                "host_staged", "host_staged",
+                lambda: self.plan_host_staged(features, labels, widths), run_host,
+                hints={
+                    "arg_bytes": itx * p_tot * bs + sorted_y_bytes,
+                    "temp_bytes": slab_floor,
+                    "out_bytes": it * bs * n_classes,
+                    "extra_bytes": labels_bytes + stats_bytes + models_bytes + src_bytes,
+                    "resident_bytes": src_bytes,
+                    "flops": flops,
+                    "dispatches": per_block_dispatches,
+                    # Every pass re-streams each sorted block to the card.
+                    "h2d_bytes": (self.num_iter + 1) * sorted_x_bytes,
+                },
+                prior_rank=2, floor=True, audit_flops=counted_flops,
+            ),
         ]
         with kprof.phase("bwls_fit"):
-            models, b = kmem.run_ladder("bwls_fit", tiers, report)
+            models, b = autoshard.run_search(
+                "bwls_fit", cands, report,
+                fingerprint=autoshard.fingerprint(
+                    "bwls_fit", rows, n_classes, n_max, widths, self.num_iter,
+                    self.class_chunk, _dtype_name(feats[0].dtype), _dtype_name(dtype), None,
+                    autoshard.device_fingerprint(),
+                ),
+                plan=plan,
+                budget=kmem.hbm_budget(_features_device(features)),
+            )
         return BlockLinearMapper([models[i, :wd] for i, wd in enumerate(widths)],
                                  self.block_size, b)

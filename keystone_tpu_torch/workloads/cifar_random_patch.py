@@ -130,6 +130,11 @@ class RandomCifarConfig:
     #: The closed-loop ingest autotuner on the ``stream_test_tar`` stream;
     #: its record is ``results["autotune"]``.
     auto_tune: bool = False
+    #: Placement search (core.autoshard): force the cost-model-ranked
+    #: candidate search for the block solve (on by default via
+    #: ``KEYSTONE_AUTOSHARD``); the searched table lands in
+    #: ``results["placement"]`` whenever a search ran.
+    auto_shard: bool = False
 
 
 def learn_filters(
@@ -420,8 +425,11 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
     t_solve = time.perf_counter()
     with stage_timer("solve"):
         solver = BlockLeastSquaresEstimator(4096, 1, conf.lam or 0.0)
-        model = solver.fit(train_features, labels, checkpoint=conf.solve_checkpoint,
-                           resume_from=conf.solve_resume)
+        model = solver.fit(
+            train_features, labels, checkpoint=conf.solve_checkpoint,
+            resume_from=conf.solve_resume,
+            plan=True if conf.auto_shard else None,
+        )
         log_fit_report(solver, _log, "cifar random-patch solve")
         # Typed failure (FloatingPointError) instead of NaN predictions.
         assert_all_finite(model, "cifar random-patch model")
@@ -469,6 +477,10 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
         results["test_filenames"] = names
     if cache_plan is not None:
         results["cache_plan"] = cache_plan.record()
+    if solver.last_fit_report.placement is not None:
+        # The searched placement table: candidates, deny/score rationale,
+        # the chosen plan's predicted-vs-measured cost.
+        results["placement"] = solver.last_fit_report.placement
     if tuner is not None:
         results["autotune"] = tuner.record()
         _log.info("ingest autotune: %d retune(s), final config %s",
@@ -603,6 +615,13 @@ def main(argv=None) -> dict:
         "decode-ahead, ring depth and the decode backend from the stall counters",
     )
     p.add_argument(
+        "--autoShard", action="store_true",
+        help="placement search (core.autoshard): force the cost-model "
+        "ranked mesh/strategy candidate search for the block solve and "
+        "record the searched plan in results['placement'] (on by "
+        "default; KEYSTONE_AUTOSHARD=0 disables it except here)",
+    )
+    p.add_argument(
         "--pipelineFile", default=None,
         help="checkpoint stem of the fitted servable chain (featurizer + scaler + "
         "model + classifier): saved after a fit, restored without a fit when it exists",
@@ -654,6 +673,7 @@ def main(argv=None) -> dict:
         serve_requests=a.serveRequests,
         auto_cache=a.autoCache or optimize.auto_cache_env(),
         auto_tune=a.autoTune,
+        auto_shard=a.autoShard,
     )
     resolve_device(conf.device)
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)

@@ -142,6 +142,11 @@ class ImageNetSiftLcsFVConfig:
     #: training descriptors; the decision tables are
     #: ``results["cache_plan"]``.
     auto_cache: bool = False
+    #: Placement search (core.autoshard): force the cost-model-ranked
+    #: candidate search for the weighted block solve (on by default via
+    #: ``KEYSTONE_AUTOSHARD``); the searched table lands in
+    #: ``results["placement"]`` whenever a search ran.
+    auto_shard: bool = False
 
     def branch_files(self, branch: str) -> tuple:
         """(pca_file, (mean, var, wts) files) of ``branch``."""
@@ -332,7 +337,7 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
             branch_secs[branch] = lap(t)
 
     test_features = ZipVectors.apply([feats[b][1] for b in BRANCHES])
-    solve_secs = None
+    solve_secs = placement = None
     if restored:
         model = fitted["model"]
         del feats
@@ -345,8 +350,10 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
         with stage_timer("solve"):
             solver = BlockWeightedLeastSquaresEstimator(4096, 1, conf.lam, conf.mixture_weight)
             model = solver.fit(
-                train_features, labels, num_features=2 * 2 * conf.desc_dim * conf.vocab_size
+                train_features, labels, num_features=2 * 2 * conf.desc_dim * conf.vocab_size,
+                plan=True if conf.auto_shard else None,
             )
+            placement = solver.last_fit_report.placement
             log_fit_report(solver, _log, "ImageNet weighted block solve")
             assert_all_finite(model, "ImageNet weighted block solve")
             solve_secs = lap(t)
@@ -389,6 +396,9 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
         })
     if plans:
         results["cache_plan"] = plans
+    if placement is not None:
+        # The searched placement table of the weighted block solve.
+        results["placement"] = placement
     ingest = {
         split: [asdict(s) for s in src.stream_stats]
         for split, src in (("train", train), ("test", test))
@@ -460,6 +470,13 @@ def main(argv=None) -> dict:
         "through the card's admission gate (env KEYSTONE_AUTOCACHE=1)",
     )
     p.add_argument(
+        "--autoShard", action="store_true",
+        help="placement search (core.autoshard): force the cost-model "
+        "ranked mesh/strategy candidate search for the weighted block "
+        "solve and record the searched plan in results['placement'] (on "
+        "by default; KEYSTONE_AUTOSHARD=0 disables it except here)",
+    )
+    p.add_argument(
         "--pipelineFile", default=None,
         help="checkpoint stem of the fitted {sift_pca, sift_gmm, lcs_pca, lcs_gmm, model} "
         "bundle: saved after a fit, restored without a fit (or a read of the training "
@@ -505,6 +522,7 @@ def main(argv=None) -> dict:
         device=a.device,
         pipeline_file=a.pipelineFile,
         auto_cache=a.autoCache or optimize.auto_cache_env(),
+        auto_shard=a.autoShard,
     )
     resolve_device(conf.device)
     restoring = conf.pipeline_file is not None and checkpoint_exists(conf.pipeline_file)

@@ -90,6 +90,11 @@ class MnistRandomFFTConfig:
     #: solve and rebuilt at eval (the same bits).  The decision table is
     #: ``results["cache_plan"]``.
     auto_cache: bool = False
+    #: Placement search (core.autoshard): force the cost-model-ranked
+    #: candidate search for the block solve (on by default via
+    #: ``KEYSTONE_AUTOSHARD``); the searched table lands in
+    #: ``results["placement"]`` whenever a search ran.
+    auto_shard: bool = False
 
 
 def fft_chain(signs) -> Pipeline:
@@ -167,8 +172,11 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
     t_solve = time.perf_counter()
     with stage_timer("solve"):
         solver = BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0)
-        model = solver.fit(training_batches, labels, checkpoint=conf.solve_checkpoint,
-                           resume_from=conf.solve_resume)
+        model = solver.fit(
+            training_batches, labels, checkpoint=conf.solve_checkpoint,
+            resume_from=conf.solve_resume,
+            plan=True if conf.auto_shard else None,
+        )
         log_fit_report(solver, _log, "mnist random-fft solve")
         assert_all_finite(model, "mnist random-fft model")
     solve_secs = time.perf_counter() - t_solve
@@ -180,6 +188,10 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
     results: dict = {}
     if cache_plan is not None:
         results["cache_plan"] = cache_plan.record()
+    if solver.last_fit_report.placement is not None:
+        # The searched placement table: candidates, deny/score rationale,
+        # the chosen plan's predicted-vs-measured cost.
+        results["placement"] = solver.last_fit_report.placement
 
     def train_eval(pred):
         metrics = MulticlassClassifierEvaluator(
@@ -299,6 +311,13 @@ def main(argv=None) -> dict:
         "time and their bytes through the card's admission gate (env KEYSTONE_AUTOCACHE=1)",
     )
     p.add_argument(
+        "--autoShard", action="store_true",
+        help="placement search (core.autoshard): force the cost-model "
+        "ranked mesh/strategy candidate search for the block solve and "
+        "record the searched plan in results['placement'] (on by "
+        "default; KEYSTONE_AUTOSHARD=0 disables it except here)",
+    )
+    p.add_argument(
         "--trace", default=None, metavar="PATH",
         help="write a Chrome-trace JSON (.jsonl for the JSONL event log) of the run",
     )
@@ -329,6 +348,7 @@ def main(argv=None) -> dict:
         serve_clients=a.serveClients,
         serve_requests=a.serveRequests,
         auto_cache=a.autoCache or optimize.auto_cache_env(),
+        auto_shard=a.autoShard,
     )
     resolve_device(conf.device)
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)

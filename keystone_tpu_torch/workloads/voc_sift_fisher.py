@@ -146,6 +146,11 @@ class SIFTFisherConfig:
     #: features, decided from a timed probe through the card's admission
     #: gate.  The decision table is ``results["cache_plan"]``.
     auto_cache: bool = False
+    #: Placement search (core.autoshard): force the cost-model-ranked
+    #: candidate search for the block solve (on by default via
+    #: ``KEYSTONE_AUTOSHARD``); the searched table lands in
+    #: ``results["placement"]`` whenever a search ran.
+    auto_shard: bool = False
 
 
 def make_sift(conf: SIFTFisherConfig) -> SIFTExtractor:
@@ -262,7 +267,11 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict,
     t = time.perf_counter()
     with stage_timer("solve"):
         solver = BlockLeastSquaresEstimator(4096, 1, conf.lam)
-        model = solver.fit(train_features, train_labels, num_features=feat_dim, **solve_kwargs)
+        model = solver.fit(
+            train_features, train_labels, num_features=feat_dim,
+            plan=True if conf.auto_shard else None,
+            **solve_kwargs,
+        )
         log_fit_report(solver, _log, "VOC SIFT-Fisher solve")
         assert_all_finite(model, "VOC block least-squares fit")
         solve_secs = lap(t)
@@ -282,6 +291,9 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict,
     }
     if cache_plan is not None:
         secs["cache_plan"] = cache_plan.record()
+    if solver.last_fit_report.placement is not None:
+        # The searched placement table of the block solve.
+        secs["placement"] = solver.last_fit_report.placement
     return {"pca": batch_pca, "gmm": gmm, "model": model}, secs
 
 
@@ -448,6 +460,13 @@ def main(argv=None) -> dict:
         "decode-ahead, ring depth and the decode backend from the stall counters",
     )
     p.add_argument(
+        "--autoShard", action="store_true",
+        help="placement search (core.autoshard): force the cost-model "
+        "ranked mesh/strategy candidate search for the block solve and "
+        "record the searched plan in results['placement'] (on by "
+        "default; KEYSTONE_AUTOSHARD=0 disables it except here)",
+    )
+    p.add_argument(
         "--pipelineFile", default=None,
         help="checkpoint stem of the fitted {pca, gmm, model} bundle: saved after "
         "a fit, restored without a fit when it exists",
@@ -495,6 +514,7 @@ def main(argv=None) -> dict:
         serve_clients=a.serveClients,
         serve_requests=a.serveRequests,
         auto_cache=a.autoCache or optimize.auto_cache_env(),
+        auto_shard=a.autoShard,
     )
     resolve_device(conf.device)
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)

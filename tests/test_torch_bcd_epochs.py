@@ -13,6 +13,7 @@ import torch
 
 from keystone_tpu.solvers.block import BlockLeastSquaresEstimator as JaxBLS
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 WIDTHS = (128, 128, 70)
 

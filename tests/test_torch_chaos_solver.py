@@ -1,6 +1,6 @@
 """The solver families of the chaos harness (``tests/chaos.py``) on the
-port: ``solver_oom``, ``oom_cascade``, ``preempt_resume`` and ``deadline``,
-each on the port's MnistRandomFFT and RandomPatchCifar at the harness's case
+port: ``solver_oom``, ``oom_cascade``, ``preempt_resume``, ``deadline`` and
+``plan_mispredict``, each on the port's MnistRandomFFT and RandomPatchCifar at the harness's case
 sizes (``chaos._mnist_case`` and ``chaos._run_cifar``'s files and
 settings), with the harness's fault parameters (``chaos.make_schedule``).
 
@@ -10,7 +10,10 @@ that the fault ledger counted.  The injection points are the port's:
 ``solvers.block._fused_bcd_impl`` for the fused tier, and
 ``_bcd_block_solve``, every tier's block update, whose first call once the
 fused tier has failed is the stepwise tier's.  An injected out-of-memory
-error is ``torch.OutOfMemoryError``."""
+error is ``torch.OutOfMemoryError``.  ``plan_mispredict`` kills the
+placement search's top-ranked plan (the fused tier) and holds the run to
+the harness's step-down oracle (``chaos._stepdown_oracle``): the fit chose
+the next-ranked plan, counted ``autoshard_stepdown``."""
 
 import contextlib
 import os
@@ -27,8 +30,9 @@ from keystone_tpu_torch.loaders.csv_loader import LabeledData
 from keystone_tpu_torch.solvers import block as block_mod
 from keystone_tpu_torch.workloads import cifar_random_patch as pcifar
 from keystone_tpu_torch.workloads import mnist_random_fft as pmnist
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
-FAMILIES = ("solver_oom", "oom_cascade", "preempt_resume", "deadline")
+FAMILIES = ("solver_oom", "oom_cascade", "preempt_resume", "deadline", "plan_mispredict")
 
 
 def _schedule(kind: str) -> chaos.Fault:
@@ -114,6 +118,12 @@ def _faulted(kind: str, run, tmp_path):
         # fused -> stepwise -> host_staged.
         with _OomFaults("_fused_bcd_impl", 1), _OomFaults("_bcd_block_solve", 1):
             return run()
+    if kind == "plan_mispredict":
+        before = counters.get("autoshard_stepdown")
+        with _OomFaults("_fused_bcd_impl", fault.params["failures"]):
+            res = run()
+        chaos._stepdown_oracle(res, counters.get("autoshard_stepdown") - before)
+        return res
     if kind == "preempt_resume":
         path = str(tmp_path / "bcd_state")
         write = block_mod.bcd_checkpoint_writer(path)
@@ -160,10 +170,14 @@ def test_faulted_run_is_equal_or_typed(kind, workload, cases, tmp_path):
     assert time.monotonic() - t0 < 60.0
     delta = {k: v - before.get(k, 0) for k, v in counters.snapshot().items()
              if v != before.get(k, 0)}
-    if kind in ("solver_oom", "oom_cascade"):
-        assert delta.get("solver_oom_retry") == (1 if kind == "solver_oom" else 2), delta
+    if kind in ("solver_oom", "oom_cascade", "plan_mispredict"):
+        assert delta.get("solver_oom_retry") == (1 if kind != "oom_cascade" else 2), delta
         assert res["fit_report"]["chosen_tier"] == (
-            "stepwise" if kind == "solver_oom" else "host_staged")
+            "host_staged" if kind == "oom_cascade" else "stepwise")
+        # plan=None searches, so every ranked plan that died is a counted
+        # step-down of the searched ranking, as in the JAX package.
+        assert delta.get("autoshard_stepdown") == delta["solver_oom_retry"], delta
+        assert res["placement"]["chosen"] == res["fit_report"]["chosen_tier"]
     if kind == "preempt_resume":
         assert os.path.exists(str(tmp_path / "bcd_state.npz"))
         assert res["fit_report"]["chosen_tier"] == "stepwise[checkpoint]"

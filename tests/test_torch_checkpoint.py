@@ -84,6 +84,7 @@ from keystone_tpu_torch.workloads import voc_sift_fisher as pt_voc
 from test_fisher_pipelines import write_voc_tar
 from test_torch_cifar_random_patch import FLAGS as CIFAR_FLAGS
 from test_torch_cifar_random_patch import _write_cifar
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -23,6 +23,7 @@ from keystone_tpu_torch import convert
 from keystone_tpu_torch.loaders.cifar import cifar_loader
 from keystone_tpu_torch.ops import rect_pool as rp
 from keystone_tpu_torch.workloads import cifar_random_patch as pt_cifar
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 FLAGS = ["--numFilters", "24", "--patchSteps", "2", "--whitenerSize", "3000", "--lambda", "10"]
 
@@ -98,6 +99,23 @@ def test_port_cli_reaches_zero_error(cifar_files, monkeypatch):
     np.testing.assert_array_equal(
         pt_cifar.apply_servable_chunked(again.servable, images, 256), res["test_predictions"]
     )
+
+
+def test_cli_auto_shard_records_the_placement(cifar_files, monkeypatch, tmp_path):
+    """``--autoShard`` forces the placement search of the block solve: the
+    results carry its table, and the predictions are the hand ladder's.  The
+    test's own empty plan log keeps the untrained ranking."""
+    monkeypatch.setenv("KEYSTONE_PLAN_LOG", str(tmp_path / "plans.jsonl"))
+    train, test = cifar_files
+    argv = ["--trainLocation", train, "--testLocation", test, *FLAGS, "--device", "cpu"]
+    searched = pt_cifar.main([*argv, "--autoShard"])
+    placement = searched["placement"]
+    assert placement["ranking"] == ["fused", "stepwise", "host_staged"]
+    assert placement["chosen"] == searched["fit_report"]["chosen_tier"] == "fused"
+    monkeypatch.setenv("KEYSTONE_AUTOSHARD", "0")
+    hand = pt_cifar.main(argv)
+    assert "placement" not in hand and hand["fit_report"]["placement"] is None
+    np.testing.assert_array_equal(searched["test_predictions"], hand["test_predictions"])
 
 
 def test_cli_rejects_unported_flags(cifar_files):

@@ -30,6 +30,7 @@ from keystone_tpu_torch.ops.conv_fused import FusedConvFeaturizer
 from keystone_tpu_torch.workloads import cifar_random_patch as pc
 from keystone_tpu_torch.workloads.fv_common import stream_config_from_flags
 from test_stream_workloads import _write_cifar_tar
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 SMALL = dict(num_filters=4, patch_steps=6, lam=10.0, whitener_size=64, num_classes=4)
 

@@ -35,6 +35,7 @@ from keystone_tpu_torch.workloads import cifar_random_patch as pt_cifar
 from keystone_tpu_torch.workloads import linear_pixels as pt_lp
 from keystone_tpu_torch.workloads import random_cifar as pt_rc
 from test_torch_cifar_random_patch import _write_cifar
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 RC_CONF = dict(num_filters=24, lam=10.0, num_classes=4)
 

@@ -19,6 +19,7 @@ from keystone_tpu.solvers.gmm import GaussianMixtureModel as JaxGMM
 from keystone_tpu_torch.ops import fisher as pfisher
 from keystone_tpu_torch.ops import fv_stats as fs
 from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 

@@ -19,6 +19,7 @@ import torch
 from keystone_tpu_torch.ops import fv_stats as fs
 from keystone_tpu_torch.ops.fisher import FisherVector, _fv_from_stats
 from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 @pytest.fixture

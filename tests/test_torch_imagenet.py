@@ -45,6 +45,7 @@ from keystone_tpu_torch.solvers.weighted import BlockWeightedLeastSquaresEstimat
 from keystone_tpu_torch.utils.stats import get_err_percent
 from keystone_tpu_torch.workloads import fv_common as pfv
 from keystone_tpu_torch.workloads import imagenet_sift_lcs_fv as pinet
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 NUM_CLASSES = 6
 SHAPES = ((48, 64), (56, 72))
@@ -362,6 +363,20 @@ def test_auto_cache_with_shared_pca_and_gmm_matches_jax(tars, jax_state):
     assert cached["top1_err_percent"] == errors["top1_err_percent"]
 
 
+def test_auto_shard_records_the_placement(tars, port_run, monkeypatch, tmp_path):
+    """``--autoShard`` forces the placement search of the weighted solve:
+    the results carry its table, and the scores are the plain run's.  The
+    test's own empty plan log keeps the untrained ranking."""
+    monkeypatch.setenv("KEYSTONE_PLAN_LOG", str(tmp_path / "plans.jsonl"))
+    res = pinet.main([*_base(tars), *SMALL, "--device", "cpu", "--autoShard"])
+    _, _, plain = port_run
+    np.testing.assert_array_equal(res["test_scores"], plain["test_scores"])
+    placement = res["placement"]
+    assert placement["label"] == "bwls_fit"
+    assert placement["ranking"] == ["fused", "stepwise", "host_staged"]
+    assert placement["chosen"] == "fused"
+
+
 @pytest.mark.parametrize("budget", [None, "1K"])
 def test_auto_cache_fitting_branches_is_bit_equal(tars, port_run, budget, monkeypatch):
     """Fitting the GMMs (reuse 2): materialized with no budget known, or
@@ -395,7 +410,7 @@ def test_cli_auto_tune_streams_equal(tars, port_run, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--serve"], ["--autoTune"], ["--autoShard"], ["--mesh", "8"],
+    ["--serve"], ["--autoTune"], ["--autoShard", "--mesh", "8"], ["--mesh", "8"],
     ["--serveBench"], ["--streamIngest", "--serveMesh", "2x1"],
     ["--decodeBackend", "thread"], ["--snapshotDir", "s"],  # both need --streamIngest
     ["--deviceDecode"],

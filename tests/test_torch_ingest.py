@@ -26,6 +26,7 @@ from keystone_tpu_torch.loaders import image_loaders as ploaders
 from keystone_tpu_torch.ops import jpeg_device as jd
 from keystone_tpu_torch.workloads import fv_common as pfv
 from test_fisher_pipelines import write_voc_tar
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 EVENTS = ("jpeg_corrupt_entropy", "device_decode_fallback", "corrupt_image")
 

@@ -18,6 +18,7 @@ from keystone_tpu.solvers.pca import LinearDiscriminantAnalysis as JaxLDA
 from keystone_tpu_torch.ops.stats import ColumnSampler
 from keystone_tpu_torch.solvers.linear import LinearMapper
 from keystone_tpu_torch.solvers.pca import LinearDiscriminantAnalysis
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 def naive_lda(data, labels, k):

@@ -26,6 +26,7 @@ from keystone_tpu_torch.solvers.linear import (
     LinearMapEstimator,
     LinearMapper,
 )
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 def _close(got: torch.Tensor, want, rtol=1e-4, atol=1e-5):

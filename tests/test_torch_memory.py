@@ -23,6 +23,7 @@ from keystone_tpu_torch.core.resilience import counters
 from keystone_tpu_torch.ops import jpeg_device as jd
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
 from keystone_tpu_torch.solvers.weighted import BlockWeightedLeastSquaresEstimator
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 N, D, K, BS = 32, 256, 4, 64
 
@@ -226,9 +227,12 @@ class TestSolverReports:
         monkeypatch.setenv(kmem.HBM_BUDGET_ENV, "1K")
         before = counters.get("hbm_preflight_denied")
         est, pinched = _fit(a, b)
-        # Every tier is denied and counted; the floor is host_staged.
+        # Every tier is denied and counted; the floor is host_staged.  The
+        # fit searches (plan=None), so, as in the JAX package, the search's
+        # analytic prune denies each tier once and the floor's own preflight
+        # denies it again.
         tiers = ["fused", "stepwise", "host_staged"]
-        assert counters.get("hbm_preflight_denied") == before + len(tiers)
+        assert counters.get("hbm_preflight_denied") == before + len(tiers) + 1
         assert [t for t, p in est.last_fit_report.plans.items() if not p.admitted] == tiers
         assert est.last_fit_report.chosen == "host_staged"
         assert torch.equal(clean, pinched)

@@ -28,6 +28,7 @@ from keystone_tpu_torch.loaders.csv_loader import LabeledData
 from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
 from keystone_tpu_torch.workloads import mnist_random_fft as pt_mnist
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 # 4 FFTs in groups of 2 (blockSize 1024): 2 groups of 2 x 32 features.
 CONF = dict(num_ffts=4, block_size=1024, lam=1e-2, mnist_image_size=64, num_classes=5)
@@ -203,7 +204,8 @@ def test_cli_needs_a_card_by_default(csv_files, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "8"], ["--autoShard"], ["--solveCheckpoint"],  # the flag needs its path
+    ["--mesh", "8"], ["--autoShard", "--mesh", "2"],  # the mesh is not ported
+    ["--solveCheckpoint"],  # the flag needs its path
     ["--resumeFrom"], ["--serveMesh", "2x1"], ["--serve", "--serveMesh", "1x1"],
     ["--blockSize", "300"],
     ["--blockSize", "0"],

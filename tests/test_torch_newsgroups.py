@@ -26,6 +26,7 @@ from keystone_tpu_torch.ops import nlp, sparse
 from keystone_tpu_torch.solvers.naive_bayes import NaiveBayesEstimator
 from keystone_tpu_torch.testing.corpus import write_newsgroups_tree
 from keystone_tpu_torch.workloads import newsgroups as pt_ng
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 COMMON = 3000
 

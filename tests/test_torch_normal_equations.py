@@ -22,6 +22,7 @@ import torch
 from keystone_tpu.solvers import normal_equations as jne
 from keystone_tpu_torch.solvers import normal_equations as tne
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 LAMS = [0.0, 1e-2, 10.0]
 

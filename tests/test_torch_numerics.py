@@ -26,6 +26,7 @@ from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
 from keystone_tpu_torch.solvers.normal_equations import solve_gram_l2
 from keystone_tpu_torch.solvers.weighted import BlockWeightedLeastSquaresEstimator
 from test_stream_workloads import _write_cifar_tar
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

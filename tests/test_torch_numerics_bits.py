@@ -24,6 +24,7 @@ from keystone_tpu_torch.solvers.block import BlockLinearMapper
 from keystone_tpu_torch.solvers.pca import BatchPCATransformer, PCATransformer
 from keystone_tpu_torch.utils import stats as ustats
 from keystone_tpu_torch.utils.stats import matmul_rows, normalize_rows, sqrt_rn
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 ROW_COUNTS = (1, 4, 6, 16, 64)
 

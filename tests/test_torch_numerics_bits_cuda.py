@@ -20,6 +20,8 @@ from keystone_tpu_torch.ops.images import GrayScaler
 from keystone_tpu_torch.solvers.block import BlockLinearMapper
 from keystone_tpu_torch.solvers.pca import BatchPCATransformer, PCATransformer
 from keystone_tpu_torch.utils.stats import matmul_rows, sqrt_rn
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
+
 
 ROW_COUNTS = (1, 4, 6, 16, 64)
 

@@ -29,6 +29,7 @@ from keystone_tpu_torch.ops import rect_pool as rp
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
 from keystone_tpu_torch.testing.jpeg_encode import encode_jpeg
 from keystone_tpu_torch.workloads import cifar_random_patch as pc
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 @pytest.fixture

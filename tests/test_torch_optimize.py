@@ -48,6 +48,7 @@ from test_fisher_pipelines import write_voc_tar
 from test_stream_workloads import _write_cifar_tar
 from test_torch_cifar_random_patch import FLAGS as CIFAR_FLAGS
 from test_torch_cifar_random_patch import _write_cifar
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 def cand(name, seconds, nbytes, reuse, index=0, mod=optimize):
@@ -800,6 +801,14 @@ def test_cifar_auto_cache_denied_is_equal(cifar_files, monkeypatch):
     np.testing.assert_array_equal(denied["test_predictions"], plain["test_predictions"])
 
 
+#: Both packages weigh a node's measured recompute seconds against its bytes
+#: at ``KEYSTONE_CACHE_GBPS``.  At the default rate these small runs sit near
+#: the line, so the decision would follow the host's load; at this rate the
+#: residency costs next to nothing and a reused node is cached unless the
+#: budget denies it, in either package.
+_FREE_RESIDENCY_GBPS = "1000000"
+
+
 @pytest.fixture(scope="module")
 def mnist_csvs(tmp_path_factory):
     rng = np.random.default_rng(7)
@@ -825,6 +834,7 @@ def test_mnist_auto_cache_matches(mnist_csvs, budget, monkeypatch):
         monkeypatch.delenv(kmem.HBM_BUDGET_ENV, raising=False)
     else:
         monkeypatch.setenv(kmem.HBM_BUDGET_ENV, budget)
+    monkeypatch.setenv(optimize.CACHE_GBPS_ENV, _FREE_RESIDENCY_GBPS)
     train, test = mnist_csvs
     argv = ["--trainLocation", train, "--testLocation", test, "--numFFTs", "4",
             "--blockSize", "512", "--lambda", "10"]
@@ -858,6 +868,7 @@ def test_voc_auto_cache_matches(voc_tar, budget, monkeypatch):
         monkeypatch.delenv(kmem.HBM_BUDGET_ENV, raising=False)
     else:
         monkeypatch.setenv(kmem.HBM_BUDGET_ENV, budget)
+    monkeypatch.setenv(optimize.CACHE_GBPS_ENV, _FREE_RESIDENCY_GBPS)
     tar, labels = voc_tar
     argv = ["--trainLocation", tar, "--testLocation", tar, "--labelPath", labels,
             "--lambda", "0.05", "--descDim", "16", "--vocabSize", "8",

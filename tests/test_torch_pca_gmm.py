@@ -19,6 +19,7 @@ from keystone_tpu.workloads import fv_common as jfv
 from keystone_tpu_torch.solvers import gmm as pgmm
 from keystone_tpu_torch.solvers import pca as ppca
 from keystone_tpu_torch.workloads import fv_common as pfv
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 def _spectral_sample(rng, n, d):

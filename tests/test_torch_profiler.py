@@ -30,6 +30,7 @@ from keystone_tpu_torch.ops import rect_pool as rp
 from keystone_tpu_torch.ops.conv_fused import FusedConvFeaturizer
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
 from keystone_tpu_torch.solvers.weighted import BlockWeightedLeastSquaresEstimator
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -27,6 +27,7 @@ from keystone_tpu_torch.ops.stats import StandardScaler
 from keystone_tpu_torch.ops.util import MaxClassifier
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
 from keystone_tpu_torch.utils.platform import resolve_device
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 @pytest.fixture

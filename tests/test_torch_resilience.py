@@ -18,6 +18,7 @@ from keystone_tpu_torch.core import trace
 from keystone_tpu_torch.loaders import image_loaders as pil
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
 from faults import flaky, make_image_tar, transient_faults
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

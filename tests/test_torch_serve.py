@@ -44,6 +44,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 from test_fisher_pipelines import write_voc_tar  # noqa: E402
 from test_torch_cifar_random_patch import FLAGS as CIFAR_FLAGS  # noqa: E402
 from test_torch_cifar_random_patch import _write_cifar  # noqa: E402
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 pytestmark = pytest.mark.serve
 

@@ -35,6 +35,8 @@ from keystone_tpu_torch.solvers.linear import LinearMapper
 from keystone_tpu_torch.solvers.pca import BatchPCATransformer
 from keystone_tpu_torch.utils.platform import resolve_device
 from keystone_tpu_torch.workloads import voc_sift_fisher as pt_voc
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
+
 
 BUCKETS = (1, 4, 16)
 

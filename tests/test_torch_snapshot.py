@@ -22,6 +22,7 @@ from keystone_tpu.core import snapshot as jsnap
 from keystone_tpu_torch.core import ingest
 from keystone_tpu_torch.core import snapshot as ksnap
 from keystone_tpu_torch.core.resilience import counters
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 @pytest.fixture

@@ -17,6 +17,7 @@ from keystone_tpu_torch.solvers import block as block_mod
 from keystone_tpu_torch.workloads import mnist_random_fft as pmnist
 from keystone_tpu_torch.workloads import voc_sift_fisher as pvoc
 from test_fisher_pipelines import write_voc_tar
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 # VOC at 6,144 Fisher features (PCA to 32, 96 Gaussians): two blocks of the
 # workload's 4,096-wide solve, so a kill after block 0 leaves one to resume.
@@ -113,10 +114,29 @@ def test_voc_solve_checkpoint_resumes_and_removes_its_state(voc_tar, tmp_path, m
     assert res["map"] == whole["map"]
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "8"], ["--autoShard"]])
+@pytest.mark.parametrize("flags", [["--mesh", "8"], ["--autoShard", "--mesh", "8"]])
 @pytest.mark.parametrize("cli", ["mnist", "voc"])
 def test_mesh_and_autoshard_stay_usage_errors(cli, flags, mnist_csvs, voc_tar):
+    """The mesh is not ported: ``--mesh`` stays a usage error, with or
+    without ``--autoShard`` (which the single-device search now takes)."""
     main, argv = (pmnist.main, mnist_csvs) if cli == "mnist" else (
         pvoc.main, [*voc_tar, *VOC_FLAGS])
     with pytest.raises(SystemExit):
         main([*argv, *flags])
+
+
+@pytest.mark.parametrize("cli", ["mnist", "voc"])
+def test_auto_shard_records_the_placement(cli, mnist_csvs, voc_tar, monkeypatch):
+    """``--autoShard`` forces the placement search of the block solve: the
+    results carry its table, and the predictions are the hand ladder's."""
+    main, argv, key = (pmnist.main, mnist_csvs, "test_predictions") if cli == "mnist" else (
+        pvoc.main, [*voc_tar, *VOC_FLAGS], "test_scores")
+    searched = main([*argv, "--autoShard"])
+    placement = searched["placement"]
+    assert placement["ranking"] == ["fused", "stepwise", "host_staged"]
+    assert placement["chosen"] == searched["fit_report"]["chosen_tier"] == "fused"
+    assert placement["measured_seconds"] is not None
+    monkeypatch.setenv("KEYSTONE_AUTOSHARD", "0")
+    hand = main(argv)
+    assert "placement" not in hand
+    np.testing.assert_array_equal(searched[key], hand[key])

@@ -38,6 +38,7 @@ from keystone_tpu_torch.solvers.block import (
     save_bcd_checkpoint,
 )
 from keystone_tpu_torch.solvers.weighted import BlockWeightedLeastSquaresEstimator
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 TIERS = ("fused", "stepwise", "host_staged")
 
@@ -174,7 +175,9 @@ def test_bcd_budget_selects_the_tier(case):
         with _Budget(1000):
             est, model = _port_bcd(a, b)
         assert est.last_fit_report.chosen == "host_staged"
-        assert counters.get("hbm_preflight_denied") == before + 3
+        # The search's analytic prune denies the three tiers, then the
+        # floor's own preflight denies it again (the JAX package's count).
+        assert counters.get("hbm_preflight_denied") == before + 4
         assert all(bool(torch.isfinite(x).all()) for x in model.xs)
         return
     tier = {"generous": "fused", "deny_fused": "stepwise",
@@ -263,9 +266,17 @@ def test_bcd_ladder_never_falls_back_silently(case, monkeypatch):
                          ids=["bcd", "bwls"])
 @pytest.mark.parametrize("plan", [True, ["fused"]], ids=["true", "plan_list"])
 def test_placement_plan_is_refused(est, plan):
+    """``plan=True`` and a name list were refused until the placement
+    search was ported; as in the JAX package they now run the search and
+    fit the hand ladder's model (the named tier first)."""
     x, y = _bwls_problem()
-    with pytest.raises(ValueError, match="item 13"):
-        est.fit(torch.from_numpy(x), torch.from_numpy(y), plan=plan)
+    hand = est.fit(torch.from_numpy(x), torch.from_numpy(y), plan=False)
+    assert est.last_fit_report.placement is None
+    searched = est.fit(torch.from_numpy(x), torch.from_numpy(y), plan=plan)
+    placement = est.last_fit_report.placement
+    assert placement["ranking"] == list(TIERS)
+    assert placement["chosen"] == est.last_fit_report.chosen == "fused"
+    _assert_models_equal(searched, hand)
 
 
 # -- BCD: the resumable state (the counterparts of TestResumableBCD) ----------

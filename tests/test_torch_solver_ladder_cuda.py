@@ -28,6 +28,8 @@ from keystone_tpu_torch.core import memory as kmem
 from keystone_tpu_torch.solvers import block as block_mod
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
 from keystone_tpu_torch.solvers.weighted import BlockWeightedLeastSquaresEstimator
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
+
 
 TIERS = ("fused", "stepwise", "host_staged")
 SLACK = 8 * 2**20

@@ -31,6 +31,7 @@ from keystone_tpu_torch.solvers.block import (
 from keystone_tpu_torch.solvers.normal_equations import cho_factor
 from keystone_tpu_torch.solvers.whitening import ZCAWhitenerEstimator
 from keystone_tpu_torch.utils.stats import classification_error, normalize_rows
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 def test_standard_scaler_matches(rng):

@@ -29,6 +29,7 @@ from keystone_tpu_torch.workloads.fv_common import stream_config_from_flags
 from test_fisher_pipelines import write_voc_tar
 from test_stream_workloads import _write_cifar_tar
 from test_torch_imagenet import SMALL_CONF, _write_split
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 CIFAR = dict(num_filters=4, patch_steps=6, lam=10.0, whitener_size=64, featurize_chunk=4,
              num_classes=4, device="cpu")

@@ -11,6 +11,7 @@ import pytest
 from keystone_tpu.workloads import stupid_backoff as jsb
 from keystone_tpu_torch.testing.corpus import write_newsgroups_tree
 from keystone_tpu_torch.workloads import stupid_backoff as psb
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 KEYS = ("num_tokens", "vocab_size", "num_ngrams", "shard_sizes", "sharded_scoring_equal")
 

@@ -31,6 +31,7 @@ from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
 from keystone_tpu_torch.solvers.normal_equations import cho_factor
 from keystone_tpu_torch.workloads import timit as pt_timit
 from test_timit import write_split
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 D, K = 24, 6
 # 3 blocks of 128 cosine features, 2 epochs, at lambda 0 (BASELINE config 4's).

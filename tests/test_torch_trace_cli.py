@@ -26,6 +26,7 @@ from test_stream_workloads import _write_cifar_tar
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 
 import trace_view  # noqa: E402  (tools/trace_view.py)
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -57,6 +57,7 @@ from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
 from keystone_tpu_torch.workloads import fv_common as pfv
 from keystone_tpu_torch.workloads import voc_sift_fisher as pvoc
 from test_fisher_pipelines import _class_image, write_voc_tar
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 SMALL = ["--lambda", "0.05", "--descDim", "16", "--vocabSize", "8",
          "--numPcaSamples", "6000", "--numGmmSamples", "6000"]

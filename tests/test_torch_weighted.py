@@ -17,6 +17,7 @@ import torch
 from keystone_tpu.solvers.weighted import BlockWeightedLeastSquaresEstimator as JaxBWLS
 from keystone_tpu_torch.solvers.block import BlockLinearMapper
 from keystone_tpu_torch.solvers.weighted import BlockWeightedLeastSquaresEstimator
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
 def naive_bwls(feats, labels, block_size, num_iter, lam, w):
