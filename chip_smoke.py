@@ -288,7 +288,22 @@ which raises (and so exits non-zero) on failure:
    request lost, every answer the incumbent's or the refit's, post-swap
    answers equal to an offline refit on the same data, the refit,
    validate and swap walls printed; the same mix trips the swapped engine
-   inside the cooldown, a counted ``refit_suppressed``.
+   inside the cooldown, a counted ``refit_suppressed``;
+29. the single-process mesh (``parallel.mesh``): 8 slots of ``cuda:0``.
+   (a) phase 3's featurize of the 50,000 training images unsharded and
+   row-sharded over ``make_mesh(4, 2)`` and ``(8, 1)``: K1 launched once
+   per slot and chunk (chunks of 2048 / data rows), the features
+   ``torch.equal`` to the unsharded pass or within phase 5's bf16 bar
+   (1e-2 relative), printed which; (b) the Cifar CLI on phase 3's files
+   without a mesh and with ``--mesh 1``: model and predictions
+   ``torch.equal``; (c) ``cifar.run`` on both meshes: K1 once per slot and
+   chunk (warm chunk, train, test), train and test error within the JAX
+   package's bands (0.6 and 1.1 points) of (b)'s, the chosen tier, each
+   tier's wall, ``search_seconds`` and the solve's peak; (d) ``--mesh 2``
+   raises ``mesh 2x1 needs 2 devices, have 1``; (e) TimitPipeline at
+   config 4 on phase 12's frames over ``make_mesh(8, 1)``: every mesh
+   tier admitted against an eighth of the card's budget, the chosen tier,
+   its peak and error beside phase 12's.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -359,6 +374,7 @@ from keystone_tpu_torch.ops.sift import SIFTExtractor
 from keystone_tpu_torch.ops.stats import SignedHellingerMapper, StandardScaler
 from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
 from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
+from keystone_tpu_torch.parallel.mesh import make_mesh
 from keystone_tpu_torch.solvers import block as block_mod
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
 from keystone_tpu_torch.solvers.weighted import BlockWeightedLeastSquaresEstimator
@@ -3607,6 +3623,150 @@ def run_lifecycle(card: str, data_dir: Path, c22: dict, snap24: dict) -> dict:
     return {"conv_rect_pool": k1}
 
 
+def mesh_tiers(fit_report: dict) -> dict:
+    """Each considered tier's plan (admitted, per-slot budget and charge,
+    GB) and, where it ran, its wall seconds, from a fit's report."""
+    walls = {c["name"]: c["measured_seconds"]
+             for c in (fit_report.get("placement") or {}).get("candidates", [])}
+    return {name: {"admitted": t["admitted"], "budget_gb": t["budget_gb"],
+                   "total_gb": t["total_gb"], "wall_seconds": walls.get(name)}
+            for name, t in fit_report["tiers"].items()}
+
+
+def run_mesh(card: str, fitted: dict, timit12: dict) -> dict:
+    """Phase 29: the single-process mesh on eight slots of the one card.
+    Returns the K1 launches of its runs through the entry points ((b) with
+    ``--mesh 1`` and (c)); (a)'s featurize comparisons are not counted."""
+    t_phase = time.perf_counter()
+    rec: dict = {"phase": "29: the single-process mesh", "card": card}
+    slots = [torch.device("cuda", 0)] * 8
+    meshes = {"4x2": make_mesh(4, 2, devices=slots), "8x1": make_mesh(8, 1, devices=slots)}
+    conf = cifar.RandomCifarConfig(lam=10.0, device="cuda")  # MAIN_FLAGS' values
+    train, test = cifar_loader(str(fitted["cifar_train"])), cifar_loader(str(fitted["cifar_test"]))
+    chunk = conf.featurize_chunk
+
+    def per_slot_chunks(n: int, data: int) -> int:
+        return math.ceil(math.ceil(n / data) / math.ceil(chunk / data))
+
+    # (a) the featurize, unsharded and row-sharded, on one fitted featurizer.
+    torch.cuda.empty_cache()
+    conv = cifar.build_conv_pipeline(conf, *cifar.learn_filters(conf, train.images))
+    whole = cifar.featurize_chunked(conv, train.images, chunk, "cuda")
+    rec["featurize"] = {}
+    for name, mesh in meshes.items():
+        rp.fused_launches = 0
+        t = time.perf_counter()
+        sharded = cifar.featurize_chunked(conv, train.images, chunk, "cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        data = mesh.shape["data"]
+        want = 8 * per_slot_chunks(N_TRAIN, data)
+        rows = sharded.gather()
+        rec["featurize"][name] = {
+            "seconds": secs, "conv_rect_pool_launches": rp.fused_launches,
+            "expected_launches": want, "bit_equal": bool(torch.equal(rows, whole)),
+            "max_rel_err": rel_err(rows, whole)}
+        if rp.fused_launches != want or not (rec["featurize"][name]["bit_equal"]
+                                             or rec["featurize"][name]["max_rel_err"] <= 1e-2):
+            raise AssertionError(f"mesh featurize {name}: {rec['featurize'][name]}")
+        del sharded, rows
+    del whole, conv
+    log(json.dumps({"phase": "29(a)", "card": card, **rec["featurize"]}))
+    rp.launches = 0
+
+    # (b) the CLI without a mesh and with --mesh 1.
+    argv = ["--trainLocation", str(fitted["cifar_train"]), "--testLocation",
+            str(fitted["cifar_test"]), *MAIN_FLAGS]
+    torch.cuda.empty_cache()
+    plain = cifar.main(argv)
+    rp.fused_launches = 0
+    one = cifar.main([*argv, "--mesh", "1"])
+    launches = rp.fused_launches
+    m0, m1 = plain["servable"].nodes[-2], one["servable"].nodes[-2]
+    rec["mesh_1"] = {
+        "chosen": one["fit_report"]["chosen_tier"], "conv_rect_pool_launches": launches,
+        "model_equal": all(torch.equal(a, b) for a, b in zip([*m0.xs, m0.b], [*m1.xs, m1.b])),
+        "predictions_equal": bool(np.array_equal(one["test_predictions"],
+                                                 plain["test_predictions"])),
+        "predictions_equal_phase3": bool(np.array_equal(plain["test_predictions"],
+                                                        fitted["cifar_pred"])),
+        "seconds": one["seconds"], "plain_seconds": plain["seconds"]}
+    log(json.dumps({"phase": "29(b)", "card": card, **rec["mesh_1"]}))
+    if not (rec["mesh_1"]["model_equal"] and rec["mesh_1"]["predictions_equal"]
+            and rec["mesh_1"]["predictions_equal_phase3"]
+            and rec["mesh_1"]["chosen"] == "fused[mesh 1x1]"
+            and launches == 1 + per_slot_chunks(N_TRAIN, 1) + per_slot_chunks(N_TEST, 1)):
+        raise AssertionError(f"--mesh 1: {rec['mesh_1']}")
+    del one, m0, m1
+
+    # (c) the fit on both meshes of the card's eight slots.
+    rec["runs"] = {}
+    for name, mesh in meshes.items():
+        torch.cuda.empty_cache()
+        rp.fused_launches = 0
+        with SolvePeak() as fits:
+            res = cifar.run(conf, train, test, mesh=mesh)
+        launches += rp.fused_launches
+        data = mesh.shape["data"]
+        want = 8 * (1 + per_slot_chunks(N_TRAIN, data) + per_slot_chunks(N_TEST, data))
+        flips = int((res["test_predictions"] != plain["test_predictions"]).sum())
+        rec["runs"][name] = {
+            "conv_rect_pool_launches": rp.fused_launches, "expected_launches": want,
+            "train_error": res["train_error"], "test_error": res["test_error"],
+            "single_train_error": plain["train_error"], "single_test_error": plain["test_error"],
+            "test_predictions_differing": flips,
+            "chosen": res["fit_report"]["chosen_tier"],
+            "mesh_shape": res["fit_report"]["mesh_shape"],
+            "search_seconds": res["placement"]["search_seconds"],
+            "ranking": res["placement"]["ranking"], "tiers": mesh_tiers(res["fit_report"]),
+            "solve_peak_gb": fits[0]["peak_memory_gb"], "fit_seconds": fits[0]["seconds"],
+            "featurize_seconds": res["featurize_seconds"],
+            "solve_seconds": res["solve_seconds"], "seconds": res["seconds"]}
+        log(json.dumps({"phase": f"29(c) {name}", "card": card, **rec["runs"][name]}))
+        r = rec["runs"][name]
+        if not (r["conv_rect_pool_launches"] == want
+                and abs(r["train_error"] - plain["train_error"]) < 0.6
+                and abs(r["test_error"] - plain["test_error"]) < 1.1
+                and r["chosen"] == f"fused[mesh {name}]"):
+            raise AssertionError(f"Cifar on mesh {name}: {r}")
+        del res
+    del plain
+
+    # (d) a mesh larger than the card count.
+    try:
+        cifar.main([*argv, "--mesh", "2"])
+    except ValueError as e:
+        rec["mesh_2"] = str(e)
+    if rec.get("mesh_2") != f"mesh 2x1 needs 2 devices, have {torch.cuda.device_count()}":
+        raise AssertionError(f"--mesh 2 on {torch.cuda.device_count()} card(s): {rec.get('mesh_2')}")
+
+    # (e) TIMIT config 4 over eight slots of the card.
+    torch.cuda.empty_cache()
+    total = torch.cuda.mem_get_info()[1]
+    with SolvePeak() as fits:
+        res = timit.run(timit.TimitConfig(device="cuda"), timit12["data"],
+                        mesh=meshes["8x1"])
+    tiers = mesh_tiers(res["fit_report"])
+    mesh_plans = {k: v for k, v in tiers.items() if k.startswith("fused[mesh")}
+    rec["timit"] = {
+        "chosen": res["fit_report"]["chosen_tier"], "tiers": tiers,
+        "card_gb": total / 2**30, "search_seconds": res["fit_report"]["placement"]["search_seconds"],
+        "solve_peak_gb": fits[0]["peak_memory_gb"], "fit_seconds": fits[0]["seconds"],
+        "test_error": res["test_error"], "phase12_test_error": timit12["test_error"],
+        "seconds": res["seconds"]}
+    log(json.dumps({"phase": "29(e)", "card": card, **rec["timit"]}))
+    del res
+    torch.cuda.empty_cache()
+    if not (mesh_plans and all(v["budget_gb"] is not None
+                               and v["budget_gb"] * 8 <= total / 2**30
+                               for v in mesh_plans.values())
+            and abs(rec["timit"]["test_error"] - timit12["test_error"]) < 1.0):
+        raise AssertionError(f"TIMIT on eight slots: {rec['timit']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 29: {rec['seconds']:.2f} s")
+    return {"conv_rect_pool": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -3782,7 +3942,9 @@ def smoke(data_dir: Path) -> int:
     placement = run_placement(card, fitted, phase6, timit12)
     lifecycle = run_lifecycle(card, data_dir, cifar_tar, snap24)
     log(f"phase 28: {time.perf_counter() - t28:.2f} s")
-    del phase6, timit12, cifar_tar, snap24
+    del phase6, cifar_tar, snap24
+    mesh = run_mesh(card, fitted, timit12)
+    del timit12
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -3794,7 +3956,7 @@ def smoke(data_dir: Path) -> int:
                      + tar_launches["conv_rect_pool"] + restored["conv_rect_pool"]
                      + snaps["conv_rect_pool"] + serving["conv_rect_pool"]
                      + optimizer["conv_rect_pool"] + placement["conv_rect_pool"]
-                     + lifecycle["conv_rect_pool"]),
+                     + lifecycle["conv_rect_pool"] + mesh["conv_rect_pool"]),
         "launches_by_path": {"random_patch_cifar": main_launches,
                              "random_cifar": random_cifar_rec["launches"],
                              "random_patch_cifar_jpeg_tar": tar_launches["conv_rect_pool"],
@@ -3803,7 +3965,8 @@ def smoke(data_dir: Path) -> int:
                              "serving_graphs_and_eager": serving["conv_rect_pool"],
                              "auto_cache_and_auto_tune": optimizer["conv_rect_pool"],
                              "placement_search": placement["conv_rect_pool"],
-                             "lifecycle_refit_and_swap": lifecycle["conv_rect_pool"]},
+                             "lifecycle_refit_and_swap": lifecycle["conv_rect_pool"],
+                             "mesh_slots": mesh["conv_rect_pool"]},
         "max_abs_err": max(r["max_abs_err"] for r in [
             fused_prod, fused_prod_f32, fused_cifar48, *fused_odd, random_cifar_rec]),
         "ms": fused_prod["ms"],

@@ -45,11 +45,13 @@ write).  The log is read ONCE per process: outcomes appended during a run
 train the NEXT process, so a ranking never changes between a baseline and
 a comparison fit inside one process.
 
-Not ported: the two lowerers of a spec string to a sharded layout
-(:func:`spec_pspec`, :func:`spec_sharding`), which need the mesh runtime of
-ROADMAP Queue 1 item 15, and the ``KEYSTONE_AUTOSHARD_SPECS`` knob, which
-switches that item's spec candidates.  The spec vocabulary's arithmetic is
-here.
+The mesh candidates come from the block solver's mesh ladder
+(``solvers.block``): every ``(data, model)`` factorization of the mesh's
+slots in the default layout, their hints from the spec arithmetic here
+(:func:`best_spec`, :func:`spec_chip_bytes`).  Not ported: the two lowerers
+of a spec string to a sharded layout (:func:`spec_pspec`,
+:func:`spec_sharding`) and the ``KEYSTONE_AUTOSHARD_SPECS`` knob, which
+switches the spec-variant candidates (ROADMAP Queue 1 item 15b).
 """
 
 from __future__ import annotations
@@ -124,12 +126,17 @@ def fingerprint(label: str, *parts) -> str:
 def device_fingerprint(devices=None) -> str:
     """``'cuda x1'``-style description of the device set a plan assumed:
     the device type and the count (``parallel.mesh.default_devices`` when
-    None)."""
+    None).  Mesh slots that share a device say so (``'cuda x8 on 1'``: eight
+    slots of one card), so their outcomes never calibrate a mesh of
+    distinct cards, nor the other way round."""
     from ..parallel.mesh import default_devices
 
     try:
-        devices = list(devices if devices is not None else default_devices())
-        return f"{torch.device(devices[0]).type} x{len(devices)}"
+        devices = [torch.device(d) for d in
+                   (devices if devices is not None else default_devices())]
+        out = f"{devices[0].type} x{len(devices)}"
+        distinct = len({(d.type, d.index or 0) for d in devices})
+        return out if distinct == len(devices) else f"{out} on {distinct}"
     except (IndexError, RuntimeError, TypeError):
         return "unknown x0"
 
@@ -171,20 +178,20 @@ def best_spec(aval, mesh_shape: dict) -> dict:
 
 
 def spec_pspec(spec: str, ndim: int):
-    """Lower one spec string to the partition it names: needs the mesh
-    runtime, which is not ported (ROADMAP Queue 1 item 15)."""
+    """Lower one spec string to the partition it names: the mesh tiers run
+    the default layout only; spec layouts are ROADMAP Queue 1 item 15b."""
     raise NotImplementedError(
-        f"spec_pspec({spec!r}, {ndim}): lowering a sharding spec needs the mesh "
-        "runtime of keystone_tpu_torch.parallel, which is ROADMAP Queue 1 item 15"
+        f"spec_pspec({spec!r}, {ndim}): the mesh tiers run the default layout only; "
+        "lowering a sharding spec is ROADMAP Queue 1 item 15b"
     )
 
 
 def spec_sharding(spec: str, mesh, ndim: int):
-    """Lower one spec string to a sharded layout on ``mesh``: needs the
-    mesh runtime, which is not ported (ROADMAP Queue 1 item 15)."""
+    """Lower one spec string to a sharded layout on ``mesh``: the mesh
+    tiers run the default layout only (ROADMAP Queue 1 item 15b)."""
     raise NotImplementedError(
-        f"spec_sharding({spec!r}, ..., {ndim}): lowering a sharding spec needs the "
-        "mesh runtime of keystone_tpu_torch.parallel, which is ROADMAP Queue 1 item 15"
+        f"spec_sharding({spec!r}, ..., {ndim}): the mesh tiers run the default layout "
+        "only; lowering a sharding spec is ROADMAP Queue 1 item 15b"
     )
 
 
@@ -758,9 +765,12 @@ def search(
     fingerprint: str,
     budget: int | None | object = kmem._UNSET,
     model: "kopt.CostModel | None" = None,
+    devices=None,
 ) -> PlacementPlan:
     """Enumerate -> prune -> score -> rank.  A pure decision pass: nothing
-    runs (see :func:`run_search`)."""
+    runs (see :func:`run_search`).  ``devices``: the device slots the
+    candidates run on (a mesh's), for the plan's ``devices`` record; the
+    process's devices when None."""
     t0 = time.perf_counter()
     model = model if model is not None else kopt.CostModel.for_devices()
     records: list[CandidateRecord] = []
@@ -858,7 +868,7 @@ def search(
     plan = PlacementPlan(
         label=label,
         fingerprint=fingerprint,
-        devices=device_fingerprint(),
+        devices=device_fingerprint(devices),
         trained=trained,
         margin=margin if survivors else UNTRAINED_MARGIN,
         candidates=records,
@@ -918,6 +928,7 @@ def run_search(
     plan=None,
     budget: int | None | object = kmem._UNSET,
     model: "kopt.CostModel | None" = None,
+    devices=None,
 ):
     """The solvers' one entry point: search (or honor the ``plan``
     override), then drive the RANKED candidate list through
@@ -934,7 +945,8 @@ def run_search(
         tiers = [_tier(c, c.plan, c.run) for c in by_prior if c.hand]
         return kmem.run_ladder(label, tiers, report)
 
-    placement = search(label, candidates, fingerprint=fingerprint, budget=budget, model=model)
+    placement = search(label, candidates, fingerprint=fingerprint, budget=budget, model=model,
+                       devices=devices)
     if forced is not None:
         known = {c.name for c in candidates}
         ranking = [n for n in forced if n in known]

@@ -23,9 +23,13 @@ keystone_tpu/core/memory.py).
   ``last_fit_report``.
 * :func:`plan_cache_bytes` — the auto-Cacher's admission gate
   (``core.optimize``), on one device.
+* :func:`min_chip_budget` / :func:`shard_bytes` — per-slot admission of a
+  mesh program (``parallel.mesh``): a slot gets its card's budget divided
+  by the number of the mesh's slots on that card, so eight slots of one
+  80 GB card are each admitted against an eighth of it, never
+  the whole card; ``KEYSTONE_HBM_BUDGET`` keeps its per-card meaning.
 
-Not ported: the mesh mode (``min_chip_budget``, ``shard_bytes``) and the
-compile cache (the port compiles nothing).
+Not ported: the compile cache (the port compiles nothing).
 """
 
 from __future__ import annotations
@@ -103,6 +107,45 @@ def hbm_budget(device=None) -> int | None:
     free, _total = torch.cuda.mem_get_info(dev)
     cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
     return int(free) + max(0, int(cached))
+
+
+def min_chip_budget(mesh) -> tuple[int | None, Any]:
+    """``(budget_bytes, device)``: the SMALLEST per-slot byte budget across
+    the mesh's slots and the device it came from: what a mesh program is
+    admitted against, because every slot allocates its share and the
+    tightest one is the one that runs out.
+
+    A slot's budget is its device's :func:`hbm_budget` divided by the
+    number of the mesh's slots on that device; ``KEYSTONE_HBM_BUDGET``
+    keeps its per-card capacity meaning and is divided the same way.  If
+    any device cannot report (the CPU without the override) the answer is
+    ``(None, None)``: admission is skipped, never guessed from a subset."""
+    from ..parallel.mesh import device_key
+
+    slots: dict = {}
+    for dev in mesh.devices.flat:
+        d, n = slots.get(device_key(dev), (torch.device(dev), 0))
+        slots[device_key(dev)] = (d, n + 1)
+    worst: int | None = None
+    worst_dev = None
+    for dev, n in slots.values():
+        free = hbm_budget(dev)
+        if free is None:
+            return None, None
+        per_slot = free // n
+        if worst is None or per_slot < worst:
+            worst, worst_dev = per_slot, dev
+    return worst, worst_dev
+
+
+def shard_bytes(shape, dtype, mesh=None) -> int:
+    """Per-slot bytes of one row-sharded array of global ``shape`` on
+    ``mesh``: its block (rows padded to a multiple of the data axis, divided
+    by it); without a mesh, the whole array."""
+    shape = tuple(int(d) for d in shape)
+    itemsize = dtype.itemsize if isinstance(dtype, torch.dtype) else np.dtype(dtype).itemsize
+    rows = shape[0] if mesh is None else -(-shape[0] // mesh.shape["data"])
+    return rows * int(np.prod(shape[1:])) * itemsize
 
 
 @dataclasses.dataclass
@@ -492,7 +535,7 @@ class FitReport:
     #: rows join the same program family as the time outcomes under.
     fingerprint: str | None = None
     #: the (data, model) axis sizes of the mesh that ran the solve; None on
-    #: one device (the mesh tiers are ROADMAP Queue 1 item 15).
+    #: one device.
     mesh_shape: dict | None = None
     #: the ``autoshard.PlacementPlan`` record of the searched ranking this
     #: fit ran through; None when the fit walked the hand ladder.

@@ -12,8 +12,12 @@ rounding to ``activation_dtype``), so neither the f32 activations nor their
 bf16 copy is ever written: it is what ``FusedConvFeaturizer`` runs.
 
 On a CUDA tensor each launches its entry of the hand-written kernel
-``csrc/rect_pool.cu`` (or raises); on a CPU tensor each runs its plain
-PyTorch version (:func:`rect_pool_reference`,
+``csrc/rect_pool.cu`` (or raises), inside the scope of the tensor's own
+card (``utils.platform.device_scope``): a ``ctypes`` launch runs on the
+runtime's current device, so a mesh slot's rows on ``cuda:3`` must not be
+launched from ``cuda:0``'s context (a one-card host cannot show that fault;
+the mesh tests record the scope each slot's featurize runs in).  On a CPU
+tensor each runs its plain PyTorch version (:func:`rect_pool_reference`,
 :func:`conv_rect_pool_reference`), which the tests and ``chip_smoke.py``
 hold the kernel against.  :func:`rect_pool_cost` and
 :func:`conv_rect_pool_cost` state one launch's flops and bytes, from which
@@ -29,6 +33,7 @@ import torch
 
 from .. import _build
 from ..core import profiler as kprof
+from ..utils.platform import device_scope
 from .images import convolver_epilogue
 
 #: Kernel launches made by :func:`rect_pool` (never by the plain version,
@@ -157,13 +162,14 @@ def rect_pool(
     out = torch.empty(shape, dtype=torch.float32, device=z.device)
     lib = _build.load("rect_pool", _SIGNATURES)
     stream = torch.cuda.current_stream(z.device).cuda_stream
-    rc = kprof.launch(
-        "rect_pool", lambda: rect_pool_cost(z.shape, z.element_size(), out.numel()),
-        lambda: lib.rect_pool_launch(
-            z.data_ptr(), out.data_ptr(), n, oh, ow, f, pool_stride, pool_size,
-            alpha, max_val, _DTYPE_CODES[z.dtype], stream,
-        ),
-    )
+    with device_scope(z.device):
+        rc = kprof.launch(
+            "rect_pool", lambda: rect_pool_cost(z.shape, z.element_size(), out.numel()),
+            lambda: lib.rect_pool_launch(
+                z.data_ptr(), out.data_ptr(), n, oh, ow, f, pool_stride, pool_size,
+                alpha, max_val, _DTYPE_CODES[z.dtype], stream,
+            ),
+        )
     if rc != 0:
         raise RuntimeError(f"rect_pool kernel launch failed: cudaError {rc}")
     global launches
@@ -253,17 +259,18 @@ def conv_rect_pool(
         return None if t is None else t.data_ptr()
 
     lib = _build.load("rect_pool", _SIGNATURES)
-    rc = kprof.launch(
-        "conv_rect_pool",
-        lambda: conv_rect_pool_cost(n, oh, ow, f, out.numel(), normalize=mu is not None,
-                                    means=filter_means_dot is not None),
-        lambda: lib.conv_rect_pool_launch(
-            conv_fp.data_ptr(), ptr(mu), ptr(sigma), ptr(fsum if mu is not None else None),
-            ptr(filter_means_dot), out.data_ptr(), n, oh, ow, f, pool_stride, pool_size,
-            alpha, max_val, int(activation_dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream,
-        ),
-    )
+    with device_scope(dev):
+        rc = kprof.launch(
+            "conv_rect_pool",
+            lambda: conv_rect_pool_cost(n, oh, ow, f, out.numel(), normalize=mu is not None,
+                                        means=filter_means_dot is not None),
+            lambda: lib.conv_rect_pool_launch(
+                conv_fp.data_ptr(), ptr(mu), ptr(sigma), ptr(fsum if mu is not None else None),
+                ptr(filter_means_dot), out.data_ptr(), n, oh, ow, f, pool_stride, pool_size,
+                alpha, max_val, int(activation_dtype == torch.bfloat16),
+                torch.cuda.current_stream(dev).cuda_stream,
+            ),
+        )
     if rc != 0:
         raise RuntimeError(f"conv_rect_pool kernel launch failed: cudaError {rc}")
     global fused_launches

@@ -5,6 +5,8 @@ from __future__ import annotations
 import torch
 
 from ..core.pipeline import Estimator, Transformer, node
+from ..parallel.collectives import sharded_moments
+from ..parallel.mesh import ShardedRows
 from ..utils.stats import sqrt_rn, sum_rows
 
 
@@ -25,18 +27,28 @@ class StandardScalerModel(Transformer):
 
 class StandardScaler(Estimator):
     """Column mean/std from one pass of (sum x, sum x^2).  Sample (n-1)
-    variance; any std that is NaN, Inf or below ``eps`` becomes 1.0."""
+    variance; any std that is NaN, Inf or below ``eps`` becomes 1.0.  On
+    row-sharded data (``parallel.mesh.ShardedRows``) the sums are
+    ``parallel.collectives.sharded_moments``: each data block's, added in
+    data order."""
 
     def __init__(self, normalize_std_dev: bool = True, eps: float = 1e-12):
         self.normalize_std_dev = normalize_std_dev
         self.eps = eps
 
     def fit(self, data, nvalid: int | None = None) -> StandardScalerModel:
+        if isinstance(data, ShardedRows):
+            _, s, sq = sharded_moments(data)
+            nvalid = data.nvalid if nvalid is None else nvalid
+        else:
+            s, sq = data.sum(dim=0), None
         cnt = float(nvalid if nvalid is not None else data.shape[0])
-        mean = data.sum(dim=0) / cnt
+        mean = s / cnt
         if not self.normalize_std_dev:
             return StandardScalerModel(mean, None)
-        var = ((data * data).sum(dim=0) - cnt * mean * mean) / (cnt - 1.0)
+        if sq is None:
+            sq = (data * data).sum(dim=0)
+        var = (sq - cnt * mean * mean) / (cnt - 1.0)
         std = sqrt_rn(var)
         bad = torch.isnan(std) | torch.isinf(std) | (torch.abs(std) < self.eps)
         std = torch.where(bad, torch.ones_like(std), std)

@@ -1,25 +1,39 @@
-"""The device-mesh enumeration (counterpart of the enumeration half of
-keystone_tpu/parallel/mesh.py).
+"""The device mesh and its row-sharded arrays (counterpart of
+keystone_tpu/parallel/mesh.py, one process).
 
-A :class:`Mesh` is a plain record over ``torch.device`` s: a numpy object
-array of devices shaped ``(data, model)``, its axis names, and a ``shape``
-mapping, so ``mesh.shape["data"]`` reads as it does on a ``jax`` mesh.
-Building one opens no process group and needs no card
-(``torch.device("cuda:3")`` constructs without one); the placement search
-(``core.autoshard``) enumerates candidate factorizations over it.
+A :class:`Mesh` is a ``(data, model)`` grid of device SLOTS in this process:
+a numpy object array of ``torch.device`` s, its axis names, and a ``shape``
+mapping, so ``mesh.shape["data"]`` reads as it does on a ``jax`` mesh.  A
+device may fill more than one slot (``make_mesh(4, 2, devices=[dev] * 8)``):
+each entry is a slot of its own, the counterpart of the JAX tests' virtual
+CPU devices, so eight slots run on one CPU or one card.  Building one opens
+no process group and needs no card.
 
-Not ported: the sharding helpers (``row_sharding``, ``padded_shard_rows``,
-``parse_mesh``, ``mask_pad_rows``, ``pad_shard_inputs``) and every
-collective, which run a mesh rather than describe one (ROADMAP Queue 1
-item 15).
+A :class:`ShardedRows` is the counterpart of a ``jax.Array`` under
+``row_sharding``: an explicit record of per-slot tensors, the rows split in
+order over the data axis (zero pad rows make the count a multiple of the
+axis) and replicated over the model axis; ``nvalid`` counts the true rows.
+Work on it runs slot by slot (:meth:`ShardedRows.apply`), each slot inside
+its device's scope (``utils.platform.device_scope``), and reductions over
+the data axis are ``parallel.collectives``' fixed-order sums.  Where the JAX
+package hands a sharded array to ``jnp`` code, the port calls a sharded form
+explicitly or gathers the rows in data order (:meth:`ShardedRows.gather`).
+
+Multi-process meshes (``mesh_spans_processes``, ``host_local_mesh``) wait
+for ``parallel/distributed.py`` (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import functools
 
 import numpy as np
+import torch
+
+from ..utils.platform import device_scope, resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -45,8 +59,6 @@ class Mesh:
 def default_devices() -> list:
     """Every CUDA card of this process, or the CPU when there is none (the
     counterpart of ``jax.devices()``)."""
-    import torch
-
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n:
         return [torch.device("cuda", i) for i in range(n)]
@@ -120,6 +132,278 @@ def enumerate_meshes(devices) -> list[Mesh]:
     if cached is None:
         cached = _mesh_cache[key] = tuple(
             make_mesh(data=d, model=m, devices=list(key))
-            for d, m in _mesh_shapes(len(key))
+            for d, m in enumerate_mesh_shapes(len(key))
         )
     return list(cached)
+
+
+_current_mesh: list[Mesh] = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Mesh):
+    """Set the ambient mesh the estimators shard their inputs over."""
+    _current_mesh.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _current_mesh.pop()
+
+
+def current_mesh() -> Mesh | None:
+    return _current_mesh[-1] if _current_mesh else None
+
+
+def parse_mesh(spec: str | None, device="cuda") -> Mesh | None:
+    """Parse a ``--mesh`` flag over the distinct devices of the CLI's
+    ``--device`` kind: ``"8"`` -> 8-way data mesh, ``"4x2"`` -> (data=4,
+    model=2); None/empty -> no mesh.  ``cuda`` without a card raises, as
+    ``utils.platform.resolve_device`` does; the CPU is one device."""
+    if not spec:
+        return None
+    parts = spec.lower().split("x")
+    if (
+        len(parts) > 2
+        or not all(p.strip().isdigit() for p in parts)
+        or any(int(p) == 0 for p in parts)
+    ):
+        raise ValueError(
+            f"bad --mesh spec {spec!r}: expected 'DATA' or 'DATAxMODEL' "
+            "with positive sizes (e.g. '8' or '4x2')"
+        )
+    data = int(parts[0])
+    model = int(parts[1]) if len(parts) > 1 else 1
+    dev = resolve_device(device)
+    devices = (
+        [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if dev.type == "cuda" else [dev]
+    )
+    return make_mesh(data=data, model=model, devices=devices)
+
+
+def add_mesh_flag(p) -> None:
+    """The workload CLIs' ``--mesh`` flag."""
+    p.add_argument(
+        "--mesh", default=None,
+        help="device mesh over the --device kind, e.g. '8' (data) or '4x2' (data x model)",
+    )
+
+
+def mesh_from_flags(p, a, refused: tuple = ()) -> Mesh | None:
+    """``--mesh`` parsed over ``a.device``; each flag named in ``refused``
+    (its mesh half is not ported) is a usage error beside it
+    (``p.error`` exits)."""
+    if a.mesh:
+        for flag in refused:
+            if getattr(a, flag, None):
+                p.error(f"--{flag} beside --mesh is not ported (ROADMAP Queue 1 item 15b)")
+    return parse_mesh(a.mesh, a.device)
+
+
+def device_key(device) -> tuple:
+    """``(type, index)`` of a device: ``cuda`` and ``cuda:0`` are one card."""
+    d = torch.device(device)
+    return d.type, d.index or 0
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Do two slots' devices hold the same memory?  ``cuda`` and ``cuda:0``
+    are one card; every CPU device index is the one host memory."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type == "cpu":
+        return True
+    return (a.index or 0) == (b.index or 0)
+
+
+def on_slot(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` in ``device``'s memory: the tensor itself when it is there."""
+    return t if _same_device(t.device, device) else t.to(device)
+
+
+@dataclasses.dataclass(eq=False)
+class ShardedRows:
+    """Rows of one array over a mesh: ``shards[d][m]`` is data block ``d``
+    (``rows // data`` rows, in order) on slot ``(d, m)``'s device.  Rows at
+    index >= ``nvalid`` are pad rows, zero where the record was made.
+    Slots that share a device share the tensor."""
+
+    mesh: Mesh
+    shards: list  #: [data][model] -> torch.Tensor
+    nvalid: int
+
+    @property
+    def rows(self) -> int:
+        """Rows over all data blocks, pad rows included."""
+        return sum(int(row[0].shape[0]) for row in self.shards)
+
+    @property
+    def shape(self) -> tuple:
+        return (self.rows, *self.shards[0][0].shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0][0].dtype
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the whole array, pad rows included (``jax.Array.nbytes``)."""
+        return sum(b.numel() * b.element_size() for b in self.data_blocks())
+
+    def data_blocks(self) -> list[torch.Tensor]:
+        """One tensor per data index (model slot 0's), in data order."""
+        return [row[0] for row in self.shards]
+
+    def gather(self) -> torch.Tensor:
+        """The true rows, in data order, on slot (0, 0)'s device."""
+        dev = self.mesh.devices[0, 0]
+        return torch.cat([on_slot(b, dev) for b in self.data_blocks()])[: self.nvalid]
+
+    def apply(self, fn) -> "ShardedRows":
+        """``fn`` on every slot's rows, inside the scope of the slot's
+        device, with ``fn`` replicated to that device once
+        (:func:`replicate`).  Row-wise functions only:
+        pad rows stay where they were, and ``nvalid`` is kept."""
+        replicas: dict = {}
+        out = []
+        for d, row in enumerate(self.shards):
+            out_row = []
+            for m, t in enumerate(row):
+                dev = self.mesh.devices[d, m]
+                key = device_key(dev)
+                if key not in replicas:
+                    replicas[key] = replicate(fn, dev)
+                with device_scope(dev):
+                    out_row.append(replicas[key](t))
+            out.append(out_row)
+        return ShardedRows(self.mesh, out, self.nvalid)
+
+
+def replicate(obj, device):
+    """``obj`` with every tensor it holds in ``device``'s memory: a tensor,
+    a list or tuple, or a pipeline node (``core.pipeline.Transformer``: a
+    shallow copy with its attributes replicated, a ``torch.device``
+    attribute among them).  Anything else, and anything already there, is
+    returned as it is."""
+    if isinstance(obj, torch.Tensor):
+        return on_slot(obj, device)
+    if isinstance(obj, torch.device):
+        return obj if _same_device(obj, device) else torch.device(device)
+    if isinstance(obj, (list, tuple)):
+        items = [replicate(o, device) for o in obj]
+        if all(a is b for a, b in zip(items, obj)):
+            return obj
+        return type(obj)(items)
+    from ..core.pipeline import Transformer
+
+    if not isinstance(obj, Transformer):
+        return obj
+    fields = {k: replicate(v, device) for k, v in vars(obj).items()}
+    if all(v is getattr(obj, k) for k, v in fields.items()):
+        return obj
+    out = copy.copy(obj)
+    vars(out).update(fields)
+    return out
+
+
+def padded_shard_rows(x, mesh: Mesh | None = None, nvalid: int | None = None):
+    """Pad N up to a multiple of the data-axis size with zero rows, shard,
+    return ``(x, nvalid)``.
+
+    ``x`` is a host array, a tensor, or a :class:`ShardedRows` of another
+    layout (its true rows are gathered and sharded anew).  Each data block
+    of a tensor already in a slot's memory is a view of it, not a copy;
+    only the block that takes pad rows is new.  Zero rows contribute
+    nothing to raw sums, but an estimator that centres data must be told
+    ``nvalid`` (pad rows become ``-mean``): the solvers' ``fit(...,
+    nvalid=)`` masks them back to zero.  Without a mesh (none given and
+    none ambient) ``x`` comes back as a tensor with its row count."""
+    mesh = mesh or current_mesh()
+    if isinstance(x, ShardedRows):
+        if mesh is None or _same_layout(x.mesh, mesh):
+            return x, x.nvalid
+        x = x.gather()
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    n = int(x.shape[0]) if nvalid is None else int(nvalid)
+    x = x[:n]
+    if mesh is None:
+        return x, n
+    d_sz = mesh.shape[DATA_AXIS]
+    per = -(-n // d_sz) if n else 0
+    shards = []
+    for d in range(d_sz):
+        block = x[d * per : (d + 1) * per]
+        if block.shape[0] < per:
+            pad = x.new_zeros((per - block.shape[0], *x.shape[1:]))
+            block = torch.cat([block, pad])
+        row: list = []
+        for dev in mesh.devices[d]:
+            same = next((t for t in row if _same_device(t.device, dev)), None)
+            row.append(same if same is not None else on_slot(block, dev))
+        shards.append(row)
+    return ShardedRows(mesh, shards, n), n
+
+
+def _same_layout(a: Mesh, b: Mesh) -> bool:
+    """Do two meshes put each data block on the same devices?"""
+    return a.devices.shape == b.devices.shape and all(
+        _same_device(p, q) for p, q in zip(a.devices.flat, b.devices.flat)
+    )
+
+
+def mask_pad_rows(x, nvalid: int | None = None):
+    """Zero the rows at index >= ``nvalid`` (a ``ShardedRows``' own).
+
+    Needed after a featurizer that maps zero pad rows to nonzero outputs
+    (``cos(0·W + b)`` in CosineRandomFeatures, a convolution's patch
+    normalisation), so moment sums over the padded rows stay exact."""
+    if isinstance(x, ShardedRows):
+        offsets = np.cumsum([0] + [int(b.shape[0]) for b in x.data_blocks()])
+        out = [
+            [_mask_rows(t, x.nvalid - int(offsets[d])) for t in row]
+            for d, row in enumerate(x.shards)
+        ]
+        return ShardedRows(x.mesh, out, x.nvalid)
+    if nvalid is None or x.shape[0] == nvalid:
+        return x
+    return _mask_rows(x, nvalid)
+
+
+def map_rows(fn, x):
+    """``fn`` on ``x``; on row-sharded rows slot by slot
+    (:meth:`ShardedRows.apply`), the pad rows zeroed again."""
+    if isinstance(x, ShardedRows):
+        return mask_pad_rows(x.apply(fn))
+    return fn(x)
+
+
+def unshard(x):
+    """The true rows of ``x`` as one tensor (:meth:`ShardedRows.gather`);
+    anything else as it is."""
+    return x.gather() if isinstance(x, ShardedRows) else x
+
+
+def _mask_rows(t: torch.Tensor, keep: int) -> torch.Tensor:
+    if keep >= t.shape[0]:
+        return t
+    mask = (torch.arange(t.shape[0], device=t.device) < keep).to(t.dtype)
+    return t * mask.reshape((-1,) + (1,) * (t.ndim - 1))
+
+
+def pad_shard_inputs(mesh, nvalid: int | None, *arrays):
+    """Row-shard ``arrays`` over the data axis with shared zero padding.
+
+    Returns ``(list_of_sharded_arrays, nvalid)`` where ``nvalid`` is the
+    true global row count whenever padding was added (callers mask pad
+    rows after centering): the shared fit preamble of the mesh-aware
+    estimators."""
+    first = arrays[0]
+    n_true = nvalid if nvalid is not None else (
+        first.nvalid if isinstance(first, ShardedRows) else int(first.shape[0])
+    )
+    out = [padded_shard_rows(a, mesh, nvalid=n_true)[0] for a in arrays]
+    if out and out[0].rows != n_true:
+        nvalid = n_true
+    return out, nvalid

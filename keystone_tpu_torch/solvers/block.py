@@ -34,7 +34,23 @@ The three tiers are the candidates of the placement search
 cost hints: with an empty plan log it ranks them in the hand order above,
 bit for bit; ``last_fit_report.placement`` records the searched table.
 
-Not ported: the mesh tiers (ROADMAP Queue 1 item 15).
+With a mesh (``parallel.mesh``: given, or ambient through ``use_mesh``) the
+fit runs the mesh ladder: the given ``(data, model)`` mesh, its
+model-collapsed ``reduced_mesh``, then (when the search runs) the other
+factorizations of the same slots, then ``single_device``, which runs the
+ladder above on the rows gathered to slot (0, 0)'s device.  A mesh tier
+(:func:`_fused_bcd_mesh_impl`) shards the rows of the blocked design
+matrix and the labels over the data axis and splits the class columns over
+the model axis; it calls the same per-block steps on each slot's rows,
+with every reduction over rows (means, grams, right-hand sides) added in
+data order (``parallel.collectives.psum``).  So a 1x1 mesh is the fused
+tier bit for bit, and a data-axis mesh differs from it only in the order
+of the partial sums.  Each mesh tier is admitted per slot
+(``core.memory.min_chip_budget``: a slot gets its card's budget divided by
+the mesh's slots on that card); ``last_fit_report.mesh_shape`` says which
+mesh ran.  Only the default layout runs (rows over the data axis, model
+columns over the model axis): the spec variants of the JAX search are
+ROADMAP Queue 1 item 15b.
 """
 
 from __future__ import annotations
@@ -55,8 +71,22 @@ from ..core import trace
 from ..core.checkpoint import CheckpointError, _atomic_write_bytes
 from ..core.pipeline import Identity, LabelEstimator, Transformer
 from ..ops.stats import StandardScalerModel
+from ..parallel.collectives import psum
+from ..parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    ShardedRows,
+    current_mesh,
+    device_key,
+    enumerate_meshes,
+    mesh_desc,
+    on_slot,
+    padded_shard_rows,
+    reduced_mesh,
+    unshard,
+)
 from ..utils.stats import matmul_rows
-from .normal_equations import cho_factor, cho_solve
+from .normal_equations import _pad_cols, cho_factor, cho_solve
 
 _logger = logging.getLogger("keystone_tpu_torch.solvers.block")
 
@@ -67,7 +97,9 @@ class BlockLinearMapper(Transformer):
     xs: list of [d_i, k] weight blocks; b: optional [k] intercept;
     feature_scalers: per-block transformers applied before the product.
     Each block's product is ``utils.stats.matmul_rows``: a served row's
-    scores do not depend on how many rows share its batch.
+    scores do not depend on how many rows share its batch, so the sharded
+    apply (``ShardedRows.apply(mapper)``) gives every row the bits of the
+    unsharded one.
     """
 
     def __init__(
@@ -117,9 +149,10 @@ class BlockLinearMapper(Transformer):
     def apply_and_evaluate(self, batch_or_blocks, evaluator: Callable[[torch.Tensor], None]):
         """Call ``evaluator`` on the running prediction (intercept included)
         after each block: streaming evaluation, the last call seeing the
-        full model."""
+        full model.  Row-sharded blocks are gathered in data order (their
+        true rows) first."""
         blocks = (
-            batch_or_blocks
+            [unshard(b) for b in batch_or_blocks]
             if isinstance(batch_or_blocks, (list, tuple))
             else self._split_features(batch_or_blocks)
         )
@@ -283,11 +316,16 @@ class _Uploader:
 # -- the per-block steps: one copy of the arithmetic for every tier -----------
 
 
-def _bcd_block_mean(xi: torch.Tensor, mask: torch.Tensor, nvalid: int) -> torch.Tensor:
-    """Per-column means of block ``xi`` ``[N, bs]`` over the valid rows.
+def _bcd_mean_partial(xi: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-column sums of block ``xi`` ``[N, bs]`` over its valid rows.
     The product runs on a contiguous copy, so its bits do not depend on
     whether the block is a slice of a wider matrix or a tensor of its own."""
-    return (mask[:, 0] @ xi.contiguous()) / nvalid
+    return mask[:, 0] @ xi.contiguous()
+
+
+def _bcd_block_mean(xi: torch.Tensor, mask: torch.Tensor, nvalid: int) -> torch.Tensor:
+    """Per-column means of block ``xi`` ``[N, bs]`` over the valid rows."""
+    return _bcd_mean_partial(xi, mask) / nvalid
 
 
 def _centred(xi, mu_i, mask) -> torch.Tensor:
@@ -296,21 +334,39 @@ def _centred(xi, mu_i, mask) -> torch.Tensor:
     return (xi - mu_i).mul_(mask)
 
 
-def _bcd_block_factor(xi, mu_i, mask, lam: float, pad_diag_i) -> torch.Tensor:
-    """Cholesky factor of block ``xi``'s regularised centred gram: made
-    once per block and reused across epochs.  Pad columns get a unit
-    diagonal shift, so their solutions are exactly zero and the gram stays
-    positive definite even at lam = 0."""
+def _bcd_gram_partial(xi, mu_i, mask) -> torch.Tensor:
+    """The centred gram of block ``xi``'s rows."""
     a_i = _centred(xi, mu_i, mask)
-    return cho_factor(a_i.T @ a_i + torch.diag(lam + pad_diag_i))
+    return a_i.T @ a_i
+
+
+def _bcd_gram_factor(gram, lam: float, pad_diag_i) -> torch.Tensor:
+    """Cholesky factor of a block's regularised centred gram: made once per
+    block and reused across epochs.  Pad columns get a unit diagonal shift,
+    so their solutions are exactly zero and the gram stays positive
+    definite even at lam = 0."""
+    return cho_factor(gram + torch.diag(lam + pad_diag_i))
+
+
+def _bcd_block_factor(xi, mu_i, mask, lam: float, pad_diag_i) -> torch.Tensor:
+    """Cholesky factor of block ``xi``'s regularised centred gram."""
+    return _bcd_gram_factor(_bcd_gram_partial(xi, mu_i, mask), lam, pad_diag_i)
+
+
+def _bcd_block_rhs(xi, mu_i, mask, residual, m_old):
+    """The row-local half of a block update: ``(a_i, r_i, a_iᵀ r_i)``, the
+    centred block, the residual with the block's old model added back, and
+    the right-hand side over these rows."""
+    a_i = _centred(xi, mu_i, mask)
+    r_i = residual + a_i @ m_old
+    return a_i, r_i, a_i.T @ r_i
 
 
 def _bcd_block_solve(xi, mu_i, mask, residual, m_old, c_i):
     """One BCD block update given the cached factor: ``(m_new,
     residual')``."""
-    a_i = _centred(xi, mu_i, mask)
-    r_i = residual + a_i @ m_old
-    m_new = cho_solve(c_i, a_i.T @ r_i)
+    a_i, r_i, atb = _bcd_block_rhs(xi, mu_i, mask, residual, m_old)
+    m_new = cho_solve(c_i, atb)
     return m_new, r_i - a_i @ m_new
 
 
@@ -352,6 +408,89 @@ def _fused_bcd_impl(x, labels, lam: float, nvalid: int, num_iter: int, widths):
                 block(i), means[i], mask, residual, models[i], chol[i]
             )
     return models, label_mean, means
+
+
+def _fused_bcd_mesh_impl(x: ShardedRows, labels: ShardedRows, lam: float, nvalid: int,
+                         num_iter: int, widths):
+    """The fused tier over a mesh: ``x`` the row-sharded blocked design
+    matrix (as :func:`_fused_bcd_impl`'s), ``labels`` row-sharded on the
+    same layout with the class columns padded to a multiple of the model
+    axis.  Slot ``(d, m)`` works on data block ``d``'s rows and model
+    column share ``m``; the means, the block grams and every update's
+    right-hand side are the per-block steps' partials added over the data
+    axis in data order, and each factor is made once and replicated.  The
+    result is on slot (0, 0)'s device.
+
+    Returns (models [B, bs, k_pad], label_mean [k_pad], means [B, bs])."""
+    mesh = x.mesh
+    dev = mesh.devices
+    d_sz, m_sz = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    bs, nb = max(widths), len(widths)
+    km = labels.shape[1] // m_sz
+    dtype, head = labels.dtype, dev[0, 0]
+    slots = [(d, m) for d in range(d_sz) for m in range(m_sz)]
+    first = np.cumsum([0] + [int(b.shape[0]) for b in x.data_blocks()])
+    mask, y = {}, {}
+    for d, m in slots:
+        rows = torch.arange(int(first[d]), int(first[d + 1]), device=dev[d, m])
+        mask[d, m] = (rows < nvalid).to(dtype)[:, None]
+        y[d, m] = labels.shards[d][m][:, m * km : (m + 1) * km].contiguous()
+    label_mean = [
+        psum([(y[d, m] * mask[d, m]).sum(dim=0) for d in range(d_sz)]) / nvalid
+        for m in range(m_sz)
+    ]
+    residual = {(d, m): (y[d, m] - on_slot(label_mean[m], dev[d, m])) * mask[d, m]
+                for d, m in slots}
+    pad = _pad_diagonals(widths, dtype, head)
+
+    def block(d, m, i):
+        return x.shards[d][m][:, i * bs : (i + 1) * bs]
+
+    means = torch.stack([
+        psum([_bcd_mean_partial(block(d, 0, i), mask[d, 0]) for d in range(d_sz)]) / nvalid
+        for i in range(nb)
+    ])
+    chol = [
+        _bcd_gram_factor(psum([
+            _bcd_gram_partial(block(d, 0, i), on_slot(means[i], dev[d, 0]), mask[d, 0])
+            for d in range(d_sz)
+        ]), lam, pad[i])
+        for i in range(nb)
+    ]
+    # The replicated means and factors, copied once to each device.
+    devices = {device_key(d): d for d in mesh.devices.flat}
+    means_on = {k: on_slot(means, d) for k, d in devices.items()}
+    chol_on = {k: [on_slot(c, d) for c in chol] for k, d in devices.items()}
+
+    models = [torch.zeros((nb, bs, km), dtype=dtype, device=dev[0, m]) for m in range(m_sz)]
+    for _ in range(num_iter):
+        for i in range(nb):
+            parts = {
+                (d, m): _bcd_block_rhs(
+                    block(d, m, i), means_on[device_key(dev[d, m])][i], mask[d, m],
+                    residual[d, m], on_slot(models[m][i], dev[d, m]),
+                )
+                for d, m in slots
+            }
+            for m in range(m_sz):
+                atb = psum([parts[d, m][2] for d in range(d_sz)])
+                m_new = cho_solve(chol_on[device_key(dev[0, m])][i], atb)
+                models[m][i] = m_new
+                for d in range(d_sz):
+                    a_i, r_i, _ = parts[d, m]
+                    residual[d, m] = r_i - a_i @ on_slot(m_new, dev[d, m])
+    if m_sz == 1:
+        return models[0], label_mean[0], means
+    return (torch.cat([on_slot(t, head) for t in models], dim=2),
+            torch.cat([on_slot(t, head) for t in label_mean]), means)
+
+
+def _execute_fused_bcd_mesh(plan, x, labels, lam: float, nvalid: int, num_iter: int, widths):
+    """Run one mesh tier (:func:`_fused_bcd_mesh_impl`).  Module level so
+    the fault harness can intercept it: a test injects an out-of-memory
+    error here to drive the mesh ladder's step-down."""
+    del plan
+    return _fused_bcd_mesh_impl(x, labels, lam, nvalid, num_iter, widths)
 
 
 # -- the resumable BCD state (the JAX package's on-disk format) ---------------
@@ -605,7 +744,12 @@ def _dtype_name(dtype: torch.dtype) -> str:
 def _probe_matrix(features, widths):
     """A row-capped blocked design matrix for the conditioning probe: the
     monolithic input itself (the probe caps the rows), or the first rows of
-    each block concatenated, so no tier's full matrix is formed for it."""
+    each block concatenated, so no tier's full matrix is formed for it.
+    Row-sharded input is probed on its first data block."""
+    if isinstance(features, ShardedRows):
+        features = features.data_blocks()[0]
+    elif isinstance(features, (list, tuple)) and isinstance(features[0], ShardedRows):
+        features = [f.data_blocks()[0] for f in features]
     if not isinstance(features, (list, tuple)):
         return features
     cap = knum.COND_ROWS_CAP
@@ -620,10 +764,11 @@ class BlockLeastSquaresEstimator(LabelEstimator):
     intercept is the label mean.
     """
 
-    def __init__(self, block_size: int, num_iter: int = 1, lam: float = 0.0):
+    def __init__(self, block_size: int, num_iter: int = 1, lam: float = 0.0, mesh=None):
         self.block_size = block_size
         self.num_iter = num_iter
         self.lam = lam
+        self.mesh = mesh
         self.last_fit_report: kmem.FitReport | None = None
 
     def _shapes(self, features, labels, widths) -> dict:
@@ -732,17 +877,40 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         ``KEYSTONE_AUTOSHARD``, False walks the hand ladder, True forces the
         search, a ``PlacementPlan`` or a list of tier names replays a
         ranking; anything else raises ``TypeError``.  The searched table is
-        ``last_fit_report.placement``."""
+        ``last_fit_report.placement``.
+
+        With a mesh (``self.mesh``, or ambient through
+        ``parallel.mesh.use_mesh``) the inputs (tensors or row-sharded
+        ``ShardedRows``, with ``nvalid`` their true row count) run the mesh
+        ladder (module docstring); checkpointing needs the stepwise tier,
+        which runs on one device, so it raises ``ValueError`` there.
+        Row-sharded inputs need a mesh."""
+        mesh = self.mesh if self.mesh is not None else current_mesh()
+        resumable = checkpoint is not None or resume_from is not None
+        if mesh is not None and resumable:
+            raise ValueError(
+                "checkpoint/resume_from use the stepwise BCD path, which does not run "
+                "under a mesh — fit without a mesh or without checkpointing"
+            )
+        if mesh is None and any(isinstance(f, ShardedRows)
+                                for f in [*_feature_list(features), labels]):
+            raise TypeError("row-sharded inputs need a mesh: fit(...) under use_mesh or "
+                            "BlockLeastSquaresEstimator(mesh=...)")
         widths = _block_widths(features, self.block_size, num_features)
-        bs, nb = max(widths), len(widths)
-        rows, k = int(labels.shape[0]), int(labels.shape[1])
-        nv = rows if nvalid is None else int(nvalid)
+        nv = int(labels.shape[0]) if nvalid is None else int(nvalid)
         lam = float(self.lam)
         if knum.active():
             # Per-block κ estimates on a row-capped probe matrix; one flag
             # check when the observatory is off.
             knum.design_conditioning(_probe_matrix(features, widths), widths, lam,
                                      label="bcd_fit")
+
+        if mesh is not None:
+            return self._mapper(
+                self._fit_mesh_ladder(features, labels, num_features, nvalid, widths, mesh,
+                                      plan),
+                widths,
+            )
 
         def y_on(dev, dtype):
             _check_sources(labels)
@@ -753,7 +921,7 @@ class BlockLeastSquaresEstimator(LabelEstimator):
             _check_sources(*feats)
             return _caller_blocks(features, widths)
 
-        if checkpoint is not None or resume_from is not None:
+        if resumable:
             self.last_fit_report = kmem.FitReport(label="bcd_fit", chosen="stepwise[checkpoint]")
             cb = checkpoint if callable(checkpoint) or checkpoint is None else (
                 bcd_checkpoint_writer(checkpoint)
@@ -774,6 +942,28 @@ class BlockLeastSquaresEstimator(LabelEstimator):
                 )
             return self._mapper(out, widths)
 
+        report = kmem.FitReport(label="bcd_fit")
+        self.last_fit_report = report
+        out = self._fit_single(features, labels, num_features, nv, widths, donate, plan, report)
+        return self._mapper(out, widths)
+
+    def _fit_single(self, features, labels, num_features, nv: int, widths, donate, plan,
+                    report: kmem.FitReport):
+        """The single-device ladder (searched unless ``plan`` is False),
+        recorded in ``report``."""
+        bs, nb = max(widths), len(widths)
+        rows, k = int(labels.shape[0]), int(labels.shape[1])
+        lam = float(self.lam)
+
+        def y_on(dev, dtype):
+            _check_sources(labels)
+            return labels.to(device=dev, dtype=dtype)
+
+        def caller_blocks():
+            feats = _feature_list(features)
+            _check_sources(*feats)
+            return _caller_blocks(features, widths)
+
         def run_fused(plan):
             _check_sources(*_feature_list(features))
             x, _ = _blocked_design_matrix(features, self.block_size, num_features)
@@ -791,8 +981,6 @@ class BlockLeastSquaresEstimator(LabelEstimator):
             return _host_staged_bcd_fit(host, y_on(feats[0].device, feats[0].dtype), lam, nv,
                                         self.num_iter, widths)
 
-        report = kmem.FitReport(label="bcd_fit")
-        self.last_fit_report = report
         # The JAX package's cost hints, term for term (its
         # ``_fit_ladder``), but for ``alias_bytes``: PyTorch donates nothing
         # into an alias, so no argument bytes are credited out of the prune.
@@ -852,7 +1040,7 @@ class BlockLeastSquaresEstimator(LabelEstimator):
             ),
         ]
         with kprof.phase("bcd_fit"):
-            out = autoshard.run_search(
+            return autoshard.run_search(
                 "bcd_fit", cands, report,
                 fingerprint=autoshard.fingerprint(
                     "bcd_fit", rows, k, widths, self.num_iter, _dtype_name(feats[0].dtype),
@@ -861,7 +1049,156 @@ class BlockLeastSquaresEstimator(LabelEstimator):
                 plan=plan,
                 budget=kmem.hbm_budget(_features_device(features)),
             )
-        return self._mapper(out, widths)
+
+    def _fit_mesh_ladder(self, features, labels, num_features, nvalid, widths, mesh, plan_arg):
+        """The mesh ladder (module docstring): per-slot admission, a runtime
+        out-of-memory error steps down exactly one tier, and the
+        single_device floor gathers the true rows to slot (0, 0)'s device
+        and walks the hand ladder there.  ``report.mesh_shape`` records the
+        mesh that ran; a floor run is reported as ``single_device/<tier>``."""
+        bs, nb = max(widths), len(widths)
+        feats = _feature_list(features)
+        k = int(labels.shape[1])
+        if nvalid is None:
+            nvalid = next((f.nvalid for f in (*feats, labels) if isinstance(f, ShardedRows)),
+                          int(labels.shape[0]))
+        n0 = int(nvalid)
+        dtype, xdt = labels.dtype, feats[0].dtype
+        it, itx = dtype.itemsize, xdt.itemsize
+        lam = float(self.lam)
+        report = kmem.FitReport(label="bcd_fit")
+        self.last_fit_report = report
+
+        def meta(shape, dt):
+            return torch.empty(shape, dtype=dt, device="meta")
+
+        def mesh_tier(m, prior_rank: int, hand: bool) -> autoshard.Candidate:
+            name = f"fused[mesh {mesh_desc(m)}]"
+            d_sz, m_sz = m.shape[DATA_AXIS], m.shape[MODEL_AXIS]
+            n_pad, k_pad = n0 + (-n0) % d_sz, k + (-k) % m_sz
+            mdict = dict(m.shape)
+            res_b = autoshard.spec_chip_bytes((n_pad, k_pad), dtype, "data@dim0", mdict)
+            models_b = autoshard.spec_chip_bytes((nb, bs, k_pad), dtype, "model@dim2", mdict)
+            # Per-slot transient floor: one centred row block, the
+            # replicated factor stack, two residual carries, the models.
+            floor = it * (n_pad * bs // d_sz + nb * bs * bs) + 2 * res_b + models_b
+            hints = {
+                "arg_bytes": sum(
+                    autoshard.best_spec(meta(shape, dt), mdict)["per_chip_bytes"]
+                    for shape, dt in (((n_pad, nb * bs), xdt), ((n_pad, k_pad), dtype))
+                ),
+                "temp_bytes": floor,
+                "out_bytes": it * (k_pad + nb * bs) + models_b,
+                "flops": (2.0 * n_pad * bs * bs * nb
+                          + self.num_iter * 4.0 * n_pad * bs * k_pad * nb) / (d_sz * m_sz),
+                "dispatches": 1,
+                "hbm_passes": self.num_iter + 1,
+                "coll_bytes": it * nb * (bs * bs + self.num_iter * bs * k_pad) if d_sz > 1 else 0,
+            }
+
+            def plan():
+                budget, _dev = kmem.min_chip_budget(m)
+                return kmem.plan_bytes(
+                    f"bcd_{name}",
+                    argument_bytes=kmem.shard_bytes((n_pad, nb * bs), xdt, m)
+                    + kmem.shard_bytes((n_pad, k_pad), dtype, m),
+                    temp_bytes=floor,
+                    output_bytes=hints["out_bytes"],
+                    budget=budget,
+                )
+
+            def run(plan):
+                report.mesh_shape = dict(m.shape)
+                x, y = self._mesh_inputs(features, labels, num_features, widths, n0, m)
+                models, label_mean, means = _execute_fused_bcd_mesh(
+                    plan, x, y, lam, n0, self.num_iter, widths)
+                return models[:, :, :k], label_mean[:k], means
+
+            return autoshard.Candidate(name, "fused_mesh", plan, run, hints=hints,
+                                       mesh_axes=mdict, prior_rank=prior_rank, hand=hand)
+
+        def plan_single():
+            return kmem.MemoryPlan(
+                label="single_device", admitted=True,
+                reason=("mesh ladder floor: single-device degradation ladder "
+                        "(its own per-tier admission runs inside)"),
+            )
+
+        inner_chosen = []
+
+        def run_single(_plan):
+            report.mesh_shape = None
+            x = [unshard(f) for f in features] if isinstance(features, (list, tuple)) else (
+                unshard(features))
+            out = self._fit_single(x, unshard(labels), num_features, n0, widths, None, False,
+                                   report)
+            inner_chosen.append(report.chosen)
+            return out
+
+        cands = [mesh_tier(mesh, 0, True)]
+        rm = reduced_mesh(mesh)
+        if rm is not None:
+            cands.append(mesh_tier(rm, 1, True))
+        if autoshard.will_search(plan_arg):
+            hand_shapes = {mesh_desc(c) for c in (mesh, rm) if c is not None}
+            for extra in enumerate_meshes(list(mesh.devices.flat)):
+                if mesh_desc(extra) not in hand_shapes:
+                    cands.append(mesh_tier(extra, len(cands), False))
+        cands.append(autoshard.Candidate(
+            "single_device", "single_device", plan_single, run_single,
+            hints={
+                # Gather and refit on one device: nothing divides, and the
+                # whole design matrix moves first.
+                "arg_bytes": itx * n0 * nb * bs + it * n0 * k,
+                "h2d_bytes": itx * n0 * nb * bs + it * n0 * k,
+                "flops": 2.0 * n0 * bs * bs * nb + self.num_iter * 4.0 * n0 * bs * k * nb,
+                "dispatches": 3,
+            },
+            prior_rank=len(cands), floor=True,
+        ))
+        slots = list(mesh.devices.flat)
+        with kprof.phase("bcd_fit"):
+            out = autoshard.run_search(
+                "bcd_fit", cands, report,
+                fingerprint=autoshard.fingerprint(
+                    "bcd_fit", n0, k, widths, self.num_iter, _dtype_name(xdt),
+                    _dtype_name(dtype), dict(mesh.shape), autoshard.device_fingerprint(slots),
+                ),
+                plan=plan_arg,
+                budget=kmem.min_chip_budget(mesh)[0],
+                devices=slots,
+            )
+        if inner_chosen and report.chosen == "single_device":
+            report.chosen = f"single_device/{inner_chosen[0]}"
+        return out
+
+    def _mesh_inputs(self, features, labels, num_features, widths, nvalid: int, mesh):
+        """(x, y): the blocked design matrix and the labels (columns padded
+        to a multiple of the model axis, in the features' dtype) sharded
+        over ``mesh``.  A tensor's data blocks are views where no pad rows
+        are added; each slot's design block is built once per device."""
+        bs = max(widths)
+        m_sz = mesh.shape[MODEL_AXIS]
+        listed = isinstance(features, (list, tuple))
+        feats = [padded_shard_rows(f, mesh, nvalid=nvalid)[0] for f in _feature_list(features)]
+        ys = padded_shard_rows(labels, mesh, nvalid=nvalid)[0]
+        built: dict = {}
+        xs, yl = [], []
+        for d in range(mesh.shape[DATA_AXIS]):
+            xrow, yrow = [], []
+            for m in range(m_sz):
+                key = (d, device_key(mesh.devices[d, m]))
+                if key not in built:
+                    parts = [f.shards[d][m] for f in feats]
+                    x_dm, _ = _blocked_design_matrix(parts if listed else parts[0], bs,
+                                                     num_features)
+                    y_dm = _pad_cols(ys.shards[d][m].to(x_dm.dtype), m_sz)[0]
+                    built[key] = (x_dm, y_dm)
+                xrow.append(built[key][0])
+                yrow.append(built[key][1])
+            xs.append(xrow)
+            yl.append(yrow)
+        return ShardedRows(mesh, xs, nvalid), ShardedRows(mesh, yl, nvalid)
 
     def _mapper(self, out, widths) -> BlockLinearMapper:
         models, label_mean, means = out

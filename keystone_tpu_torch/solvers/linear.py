@@ -1,12 +1,11 @@
 """Linear models and the least-squares estimator (counterpart of
-keystone_tpu/solvers/linear.py, single device)."""
+keystone_tpu/solvers/linear.py)."""
 
 from __future__ import annotations
 
-import torch
-
 from ..core.pipeline import LabelEstimator, Transformer, node
 from ..ops.stats import StandardScaler, StandardScalerModel
+from ..parallel.mesh import current_mesh, map_rows, mask_pad_rows, pad_shard_inputs
 from .normal_equations import solve_least_squares
 
 
@@ -28,30 +27,32 @@ class LinearMapper(Transformer):
         return out
 
 
-def _mask_pad_rows(x: torch.Tensor, nvalid: int | None) -> torch.Tensor:
-    """Zero the rows at index >= ``nvalid``."""
-    if nvalid is None or x.shape[0] == nvalid:
-        return x
-    mask = (torch.arange(x.shape[0], device=x.device) < nvalid).to(x.dtype)
-    return x * mask.reshape((-1,) + (1,) * (x.ndim - 1))
-
-
 class LinearMapEstimator(LabelEstimator):
     """OLS / ridge by the normal equations: mean-center features and labels
     (mean-only scalers), solve, intercept = label mean."""
 
-    def __init__(self, lam: float | None = None):
+    def __init__(self, lam: float | None = None, mesh=None):
         self.lam = lam
+        self.mesh = mesh
 
     def fit(self, features, labels, nvalid: int | None = None) -> LinearMapper:
         """``nvalid``: true row count when the inputs carry zero pad rows;
         centering turns pad rows into ``-mean``, so they are masked back to
-        zero before the gram."""
+        zero before the gram.
+
+        With a mesh (given, or ambient through ``parallel.mesh.use_mesh``)
+        the inputs are row-sharded, the scalers' moments and the grams
+        reduce over the data axis in data order, and the solve splits the
+        class columns over the model axis; the fitted mapper lives on slot
+        (0, 0)'s device."""
+        mesh = self.mesh if self.mesh is not None else current_mesh()
+        if mesh is not None:
+            (features, labels), nvalid = pad_shard_inputs(mesh, nvalid, features, labels)
         feature_scaler = StandardScaler(normalize_std_dev=False).fit(features, nvalid=nvalid)
         label_scaler = StandardScaler(normalize_std_dev=False).fit(labels, nvalid=nvalid)
-        a = _mask_pad_rows(feature_scaler(features), nvalid)
-        b = _mask_pad_rows(label_scaler(labels), nvalid)
-        x = solve_least_squares(a, b, float(self.lam or 0.0))
+        a = mask_pad_rows(map_rows(feature_scaler, features), nvalid)
+        b = mask_pad_rows(map_rows(label_scaler, labels), nvalid)
+        x = solve_least_squares(a, b, float(self.lam or 0.0), mesh=mesh)
         return LinearMapper(x, label_scaler.mean, feature_scaler)
 
 

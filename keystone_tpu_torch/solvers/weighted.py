@@ -33,7 +33,7 @@ of the placement search (``core.autoshard.run_search``, on by default),
 with the JAX package's cost hints.
 
 Not ported: the mesh tiers and the ``all_to_all`` class regroup (ROADMAP
-Queue 1 item 15) and the conditioning monitor of the solves.
+Queue 1 item 15b) and the conditioning monitor of the solves.
 """
 
 from __future__ import annotations

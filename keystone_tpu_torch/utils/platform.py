@@ -59,6 +59,18 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def device_scope(device):
+    """Make ``device`` the current CUDA device inside the block (a no-op
+    context for the CPU).  PyTorch's own operators follow their tensors'
+    device, but a hand kernel launched through ``ctypes`` runs on the
+    runtime's current device: each launch, and each mesh slot's work,
+    enters the scope of the device its tensors live on."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
 _constants = threading.local()
 
 

@@ -33,6 +33,16 @@ split in featurize chunks.  ``--serve`` / ``--serveBench`` (with
 (``workloads.serve_common``: per-bucket CUDA graphs on the card) and answer
 requests drawn from the eager test split.
 
+``--mesh 8`` / ``--mesh 4x2`` (``parallel.mesh.parse_mesh``: distinct
+devices of the ``--device`` kind) shards the rows of both splits over the
+mesh's data axis: every slot featurizes its own rows in chunks of
+``featurize_chunk / data`` (one K1 launch per slot and chunk), the scaler's
+moments and the block solve reduce over the data axis, and the solve runs
+the block solver's mesh ladder.  Filter learning stays on ``--device``, as
+the reference's driver-local ZCA fit.  ``--autoCache``, ``--autoTune`` and
+``--pipelineFile`` are usage errors beside ``--mesh`` (ROADMAP Queue 1
+item 15b).
+
 Run: ``python -m keystone_tpu_torch.workloads.cifar_random_patch
 --trainLocation train.bin --testLocation test.bin [--device cpu]``.
 """
@@ -55,7 +65,7 @@ from ..core.ingest import StreamConfig, stream_batches
 from ..core.logging import configure_logging, stage_timer
 from ..core.memory import log_fit_report
 from ..core.numerics import OutputSketch
-from ..core.pipeline import FunctionTransformer, Pipeline
+from ..core.pipeline import FunctionTransformer, Pipeline, Transformer
 from ..core.resilience import assert_all_finite, counters
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
 from ..loaders.cifar import LabeledImageBatch, cifar_loader
@@ -64,6 +74,14 @@ from ..ops.conv_fused import FusedConvFeaturizer
 from ..ops.images import ImageVectorizer, Windower
 from ..ops.stats import Sampler, StandardScaler
 from ..ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
+from ..parallel.mesh import (
+    DATA_AXIS,
+    add_mesh_flag,
+    map_rows,
+    mesh_from_flags,
+    padded_shard_rows,
+    unshard,
+)
 from ..solvers.block import BlockLeastSquaresEstimator
 from ..solvers.whitening import ZCAWhitener, ZCAWhitenerEstimator
 from ..utils.platform import resolve_device, synchronize
@@ -189,21 +207,43 @@ def build_conv_pipeline(
     )
 
 
-def _chunks(images: np.ndarray, chunk: int, device: torch.device):
-    """Yield (device block padded to ``chunk`` rows, true row count)."""
+def _chunks(images, chunk: int, device: torch.device):
+    """Yield (device block padded to ``chunk`` rows, true row count) from a
+    host array or a tensor of images."""
     for i in range(0, images.shape[0], chunk):
         block = images[i : i + chunk]
         rows = block.shape[0]
+        if not isinstance(block, torch.Tensor):
+            block = torch.from_numpy(np.ascontiguousarray(block, np.float32))
         if rows < chunk:
-            block = np.pad(block, ((0, chunk - rows), (0, 0), (0, 0), (0, 0)))
-        yield torch.from_numpy(np.ascontiguousarray(block, np.float32)).to(device), rows
+            block = torch.nn.functional.pad(block, (0, 0, 0, 0, 0, 0, 0, chunk - rows))
+        yield block.to(device), rows
 
 
-def featurize_chunked(fn, images: np.ndarray, chunk: int, device) -> torch.Tensor:
+class ChunkedFeaturizer(Transformer):
+    """``fn`` over fixed-size chunks of its rows (the tail padded), so the
+    conv activations never exceed one chunk's footprint on the device."""
+
+    def __init__(self, fn, chunk: int, device):
+        self.fn, self.chunk, self.device = fn, chunk, torch.device(device)
+
+    def __call__(self, images):
+        return torch.cat([self.fn(b)[:rows] for b, rows in _chunks(images, self.chunk, self.device)])
+
+
+def featurize_chunked(fn, images: np.ndarray, chunk: int, device, mesh=None):
     """Run ``fn`` over fixed-size chunks (the tail padded) so the conv
-    activations never exceed one chunk's footprint on the device."""
-    dev = torch.device(device)
-    return torch.cat([fn(b)[:rows] for b, rows in _chunks(images, chunk, dev)])
+    activations never exceed one chunk's footprint on the device.
+
+    With ``mesh``: the images are row-sharded over the data axis and every
+    slot runs ``fn`` over its own rows in chunks of ``chunk / data`` rows
+    (rounded up), so one chunk of the unsharded pass is one chunk on each
+    slot.  Returns the features as ``ShardedRows``, pad rows zero."""
+    if mesh is None:
+        return ChunkedFeaturizer(fn, chunk, device)(images)
+    rows, _ = padded_shard_rows(np.asarray(images, np.float32), mesh)
+    per_slot = -(-chunk // mesh.shape[DATA_AXIS])
+    return map_rows(ChunkedFeaturizer(fn, per_slot, device), rows)
 
 
 def cifar_tar_label(name: str) -> int:
@@ -352,12 +392,18 @@ def apply_servable_chunked(servable, images: np.ndarray, chunk: int) -> np.ndarr
     return torch.cat(outs).numpy()
 
 
-def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBatch) -> dict:
+def run(
+    conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBatch, mesh=None
+) -> dict:
     """Fit on ``train``, score ``train`` and ``test`` (or, with
     ``conf.stream_test_tar``, the streamed tar).  The results carry the
     fitted servable pipeline under ``"servable"``.  Each stage is a
     ``stage_timer`` span that ends after a synchronize, so a trace charges
-    the device work to the stage that queued it."""
+    the device work to the stage that queued it.
+
+    With ``mesh``, the featurize chunks are row-sharded over the data axis
+    (:func:`featurize_chunked`) and the block solver runs its mesh ladder;
+    the fitted model lives on ``conf.device``."""
     configure_logging()
     dev = resolve_device(conf.device)
     t0 = time.perf_counter()
@@ -374,8 +420,8 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
     learn_secs = time.perf_counter() - t0
     conv_pipe = build_conv_pipeline(conf, filters, whitener)
     # One warm chunk first, so the throughput below is steady state (cuDNN
-    # heuristics, kernel load).
-    featurize_chunked(conv_pipe, train.images[:1], conf.featurize_chunk, dev)
+    # heuristics, kernel load), of the shape and sharding the pass uses.
+    featurize_chunked(conv_pipe, train.images[:1], conf.featurize_chunk, dev, mesh=mesh)
     synchronize(dev)
 
     cache_plan = None
@@ -396,6 +442,7 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
             feat_node.then_estimator(StandardScaler()),
             images[: min(len(images), conf.featurize_chunk)],
             dataset_rows=len(images),
+            mesh=mesh,
         )
         t_feat = time.perf_counter()
         with stage_timer("featurize"):
@@ -412,19 +459,20 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
     else:
         t_feat = time.perf_counter()
         with stage_timer("featurize"):
-            train_conv = featurize_chunked(conv_pipe, train.images, conf.featurize_chunk, dev)
+            train_conv = featurize_chunked(conv_pipe, train.images, conf.featurize_chunk, dev,
+                                           mesh=mesh)
             synchronize(dev)
         feat_secs = time.perf_counter() - t_feat
 
         scaler = StandardScaler().fit(train_conv)
-        train_features = scaler(train_conv)
+        train_features = map_rows(scaler, train_conv)
 
     labels = ClassLabelIndicatorsFromIntLabels(conf.num_classes)(
         torch.from_numpy(train.labels).to(dev)
     )
     t_solve = time.perf_counter()
     with stage_timer("solve"):
-        solver = BlockLeastSquaresEstimator(4096, 1, conf.lam or 0.0)
+        solver = BlockLeastSquaresEstimator(4096, 1, conf.lam or 0.0, mesh=mesh)
         model = solver.fit(
             train_features, labels, checkpoint=conf.solve_checkpoint,
             resume_from=conf.solve_resume,
@@ -437,7 +485,7 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
     solve_secs = time.perf_counter() - t_solve
 
     def predict(features):
-        return MaxClassifier()(model(features))
+        return MaxClassifier()(unshard(map_rows(model, features)))
 
     ingest_stats = names = tuner = None
     with stage_timer("eval"):
@@ -451,8 +499,9 @@ def run(conf: RandomCifarConfig, train: LabeledImageBatch, test: LabeledImageBat
             test_labels = np.asarray([cifar_tar_label(n) for n in names], np.int32)
         else:
             test_labels = test.labels
-            test_conv = featurize_chunked(conv_pipe, test.images, conf.featurize_chunk, dev)
-        test_pred = predict(scaler(test_conv))
+            test_conv = featurize_chunked(conv_pipe, test.images, conf.featurize_chunk, dev,
+                                          mesh=mesh)
+        test_pred = predict(map_rows(scaler, test_conv))
         test_eval = MulticlassClassifierEvaluator(
             test_pred, torch.from_numpy(test_labels).to(dev), conf.num_classes
         )
@@ -633,6 +682,7 @@ def main(argv=None) -> dict:
     p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
+    add_mesh_flag(p)
     serve_common.add_serve_args(p)
     a = p.parse_args(argv)
     serve_common.check_serve_args(p, a)
@@ -676,6 +726,7 @@ def main(argv=None) -> dict:
         auto_shard=a.autoShard,
     )
     resolve_device(conf.device)
+    mesh = mesh_from_flags(p, a, ("autoCache", "autoTune", "pipelineFile"))
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)
     try:
         with stage_timer("load"):
@@ -698,7 +749,7 @@ def main(argv=None) -> dict:
                 )
             else:
                 test = _load_split(a.testLocation)
-        return run(conf, train, test)
+        return run(conf, train, test, mesh=mesh)
     finally:
         if a.trace:
             trace.flush()

@@ -5,7 +5,8 @@ straight into a linear solver.
 Flow: CIFAR load -> GrayScaler -> ImageVectorizer -> LinearMapEstimator
 (normal equations, no ridge) -> MaxClassifier ->
 MulticlassClassifierEvaluator; logs the total train and test accuracy, as
-the reference does.
+the reference does.  ``--mesh`` row-shards the solve over the mesh's data
+axis (``LinearMapEstimator(mesh=)``); the fitted chain runs on ``--device``.
 
 Run: ``python -m keystone_tpu_torch.workloads.linear_pixels
 --trainLocation train.bin --testLocation test.bin [--device cpu]``.
@@ -27,6 +28,7 @@ from ..evaluation.multiclass import MulticlassClassifierEvaluator
 from ..loaders.cifar import LabeledImageBatch, cifar_loader
 from ..ops.images import GrayScaler, ImageVectorizer
 from ..ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
+from ..parallel.mesh import add_mesh_flag, mesh_from_flags
 from ..solvers.linear import LinearMapEstimator
 from ..utils.platform import resolve_device, synchronize
 
@@ -41,9 +43,12 @@ class LinearPixelsConfig:
     device: str = "cuda"
 
 
-def run(conf: LinearPixelsConfig, train: LabeledImageBatch, test: LabeledImageBatch) -> dict:
-    """Fit on ``train``, score ``train`` and ``test``.  The results carry
-    the test predictions and the fitted chain under ``"servable"``."""
+def run(
+    conf: LinearPixelsConfig, train: LabeledImageBatch, test: LabeledImageBatch, mesh=None
+) -> dict:
+    """Fit on ``train``, score ``train`` and ``test``.  With ``mesh`` the
+    solve is row-sharded over its data axis.  The results carry the test
+    predictions and the fitted chain under ``"servable"``."""
     dev = resolve_device(conf.device)
     t0 = time.perf_counter()
 
@@ -56,7 +61,7 @@ def run(conf: LinearPixelsConfig, train: LabeledImageBatch, test: LabeledImageBa
     featurizer = Pipeline([GrayScaler(), ImageVectorizer()])
     train_images = images(train)
     indicators = ClassLabelIndicatorsFromIntLabels(conf.num_classes)(labels(train))
-    model = LinearMapEstimator().fit(featurizer(train_images), indicators)
+    model = LinearMapEstimator(mesh=mesh).fit(featurizer(train_images), indicators)
     prediction = Pipeline([featurizer, model, MaxClassifier()])
 
     train_eval = MulticlassClassifierEvaluator(
@@ -85,15 +90,17 @@ def main(argv=None) -> dict:
     p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
+    add_mesh_flag(p)
     a = p.parse_args(argv)
     configure_logging()
     conf = LinearPixelsConfig(
         train_location=a.trainLocation, test_location=a.testLocation, device=a.device
     )
     resolve_device(conf.device)
+    mesh = mesh_from_flags(p, a)
     train = cifar_loader(conf.train_location)
     test = cifar_loader(conf.test_location)
-    return run(conf, train, test)
+    return run(conf, train, test, mesh=mesh)
 
 
 if __name__ == "__main__":

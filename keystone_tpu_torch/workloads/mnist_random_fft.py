@@ -18,6 +18,10 @@ the checkpoint exists, the run restores it instead, loads no training
 data, fits nothing and scores the test split.  ``--serve`` /
 ``--serveBench`` (with ``--pipelineFile``) then load the chain into the
 serving tier (``workloads.serve_common``) and answer test rows through it.
+``--mesh`` row-shards both splits over the mesh's data axis (the features
+are row-wise, and zero pad rows stay zero through them) and solves over the
+mesh (``BlockLeastSquaresEstimator(mesh=)``); ``--autoCache`` and
+``--pipelineFile`` are usage errors beside it (ROADMAP Queue 1 item 15b).
 
 Run: ``python -m keystone_tpu_torch.workloads.mnist_random_fft
 --trainLocation train.csv --testLocation test.csv [--device cpu]``.
@@ -39,7 +43,7 @@ from ..core.checkpoint import checkpoint_exists, load_pipeline, save_pipeline
 from ..core.logging import configure_logging, stage_timer
 from ..core.memory import log_fit_report
 from ..core.numerics import OutputSketch
-from ..core.pipeline import Pipeline
+from ..core.pipeline import Pipeline, Transformer
 from ..core.resilience import assert_all_finite
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
 from ..loaders.csv_loader import LabeledData, csv_data_loader
@@ -50,6 +54,7 @@ from ..ops.util import (
     MaxClassifier,
     ZipVectors,
 )
+from ..parallel.mesh import add_mesh_flag, map_rows, mesh_from_flags, padded_shard_rows
 from ..solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
 from ..utils.platform import resolve_device, synchronize
 from . import serve_common
@@ -119,17 +124,32 @@ def build_featurizer_batches(conf: MnistRandomFFTConfig, device) -> list[list[Pi
     ]
 
 
-def featurize_groups(groups, data: torch.Tensor) -> list[torch.Tensor]:
-    """One [n, group width] feature batch per group."""
-    return [ZipVectors.apply([chain(data) for chain in chains]) for chains in groups]
+class _Group(Transformer):
+    """One FFT group: its chains on the batch, zipped."""
+
+    def __init__(self, chains):
+        self.chains = chains
+
+    def __call__(self, data):
+        return ZipVectors.apply([chain(data) for chain in self.chains])
+
+
+def featurize_groups(groups, data) -> list:
+    """One [n, group width] feature batch per group; on row-sharded data,
+    row-sharded batches (slot by slot)."""
+    return [map_rows(_Group(chains), data) for chains in groups]
 
 
 def servable_pipeline(groups, model: BlockLinearMapper) -> Pipeline:
     return Pipeline([GroupConcatFeaturizer(groups), model, MaxClassifier()])
 
 
-def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> dict:
+def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData, mesh=None,
+        groups=None) -> dict:
     """Fit on ``train``, evaluate on ``train`` and ``test`` block by block.
+    With ``mesh`` both splits are row-sharded over its data axis and the
+    block solve runs its mesh ladder.  ``groups``: the FFT groups to use in
+    place of drawing them (the tests carry the JAX package's signs across).
     The results carry the fitted servable pipeline under ``"servable"``.
     Each stage is a ``stage_timer`` span that ends after a synchronize."""
     configure_logging()
@@ -137,12 +157,16 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
     t0 = time.perf_counter()
     if conf.pipeline_file is not None and checkpoint_exists(conf.pipeline_file):
         return _run_restored(conf, test, t0)
-    groups = build_featurizer_batches(conf, dev)
+    if groups is None:
+        groups = build_featurizer_batches(conf, dev)
     train_labels = torch.from_numpy(np.asarray(train.labels)).to(dev)
     test_labels = torch.from_numpy(np.asarray(test.labels)).to(dev)
     labels = ClassLabelIndicatorsFromIntLabels(conf.num_classes)(train_labels)
     train_data = torch.from_numpy(np.ascontiguousarray(train.data, np.float32)).to(dev)
     test_data = torch.from_numpy(np.ascontiguousarray(test.data, np.float32)).to(dev)
+    if mesh is not None:
+        train_data, _ = padded_shard_rows(train_data, mesh)
+        test_data, _ = padded_shard_rows(test_data, mesh)
     # One group on the whole split first, so the clock below reads steady
     # state: cuFFT plans its transform for each batch size on first use.
     featurize_groups(groups[:1], train_data)
@@ -165,13 +189,14 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData) -> di
                 output_bytes=sum(int(b.nbytes) for b in training_batches), reuse=2,
             )],
             dataset_rows=len(train.labels),
+            mesh=mesh,
         )
         keep_features = cache_plan.decisions[0].cached
         _log.info("%s", cache_plan.summary())
 
     t_solve = time.perf_counter()
     with stage_timer("solve"):
-        solver = BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0)
+        solver = BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0, mesh=mesh)
         model = solver.fit(
             training_batches, labels, checkpoint=conf.solve_checkpoint,
             resume_from=conf.solve_resume,
@@ -324,6 +349,7 @@ def main(argv=None) -> dict:
     p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
+    add_mesh_flag(p)
     serve_common.add_serve_args(p)
     a = p.parse_args(argv)
     serve_common.check_serve_args(p, a)
@@ -351,6 +377,7 @@ def main(argv=None) -> dict:
         auto_shard=a.autoShard,
     )
     resolve_device(conf.device)
+    mesh = mesh_from_flags(p, a, ("autoCache", "pipelineFile"))
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)
     try:
         t_load = time.perf_counter()
@@ -364,7 +391,7 @@ def main(argv=None) -> dict:
         # The reference fixes 784 pixels; the width comes from the data
         # here, as in the JAX package, so any pixel count runs.
         conf.mnist_image_size = test.data.shape[1]
-        results = run(conf, train, test)
+        results = run(conf, train, test, mesh=mesh)
         results["load_seconds"] = load_secs
         return results
     finally:

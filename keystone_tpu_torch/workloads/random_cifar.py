@@ -9,6 +9,9 @@ K1's ``conv_rect_pool`` entry on the card, its plain version on the CPU) ->
 StandardScaler -> LinearMapEstimator(lambda) -> MaxClassifier ->
 MulticlassClassifierEvaluator.  The fitted chain
 ``[featurizer, scaler, model, MaxClassifier]`` is the servable pipeline.
+``--mesh`` shards both splits' rows over the mesh's data axis (each slot
+featurizes its rows, one K1 launch per slot and chunk) and solves over it
+(``LinearMapEstimator(mesh=)``), as RandomPatchCifar does.
 
 Run: ``python -m keystone_tpu_torch.workloads.random_cifar
 --trainLocation train.bin --testLocation test.bin [--device cpu]``.
@@ -32,6 +35,7 @@ from ..loaders.cifar import LabeledImageBatch, cifar_loader
 from ..ops.conv_fused import FusedConvFeaturizer
 from ..ops.stats import StandardScaler
 from ..ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
+from ..parallel.mesh import add_mesh_flag, map_rows, mesh_from_flags, unshard
 from ..solvers.linear import LinearMapEstimator
 from ..utils.platform import resolve_device, synchronize
 from .cifar_random_patch import featurize_chunked
@@ -81,12 +85,15 @@ def run(
     train: LabeledImageBatch,
     test: LabeledImageBatch,
     filters=None,
+    mesh=None,
 ) -> dict:
     """Fit on ``train``, score ``train`` and ``test``.
 
     ``filters``: the [F, ps*ps*C] bank to use in place of drawing it (the
-    tests carry the JAX package's draw across).  The results carry the test
-    predictions and the fitted servable pipeline under ``"servable"``."""
+    tests carry the JAX package's draw across).  With ``mesh`` the
+    featurize and the solve are row-sharded over its data axis.  The
+    results carry the test predictions and the fitted servable pipeline
+    under ``"servable"``."""
     configure_logging()
     dev = resolve_device(conf.device)
     t0 = time.perf_counter()
@@ -98,32 +105,33 @@ def run(
         filters = draw_filters(conf)
     featurizer = build_featurizer(filters, conf, dev)
     # One warm chunk first, so the throughput below is steady state.
-    featurize_chunked(featurizer, train.images[:1], conf.featurize_chunk, dev)
+    featurize_chunked(featurizer, train.images[:1], conf.featurize_chunk, dev, mesh=mesh)
     synchronize(dev)
 
     t_feat = time.perf_counter()
-    train_conv = featurize_chunked(featurizer, train.images, conf.featurize_chunk, dev)
+    train_conv = featurize_chunked(featurizer, train.images, conf.featurize_chunk, dev,
+                                   mesh=mesh)
     synchronize(dev)
     feat_secs = time.perf_counter() - t_feat
 
     scaler = StandardScaler().fit(train_conv)
-    train_features = scaler(train_conv)
+    train_features = map_rows(scaler, train_conv)
     labels = ClassLabelIndicatorsFromIntLabels(conf.num_classes)(
         torch.from_numpy(train.labels).to(dev)
     )
     t_solve = time.perf_counter()
-    model = LinearMapEstimator(lam=conf.lam).fit(train_features, labels)
+    model = LinearMapEstimator(lam=conf.lam, mesh=mesh).fit(train_features, labels)
     assert_all_finite(model, "random-cifar model")
     solve_secs = time.perf_counter() - t_solve
 
     def predict(features):
-        return MaxClassifier()(model(features))
+        return MaxClassifier()(unshard(map_rows(model, features)))
 
     train_eval = MulticlassClassifierEvaluator(
         predict(train_features), torch.from_numpy(train.labels).to(dev), conf.num_classes
     )
-    test_conv = featurize_chunked(featurizer, test.images, conf.featurize_chunk, dev)
-    test_pred = predict(scaler(test_conv))
+    test_conv = featurize_chunked(featurizer, test.images, conf.featurize_chunk, dev, mesh=mesh)
+    test_pred = predict(map_rows(scaler, test_conv))
     test_eval = MulticlassClassifierEvaluator(
         test_pred, torch.from_numpy(test.labels).to(dev), conf.num_classes
     )
@@ -157,6 +165,7 @@ def main(argv=None) -> dict:
     p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
+    add_mesh_flag(p)
     a = p.parse_args(argv)
     configure_logging()
     conf = RandomCifarWorkloadConfig(
@@ -172,9 +181,10 @@ def main(argv=None) -> dict:
         device=a.device,
     )
     resolve_device(conf.device)
+    mesh = mesh_from_flags(p, a)
     train = cifar_loader(conf.train_location)
     test = cifar_loader(conf.test_location)
-    return run(conf, train, test)
+    return run(conf, train, test, mesh=mesh)
 
 
 if __name__ == "__main__":

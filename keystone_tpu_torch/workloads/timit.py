@@ -9,7 +9,10 @@ coordinate descent, ``numEpochs`` sweeps) -> streaming evaluation on the
 test blocks after every block, as the reference does (the last call sees
 the full model) -> MaxClassifier -> MulticlassClassifierEvaluator.  The
 fitted chain ``GroupConcatFeaturizer(blocks) >> model >> MaxClassifier`` is
-the servable pipeline.
+the servable pipeline.  ``--mesh`` row-shards both splits over the mesh's
+data axis: each slot computes its rows' cosines (the pad rows masked back
+to zero, since ``cos(0·W + b)`` is not), the scalers' moments and the
+multi-epoch block solve reduce over the data axis.
 
 Run: ``python -m keystone_tpu_torch.workloads.timit --trainDataLocation
 train.csv --trainLabelsLocation train.labels --testDataLocation test.csv
@@ -39,6 +42,7 @@ from ..loaders.timit import (
 )
 from ..ops.stats import CosineRandomFeatures, StandardScaler
 from ..ops.util import ClassLabelIndicatorsFromIntLabels, GroupConcatFeaturizer, MaxClassifier
+from ..parallel.mesh import add_mesh_flag, map_rows, mesh_from_flags, padded_shard_rows
 from ..solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
 from ..utils.platform import resolve_device, synchronize
 
@@ -76,18 +80,17 @@ def draw_random_features(conf: TimitConfig, device) -> list[CosineRandomFeatures
     ]
 
 
-def build_batch_featurizers(
-    random_features, train_data: torch.Tensor
-) -> tuple[list[Pipeline], list[torch.Tensor]]:
+def build_batch_featurizers(random_features, train_data) -> tuple[list[Pipeline], list]:
     """The ``[CosineRandomFeatures -> StandardScaler]`` chains, each scaler
-    fitted on its own block of ``train_data``, and the training blocks they
-    produce (each block's cosines are computed once)."""
+    fitted on its own block of ``train_data`` (a tensor, or row-sharded),
+    and the training blocks they produce (each block's cosines are computed
+    once)."""
     featurizers, blocks = [], []
     for rf in random_features:
-        feats = rf(train_data)
+        feats = map_rows(rf, train_data)
         scaler = StandardScaler().fit(feats)
         featurizers.append(Pipeline([rf, scaler]))
-        blocks.append(scaler(feats))
+        blocks.append(map_rows(scaler, feats))
         del feats
     return featurizers, blocks
 
@@ -98,8 +101,10 @@ def servable_pipeline(featurizers, model: BlockLinearMapper) -> Pipeline:
     return Pipeline([GroupConcatFeaturizer([[f] for f in featurizers]), model, MaxClassifier()])
 
 
-def run(conf: TimitConfig, data: TimitFeaturesData, random_features=None) -> dict:
+def run(conf: TimitConfig, data: TimitFeaturesData, random_features=None, mesh=None) -> dict:
     """Fit on ``data.train``, evaluate on ``data.test`` block by block.
+    With ``mesh`` both splits are row-sharded over its data axis and the
+    block solve runs its mesh ladder.
 
     ``random_features``: the ``numCosines`` random-feature maps to use in
     place of drawing them (the tests carry the JAX package's draws across).
@@ -116,8 +121,10 @@ def run(conf: TimitConfig, data: TimitFeaturesData, random_features=None) -> dic
         torch.from_numpy(np.asarray(data.train.labels)).to(dev)
     )
     test_labels = torch.from_numpy(np.asarray(data.test.labels)).to(dev)
+    if mesh is not None:
+        train_data, _ = padded_shard_rows(train_data, mesh)
     # One block's product first, so the clock below reads steady state.
-    random_features[0](train_data)
+    map_rows(random_features[0], train_data)
     synchronize(dev)
 
     t_feat = time.perf_counter()
@@ -126,7 +133,8 @@ def run(conf: TimitConfig, data: TimitFeaturesData, random_features=None) -> dic
     feat_secs = time.perf_counter() - t_feat
 
     t_solve = time.perf_counter()
-    solver = BlockLeastSquaresEstimator(conf.num_cosine_features, conf.num_epochs, conf.lam)
+    solver = BlockLeastSquaresEstimator(conf.num_cosine_features, conf.num_epochs, conf.lam,
+                                        mesh=mesh)
     model = solver.fit(training_batches, labels)
     log_fit_report(solver, _log, "timit cosine solve")
     assert_all_finite(model, "timit model")
@@ -143,7 +151,9 @@ def run(conf: TimitConfig, data: TimitFeaturesData, random_features=None) -> dic
 
     t_eval = time.perf_counter()
     test_data = torch.from_numpy(np.ascontiguousarray(data.test.data, np.float32)).to(dev)
-    model.apply_and_evaluate([f(test_data) for f in featurizers], evaluator)
+    if mesh is not None:
+        test_data, _ = padded_shard_rows(test_data, mesh)
+    model.apply_and_evaluate([map_rows(f, test_data) for f in featurizers], evaluator)
     synchronize(dev)
     eval_secs = time.perf_counter() - t_eval
     _log.info("TEST Error is %s%%", results["test_error"])
@@ -175,6 +185,7 @@ def main(argv=None) -> dict:
     p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
+    add_mesh_flag(p)
     a = p.parse_args(argv)
     configure_logging()
     conf = TimitConfig(
@@ -190,6 +201,7 @@ def main(argv=None) -> dict:
         device=a.device,
     )
     resolve_device(conf.device)
+    mesh = mesh_from_flags(p, a)
     t_load = time.perf_counter()
     data = timit_features_loader(
         conf.train_data_location,
@@ -201,7 +213,7 @@ def main(argv=None) -> dict:
     # The frame width comes from the data (440 for TIMIT), as in the MNIST
     # workload, so any width runs.
     conf.dimension = data.train.data.shape[1]
-    results = run(conf, data)
+    results = run(conf, data, mesh=mesh)
     results["load_seconds"] = load_secs
     return results
 

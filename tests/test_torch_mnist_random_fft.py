@@ -204,7 +204,8 @@ def test_cli_needs_a_card_by_default(csv_files, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "8"], ["--autoShard", "--mesh", "2"],  # the mesh is not ported
+    # beside --mesh, the flags whose mesh half is not ported
+    ["--mesh", "1", "--autoCache"], ["--autoShard", "--mesh", "1", "--pipelineFile", "ck"],
     ["--solveCheckpoint"],  # the flag needs its path
     ["--resumeFrom"], ["--serveMesh", "2x1"], ["--serve", "--serveMesh", "1x1"],
     ["--blockSize", "300"],

@@ -766,9 +766,9 @@ def test_cifar_auto_cache_featurizes_once_and_matches(cifar_files, monkeypatch):
         loaded.append(real_load(location))
         return loaded[-1]
 
-    def counted(fn, images, chunk, device):
+    def counted(fn, images, chunk, device, mesh=None):
         calls["n"] += images is loaded[0].images
-        return real_featurize(fn, images, chunk, device)
+        return real_featurize(fn, images, chunk, device, mesh=mesh)
 
     monkeypatch.setattr(pt_cifar, "_load_split", load)
     monkeypatch.setattr(pt_cifar, "featurize_chunked", counted)
