@@ -292,18 +292,50 @@ which raises (and so exits non-zero) on failure:
 29. the single-process mesh (``parallel.mesh``): 8 slots of ``cuda:0``.
    (a) phase 3's featurize of the 50,000 training images unsharded and
    row-sharded over ``make_mesh(4, 2)`` and ``(8, 1)``: K1 launched once
-   per slot and chunk (chunks of 2048 / data rows), the features
+   per data slot and chunk (chunks of 2048 / data rows; the model slots of
+   a data block share the card, its rows and its results), the features
    ``torch.equal`` to the unsharded pass or within phase 5's bf16 bar
    (1e-2 relative), printed which; (b) the Cifar CLI on phase 3's files
    without a mesh and with ``--mesh 1``: model and predictions
-   ``torch.equal``; (c) ``cifar.run`` on both meshes: K1 once per slot and
-   chunk (warm chunk, train, test), train and test error within the JAX
+   ``torch.equal``; (c) ``cifar.run`` on both meshes: K1 once per data
+   slot and chunk (warm chunk, train, test), train and test error within the JAX
    package's bands (0.6 and 1.1 points) of (b)'s, the chosen tier, each
    tier's wall, ``search_seconds`` and the solve's peak; (d) ``--mesh 2``
    raises ``mesh 2x1 needs 2 devices, have 1``; (e) TimitPipeline at
    config 4 on phase 12's frames over ``make_mesh(8, 1)``: every mesh
    tier admitted against an eighth of the card's budget, the chosen tier,
-   its peak and error beside phase 12's.
+   its peak and error beside phase 12's;
+30. the Fisher-vector and text pipelines on the mesh, 8 slots of
+   ``cuda:0``, the kernel counts set to 0 before each part: (a)
+   VOCSIFTFisher at phase 6's configuration and images through
+   ``voc.run`` on ``make_mesh(8, 1)`` and ``(4, 2)``: K2 called once per
+   data slot, bucket and split, each call on its slot's rows, its launches
+   beside those reckoned from the calls' shapes; the test split's
+   descriptors and features (phase 6's fitted bundle) ``torch.equal`` to
+   the unsharded pass; test scores ``torch.equal`` to phase 6's or within
+   1e-5·max (the solve's row sums over the data axis), printed which; MAP
+   equal to phase 6's; the featurize placement and the solve tier chosen,
+   seconds and peak; (b) ImageNetSiftLcsFV at phase 17's configuration and
+   images through ``inet.run`` on ``(4, 2)``: each BWLS tier's per-slot
+   charge beside its budget, the tier that ran, top-1 and top-5 equal to
+   phase 17's, scores within rtol 1e-4, atol 1e-5·max, K2 over every data
+   slot's rows of both branches and splits, seconds and peak; (c) phase
+   26(d)'s class-weighted solve, its inputs row-sharded, on ``(4, 2)`` and
+   ``(8, 1)`` through the hand ladder (each runs its own mesh tier): the
+   regroup plan's ``usable`` and ``m_pad``, the weights and
+   intercept against phase 26(d)'s fused fit (printed whether within rtol
+   1e-4, atol 1e-5·max) and against the same fit in f64: no further from
+   it than twice the fused fit's distance plus 1e-5 of the largest weight
+   (the data axis adds the row sums in another order, and the f32 solve at
+   lambda 6e-5 carries that to about 1e-4 of the weights), seconds per
+   mesh; (d) NewsgroupsPipeline on phase 15's corpus through
+   ``newsgroups.run`` on ``(8, 1)``: scores ``np.array_equal`` to phase
+   15's, the same error, no hand kernel launched; (e) the three CLIs on
+   small inputs (VOC: 48 + 48 of phase 6's images as JPEG tars;
+   ImageNet: 10 classes, 4 + 2 images each, as tars; Newsgroups: 20 + 10
+   documents a class) without a mesh and with ``--mesh 1``: scores
+   ``np.array_equal``; each CLI's ``--mesh 2`` raises ``mesh 2x1 needs 2
+   devices, have 1``.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -361,6 +393,7 @@ from keystone_tpu_torch.loaders.timit import (
     TimitFeaturesData,
     TimitSplit,
 )
+from keystone_tpu_torch.ops import fisher as fisher_mod
 from keystone_tpu_torch.ops import fv_stats as fs
 from keystone_tpu_torch.ops import jpeg_device as jd
 from keystone_tpu_torch.ops import rect_pool as rp
@@ -374,8 +407,9 @@ from keystone_tpu_torch.ops.sift import SIFTExtractor
 from keystone_tpu_torch.ops.stats import SignedHellingerMapper, StandardScaler
 from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
 from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
-from keystone_tpu_torch.parallel.mesh import make_mesh
+from keystone_tpu_torch.parallel.mesh import make_mesh, padded_shard_rows
 from keystone_tpu_torch.solvers import block as block_mod
+from keystone_tpu_torch.solvers import weighted as weighted_mod
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
 from keystone_tpu_torch.solvers.weighted import BlockWeightedLeastSquaresEstimator
 from keystone_tpu_torch.testing.corpus import write_newsgroups_tree
@@ -392,7 +426,11 @@ from keystone_tpu_torch.workloads import (
 )
 from keystone_tpu_torch.workloads import mnist_random_fft as mnist
 from keystone_tpu_torch.workloads import voc_sift_fisher as voc
-from keystone_tpu_torch.workloads.fv_common import fisher_feature_pipeline, grayscale
+from keystone_tpu_torch.workloads.fv_common import (
+    fisher_feature_pipeline,
+    grayscale,
+    scatter_features,
+)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
 # the f32 rate outside the tensor cores (3.35e12 B/s, 67e12 flop/s), the
@@ -1514,26 +1552,25 @@ def run_cifar_variants(card: str, train_path: Path, test_path: Path) -> dict:
     return rec
 
 
-def run_newsgroups(card: str) -> None:
+def run_newsgroups(card: str, root: Path) -> dict:
     """Phase 15: NewsgroupsPipeline at BASELINE config 2 through the CLI on
-    a synthetic tree of the 20news-bydate split's size, then naive-Bayes
-    scores card against CPU and at served batches.  No hand kernel may
-    launch in it."""
+    a synthetic tree of the 20news-bydate split's size (written under
+    ``root``), then naive-Bayes scores card against CPU and at served
+    batches.  No hand kernel may launch in it.  Returns what phase 30
+    reruns on the mesh: the tree and the run's scores and error."""
     before = kernel_launches()
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
-        root = Path(tmp)
-        rng = np.random.default_rng(17)
-        t = time.perf_counter()
-        tokens = 0
-        for split, total in (("train", NG_TRAIN), ("test", NG_TEST)):
-            per_class = [total // 20 + (c < total % 20) for c in range(20)]
-            tokens += write_newsgroups_tree(root / split, NG_CLASSES, per_class, rng)
-        write_secs = time.perf_counter() - t
-        t = time.perf_counter()
-        test = newsgroups_loader(str(root / "test"))
-        load_secs = time.perf_counter() - t
-        res = newsgroups.main(["--trainLocation", str(root / "train"),
-                               "--testLocation", str(root / "test"), *NG_FLAGS])
+    rng = np.random.default_rng(17)
+    t = time.perf_counter()
+    tokens = 0
+    for split, total in (("train", NG_TRAIN), ("test", NG_TEST)):
+        per_class = [total // 20 + (c < total % 20) for c in range(20)]
+        tokens += write_newsgroups_tree(root / split, NG_CLASSES, per_class, rng)
+    write_secs = time.perf_counter() - t
+    t = time.perf_counter()
+    test = newsgroups_loader(str(root / "test"))
+    load_secs = time.perf_counter() - t
+    res = newsgroups.main(["--trainLocation", str(root / "train"),
+                           "--testLocation", str(root / "test"), *NG_FLAGS])
     if not res["test_error"] < 20.0:  # chance is 95%
         raise AssertionError(f"Newsgroups test error {res['test_error']}% is not below 20%")
     if res["num_features"] != 100_000:
@@ -1575,6 +1612,8 @@ def run_newsgroups(card: str) -> None:
     if after != before:
         raise AssertionError(f"hand kernels launched in the Newsgroups phase: {before} -> {after}")
     log(f"Newsgroups phase: kernel launch counters unchanged {after}")
+    return {"root": root, "scores": res["test_scores"], "test_error": res["test_error"],
+            "seconds": res["seconds"]}
 
 
 def imagenet_class_params(num_classes: int = IMAGENET_CLASSES) -> tuple:
@@ -1661,10 +1700,10 @@ class BranchLaunches:
         self.counts = {b: 0 for b in inet.BRANCHES}
         self._orig = inet.branch_features
 
-        def counted(conf, train_images, test_images, branch):
+        def counted(conf, train_images, test_images, branch, *rest):
             before = fs.launches
             try:
-                return self._orig(conf, train_images, test_images, branch)
+                return self._orig(conf, train_images, test_images, branch, *rest)
             finally:
                 self.counts[branch] += fs.launches - before
 
@@ -1747,7 +1786,8 @@ def run_imagenet(card: str, stem: Path) -> tuple:
     }))
     arrays = convert.imagenet_to_arrays(res["bundle"], conf)
     saved = {"stem": stem, "scores": res["test_scores"], "seconds": res["seconds"],
-             "top5_err_percent": res["top5_err_percent"]}
+             "top5_err_percent": res["top5_err_percent"],
+             "top1_err_percent": res["top1_err_percent"]}
     del res, fitted
     torch.cuda.empty_cache()
     imagenet_card_vs_cpu(arrays, [test.images[j] for j in land[:4]])
@@ -3134,7 +3174,7 @@ def run_ladder(card: str, data_dir: Path, phase6: dict, timit12: dict) -> dict:
             raise AssertionError(f"BWLS under {budget} B ran {est.last_fit_report.chosen}, "
                                  f"expected {tier}")
         weights = torch.cat(model.xs)
-        bwls[tier] = {"seconds": secs, "weights": weights,
+        bwls[tier] = {"seconds": secs, "weights": weights, "b": model.b,
                       "total_bytes": est.last_fit_report.plans[tier].total_bytes}
         budget = str(bwls[tier]["total_bytes"] - 1)
     want = bwls["fused"]["weights"]
@@ -3151,9 +3191,12 @@ def run_ladder(card: str, data_dir: Path, phase6: dict, timit12: dict) -> dict:
                     "total_bytes": {t: r["total_bytes"] for t, r in bwls.items()},
                     "max_abs_err_vs_fused": errs,
                     "stepwise_equal_fused": bool(torch.equal(bwls["stepwise"]["weights"], want))}))
-    del x, y, bwls
+    fused = {"weights": want.cpu(), "b": bwls["fused"]["b"].cpu(),
+             "seconds": bwls["fused"]["seconds"]}
+    del x, y, bwls, want
     torch.cuda.empty_cache()
-    return {"fv_stats": launches}
+    # Phase 30 holds the mesh fits of the same problem to the fused one.
+    return {"fv_stats": launches, "bwls_fused": fused}
 
 
 # Phase 27, the optimizer.  At the default exchange rate (1 GB/s) holding
@@ -3660,7 +3703,8 @@ def run_mesh(card: str, fitted: dict, timit12: dict) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         data = mesh.shape["data"]
-        want = 8 * per_slot_chunks(N_TRAIN, data)
+        # The model slots of a data block share the card, so its rows and results.
+        want = data * per_slot_chunks(N_TRAIN, data)
         rows = sharded.gather()
         rec["featurize"][name] = {
             "seconds": secs, "conv_rect_pool_launches": rp.fused_launches,
@@ -3708,7 +3752,7 @@ def run_mesh(card: str, fitted: dict, timit12: dict) -> dict:
             res = cifar.run(conf, train, test, mesh=mesh)
         launches += rp.fused_launches
         data = mesh.shape["data"]
-        want = 8 * (1 + per_slot_chunks(N_TRAIN, data) + per_slot_chunks(N_TEST, data))
+        want = data * (1 + per_slot_chunks(N_TRAIN, data) + per_slot_chunks(N_TEST, data))
         flips = int((res["test_predictions"] != plain["test_predictions"]).sum())
         rec["runs"][name] = {
             "conv_rect_pool_launches": rp.fused_launches, "expected_launches": want,
@@ -3765,6 +3809,322 @@ def run_mesh(card: str, fitted: dict, timit12: dict) -> dict:
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"phase 29: {rec['seconds']:.2f} s")
     return {"conv_rect_pool": launches}
+
+
+# Phase 30: the (e) part's small CLI inputs (images per split of phase 6's
+# VOC images; ImageNet classes and images per class; Newsgroups documents
+# per class).
+MESH_CLI_VOC = 48
+MESH_CLI_INET_CLASSES, MESH_CLI_INET_PER_CLASS = 10, (4, 2)
+MESH_CLI_NG_PER_CLASS = (20, 10)
+
+
+class K2Calls:
+    """The ``[n, d, cols]`` shape of each fv_stats call while active (it
+    wraps the entry ``ops.fisher`` calls), with the launches each reckons
+    from ``fv_stats.launch_geometry``."""
+
+    def __enter__(self) -> list:
+        self.calls = []
+        self._orig = orig = fisher_mod.fv_stats
+
+        def counted(x, counts, means, variances, weights):
+            self.calls.append((*x.shape, int(weights.shape[0])))
+            return orig(x, counts, means, variances, weights)
+
+        fisher_mod.fv_stats = counted
+        return self.calls
+
+    def __exit__(self, *exc) -> None:
+        fisher_mod.fv_stats = self._orig
+
+
+def reckoned_launches(calls: list) -> int:
+    return sum(math.ceil(n / fs.launch_geometry(n, d, cols, k).group)
+               for n, d, cols, k in calls)
+
+
+def slot_rows(sizes, data: int) -> int:
+    """Rows the data slots hold for buckets of ``sizes`` images: each slot
+    ``ceil(n / data)``, pad images included."""
+    return sum(data * math.ceil(n / data) for n in sizes)
+
+
+def bucket_sizes(images: list) -> list:
+    counts: dict = {}
+    for img in images:
+        counts[img.shape[:2]] = counts.get(img.shape[:2], 0) + 1
+    return list(counts.values())
+
+
+def sharded_equal(sharded, whole: torch.Tensor) -> bool:
+    """Are a ``ShardedRows``' true rows ``torch.equal`` to ``whole``,
+    compared data block by data block (no gathered copy)?"""
+    out, start = True, 0
+    for block in sharded.data_blocks():
+        rows = max(0, min(int(block.shape[0]), sharded.nvalid - start))
+        out = out and torch.equal(block[:rows], whole[start : start + rows])
+        start += int(block.shape[0])
+    return out and start >= whole.shape[0]
+
+
+def scores_vs(got: np.ndarray, want: np.ndarray) -> dict:
+    return {"bit_equal": bool(np.array_equal(got, want)),
+            "max_abs_err": float(np.abs(got - want).max()),
+            "max_abs": float(np.abs(want).max())}
+
+
+def run_mesh_fv(card: str, data_dir: Path, fitted: dict, phase6: dict, inet17: dict,
+                ng15: dict, bwls26: dict) -> dict:
+    """Phase 30: VOCSIFTFisher, ImageNetSiftLcsFV, the class-weighted solve
+    and NewsgroupsPipeline on eight slots of the card, then the three CLIs
+    with ``--mesh 1`` and ``--mesh 2``.  Returns the K2 launches of its
+    runs through the entry points."""
+    t_phase = time.perf_counter()
+    slots = [torch.device("cuda", 0)] * 8
+    meshes = {"8x1": make_mesh(8, 1, devices=slots), "4x2": make_mesh(4, 2, devices=slots)}
+    launches = 0
+    rec: dict = {"phase": "30: the FV and text pipelines on the mesh", "card": card}
+
+    # (a) VOCSIFTFisher at phase 6's configuration and images.
+    conf = voc.SIFTFisherConfig(**VOC_CONF)
+    train, test = phase6["train"], phase6["test"]
+    bundle = load_pipeline(str(fitted["voc_stem"]), device="cuda")
+    featurize = Pipeline([bundle["pca"], fisher_feature_pipeline(bundle["gmm"])])
+    feat_dim = 2 * conf.desc_dim * conf.vocab_size
+    torch.cuda.empty_cache()
+    whole_desc = voc.extract_sift_buckets(conf, test.images)
+    whole_feats = scatter_features(whole_desc, featurize, len(test), feat_dim)
+    rec["voc"] = {}
+    compared = {}
+    for name, mesh in meshes.items():
+        desc = voc.extract_sift_buckets(conf, test.images, mesh)
+        feats = scatter_features(desc, featurize, len(test), feat_dim)
+        compared[name] = {
+            "descriptors_equal": all(sharded_equal(desc[shape][1], whole_desc[shape][1])
+                                     for shape in whole_desc),
+            "features_equal": bool(torch.equal(feats, whole_feats)),
+            "features_max_abs_err": float((feats - whole_feats).abs().max()),
+            "features_max_abs": float(whole_feats.abs().max())}
+        del desc, feats
+    del whole_desc, whole_feats, bundle, featurize
+    for name, mesh in meshes.items():
+        data = mesh.shape["data"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fs.launches = 0
+        with K2Calls() as calls:
+            t = time.perf_counter()
+            res = voc.run(conf, train, test, mesh=mesh)
+            secs = time.perf_counter() - t
+        launches += fs.launches
+        want_rows = slot_rows(bucket_sizes(train.images), data) + slot_rows(
+            bucket_sizes(test.images), data)
+        r = rec["voc"][name] = {
+            "fv_stats_launches": fs.launches, "reckoned_launches": reckoned_launches(calls),
+            "fv_stats_calls": len(calls), "fv_stats_rows": sum(c[0] for c in calls),
+            "slot_rows": want_rows, **compared[name],
+            "scores": scores_vs(res["test_scores"], phase6["scores"]),
+            "map": res["map"], "phase6_map": phase6["map"],
+            "featurize_placement": res["placement"]["featurize"]["chosen"],
+            "solve_tier": res["fit_report"]["chosen_tier"],
+            "seconds": secs, "phase6_seconds": fitted["voc_seconds"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(json.dumps({"phase": f"30(a) VOC {name}", "card": card, **r}))
+        del res
+        sc = r["scores"]
+        if not (r["fv_stats_launches"] == r["reckoned_launches"]
+                and r["fv_stats_calls"] == 2 * len(VOC_SHAPES) * data
+                and r["fv_stats_rows"] == want_rows and r["descriptors_equal"]
+                and (r["features_equal"]
+                     or r["features_max_abs_err"] <= 1e-5 * r["features_max_abs"])
+                and (sc["bit_equal"] or sc["max_abs_err"] <= 1e-5 * sc["max_abs"])
+                and r["map"] == phase6["map"]):
+            raise AssertionError(f"VOC on mesh {name}: {r}")
+    torch.cuda.empty_cache()
+    # K2 at one data slot's shard of the 375x500 bucket, on each mesh.
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    per = VOC_SHAPES[(375, 500)]
+    rec["fv_stats_slot"] = {
+        name: time_fv_stats(math.ceil(per / mesh.shape["data"]), gen, plain=name == "8x1")
+        for name, mesh in meshes.items()}
+    torch.cuda.empty_cache()
+
+    # (b) ImageNetSiftLcsFV at phase 17's configuration and images on 4x2.
+    iconf = inet.ImageNetSiftLcsFVConfig(num_classes=IMAGENET_CLASSES, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    fs.launches = 0
+    with K2Calls() as calls:
+        t = time.perf_counter()
+        res = inet.run(iconf, inet17["train"], inet17["test"], mesh=meshes["4x2"])
+        secs = time.perf_counter() - t
+    launches += fs.launches
+    data = meshes["4x2"].shape["data"]
+    want_rows = len(inet.BRANCHES) * (slot_rows(bucket_sizes(inet17["train"].images), data)
+                                      + slot_rows(bucket_sizes(inet17["test"].images), data))
+    tiers = mesh_tiers(res["fit_report"])
+    r = rec["imagenet"] = {
+        "fv_stats_launches": fs.launches, "reckoned_launches": reckoned_launches(calls),
+        "fv_stats_rows": sum(c[0] for c in calls), "slot_rows": want_rows,
+        "bwls_tiers": tiers, "solve_tier": res["fit_report"]["chosen_tier"],
+        "featurize_placements": {k: v["chosen"] for k, v in res["placement"].items()
+                                 if k.startswith("featurize")},
+        "top1_err_percent": res["top1_err_percent"],
+        "top5_err_percent": res["top5_err_percent"],
+        "phase17_top1": inet17["top1_err_percent"], "phase17_top5": inet17["top5_err_percent"],
+        "scores": scores_vs(res["test_scores"], inet17["scores"]),
+        "seconds": secs, "phase17_seconds": inet17["seconds"],
+        "solve_seconds": res["solve_seconds"],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(json.dumps({"phase": "30(b) ImageNet 4x2", "card": card, **r}))
+    got, want = res["test_scores"], inet17["scores"]
+    del res
+    torch.cuda.empty_cache()
+    if not (r["fv_stats_launches"] == r["reckoned_launches"] and r["fv_stats_rows"] == want_rows
+            and r["top1_err_percent"] == r["phase17_top1"]
+            and r["top5_err_percent"] == r["phase17_top5"]
+            and np.allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())):
+        raise AssertionError(f"ImageNet on mesh 4x2: {r}")
+
+    # (c) Phase 26(d)'s class-weighted solve, its inputs row-sharded.
+    inet_conf = inet.ImageNetSiftLcsFVConfig()
+    labels = np.random.default_rng(29).permutation(
+        np.repeat(np.arange(IMAGENET_CLASSES), BWLS_ROWS // IMAGENET_CLASSES))
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    x = torch.randn((BWLS_ROWS, BWLS_WIDTH), generator=gen, device="cuda")
+    y = torch.as_tensor(2.0 * np.eye(IMAGENET_CLASSES, dtype=np.float32)[labels] - 1.0,
+                        device="cuda")
+    want_w, want_b = bwls26["weights"].cuda(), bwls26["b"].cuda()
+    # The same fit in f64: the yardstick both f32 fits are held to.  A
+    # data axis adds the row sums in another order, and at lambda 6e-5 the
+    # f32 solve carries that difference to about 1e-4 of the weights.
+    exact = BlockWeightedLeastSquaresEstimator(BWLS_BLOCK, 1, inet_conf.lam,
+                                               inet_conf.mixture_weight).fit(
+        x.double(), y.double(), plan=False)
+    exact_w, exact_b = torch.cat(exact.xs), exact.b
+    del exact
+
+    def f64_err(w, b) -> float:
+        return max(float((w.double() - exact_w).abs().max() / exact_w.abs().max()),
+                   float((b.double() - exact_b).abs().max() / exact_b.abs().max()))
+
+    fused_err = f64_err(want_w, want_b)
+    rec["bwls"] = {}
+    for name in ("4x2", "8x1"):
+        mesh = meshes[name]
+        xs, ys = padded_shard_rows(x, mesh)[0], padded_shard_rows(y, mesh)[0]
+        est = BlockWeightedLeastSquaresEstimator(BWLS_BLOCK, 1, inet_conf.lam,
+                                                 inet_conf.mixture_weight, mesh=mesh)
+        ctx = weighted_mod._SolveCtx.of(labels, IMAGENET_CLASSES, torch.float32,
+                                        inet_conf.mixture_weight, est.class_chunk, "cpu",
+                                        data=mesh.shape["data"], model=mesh.shape["model"])
+        plan = weighted_mod._RegroupPlan(ctx.order, xs.rows, ctx.p_tot, mesh.shape["data"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        # The hand ladder: the mesh asked for runs (the search ranks meshes
+        # without a data axis first, which skip the regroup).
+        model = est.fit(xs, ys, plan=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        weights = torch.cat(model.xs)
+        r = rec["bwls"][name] = {
+            "regroup_usable": plan.usable, "m_pad": plan.m_pad, "rows_out": plan.rows_out,
+            "chosen": est.last_fit_report.chosen,
+            "tiers": mesh_tiers(est.last_fit_report.record()),
+            "max_abs_err_weights": float((weights - want_w).abs().max()),
+            "max_abs_err_intercept": float((model.b - want_b).abs().max()),
+            "max_abs_weights": float(want_w.abs().max()),
+            "within_rtol_1e-4_of_fused": bool(
+                torch.allclose(weights, want_w, rtol=1e-4, atol=1e-5 * float(want_w.abs().max()))
+                and torch.allclose(model.b, want_b, rtol=1e-4,
+                                   atol=1e-5 * float(want_b.abs().max()))),
+            "rel_err_vs_f64": f64_err(weights, model.b), "fused_rel_err_vs_f64": fused_err,
+            "seconds": secs, "phase26_fused_seconds": bwls26["seconds"]}
+        log(json.dumps({"phase": f"30(c) weighted solve {name}", "card": card, **r}))
+        # No further from the f64 fit than twice the fused fit's distance
+        # (plus 1e-5 of the largest weight).
+        if not (r["chosen"] == f"fused[mesh {name}]" and r["regroup_usable"]
+                and r["rel_err_vs_f64"] <= 2 * fused_err + 1e-5):
+            raise AssertionError(f"weighted solve on mesh {name}: {r}")
+        del xs, ys, model, weights
+    del x, y, want_w, want_b, exact_w, exact_b
+    torch.cuda.empty_cache()
+
+    # (d) NewsgroupsPipeline on phase 15's corpus over eight data slots.
+    before = kernel_launches()
+    ngconf = newsgroups.NewsgroupsConfig(n_grams=2, common_features=100_000, device="cuda")
+    ngtrain = newsgroups_loader(str(ng15["root"] / "train"))
+    ngtest = newsgroups_loader(str(ng15["root"] / "test"))
+    res = newsgroups.run(ngconf, ngtrain, ngtest, mesh=meshes["8x1"])
+    r = rec["newsgroups"] = {
+        "scores_equal": bool(np.array_equal(res["test_scores"], ng15["scores"])),
+        "test_error": res["test_error"], "phase15_test_error": ng15["test_error"],
+        "score_seconds": res["score_seconds"], "seconds": res["seconds"],
+        "phase15_seconds": ng15["seconds"], "kernel_launches_after": kernel_launches()}
+    log(json.dumps({"phase": "30(d) Newsgroups 8x1", "card": card, **r}))
+    if not (r["scores_equal"] and r["test_error"] == ng15["test_error"]
+            and kernel_launches() == before):
+        raise AssertionError(f"Newsgroups on mesh 8x1: {r} (launches before {before})")
+    del res, ngtrain, ngtest
+
+    # (e) The three CLIs on small inputs, without a mesh and with --mesh 1.
+    cli_root = data_dir / "mesh_cli"
+    (cli_root / "voc").mkdir(parents=True)
+    n = MESH_CLI_VOC
+    write_voc_tars(cli_root / "voc", {
+        "train": MultiLabeledImages(train.images[:n], train.labels[:n], train.filenames[:n]),
+        "test": MultiLabeledImages(test.images[:n], test.labels[:n], test.filenames[:n])})
+    inet_root = cli_root / "imagenet"
+    inet_root.mkdir()
+    splits = {}
+    for seed, (split, per) in enumerate(zip(("train", "test"), MESH_CLI_INET_PER_CLASS)):
+        lab = np.repeat(np.arange(MESH_CLI_INET_CLASSES), per)
+        shapes = [IMAGENET_SHAPES[i % 2] for i in range(len(lab))]
+        splits[split] = LabeledImages(imagenet_images(31 + seed, lab, shapes),
+                                      lab.astype(np.int32), [str(i) for i in range(len(lab))])
+    write_imagenet_tars(inet_root, splits)
+    ng_root = cli_root / "newsgroups"
+    ngrng = np.random.default_rng(37)
+    for split, per in zip(("train", "test"), MESH_CLI_NG_PER_CLASS):
+        write_newsgroups_tree(ng_root / split, NG_CLASSES, [per] * 20, ngrng)
+    clis = {
+        "voc": (voc.main, ["--trainLocation", str(cli_root / "voc" / "train.tar"),
+                           "--testLocation", str(cli_root / "voc" / "test.tar"),
+                           "--labelPath", str(cli_root / "voc" / "labels.csv"),
+                           "--device", "cuda"]),
+        "imagenet": (inet.main, ["--trainLocation", str(inet_root / "train"),
+                                 "--testLocation", str(inet_root / "test"),
+                                 "--labelPath", str(inet_root / "labels.txt"),
+                                 "--numClasses", str(MESH_CLI_INET_CLASSES),
+                                 "--device", "cuda"]),
+        "newsgroups": (newsgroups.main, ["--trainLocation", str(ng_root / "train"),
+                                         "--testLocation", str(ng_root / "test"),
+                                         *NG_FLAGS]),
+    }
+    rec["cli"] = {}
+    for name, (main_fn, argv) in clis.items():
+        plain = main_fn(argv)
+        fs.launches = 0
+        one = main_fn([*argv, "--mesh", "1"])
+        launches += fs.launches
+        try:
+            main_fn([*argv, "--mesh", "2"])
+            mesh_2 = None
+        except ValueError as e:
+            mesh_2 = str(e)
+        r = rec["cli"][name] = {
+            "scores_equal": bool(np.array_equal(one["test_scores"], plain["test_scores"])),
+            "fv_stats_launches_mesh_1": fs.launches, "mesh_2": mesh_2,
+            "seconds_mesh_1": one["seconds"], "seconds": plain["seconds"]}
+        log(json.dumps({"phase": f"30(e) {name} CLI --mesh 1", "card": card, **r}))
+        if not (r["scores_equal"] and mesh_2 == "mesh 2x1 needs 2 devices, have "
+                f"{torch.cuda.device_count()}" and (name == "newsgroups") == (fs.launches == 0)):
+            raise AssertionError(f"{name} CLI with --mesh: {r}")
+        del plain, one
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 30: {rec['seconds']:.2f} s")
+    return {"fv_stats": launches, "fv_stats_slot": rec["fv_stats_slot"]}
 
 
 def main() -> int:
@@ -3922,14 +4282,15 @@ def smoke(data_dir: Path) -> int:
     fitted["mnist"] = run_mnist(card, data_dir / "mnist")
     timit12 = run_timit(card)
     random_cifar_rec = run_cifar_variants(card, train_path, test_path)
-    run_newsgroups(card)
+    ng15 = run_newsgroups(card, data_dir / "newsgroups")
     torch.cuda.empty_cache()
     inet_launches, inet_train, inet_test, inet_fitted = run_imagenet(
         card, data_dir / "imagenet_bundle")
     inet_tar_decode, inet_tar_fv = run_imagenet_tar(card, inet_train, inet_test)
-    del inet_train
     inet_restored = run_imagenet_restored(card, inet_test, inet_fitted)
-    del inet_test, inet_fitted
+    # Phase 30 reruns phase 17 on the mesh.
+    inet17 = {"train": inet_train, "test": inet_test, **inet_fitted}
+    del inet_train, inet_test, inet_fitted
     run_descriptors(card)
     run_text(card)
     tar_launches, cifar_tar = run_cifar_tar(card, train_path, test_path, data_dir)
@@ -3942,9 +4303,11 @@ def smoke(data_dir: Path) -> int:
     placement = run_placement(card, fitted, phase6, timit12)
     lifecycle = run_lifecycle(card, data_dir, cifar_tar, snap24)
     log(f"phase 28: {time.perf_counter() - t28:.2f} s")
-    del phase6, cifar_tar, snap24
+    del cifar_tar, snap24
     mesh = run_mesh(card, fitted, timit12)
     del timit12
+    mesh_fv = run_mesh_fv(card, data_dir, fitted, phase6, inet17, ng15, ladder["bwls_fused"])
+    del phase6, inet17
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -3998,7 +4361,8 @@ def smoke(data_dir: Path) -> int:
         "launches": (voc_launches + tar_fv_launches + inet_launches + inet_tar_fv
                      + restored["fv_stats_in_memory"] + restored["fv_stats_jpeg_tars"]
                      + snaps["fv_stats"] + serving["fv_stats"] + ladder["fv_stats"]
-                     + optimizer["fv_stats"] + inet_restored + placement["fv_stats"]),
+                     + optimizer["fv_stats"] + inet_restored + placement["fv_stats"]
+                     + mesh_fv["fv_stats"]),
         "launches_by_path": {"voc_in_memory": voc_launches, "voc_jpeg_tars": tar_fv_launches,
                              "imagenet_in_memory": inet_launches,
                              "imagenet_jpeg_tars": inet_tar_fv,
@@ -4009,7 +4373,8 @@ def smoke(data_dir: Path) -> int:
                              "voc_solver_ladder": ladder["fv_stats"],
                              "voc_auto_cache": optimizer["fv_stats"],
                              "imagenet_restored": inet_restored,
-                             "voc_placement_search": placement["fv_stats"]},
+                             "voc_placement_search": placement["fv_stats"],
+                             "mesh_slots": mesh_fv["fv_stats"]},
         "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd, *fv_imagenet.values()]),
         "ms": fv_prod["ms"],
         "plain_ms": fv_prod["plain_ms"],
@@ -4020,6 +4385,9 @@ def smoke(data_dir: Path) -> int:
                         str(FV_PROD[0]): fv_prod["ms"]},
         "bound_share": {**{str(n): r["bound_share"] for n, r in fv_served.items()},
                         str(FV_PROD[0]): fv_prod["bound_share"]},
+        "mesh_slot": {name: {k: r[k] for k in ("shape", "ms", "bound_ms", "bound_share")}
+                      | ({"plain_ms": r["plain_ms"]} if "plain_ms" in r else {})
+                      for name, r in mesh_fv["fv_stats_slot"].items()},
         "imagenet": {branch: {
             "shape": [64, FV_IMAGENET[branch][0]], "k": 16, "max_abs_err": r["max_abs_err"],
             "bound_by": r["by_batch"][1]["bound_by"],

@@ -51,7 +51,7 @@ slots in the default layout, their hints from the spec arithmetic here
 (:func:`best_spec`, :func:`spec_chip_bytes`).  Not ported: the two lowerers
 of a spec string to a sharded layout (:func:`spec_pspec`,
 :func:`spec_sharding`) and the ``KEYSTONE_AUTOSHARD_SPECS`` knob, which
-switches the spec-variant candidates (ROADMAP Queue 1 item 15b).
+switches the spec-variant candidates (ROADMAP Queue 1 item 15c).
 """
 
 from __future__ import annotations
@@ -179,19 +179,19 @@ def best_spec(aval, mesh_shape: dict) -> dict:
 
 def spec_pspec(spec: str, ndim: int):
     """Lower one spec string to the partition it names: the mesh tiers run
-    the default layout only; spec layouts are ROADMAP Queue 1 item 15b."""
+    the default layout only; spec layouts are ROADMAP Queue 1 item 15c."""
     raise NotImplementedError(
         f"spec_pspec({spec!r}, {ndim}): the mesh tiers run the default layout only; "
-        "lowering a sharding spec is ROADMAP Queue 1 item 15b"
+        "lowering a sharding spec is ROADMAP Queue 1 item 15c"
     )
 
 
 def spec_sharding(spec: str, mesh, ndim: int):
     """Lower one spec string to a sharded layout on ``mesh``: the mesh
-    tiers run the default layout only (ROADMAP Queue 1 item 15b)."""
+    tiers run the default layout only (ROADMAP Queue 1 item 15c)."""
     raise NotImplementedError(
         f"spec_sharding({spec!r}, ..., {ndim}): the mesh tiers run the default layout "
-        "only; lowering a sharding spec is ROADMAP Queue 1 item 15b"
+        "only; lowering a sharding spec is ROADMAP Queue 1 item 15c"
     )
 
 
@@ -1015,10 +1015,13 @@ def run_search(
 
 
 def _tensor_devices(out) -> set:
-    """The CUDA devices of the tensors in a (nested) tier result."""
+    """The CUDA devices of the tensors in a (nested) tier result, a
+    ``ShardedRows``' slots among them."""
     if isinstance(out, torch.Tensor):
         return {out.device} if out.device.type == "cuda" else set()
-    if isinstance(out, dict):
+    if hasattr(out, "data_blocks"):
+        out = out.data_blocks()
+    elif isinstance(out, dict):
         out = out.values()
     elif not isinstance(out, (list, tuple)):
         return set()

@@ -540,6 +540,9 @@ class FitReport:
     #: the ``autoshard.PlacementPlan`` record of the searched ranking this
     #: fit ran through; None when the fit walked the hand ladder.
     placement: dict | None = None
+    #: ``core.numerics`` on: the per-block κ estimates of the fit's design
+    #: matrix (``numerics.design_conditioning``); None when it was off.
+    conditioning: list | None = None
 
     def record(self) -> dict:
         """JSON-able form."""
@@ -547,6 +550,7 @@ class FitReport:
 
         return {
             "chosen_tier": self.chosen,
+            "conditioning": list(self.conditioning) if self.conditioning else None,
             "mesh_shape": dict(self.mesh_shape) if self.mesh_shape else None,
             "budget_gb": round(self.budget_bytes / 2**30, 3) if self.budget_bytes else None,
             "denials": list(self.denials),

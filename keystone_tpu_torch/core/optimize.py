@@ -33,7 +33,7 @@ the analytic :class:`CostModel` over the port's device rates
 (``core.profiler.DEVICE_RATES``) and the cross-program
 :class:`CalibrationModel`, and the snapshot advisor
 (:func:`advise_snapshot`).  Single device: a mesh raises, naming the
-distribution item of the roadmap (item 15b).
+distribution item of the roadmap (item 15c).
 """
 
 from __future__ import annotations
@@ -266,7 +266,7 @@ def _single_device(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "the auto-Cacher plans for one device here; a mesh waits for the "
-            "distribution item (ROADMAP Queue 1 item 15b)"
+            "distribution item (ROADMAP Queue 1 item 15c)"
         )
 
 
@@ -418,7 +418,7 @@ def release_caches(pipeline: Pipeline) -> None:
 #: devices, the CPU included, take its defaults; only the relative ranking
 #: of candidate plans matters there).  ``ici_gbps`` is the interconnect
 #: rate of the JAX package's record, kept at its default value until the
-#: distribution item (ROADMAP Queue 1 item 15b) measures NVLink.
+#: multi-card item (ROADMAP Queue 1 item 16) measures NVLink.
 _DEFAULT_RATES = {**kprof.DEFAULT_RATES, "ici_gbps": 5.0}
 
 

@@ -9,7 +9,9 @@ posterior-weighted sums of the descriptors and of their squares.
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/fv_stats.cu``
 (or raises); on a CPU tensor it runs :func:`fv_stats_reference`, the plain
-PyTorch version the tests and ``chip_smoke.py`` hold the kernel against.
+PyTorch version the tests and ``chip_smoke.py`` hold the kernel against,
+one image at a time, so that an image's statistics do not depend on its
+batch on either device.
 :func:`fv_stats_cost` states a call's flops and bytes, from which
 ``core.profiler`` reckons the roofline bound.
 """
@@ -24,6 +26,7 @@ import torch
 
 from .. import _build
 from ..core import profiler as kprof
+from ..utils.platform import device_scope
 
 #: Kernel launches made by :func:`fv_stats` (never by the plain version,
 #: nor while a CUDA graph records it: ``core.serve`` counts the graph's
@@ -142,7 +145,15 @@ def fv_stats_reference(x, counts, means, variances, weights):
 def fv_stats(x, counts, means, variances, weights):
     """[N, d, D] descriptors -> (s0 [N, k], s1 [N, d, k], s2 [N, d, k])."""
     if x.device.type == "cpu":
-        return fv_stats_reference(x, counts, means, variances, weights)
+        if x.shape[0] <= 1:
+            return fv_stats_reference(x, counts, means, variances, weights)
+        # One image at a time: the plain version's batched products pick
+        # their kernel by N, and an image's statistics must not depend on
+        # the batch it rides in (a mesh slot's rows, a served bucket), as
+        # the kernel's do not.
+        parts = [fv_stats_reference(x[i : i + 1], None if counts is None else counts[i : i + 1],
+                                    means, variances, weights) for i in range(x.shape[0])]
+        return tuple(torch.cat(p) for p in zip(*parts))
     if x.device.type != "cuda":
         raise ValueError(f"fv_stats: unsupported device {x.device}")
     if x.dim() != 3:
@@ -182,26 +193,30 @@ def fv_stats(x, counts, means, variances, weights):
     lib = _build.load("fv_stats", _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     gmm = [t.contiguous() for t in (means, variances, weights)]
-    rc = lib.fv_stats_prepare(*(t.data_ptr() for t in gmm), params.data_ptr(), d, k, stream)
-    if rc != 0:
-        raise RuntimeError(f"fv_stats_prepare launch failed: cudaError {rc}")
     global launches
-    for i in range(0, n, geom.group):
-        m = min(geom.group, n - i)
-        rc = kprof.launch(
-            "fv_stats",
-            lambda: fv_stats_cost(
-                m, d, cols, k, None if counts is None else int(counts[i : i + m].sum())),
-            lambda: lib.fv_stats_launch(
-                x[i].data_ptr(), None if counts is None else counts[i].data_ptr(),
-                params.data_ptr(), out[i].data_ptr(), workspace.data_ptr(),
-                m, d, cols, k, geom.splits, TILES_PER_SPLIT, stream,
-            ),
-        )
+    # A ctypes launch runs on the runtime's current device: x's, whatever
+    # device the caller (a mesh slot of another card) has current.
+    with device_scope(x.device):
+        rc = lib.fv_stats_prepare(*(t.data_ptr() for t in gmm), params.data_ptr(), d, k,
+                                  stream)
         if rc != 0:
-            raise RuntimeError(f"fv_stats kernel launch failed: cudaError {rc}")
-        if not kprof.recording_graph():  # a graph's replays launch it (core.serve)
-            launches += 1
+            raise RuntimeError(f"fv_stats_prepare launch failed: cudaError {rc}")
+        for i in range(0, n, geom.group):
+            m = min(geom.group, n - i)
+            rc = kprof.launch(
+                "fv_stats",
+                lambda: fv_stats_cost(
+                    m, d, cols, k, None if counts is None else int(counts[i : i + m].sum())),
+                lambda: lib.fv_stats_launch(
+                    x[i].data_ptr(), None if counts is None else counts[i].data_ptr(),
+                    params.data_ptr(), out[i].data_ptr(), workspace.data_ptr(),
+                    m, d, cols, k, geom.splits, TILES_PER_SPLIT, stream,
+                ),
+            )
+            if rc != 0:
+                raise RuntimeError(f"fv_stats kernel launch failed: cudaError {rc}")
+            if not kprof.recording_graph():  # a graph's replays launch it (core.serve)
+                launches += 1
     s1 = out[:, k : k + d * k].reshape(n, d, k)
     s2 = out[:, k + d * k :].reshape(n, d, k)
     return out[:, :k], s1, s2

@@ -14,12 +14,15 @@ splits the class columns (``solvers.normal_equations``).
                                 (:func:`sharded_gram`, :func:`sharded_moments`)
   broadcast                 ->  ``parallel.mesh.on_slot`` / ``replicate``
   collect                   ->  ``ShardedRows.gather`` (data order)
+  lax.all_to_all (the class  ->  :func:`exchange_rows`, slot to slot
+  shuffle of BWLS)
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from .mesh import ShardedRows, on_slot
@@ -56,3 +59,31 @@ def sharded_moments(x: ShardedRows):
     blocks = x.data_blocks()
     return (float(x.rows), psum([b.sum(dim=0) for b in blocks]),
             psum([(b * b).sum(dim=0) for b in blocks]))
+
+
+def exchange_rows(blocks: Sequence[torch.Tensor], devices: Sequence, send: np.ndarray,
+                  recv: np.ndarray) -> list[torch.Tensor]:
+    """A row exchange between the data slots (the single-process
+    ``lax.all_to_all`` of the BWLS class regroup).  ``blocks[s]`` is source
+    slot ``s``'s rows; ``send[s, t]`` (``[d, d, m]``) lists the local rows
+    that ``s`` sends to destination ``t``, padded to ``m``; ``recv[t]``
+    indexes what ``t`` received, laid out as ``[source, m]`` flattened,
+    with ``d * m`` for a zero row.  Each source gathers its send buckets on
+    its own device, each bucket is copied onto its destination's device,
+    and each destination concatenates its buckets in source order and takes
+    its rows.  Rows are moved, never added: the output is the input's rows
+    permuted, bit for bit.  Returns one tensor per destination, on
+    ``devices[t]``."""
+    d, m = int(send.shape[0]), int(send.shape[2])
+    buckets = []
+    for s, block in enumerate(blocks):
+        idx = torch.from_numpy(np.ascontiguousarray(send[s].reshape(-1), np.int64))
+        buckets.append(block[idx.to(block.device)].reshape(d, m, *block.shape[1:]))
+    out = []
+    for t, dev in enumerate(devices):
+        got = [on_slot(buckets[s][t], dev) for s in range(d)]
+        got.append(got[0].new_zeros((1, *got[0].shape[1:])))  # the zero row, index d*m
+        flat = torch.cat(got)
+        idx = torch.from_numpy(np.ascontiguousarray(recv[t], np.int64)).to(flat.device)
+        out.append(flat[idx])
+    return out

@@ -196,7 +196,7 @@ def mesh_from_flags(p, a, refused: tuple = ()) -> Mesh | None:
     if a.mesh:
         for flag in refused:
             if getattr(a, flag, None):
-                p.error(f"--{flag} beside --mesh is not ported (ROADMAP Queue 1 item 15b)")
+                p.error(f"--{flag} beside --mesh is not ported (ROADMAP Queue 1 item 15c)")
     return parse_mesh(a.mesh, a.device)
 
 
@@ -264,20 +264,38 @@ class ShardedRows:
         """``fn`` on every slot's rows, inside the scope of the slot's
         device, with ``fn`` replicated to that device once
         (:func:`replicate`).  Row-wise functions only:
-        pad rows stay where they were, and ``nvalid`` is kept."""
+        pad rows stay where they were, and ``nvalid`` is kept.  The model
+        slots of a data block that share a device share its tensor, so
+        they share ``fn``'s result too: it runs once per data block and
+        device."""
         replicas: dict = {}
-        out = []
-        for d, row in enumerate(self.shards):
-            out_row = []
-            for m, t in enumerate(row):
-                dev = self.mesh.devices[d, m]
-                key = device_key(dev)
-                if key not in replicas:
-                    replicas[key] = replicate(fn, dev)
-                with device_scope(dev):
-                    out_row.append(replicas[key](t))
-            out.append(out_row)
-        return ShardedRows(self.mesh, out, self.nvalid)
+
+        def run(d, m, t):
+            dev = self.mesh.devices[d, m]
+            key = device_key(dev)
+            if key not in replicas:
+                replicas[key] = replicate(fn, dev)
+            with device_scope(dev):
+                return replicas[key](t)
+
+        return ShardedRows(self.mesh, _per_distinct(self.shards, run), self.nvalid)
+
+
+def _per_distinct(shards: list, fn) -> list:
+    """``fn(d, m, t)`` for each slot's tensor ``t``, once per distinct tensor
+    of a data block: slots holding the same tensor get the same result."""
+    out = []
+    for d, row in enumerate(shards):
+        done: list = []  # (input, result), by identity
+        out_row = []
+        for m, t in enumerate(row):
+            hit = next((r for src, r in done if src is t), None)
+            if hit is None:
+                hit = fn(d, m, t)
+                done.append((t, hit))
+            out_row.append(hit)
+        out.append(out_row)
+    return out
 
 
 def replicate(obj, device):
@@ -361,10 +379,7 @@ def mask_pad_rows(x, nvalid: int | None = None):
     normalisation), so moment sums over the padded rows stay exact."""
     if isinstance(x, ShardedRows):
         offsets = np.cumsum([0] + [int(b.shape[0]) for b in x.data_blocks()])
-        out = [
-            [_mask_rows(t, x.nvalid - int(offsets[d])) for t in row]
-            for d, row in enumerate(x.shards)
-        ]
+        out = _per_distinct(x.shards, lambda d, m, t: _mask_rows(t, x.nvalid - int(offsets[d])))
         return ShardedRows(x.mesh, out, x.nvalid)
     if nvalid is None or x.shape[0] == nvalid:
         return x

@@ -50,7 +50,7 @@ of the partial sums.  Each mesh tier is admitted per slot
 the mesh's slots on that card); ``last_fit_report.mesh_shape`` says which
 mesh ran.  Only the default layout runs (rows over the data axis, model
 columns over the model axis): the spec variants of the JAX search are
-ROADMAP Queue 1 item 15b.
+ROADMAP Queue 1 item 15c.
 """
 
 from __future__ import annotations

@@ -13,6 +13,13 @@ document's run of nonzeros.  Its kernel (CPU, and CUDA for rows wider than
 one element) adds a segment's terms one after another in stored order, from
 0, with no atomics.  So a document's score is the same bits whatever batch
 it comes in, and the same bits on the card and on the CPU.
+
+Under a mesh with more than one data slot (``parallel.mesh.use_mesh``) CSR
+scoring is data-parallel: each data slot takes one contiguous group of
+documents and scores its own nonzeros against ``theta`` replicated on the
+slot, with no reduction across slots; the groups' scores are concatenated
+in data order on slot (0, 0)'s device.  Each document's terms are summed as
+on one device, so the scores are the same bits.
 """
 
 from __future__ import annotations
@@ -22,7 +29,8 @@ import torch
 
 from ..core.pipeline import LabelEstimator, Transformer, node
 from ..ops.sparse import CSRFeatures
-from ..utils.platform import resolve_device
+from ..parallel.mesh import DATA_AXIS, current_mesh, on_slot
+from ..utils.platform import device_scope, resolve_device
 
 
 @node(data_fields=("pi", "theta"))
@@ -41,19 +49,54 @@ class NaiveBayesModel(Transformer):
 
     def __call__(self, batch):
         if isinstance(batch, CSRFeatures):
+            mesh = current_mesh()
+            if mesh is not None and mesh.shape[DATA_AXIS] > 1:
+                return self._apply_csr_mesh(batch, mesh)
             return self._apply_csr(batch)
         return batch @ self.theta.T + self.pi
 
     def _apply_csr(self, csr: CSRFeatures) -> torch.Tensor:
-        dev = self.theta.device
-        if len(csr) == 0:
-            return torch.empty((0, self.theta.shape[0]), dtype=self.theta.dtype, device=dev)
-        cols = torch.from_numpy(csr.indices.astype(np.int64)).to(dev)
-        vals = torch.from_numpy(csr.values.astype(np.float32)).to(dev)
-        lengths = torch.from_numpy(np.diff(csr.indptr.astype(np.int64))).to(dev)
-        terms = self._columns[cols]
-        terms.mul_(vals[:, None])
-        return torch.segment_reduce(terms, "sum", lengths=lengths) + self.pi
+        return _csr_scores(csr.indptr, csr.indices, csr.values, self._columns, self.pi)
+
+    def _apply_csr_mesh(self, csr: CSRFeatures, mesh) -> torch.Tensor:
+        """Data slot ``j`` scores documents ``[j·r, (j+1)·r)``, ``r =
+        ceil(n / data)``, on its device and inside its scope; the scores
+        come back in data order on slot (0, 0)'s device."""
+        k, n = mesh.shape[DATA_AXIS], len(csr)
+        rows_per = -(-n // k)
+        head = mesh.devices[0, 0]
+        indptr = csr.indptr.astype(np.int64)
+        replicas: dict = {}
+        parts = []
+        for j in range(k):
+            r0, r1 = min(j * rows_per, n), min((j + 1) * rows_per, n)
+            if r0 == r1 and parts:
+                continue
+            dev = mesh.devices[j, 0]
+            if dev not in replicas:
+                replicas[dev] = (on_slot(self._columns, dev), on_slot(self.pi, dev))
+            lo, hi = int(indptr[r0]), int(indptr[r1])
+            with device_scope(dev):
+                scores = _csr_scores(indptr[r0 : r1 + 1] - lo, csr.indices[lo:hi],
+                                     csr.values[lo:hi], *replicas[dev])
+            parts.append(on_slot(scores, head))
+        return torch.cat(parts)
+
+
+def _csr_scores(indptr, indices, values, columns, pi) -> torch.Tensor:
+    """``pi + theta @ x`` of CSR rows: one gather of ``theta``'s columns
+    (``columns`` ``[D, C]``) times the values, then ``segment_reduce`` over
+    each row's run of nonzeros, on ``columns``' device."""
+    dev = columns.device
+    n = len(indptr) - 1
+    if n == 0:
+        return torch.empty((0, columns.shape[1]), dtype=columns.dtype, device=dev)
+    cols = torch.from_numpy(np.asarray(indices).astype(np.int64)).to(dev)
+    vals = torch.from_numpy(np.asarray(values).astype(np.float32)).to(dev)
+    lengths = torch.from_numpy(np.diff(np.asarray(indptr).astype(np.int64))).to(dev)
+    terms = columns[cols]
+    terms.mul_(vals[:, None])
+    return torch.segment_reduce(terms, "sum", lengths=lengths) + pi
 
 
 class NaiveBayesEstimator(LabelEstimator):

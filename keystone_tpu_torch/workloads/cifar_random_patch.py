@@ -41,7 +41,7 @@ moments and the block solve reduce over the data axis, and the solve runs
 the block solver's mesh ladder.  Filter learning stays on ``--device``, as
 the reference's driver-local ZCA fit.  ``--autoCache``, ``--autoTune`` and
 ``--pipelineFile`` are usage errors beside ``--mesh`` (ROADMAP Queue 1
-item 15b).
+item 15c).
 
 Run: ``python -m keystone_tpu_torch.workloads.cifar_random_patch
 --trainLocation train.bin --testLocation test.bin [--device cpu]``.

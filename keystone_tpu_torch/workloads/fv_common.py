@@ -1,8 +1,16 @@
 """Shared machinery of the Fisher-vector workloads (counterpart of
-keystone_tpu/workloads/fv_common.py, eager single-device subset).
+keystone_tpu/workloads/fv_common.py).
 
 Images of one shape are stacked into a bucket and featurized together; the
 fixed-width feature rows are scattered back to the original image order.
+Under a mesh a bucket's images are row-sharded over the data slots
+(:func:`shard_batch`), each slot describes its own rows in its device's
+scope, and the descriptors stay a ``parallel.mesh.ShardedRows`` through
+the PCA projection and the Fisher features (:func:`per_bucket`, K2 on
+every slot); pad images ride through and are dropped by
+:func:`scatter_features` and never sampled by :func:`sample_columns`.
+:func:`searched_bucket_featurize` chooses that placement with the solvers'
+placement search.
 The streaming helpers build the same buckets from a ``core.ingest`` stream,
 and :func:`stream_features_snapshot` serves a streamed featurize pass from
 a featurized snapshot (``core.snapshot``) when one is committed.
@@ -23,6 +31,7 @@ from ..core import snapshot as ksnap
 from ..core.ingest import StreamConfig, StreamStats, stream_batches
 from ..core.pipeline import Pipeline
 from ..core.resilience import counters
+from ..parallel.mesh import ShardedRows, on_slot, padded_shard_rows
 from ..ops.fisher import FisherVector
 from ..ops.images import GrayScaler, PixelScaler
 from ..ops.stats import NormalizeRows, SignedHellingerMapper
@@ -49,20 +58,129 @@ def chunked(describe, pixels: torch.Tensor, chunk: int) -> torch.Tensor:
     return torch.cat([describe(pixels[i : i + chunk]) for i in range(0, pixels.shape[0], chunk)])
 
 
-def describe_buckets(images: list, describe, device, chunk: int) -> dict:
+def describe_buckets(images: list, describe, device, chunk: int, mesh=None) -> dict:
     """Per shape bucket of ``images`` (per-image arrays): (original indices,
     ``describe`` of the bucket's images on ``device``), run ``chunk``
-    images at a time into one preallocated tensor."""
+    images at a time into one preallocated tensor.  With ``mesh`` each
+    bucket is row-sharded over its data slots (:func:`shard_batch`) and
+    described slot by slot: a ``ShardedRows`` per bucket."""
+    return _describe_buckets(bucket_by_shape(images), describe, device, chunk, mesh)
+
+
+def _describe_buckets(raw: dict, describe, device, chunk: int, mesh=None) -> dict:
+    """:func:`describe_buckets` over buckets already stacked."""
     out = {}
-    for shape, (idx, batch) in bucket_by_shape(images).items():
-        descs = None
-        for i in range(0, len(idx), chunk):
-            part = describe(torch.from_numpy(batch[i : i + chunk]).to(device))
-            if descs is None:
-                descs = torch.empty((len(idx), *part.shape[1:]), dtype=part.dtype, device=device)
-            descs[i : i + part.shape[0]] = part
-        out[shape] = (idx, descs)
+    for shape, (idx, batch) in raw.items():
+        if mesh is not None:
+            out[shape] = (idx, shard_batch(batch, mesh).apply(
+                lambda rows: _describe(rows, describe, chunk)))
+        else:
+            out[shape] = (idx, _describe(batch, describe, chunk, device))
     return out
+
+
+def _describe(batch, describe, chunk: int, device=None) -> torch.Tensor:
+    """``describe`` of ``batch``'s images, ``chunk`` at a time, into one
+    tensor on ``device`` (the rows' own device when None)."""
+    device = batch.device if device is None else device
+    descs = None
+    for i in range(0, len(batch), chunk):
+        part = describe(torch.as_tensor(batch[i : i + chunk]).to(device))
+        if descs is None:
+            descs = torch.empty((len(batch), *part.shape[1:]), dtype=part.dtype, device=device)
+        descs[i : i + part.shape[0]] = part
+    return descs
+
+
+def shard_batch(batch, mesh) -> ShardedRows:
+    """One bucket's ``[n, H, W, C]`` pixels row-sharded over the mesh's data
+    slots, zero pad images making ``n`` an axis multiple.  The pad images
+    ride through the per-image featurizers and are dropped at scatter time
+    (:func:`scatter_features`) and at sampling time (:func:`sample_columns`);
+    the bucket's featurize is purely data-parallel, so nothing is masked in
+    between."""
+    return padded_shard_rows(torch.as_tensor(np.asarray(batch)), mesh)[0]
+
+
+def per_bucket(fn, descs):
+    """``fn`` on one bucket's descriptors: on a ``ShardedRows`` slot by
+    slot, in each slot's device scope (``ShardedRows.apply``), pad rows
+    riding through."""
+    return descs.apply(fn) if isinstance(descs, ShardedRows) else fn(descs)
+
+
+def searched_bucket_featurize(label: str, images: list, describe, device, chunk: int, mesh,
+                              *, plan=None) -> tuple[dict, dict | None]:
+    """:func:`describe_buckets` with its PLACEMENT chosen by the placement
+    search the solvers use (``core.autoshard``): the candidates are
+    ``row_sharded[mesh DxM]`` for ``mesh`` (the hand placement, rank 0 on an
+    untrained model) and for every other (data, model) factorization of the
+    same slots, then the ``single_device`` floor on slot (0, 0)'s device,
+    pinned last.  The chosen candidate describes every bucket through the
+    ladder's contract, so an out-of-memory error steps down the ranking,
+    counted.  Returns ``(buckets, placement record)``; ``mesh=None`` or a
+    search that is switched off is the plain hand path, with no record."""
+    from ..core import autoshard
+    from ..core import memory as kmem
+    from ..parallel.mesh import DATA_AXIS, enumerate_meshes, mesh_desc
+
+    raw = bucket_by_shape(images)
+    if mesh is None or not autoshard.will_search(plan):
+        return _describe_buckets(raw, describe, device, chunk, mesh), None
+    total_bytes = sum(int(b.nbytes) for _i, b in raw.values())
+    # The featurize computes in float32 whatever the pixels' type: the
+    # prior charges that working set.
+    f32_bytes = 4 * sum(int(b.size) for _i, b in raw.values())
+
+    def tier(m, prior_rank: int, hand: bool):
+        d_sz = m.shape[DATA_AXIS]
+        return autoshard.Candidate(
+            f"row_sharded[mesh {mesh_desc(m)}]", "featurize_mesh",
+            plan=lambda: kmem.plan_bytes(
+                f"{label}:row_sharded[{mesh_desc(m)}]",
+                argument_bytes=total_bytes // d_sz, temp_bytes=f32_bytes // d_sz,
+                budget=kmem.min_chip_budget(m)[0],
+            ),
+            run=lambda _plan: _describe_buckets(raw, describe, device, chunk, m),
+            hints={
+                "arg_bytes": total_bytes // d_sz,
+                "temp_bytes": f32_bytes // d_sz,
+                "h2d_bytes": total_bytes // d_sz,
+                "dispatches": len(raw),
+            },
+            mesh_axes=dict(m.shape), prior_rank=prior_rank, hand=hand,
+            specs={"batch": "data@dim0"},
+        )
+
+    cands = [tier(mesh, 0, True)]
+    for extra in enumerate_meshes(list(mesh.devices.flat)):
+        if mesh_desc(extra) != mesh_desc(mesh):
+            cands.append(tier(extra, len(cands), False))
+    head = mesh.devices[0, 0]
+    cands.append(autoshard.Candidate(
+        "single_device", "featurize",
+        plan=lambda: kmem.plan_bytes(f"{label}:single_device", argument_bytes=total_bytes,
+                                     temp_bytes=f32_bytes, budget=kmem.hbm_budget(head)),
+        run=lambda _plan: _describe_buckets(raw, describe, head, chunk),
+        hints={
+            "arg_bytes": total_bytes,
+            "temp_bytes": f32_bytes,
+            "h2d_bytes": total_bytes,
+            "dispatches": len(raw),
+        },
+        prior_rank=len(cands), floor=True, specs={"batch": "replicated"},
+    ))
+    slots = list(mesh.devices.flat)
+    report = kmem.FitReport(label=label)
+    out = autoshard.run_search(
+        label, cands, report,
+        fingerprint=autoshard.fingerprint(
+            label, sorted((shape, len(idx)) for shape, (idx, _b) in raw.items()),
+            dict(mesh.shape), autoshard.device_fingerprint(slots),
+        ),
+        plan=plan, budget=kmem.min_chip_budget(mesh)[0], devices=slots,
+    )
+    return out, report.placement
 
 
 def grayscale(batch: torch.Tensor) -> torch.Tensor:
@@ -78,7 +196,9 @@ def sample_columns(desc_buckets: dict, num_samples: int, seed: int = 42,
     same descriptors give the same columns.  ``project`` (a bucket's
     ``[n, d, cols] -> [n, d', cols]`` projection) samples the projected
     buckets without holding them all: one bucket is projected at a time,
-    with the bits of the whole projected set."""
+    with the bits of the whole projected set.  Only a bucket's ``len(idx)``
+    true images are sampled: a ``ShardedRows``' pad images never are, and
+    its picks are copied from the slots that hold them."""
     rng = np.random.default_rng(seed)
     totals = {
         shape: len(idx) * descs.shape[2] for shape, (idx, descs) in desc_buckets.items()
@@ -95,11 +215,29 @@ def sample_columns(desc_buckets: dict, num_samples: int, seed: int = 42,
             idx = np.sort(rng.choice(total, quota, replace=False))
         im, col = np.divmod(idx, c)
         if project is not None:
-            descs = project(descs)
-        im = torch.from_numpy(im).to(descs.device)
-        col = torch.from_numpy(col).to(descs.device)
-        picks.append(descs[im, :, col].T)  # [d, quota]
+            descs = per_bucket(project, descs)
+        picks.append(_pick_columns(descs, im, col).T)  # [d, quota]
     return torch.cat(picks, dim=1)
+
+
+def _pick_columns(descs, im: np.ndarray, col: np.ndarray) -> torch.Tensor:
+    """``descs[im, :, col]``: ``[len(im), d]``.  From a ``ShardedRows``
+    each data slot's picks are copied onto slot (0, 0)'s device, in the
+    order asked."""
+    if not isinstance(descs, ShardedRows):
+        dev = descs.device
+        return descs[torch.from_numpy(im).to(dev), :, torch.from_numpy(col).to(dev)]
+    blocks = descs.data_blocks()
+    head = blocks[0].device
+    per = int(blocks[0].shape[0])
+    out = torch.empty((len(im), descs.shape[1]), dtype=descs.dtype, device=head)
+    for d, block in enumerate(blocks):
+        sel = np.nonzero(im // per == d)[0]
+        if len(sel):
+            part = block[torch.from_numpy(im[sel] - d * per).to(block.device), :,
+                         torch.from_numpy(col[sel]).to(block.device)]
+            out[torch.from_numpy(sel).to(head)] = on_slot(part, head)
+    return out
 
 
 def fisher_feature_pipeline(gmm: GaussianMixtureModel) -> Pipeline:
@@ -112,11 +250,15 @@ def fisher_feature_pipeline(gmm: GaussianMixtureModel) -> Pipeline:
 
 
 def scatter_features(buckets: dict, transform, n_total: int, feature_dim: int) -> torch.Tensor:
-    """Apply ``transform`` ([n, d, cols] -> [n, D]) per bucket and scatter
-    the rows back to the original image order."""
+    """Apply ``transform`` ([n, d, cols] -> [n, D]) per bucket
+    (:func:`per_bucket`) and scatter the rows back to the original image
+    order; a ``ShardedRows``' true rows are gathered to slot (0, 0)'s
+    device, its pad rows dropped."""
     out = None
     for _shape, (idx, descs) in buckets.items():
-        feats = transform(descs)
+        feats = per_bucket(transform, descs)
+        if isinstance(feats, ShardedRows):
+            feats = feats.gather()
         if out is None:
             out = torch.zeros((n_total, feature_dim), dtype=feats.dtype, device=feats.device)
         out[torch.from_numpy(np.asarray(idx)).to(feats.device)] = feats[: len(idx)]

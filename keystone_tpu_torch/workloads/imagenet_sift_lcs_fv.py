@@ -32,6 +32,16 @@ sampling and the Fisher features or are re-projected for each consumer.
 ``--pipelineFile`` saves the fitted ``{sift_pca, sift_gmm, lcs_pca,
 lcs_gmm, model}`` bundle in the JAX package's checkpoint format, and a run
 that finds it restores it and reads no training data.
+
+``--mesh`` (``run(mesh=)``): in both branches and both splits each shape
+bucket's images are row-sharded over the mesh's data slots, with the
+placement chosen by the placement search
+(``fv_common.searched_bucket_featurize``; the training passes' records in
+``results["placement"]``); descriptors, the PCA projection and the Fisher
+features (K2) run slot by slot, and the class-weighted solve runs its mesh
+ladder.  A streamed split keeps its unsharded passes.  ``--autoCache``,
+``--autoTune`` and ``--pipelineFile`` beside ``--mesh`` are usage errors
+(ROADMAP Queue 1 item 15c).
 """
 
 from __future__ import annotations
@@ -49,12 +59,14 @@ from ..core import snapshot as ksnap
 from ..core.checkpoint import checkpoint_exists, load_pipeline, save_pipeline
 from ..core.logging import configure_logging, stage_timer
 from ..core.memory import log_fit_report
+from ..core.pipeline import Pipeline
 from ..core.resilience import assert_all_finite
 from ..loaders.image_loaders import LabeledImages, imagenet_labels_map, imagenet_loader
 from ..ops.lcs import LCSExtractor
 from ..ops.sift import SIFTExtractor
 from ..ops.stats import SignedHellingerMapper
 from ..ops.util import ClassLabelIndicatorsFromIntLabels, TopKClassifier, ZipVectors
+from ..parallel.mesh import add_mesh_flag, mesh_from_flags
 from ..solvers.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from ..solvers.pca import BatchPCATransformer, compute_pca
 from ..solvers.weighted import BlockWeightedLeastSquaresEstimator
@@ -64,13 +76,14 @@ from .fv_common import (
     StreamSource,
     chunked,
     collect_autotune,
-    describe_buckets,
     fisher_feature_pipeline,
     grayscale,
+    per_bucket,
     plan_pca_materialization,
     sample_columns,
     scatter_features,
     scatter_features_streaming,
+    searched_bucket_featurize,
     stream_descriptor_buckets,
 )
 
@@ -173,16 +186,24 @@ def make_describe(conf: ImageNetSiftLcsFVConfig, branch: str):
     raise ValueError(f"unknown branch {branch!r} (one of {BRANCHES})")
 
 
-def descriptor_buckets(conf: ImageNetSiftLcsFVConfig, images, branch: str) -> dict:
+def descriptor_buckets(conf: ImageNetSiftLcsFVConfig, images, branch: str, mesh=None,
+                       placement_out: dict | None = None) -> dict:
     """Per shape bucket: (indices, ``[n, d, cols]`` descriptors) of
     ``branch`` on the configured device, in chunks of ``SIFT_CHUNK``
-    images.  ``images`` is a list of arrays or a :class:`StreamSource`."""
+    images.  ``images`` is a list of arrays or a :class:`StreamSource` (a
+    stream keeps its unsharded pass).  With ``mesh`` the buckets are
+    row-sharded with the searched placement, whose record
+    ``placement_out[f"featurize_{branch}"]`` receives."""
     dev = resolve_device(conf.device)
     describe = make_describe(conf, branch)
     if isinstance(images, StreamSource):
         return images.run_pass(dev, lambda st: stream_descriptor_buckets(
             st, lambda pixels: chunked(describe, pixels, SIFT_CHUNK)))
-    return describe_buckets(images, describe, dev, SIFT_CHUNK)
+    out, placement = searched_bucket_featurize(
+        f"imagenet_{branch}_featurize", images, describe, dev, SIFT_CHUNK, mesh)
+    if placement_out is not None and placement is not None:
+        placement_out[f"featurize_{branch}"] = placement
+    return out
 
 
 def _fit_branch(conf: ImageNetSiftLcsFVConfig, desc_buckets: dict, branch: str, lap) -> tuple:
@@ -223,7 +244,7 @@ def _fit_branch(conf: ImageNetSiftLcsFVConfig, desc_buckets: dict, branch: str, 
         pca_desc = {}
         for shape in list(desc_buckets):
             idx, descs = desc_buckets.pop(shape)
-            pca_desc[shape] = (idx, batch_pca(descs))
+            pca_desc[shape] = (idx, per_bucket(batch_pca, descs))
             del descs
     secs["project"] = lap(t)
 
@@ -246,11 +267,13 @@ def _fit_branch(conf: ImageNetSiftLcsFVConfig, desc_buckets: dict, branch: str, 
 
 
 def branch_test_features(
-    conf: ImageNetSiftLcsFVConfig, images, branch: str, batch_pca, gmm
+    conf: ImageNetSiftLcsFVConfig, images, branch: str, batch_pca, gmm, mesh=None
 ) -> torch.Tensor:
     """A fitted branch applied to new images, ``SIFT_CHUNK`` images (or
     one stream chunk) at a time: ``[n, 2·desc_dim·vocab_size]`` features on
-    the configured device, in the images' order."""
+    the configured device, in the images' order.  With ``mesh`` each bucket
+    is row-sharded with the searched placement, each slot featurizing its
+    own rows."""
     dev = resolve_device(conf.device)
     describe = make_describe(conf, branch)
     fisher = fisher_feature_pipeline(gmm)
@@ -262,15 +285,18 @@ def branch_test_features(
     if isinstance(images, StreamSource):
         feats = images.run_pass(dev, lambda st: scatter_features_streaming(st, featurize, feat_dim))
         return torch.from_numpy(feats).to(dev)
-    buckets = describe_buckets(images, featurize, dev, SIFT_CHUNK)
+    buckets, _placement = searched_bucket_featurize(
+        f"imagenet_{branch}_featurize", images, featurize, dev, SIFT_CHUNK, mesh)
     return scatter_features(buckets, lambda feats: feats, len(images), feat_dim)
 
 
-def branch_features(conf: ImageNetSiftLcsFVConfig, train_images, test_images, branch: str):
-    """Fit ``branch`` on the training images and featurize both splits.
-    Returns (train features, test features, batch_pca, gmm, seconds by
-    stage, cache plan or None); the raw training descriptors are gone when
-    it returns."""
+def branch_features(conf: ImageNetSiftLcsFVConfig, train_images, test_images, branch: str,
+                    mesh=None, placement_out: dict | None = None):
+    """Fit ``branch`` on the training images and featurize both splits
+    (over ``mesh``, if given; the training featurize's placement record in
+    ``placement_out``).  Returns (train features, test features, batch_pca,
+    gmm, seconds by stage, cache plan or None); the raw training
+    descriptors are gone when it returns."""
     dev = resolve_device(conf.device)
 
     def lap(start: float) -> float:
@@ -278,7 +304,7 @@ def branch_features(conf: ImageNetSiftLcsFVConfig, train_images, test_images, br
         return time.perf_counter() - start
 
     t = time.perf_counter()
-    train_desc = descriptor_buckets(conf, train_images, branch)
+    train_desc = descriptor_buckets(conf, train_images, branch, mesh, placement_out)
     describe_secs = lap(t)
     batch_pca, gmm, pca_desc, secs, plan = _fit_branch(conf, train_desc, branch, lap)
     secs["describe"] = describe_secs
@@ -289,18 +315,21 @@ def branch_features(conf: ImageNetSiftLcsFVConfig, train_images, test_images, br
         train_feats = scatter_features(pca_desc, fisher, len(train_images), feat_dim)
     else:
         train_feats = scatter_features(
-            train_desc, lambda d: fisher(batch_pca(d)), len(train_images), feat_dim)
+            train_desc, Pipeline([batch_pca, fisher]), len(train_images), feat_dim)
     del pca_desc, train_desc
     secs["fisher"] = lap(t)
     t = time.perf_counter()
-    test_feats = branch_test_features(conf, test_images, branch, batch_pca, gmm)
+    test_feats = branch_test_features(conf, test_images, branch, batch_pca, gmm, mesh)
     secs["test"] = lap(t)
     return train_feats, test_feats, batch_pca, gmm, secs, plan
 
 
-def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages) -> dict:
+def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages,
+        mesh=None) -> dict:
     """Fit on ``train`` (or, with an existing ``conf.pipeline_file``,
-    restore the fitted bundle and never read ``train``), score ``test``.
+    restore the fitted bundle and never read ``train``), score ``test``;
+    with ``mesh`` every featurize is row-sharded and the solve runs its
+    mesh ladder.
     The results carry the top-5 and top-1 errors, the stage seconds, the
     test scores and the fitted ``{sift_pca, sift_gmm, lcs_pca, lcs_gmm,
     model}`` under ``"bundle"``.  Each stage (``sift_branch``,
@@ -308,6 +337,9 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
     ends after a synchronize."""
     configure_logging()
     dev = resolve_device(conf.device)
+    if mesh is not None and conf.auto_cache:
+        raise ValueError("the auto-Cacher under a mesh is not ported (ROADMAP Queue 1 "
+                         "item 15c)")
     t0 = time.perf_counter()
 
     def lap(start: float) -> float:
@@ -315,7 +347,7 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
         return time.perf_counter() - start
 
     restored = conf.pipeline_file is not None and checkpoint_exists(conf.pipeline_file)
-    feats, fitted, stage, branch_secs, plans = {}, {}, {}, {}, {}
+    feats, fitted, stage, branch_secs, plans, feat_placements = {}, {}, {}, {}, {}, {}
     if restored:
         _log.info("restoring fitted pipeline from %s", conf.pipeline_file)
         fitted = load_pipeline(conf.pipeline_file, device=dev)
@@ -325,10 +357,10 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
             if restored:
                 feats[branch] = (None, branch_test_features(
                     conf, test.images, branch, fitted[f"{branch}_pca"],
-                    fitted[f"{branch}_gmm"]))
+                    fitted[f"{branch}_gmm"], mesh))
             else:
                 train_f, test_f, batch_pca, gmm, stage[branch], plan = branch_features(
-                    conf, train.images, test.images, branch
+                    conf, train.images, test.images, branch, mesh, feat_placements
                 )
                 feats[branch] = (train_f, test_f)
                 fitted[f"{branch}_pca"], fitted[f"{branch}_gmm"] = batch_pca, gmm
@@ -348,12 +380,14 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
 
         t = time.perf_counter()
         with stage_timer("solve"):
-            solver = BlockWeightedLeastSquaresEstimator(4096, 1, conf.lam, conf.mixture_weight)
+            solver = BlockWeightedLeastSquaresEstimator(4096, 1, conf.lam, conf.mixture_weight,
+                                                        mesh=mesh)
             model = solver.fit(
                 train_features, labels, num_features=2 * 2 * conf.desc_dim * conf.vocab_size,
                 plan=True if conf.auto_shard else None,
             )
             placement = solver.last_fit_report.placement
+            fit_report = solver.last_fit_report.record()
             log_fit_report(solver, _log, "ImageNet weighted block solve")
             assert_all_finite(model, "ImageNet weighted block solve")
             solve_secs = lap(t)
@@ -389,6 +423,7 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
         featurize = sum(stage[b][s] for b in BRANCHES for s in ("describe", "project", "fisher"))
         results.update({
             "solve_seconds": solve_secs,
+            "fit_report": fit_report,
             "branch_stage_seconds": stage,
             # Descriptors -> PCA projection -> Fisher features of the
             # training split, both branches.
@@ -396,7 +431,10 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
         })
     if plans:
         results["cache_plan"] = plans
-    if placement is not None:
+    if feat_placements:
+        # One home for every searched placement of the run.
+        results["placement"] = {"solver": placement, **feat_placements}
+    elif placement is not None:
         # The searched placement table of the weighted block solve.
         results["placement"] = placement
     ingest = {
@@ -489,6 +527,7 @@ def main(argv=None) -> dict:
     p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
+    add_mesh_flag(p)
     a = p.parse_args(argv)
     for flag in ("deviceDecode", "decodeBackend", "snapshotDir", "autoTune"):
         if getattr(a, flag) and not a.streamIngest:
@@ -525,6 +564,7 @@ def main(argv=None) -> dict:
         auto_shard=a.autoShard,
     )
     resolve_device(conf.device)
+    mesh = mesh_from_flags(p, a, ("autoCache", "autoTune", "pipelineFile"))
     restoring = conf.pipeline_file is not None and checkpoint_exists(conf.pipeline_file)
 
     def load(path: str):
@@ -539,7 +579,7 @@ def main(argv=None) -> dict:
         # A restored run never reads (or streams) the training split.
         train = (LabeledImages([], np.zeros(0, np.int32), []) if restoring
                  else load(conf.train_location))
-        return run(conf, train, load(conf.test_location))
+        return run(conf, train, load(conf.test_location), mesh=mesh)
     finally:
         if a.trace:
             trace.flush()

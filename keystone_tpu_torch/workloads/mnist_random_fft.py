@@ -21,7 +21,7 @@ serving tier (``workloads.serve_common``) and answer test rows through it.
 ``--mesh`` row-shards both splits over the mesh's data axis (the features
 are row-wise, and zero pad rows stay zero through them) and solves over the
 mesh (``BlockLeastSquaresEstimator(mesh=)``); ``--autoCache`` and
-``--pipelineFile`` are usage errors beside it (ROADMAP Queue 1 item 15b).
+``--pipelineFile`` are usage errors beside it (ROADMAP Queue 1 item 15c).
 
 Run: ``python -m keystone_tpu_torch.workloads.mnist_random_fft
 --trainLocation train.csv --testLocation test.csv [--device cpu]``.

@@ -10,13 +10,18 @@ as in the JAX package; the scoring of the test documents runs on the
 device.  The fitted chain ``[text pipeline, vectorizer, model,
 MaxClassifier]`` is the servable pipeline.
 
+With ``--mesh`` (``run(mesh=)``) the test documents are scored
+data-parallel over the mesh's data slots (``NaiveBayesModel`` under
+``parallel.mesh.use_mesh``), with the same scores bit for bit.
+
 Run: ``python -m keystone_tpu_torch.workloads.newsgroups --trainLocation
-train_dir --testLocation test_dir [--device cpu]``.
+train_dir --testLocation test_dir [--mesh 8] [--device cpu]``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import time
 from dataclasses import dataclass
@@ -30,6 +35,7 @@ from ..loaders.newsgroups import CLASSES, NewsgroupsData, newsgroups_loader
 from ..ops.nlp import LowerCase, NGramsFeaturizer, TermFrequency, Tokenizer, Trim
 from ..ops.sparse import CommonSparseFeatures
 from ..ops.util import MaxClassifier
+from ..parallel.mesh import add_mesh_flag, mesh_from_flags, use_mesh
 from ..solvers.naive_bayes import NaiveBayesEstimator
 from ..utils.platform import resolve_device, synchronize
 
@@ -53,10 +59,12 @@ def text_pipeline(n_grams: int) -> Pipeline:
     ])
 
 
-def run(conf: NewsgroupsConfig, train: NewsgroupsData, test: NewsgroupsData) -> dict:
+def run(conf: NewsgroupsConfig, train: NewsgroupsData, test: NewsgroupsData,
+        mesh=None) -> dict:
     """Fit on ``train``, score ``test``.  ``text_seconds`` is the host's text
     featurization and naive-Bayes fit; ``score_seconds`` the device's
-    scoring of the test split (a host clock ending in a synchronize)."""
+    scoring of the test split (a host clock ending in a synchronize).  With
+    ``mesh`` the scoring runs over its data slots."""
     dev = resolve_device(conf.device)
     t0 = time.perf_counter()
     num_classes = len(conf.classes)
@@ -74,7 +82,8 @@ def run(conf: NewsgroupsConfig, train: NewsgroupsData, test: NewsgroupsData) -> 
     _log.info("Evaluating classifier")
     synchronize(dev)
     t_score = time.perf_counter()
-    scores = model(test_feats)
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        scores = model(test_feats)
     predictions = MaxClassifier()(scores)
     synchronize(dev)
     score_secs = time.perf_counter() - t_score
@@ -106,6 +115,7 @@ def main(argv=None) -> dict:
     p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
+    add_mesh_flag(p)
     a = p.parse_args(argv)
     configure_logging()
     conf = NewsgroupsConfig(
@@ -116,9 +126,10 @@ def main(argv=None) -> dict:
         device=a.device,
     )
     resolve_device(conf.device)
+    mesh = mesh_from_flags(p, a)
     train = newsgroups_loader(conf.train_location)
     test = newsgroups_loader(conf.test_location)
-    return run(conf, train, test)
+    return run(conf, train, test, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,17 @@ Fisher features -> model`` is the servable pipeline.
 Run: ``python -m keystone_tpu_torch.workloads.voc_sift_fisher
 --trainLocation train.tar --testLocation test.tar --labelPath labels.csv
 [--streamIngest [--deviceDecode] [--decodeBackend process] [--snapshotDir DIR]
-[--streamBatchSize 64]] [--device cpu]``.
+[--streamBatchSize 64]] [--mesh 8] [--device cpu]``.
+
+``--mesh`` (``run(mesh=)``): each shape bucket's images are row-sharded
+over the mesh's data slots, with the placement chosen by the placement
+search (``fv_common.searched_bucket_featurize``, its record in
+``results["placement"]``); SIFT, the PCA projection and the Fisher
+features (K2) run slot by slot, and the block solve runs its mesh ladder.
+A streamed split keeps its unsharded descriptor pass.  ``--autoCache``,
+``--autoTune`` and ``--pipelineFile`` beside ``--mesh`` are usage errors
+(ROADMAP Queue 1 item 15c), and ``--solveCheckpoint`` raises under a mesh
+as the block solve does.
 
 ``--streamIngest`` streams each tar through ``core.ingest`` (decode of the
 next chunks overlaps SIFT of this one); with ``--deviceDecode`` the host
@@ -65,6 +75,7 @@ from ..loaders.image_loaders import (
 )
 from ..ops.sift import SIFTExtractor
 from ..ops.util import ClassLabelIndicatorsFromIntArrayLabels
+from ..parallel.mesh import add_mesh_flag, mesh_from_flags
 from ..solvers.block import BlockLeastSquaresEstimator, bcd_checkpoint_path
 from ..solvers.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from ..solvers.pca import BatchPCATransformer, compute_pca
@@ -74,13 +85,14 @@ from .fv_common import (
     StreamSource,
     bucket_by_shape,
     chunked,
-    describe_buckets,
     fisher_feature_pipeline,
     collect_autotune,
     grayscale,
+    per_bucket,
     plan_pca_materialization,
     sample_columns,
     scatter_features,
+    searched_bucket_featurize,
     stream_descriptor_buckets,
 )
 
@@ -161,11 +173,16 @@ def make_sift(conf: SIFTFisherConfig) -> SIFTExtractor:
     )
 
 
-def extract_sift_buckets(conf: SIFTFisherConfig, images) -> dict:
+def extract_sift_buckets(conf: SIFTFisherConfig, images, mesh=None,
+                         placement_out: dict | None = None) -> dict:
     """Per shape bucket: grayscale + dense SIFT -> (indices, [n, 128, cols])
     on the configured device, in chunks of ``SIFT_CHUNK`` images.
     ``images`` is a list of arrays, or a :class:`StreamSource` whose tar
-    is streamed (and, with ``device_decode``, decoded on the device)."""
+    is streamed (and, with ``device_decode``, decoded on the device); a
+    stream keeps its unsharded pass.  With ``mesh`` the buckets are
+    row-sharded with the searched placement
+    (``fv_common.searched_bucket_featurize``), whose record
+    ``placement_out["featurize"]`` receives."""
     dev = resolve_device(conf.device)
     sift = make_sift(conf)
 
@@ -176,27 +193,38 @@ def extract_sift_buckets(conf: SIFTFisherConfig, images) -> dict:
         # A stream chunk may hold more images than SIFT_CHUNK.
         return images.run_pass(dev, lambda st: stream_descriptor_buckets(
             st, lambda pixels: chunked(describe, pixels, SIFT_CHUNK)))
-    return describe_buckets(images, describe, dev, SIFT_CHUNK)
+    out, placement = searched_bucket_featurize(
+        "voc_sift_featurize", images, describe, dev, SIFT_CHUNK, mesh)
+    if placement_out is not None and placement is not None:
+        placement_out["featurize"] = placement
+    return out
 
 
-def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict, dict]:
-    """Fit PCA, the GMM and the linear model on ``train``.  Returns the
-    ``{pca, gmm, model}`` bundle and the stage seconds (each stage, ``sift``,
-    ``pca``, ``gmm``, ``fisher_features``, ``solve``, a ``stage_timer``
-    span that ends after a synchronize).  With ``conf.auto_cache`` the
+def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages,
+               mesh=None) -> tuple[dict, dict]:
+    """Fit PCA, the GMM and the linear model on ``train`` (over ``mesh``,
+    if given: the sharded featurize and the block solve's mesh ladder).
+    Returns the ``{pca, gmm, model}`` bundle and the stage seconds (each
+    stage, ``sift``, ``pca``, ``gmm``, ``fisher_features``, ``solve``, a
+    ``stage_timer`` span that ends after a synchronize).  With ``conf.auto_cache`` the
     seconds carry the ``cache_plan`` record; a denied materialization
     keeps the raw descriptors and projects one bucket at a time for each
-    consumer, with the same bits."""
+    consumer, with the same bits.  Under a mesh the seconds' ``placement``
+    holds the solve's record under ``"solver"`` beside the featurize's."""
     dev = resolve_device(conf.device)
     feat_dim = 2 * conf.desc_dim * conf.vocab_size
+    if mesh is not None and conf.auto_cache:
+        raise ValueError("the auto-Cacher under a mesh is not ported (ROADMAP Queue 1 "
+                         "item 15c)")
 
     def lap(start: float) -> float:
         synchronize(dev)
         return time.perf_counter() - start
 
     t = time.perf_counter()
+    feat_placements: dict = {}
     with stage_timer("sift"):
-        train_desc = extract_sift_buckets(conf, train.images)
+        train_desc = extract_sift_buckets(conf, train.images, mesh, feat_placements)
         sift_secs = lap(t)
     train_labels = ClassLabelIndicatorsFromIntArrayLabels(VOC_NUM_CLASSES)(train.labels).to(dev)
 
@@ -219,7 +247,7 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict,
             _log.info("%s", cache_plan.summary())
         t_proj = time.perf_counter()
         if materialize:
-            pca_desc = {shape: (idx, batch_pca(descs))
+            pca_desc = {shape: (idx, per_bucket(batch_pca, descs))
                         for shape, (idx, descs) in train_desc.items()}
             del train_desc
         project_secs = lap(t_proj)
@@ -251,7 +279,7 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict,
         else:
             t_proj = time.perf_counter()
             train_features = scatter_features(
-                train_desc, lambda d: fisher(batch_pca(d)), len(train), feat_dim)
+                train_desc, Pipeline([batch_pca, fisher]), len(train), feat_dim)
             project_secs += lap(t_proj)
             del train_desc
         fisher_secs = lap(t)
@@ -266,7 +294,7 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict,
             solve_kwargs["resume_from"] = conf.solve_checkpoint
     t = time.perf_counter()
     with stage_timer("solve"):
-        solver = BlockLeastSquaresEstimator(4096, 1, conf.lam)
+        solver = BlockLeastSquaresEstimator(4096, 1, conf.lam, mesh=mesh)
         model = solver.fit(
             train_features, train_labels, num_features=feat_dim,
             plan=True if conf.auto_shard else None,
@@ -291,18 +319,25 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages) -> tuple[dict,
     }
     if cache_plan is not None:
         secs["cache_plan"] = cache_plan.record()
-    if solver.last_fit_report.placement is not None:
+    solver_placement = solver.last_fit_report.placement
+    if feat_placements:
+        # One home for every searched placement of the run.
+        secs["placement"] = {"solver": solver_placement, **feat_placements}
+    elif solver_placement is not None:
         # The searched placement table of the block solve.
-        secs["placement"] = solver.last_fit_report.placement
+        secs["placement"] = solver_placement
     return {"pca": batch_pca, "gmm": gmm, "model": model}, secs
 
 
-def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledImages) -> dict:
+def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledImages,
+        mesh=None) -> dict:
     """Fit on ``train`` (or, with an existing ``conf.pipeline_file``,
     restore the fitted bundle and never read ``train``), then score
-    ``test``.  The results carry the fitted ``{pca, gmm, model}`` under
-    ``"bundle"`` and the test scores under ``"test_scores"``; the test
-    split's featurize and scoring are the ``eval`` stage."""
+    ``test``; with ``mesh`` the featurize of both splits is row-sharded and
+    the solve runs its mesh ladder.  The results carry the fitted ``{pca,
+    gmm, model}`` under ``"bundle"`` and the test scores under
+    ``"test_scores"``; the test split's featurize and scoring are the
+    ``eval`` stage."""
     configure_logging()
     dev = resolve_device(conf.device)
     t0 = time.perf_counter()
@@ -311,16 +346,16 @@ def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledIma
         _log.info("restoring fitted pipeline from %s", conf.pipeline_file)
         bundle, fit_secs = load_pipeline(conf.pipeline_file, device=dev), {}
     else:
-        bundle, fit_secs = fit_bundle(conf, train)
+        bundle, fit_secs = fit_bundle(conf, train, mesh)
     batch_pca, gmm, model = bundle["pca"], bundle["gmm"], bundle["model"]
     fisher = fisher_feature_pipeline(gmm)
     feat_dim = 2 * gmm.dim * gmm.k  # the bundle's own width, whatever the flags say
 
     t = time.perf_counter()
     with stage_timer("eval"):
-        test_desc = extract_sift_buckets(conf, test.images)
+        test_desc = extract_sift_buckets(conf, test.images, mesh)
         test_features = scatter_features(
-            test_desc, lambda d: fisher(batch_pca(d)), len(test), feat_dim
+            test_desc, Pipeline([batch_pca, fisher]), len(test), feat_dim
         )
         del test_desc
         scores = model(test_features).cpu().numpy()
@@ -483,6 +518,7 @@ def main(argv=None) -> dict:
     p.add_argument(
         "--device", default="cuda", help="'cuda' (default; raises without a card) or 'cpu'"
     )
+    add_mesh_flag(p)
     serve_common.add_serve_args(p)
     a = p.parse_args(argv)
     serve_common.check_serve_args(p, a)
@@ -517,6 +553,7 @@ def main(argv=None) -> dict:
         auto_shard=a.autoShard,
     )
     resolve_device(conf.device)
+    mesh = mesh_from_flags(p, a, ("autoCache", "autoTune", "pipelineFile"))
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)
 
     def load(path: str):
@@ -530,7 +567,7 @@ def main(argv=None) -> dict:
     try:
         # A restored run never reads (or streams) the training split.
         train = MultiLabeledImages([], [], []) if restoring else load(conf.train_location)
-        return run(conf, train, load(conf.test_location))
+        return run(conf, train, load(conf.test_location), mesh=mesh)
     finally:
         if a.trace:
             trace.flush()

@@ -1,8 +1,11 @@
 """The single-process mesh on the card: a 1x1 mesh's block fit is the fused
-tier bit for bit, and eight slots of ``cuda:0`` featurize RandomPatchCifar
-chunks through the hand kernel K1 (``conv_rect_pool``) once per slot and
-chunk, each slot in its device's scope, the features those of the
-unsharded pass.
+tier bit for bit, eight slots of ``cuda:0`` featurize RandomPatchCifar
+chunks through the hand kernel K1 (``conv_rect_pool``) once per data slot
+and chunk (model slots of one card share the data slot's rows and
+results), each slot in its device's scope, the features those of the
+unsharded pass, and eight slots compute Fisher features through K2
+(``fv_stats``), ``torch.equal`` to the unsharded pass (its split count is
+batch-invariant).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 without them:
@@ -16,10 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from keystone_tpu_torch.ops import fv_stats as fs
 from keystone_tpu_torch.ops import rect_pool
 from keystone_tpu_torch.parallel.mesh import make_mesh
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
+from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
 from keystone_tpu_torch.workloads import cifar_random_patch as cifar
+from keystone_tpu_torch.workloads import fv_common
 from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 
@@ -61,8 +67,42 @@ def test_eight_slots_featurize_through_the_kernel(cuda_device, shape):
     sharded = cifar.featurize_chunked(conv, images, 256, cuda_device, mesh=mesh)
     data = shape[0]
     per_slot = math.ceil(math.ceil(1000 / data) / math.ceil(256 / data))
-    assert rect_pool.fused_launches == 8 * per_slot
+    # The model slots of a data block share its card, so they share its features.
+    assert rect_pool.fused_launches == data * per_slot
     rows = sharded.gather()
     assert rows.device == whole.device and rows.shape == whole.shape
     err = ((rows - whole).abs().max() / whole.abs().max()).item()
     assert torch.equal(rows, whole) or err <= 1e-2, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 2), (8, 1)], ids=["4x2", "8x1"])
+def test_eight_slots_compute_fisher_vectors_through_the_kernel(cuda_device, shape):
+    rng = np.random.default_rng(2)
+    # Two buckets, of 38 and 19 images; the pixels read as [80, cols] descriptors.
+    images = [rng.uniform(0, 255, ((40, 40, 3) if i % 3 else (48, 40, 3))).astype(np.float32)
+              for i in range(57)]
+    k = 64
+    gmm = GaussianMixtureModel(
+        torch.from_numpy(rng.uniform(0, 255, (80, k)).astype(np.float32)).to(cuda_device),
+        torch.from_numpy(rng.uniform(500, 3000, (80, k)).astype(np.float32)).to(cuda_device),
+        torch.full((k,), 1.0 / k, device=cuda_device),
+    )
+    fisher = fv_common.fisher_feature_pipeline(gmm)
+
+    def describe(px):
+        return px.reshape(px.shape[0], 80, -1)
+
+    dim = 2 * 80 * k
+    whole = fv_common.scatter_features(
+        fv_common.describe_buckets(images, describe, cuda_device, 8), fisher, 57, dim)
+    mesh = make_mesh(*shape, devices=[cuda_device] * 8)
+    buckets = fv_common.describe_buckets(images, describe, cuda_device, 8, mesh=mesh)
+    fs.launches = 0
+    sharded = fv_common.scatter_features(buckets, fisher, 57, dim)
+    want = 0
+    for _idx, descs in buckets.values():
+        per, cols = descs.data_blocks()[0].shape[0], descs.shape[2]
+        want += shape[0] * math.ceil(per / fs.launch_geometry(per, 80, cols, k).group)
+    assert fs.launches == want
+    assert torch.equal(sharded, whole)

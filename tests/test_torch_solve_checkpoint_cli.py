@@ -117,15 +117,13 @@ def test_voc_solve_checkpoint_resumes_and_removes_its_state(voc_tar, tmp_path, m
 @pytest.mark.parametrize("flags", [["--mesh", "8"], ["--autoShard", "--mesh", "8"]])
 @pytest.mark.parametrize("cli", ["mnist", "voc"])
 def test_mesh_and_autoshard_stay_usage_errors(cli, flags, mnist_csvs, voc_tar):
-    """VOCSIFTFisher takes no ``--mesh`` yet, with or without ``--autoShard``:
-    a usage error.  MnistRandomFFT takes it, and refuses a mesh of more
-    slots than it has devices, as the JAX package does."""
-    if cli == "mnist":
-        with pytest.raises(ValueError, match="mesh 8x1 needs 8 devices, have 1"):
-            pmnist.main([*mnist_csvs, *flags])
-        return
-    with pytest.raises(SystemExit):
-        pvoc.main([*voc_tar, *VOC_FLAGS, *flags])
+    """MnistRandomFFT and VOCSIFTFisher take ``--mesh``, with or without
+    ``--autoShard``, and refuse a mesh of more slots than they have
+    devices, as the JAX package does."""
+    argv = [*mnist_csvs, *flags] if cli == "mnist" else [*voc_tar, *VOC_FLAGS, *flags]
+    main = pmnist.main if cli == "mnist" else pvoc.main
+    with pytest.raises(ValueError, match="mesh 8x1 needs 8 devices, have 1"):
+        main(argv)
 
 
 @pytest.mark.parametrize("cli", ["mnist", "voc"])
