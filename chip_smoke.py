@@ -111,7 +111,7 @@ which raises (and so exits non-zero) on failure:
    naive-Bayes scores card against CPU within 1e-5·max with equal
    predictions on 2,000 documents.  The kernels' counters do not move;
 16. one JSON line per the kernels, the card line, and the final JSON
-   line, printed last, after phases 17-27;
+   line, printed last, after phases 17-31;
 17. ImageNetSiftLcsFV at BASELINE config 5's width (1,000 classes; SIFT
    step 3 at scale step 1 with bf16 intermediates, then a signed square
    root; LCS (4, 16, 6); PCA to 64; 16 Gaussians; 4,096 features; the
@@ -335,7 +335,23 @@ which raises (and so exits non-zero) on failure:
    ImageNet: 10 classes, 4 + 2 images each, as tars; Newsgroups: 20 + 10
    documents a class) without a mesh and with ``--mesh 1``: scores
    ``np.array_equal``; each CLI's ``--mesh 2`` raises ``mesh 2x1 needs 2
-   devices, have 1``.
+   devices, have 1``;
+31. the spec layouts of the mesh tiers on ``make_mesh(4, 2)`` of 8 slots
+   of ``cuda:0``: (a) ``cifar.run`` on phase 3's files in the default
+   layout, then once per spec candidate of its 4x2 head
+   (``labels=model@dim1``, ``models=rep``, ``labels=rep,models=rep``)
+   forced through ``solve_plan=[name]``: K1 once per data slot and chunk
+   in each run, the tier that ran, its per-slot charge against the slot
+   budget, the solve's wall (host clock after a synchronize), the prior's
+   predicted seconds, and the model and predictions ``torch.equal`` to the
+   default layout's; (b) every candidate of that searched solve (each mesh
+   factorization, each spec assignment, the single-device floor) forced
+   once on (a)'s features: the same figures, each spec candidate's model
+   ``torch.equal`` to the default layout's on its mesh shape; (c) the same
+   for phase 26(d)'s class-weighted solve, row-sharded on ``(4, 2)``: the
+   search's ranking, then every candidate once; (d) both searches again
+   with ``KEYSTONE_AUTOSHARD_SPECS=0``: no spec candidate, the others in
+   the same order, the rankings printed.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -407,7 +423,7 @@ from keystone_tpu_torch.ops.sift import SIFTExtractor
 from keystone_tpu_torch.ops.stats import SignedHellingerMapper, StandardScaler
 from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
 from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
-from keystone_tpu_torch.parallel.mesh import make_mesh, padded_shard_rows
+from keystone_tpu_torch.parallel.mesh import make_mesh, padded_shard_rows, unshard
 from keystone_tpu_torch.solvers import block as block_mod
 from keystone_tpu_torch.solvers import weighted as weighted_mod
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
@@ -4127,6 +4143,190 @@ def run_mesh_fv(card: str, data_dir: Path, fitted: dict, phase6: dict, inet17: d
     return {"fv_stats": launches, "fv_stats_slot": rec["fv_stats_slot"]}
 
 
+class FitInputs:
+    """The ``(features, labels)`` of each ``BlockLeastSquaresEstimator.fit``
+    while active."""
+
+    def __enter__(self) -> list:
+        self.calls = []
+        self._orig = orig = BlockLeastSquaresEstimator.fit
+
+        def fit(est, features, labels, *args, **kw):
+            self.calls.append((features, labels))
+            return orig(est, features, labels, *args, **kw)
+
+        BlockLeastSquaresEstimator.fit = fit
+        return self.calls
+
+    def __exit__(self, *exc) -> None:
+        BlockLeastSquaresEstimator.fit = self._orig
+
+
+def spec_row(fit_report: dict, name: str, wall: float) -> dict:
+    """One candidate run forced to the head: the tier that ran, its
+    per-slot charge against the slot budget (GB), the wall (host clock
+    after a synchronize) and the prior's predicted seconds."""
+    cand = next(c for c in fit_report["placement"]["candidates"] if c["name"] == name)
+    tier = fit_report["tiers"].get(name, {})
+    return {"chosen": fit_report["chosen_tier"], "outcome": cand["outcome"],
+            "specs": cand["specs"], "charge_gb": tier.get("total_gb"),
+            "budget_gb": tier.get("budget_gb"), "wall_seconds": wall,
+            "predicted_seconds": cand["predicted_seconds"]}
+
+
+def same_model(a, b) -> bool:
+    return torch.equal(a.b, b.b) and all(torch.equal(p, q) for p, q in zip(a.xs, b.xs))
+
+
+def time_every_candidate(label: str, make, x, y, placement: dict) -> dict:
+    """Each candidate of ``placement``'s ranking run once: a mesh candidate
+    forced to the head (``make(mesh).fit(x, y, plan=[name])``), its
+    :func:`spec_row`, and for a spec candidate whether its model is
+    ``torch.equal`` to the default layout's on the same mesh shape (the
+    defaults rank first).  A forced ranking keeps the floor last, so the
+    floor is timed as what it runs: the hand ladder without a mesh on the
+    rows gathered to one device."""
+    rows, models = {}, {}
+    for name in placement["ranking"]:
+        torch.cuda.empty_cache()
+        floor = name == "single_device"
+        est = make(not floor)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model = (est.fit(unshard(x), unshard(y), plan=False) if floor
+                 else est.fit(x, y, plan=[name]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if floor:
+            rep = est.last_fit_report.record()
+            cand = next(c for c in placement["candidates"] if c["name"] == name)
+            tier = rep["tiers"][rep["chosen_tier"]]
+            row = rows[name] = {
+                "chosen": f"single_device/{rep['chosen_tier']}", "outcome": "ok", "specs": None,
+                "charge_gb": tier["total_gb"], "budget_gb": tier["budget_gb"],
+                "wall_seconds": wall, "predicted_seconds": cand["predicted_seconds"]}
+        else:
+            row = rows[name] = spec_row(est.last_fit_report.record(), name, wall)
+        if row["specs"]:
+            row["equal_default"] = same_model(model, models[name.split("|")[0] + "]"])
+        else:
+            models[name] = model
+        if row["chosen"].split("/")[0] != name or row["outcome"] != "ok" or (
+                row["specs"] and not row["equal_default"]):
+            raise AssertionError(f"{label} candidate {name}: {row}")
+    return rows
+
+
+def run_mesh_specs(card: str, fitted: dict) -> dict:
+    """Phase 31: the spec layouts of the mesh tiers on eight slots of the
+    card.  Returns the K1 launches of its Cifar runs."""
+    t_phase = time.perf_counter()
+    mesh = make_mesh(4, 2, devices=[torch.device("cuda", 0)] * 8)
+    on_mesh = {"data": 4, "model": 2}
+    rec: dict = {"phase": "31: spec layouts of the mesh tiers", "card": card}
+    conf = cifar.RandomCifarConfig(lam=10.0, device="cuda")  # MAIN_FLAGS' values
+    train, test = cifar_loader(str(fitted["cifar_train"])), cifar_loader(str(fitted["cifar_test"]))
+    per = math.ceil(conf.featurize_chunk / 4)
+    want = 4 * (1 + math.ceil(math.ceil(N_TRAIN / 4) / per) + math.ceil(math.ceil(N_TEST / 4) / per))
+
+    # (a) Cifar through cifar.run: the default layout, then each spec
+    # candidate of the 4x2 head forced through conf.solve_plan.
+    torch.cuda.empty_cache()
+    rp.fused_launches = 0
+    with FitInputs() as inputs, SolvePeak() as fits:
+        base = cifar.run(conf, train, test, mesh=mesh)
+    launches = rp.fused_launches
+    placement = base["placement"]
+    head = placement["ranking"][0]
+    base_model = base["servable"].nodes[-2]
+    rec["cifar"] = {head: {**spec_row(base["fit_report"], head, fits[0]["seconds"]),
+                           "conv_rect_pool_launches": rp.fused_launches}}
+    names = [c["name"] for c in placement["candidates"] if c["specs"] and c["mesh"] == on_mesh]
+    for name in names:
+        torch.cuda.empty_cache()
+        rp.fused_launches = 0
+        with SolvePeak() as fits:
+            res = cifar.run(dataclasses.replace(conf, solve_plan=[name]), train, test, mesh=mesh)
+        launches += rp.fused_launches
+        rec["cifar"][name] = {
+            **spec_row(res["fit_report"], name, fits[0]["seconds"]),
+            "equal_default": same_model(res["servable"].nodes[-2], base_model),
+            "predictions_equal": bool(np.array_equal(res["test_predictions"],
+                                                     base["test_predictions"])),
+            "conv_rect_pool_launches": rp.fused_launches}
+        del res
+    log(json.dumps({"phase": "31(a) Cifar on 4x2", "card": card, **rec["cifar"]}))
+    rows = rec["cifar"]
+    if not (head == "fused[mesh 4x2]" and len(names) == 3
+            and all(r["chosen"] == n and r["outcome"] == "ok"
+                    and r["conv_rect_pool_launches"] == want for n, r in rows.items())
+            and all(rows[n]["equal_default"] and rows[n]["predictions_equal"] for n in names)):
+        raise AssertionError(f"Cifar spec layouts on 4x2 (K1 {want} a run): {rows}")
+    feats, labels = inputs[0]
+    del base, base_model
+
+    # (b) Every candidate of Cifar's searched solve once, on (a)'s inputs.
+    def bcd(on_mesh: bool = True):
+        return BlockLeastSquaresEstimator(4096, 1, conf.lam, mesh=mesh if on_mesh else None)
+
+    rec["cifar_every"] = time_every_candidate("Cifar", bcd, feats, labels, placement)
+    log(json.dumps({"phase": "31(b) every Cifar candidate", "card": card,
+                    **rec["cifar_every"]}))
+
+    # (c) Phase 26(d)'s class-weighted solve, row-sharded on 4x2: the
+    # search, then every candidate once (each spec candidate against its
+    # mesh's default layout).
+    inet_conf = inet.ImageNetSiftLcsFVConfig()
+    bwls_labels = np.random.default_rng(29).permutation(
+        np.repeat(np.arange(IMAGENET_CLASSES), BWLS_ROWS // IMAGENET_CLASSES))
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    x = torch.randn((BWLS_ROWS, BWLS_WIDTH), generator=gen, device="cuda")
+    y = torch.as_tensor(2.0 * np.eye(IMAGENET_CLASSES, dtype=np.float32)[bwls_labels] - 1.0,
+                        device="cuda")
+    xs, ys = padded_shard_rows(x, mesh)[0], padded_shard_rows(y, mesh)[0]
+    del x, y
+
+    def bwls(on_mesh: bool = True):
+        return BlockWeightedLeastSquaresEstimator(BWLS_BLOCK, 1, inet_conf.lam,
+                                                  inet_conf.mixture_weight,
+                                                  mesh=mesh if on_mesh else None)
+
+    est = bwls()
+    est.fit(xs, ys, plan=True)
+    bwls_placement = est.last_fit_report.placement
+    rec["bwls_searched"] = {"chosen": est.last_fit_report.chosen,
+                            "ranking": bwls_placement["ranking"]}
+    rec["bwls_every"] = time_every_candidate("BWLS", bwls, xs, ys, bwls_placement)
+    log(json.dumps({"phase": "31(c) every BWLS candidate", "card": card,
+                    "searched": rec["bwls_searched"], **rec["bwls_every"]}))
+    spec_4x2 = [n for n, r in rec["bwls_every"].items()
+                if r["specs"] and n.startswith("fused[mesh 4x2|")]
+    if spec_4x2 != ["fused[mesh 4x2|labels=model@dim1]", "fused[mesh 4x2|labels=rep]"]:
+        raise AssertionError(f"BWLS spec candidates on 4x2: {spec_4x2}")
+
+    # (d) The same searches with KEYSTONE_AUTOSHARD_SPECS=0: no spec
+    # candidate, the rest ranked as before.
+    rec["specs_off"] = {}
+    with env_set(KEYSTONE_AUTOSHARD_SPECS="0"):
+        for label, make, x, y, on in (("cifar", bcd, feats, labels, placement),
+                                      ("bwls", bwls, xs, ys, bwls_placement)):
+            est = make()
+            est.fit(x, y, plan=True)
+            off = est.last_fit_report.placement
+            rec["specs_off"][label] = {"ranking": off["ranking"], "chosen": off["chosen"]}
+            kept = {c["name"] for c in off["candidates"]}
+            if any(c["specs"] for c in off["candidates"]) or off["ranking"] != [
+                    n for n in on["ranking"] if n in kept]:
+                raise AssertionError(f"{label} with KEYSTONE_AUTOSHARD_SPECS=0: {off['ranking']}")
+    log(json.dumps({"phase": "31(d) KEYSTONE_AUTOSHARD_SPECS=0", "card": card,
+                    **rec["specs_off"]}))
+    del feats, labels, xs, ys
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 31: {rec['seconds']:.2f} s")
+    return {"conv_rect_pool": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -4308,6 +4508,7 @@ def smoke(data_dir: Path) -> int:
     del timit12
     mesh_fv = run_mesh_fv(card, data_dir, fitted, phase6, inet17, ng15, ladder["bwls_fused"])
     del phase6, inet17
+    mesh_specs = run_mesh_specs(card, fitted)
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -4319,7 +4520,8 @@ def smoke(data_dir: Path) -> int:
                      + tar_launches["conv_rect_pool"] + restored["conv_rect_pool"]
                      + snaps["conv_rect_pool"] + serving["conv_rect_pool"]
                      + optimizer["conv_rect_pool"] + placement["conv_rect_pool"]
-                     + lifecycle["conv_rect_pool"] + mesh["conv_rect_pool"]),
+                     + lifecycle["conv_rect_pool"] + mesh["conv_rect_pool"]
+                     + mesh_specs["conv_rect_pool"]),
         "launches_by_path": {"random_patch_cifar": main_launches,
                              "random_cifar": random_cifar_rec["launches"],
                              "random_patch_cifar_jpeg_tar": tar_launches["conv_rect_pool"],
@@ -4329,7 +4531,8 @@ def smoke(data_dir: Path) -> int:
                              "auto_cache_and_auto_tune": optimizer["conv_rect_pool"],
                              "placement_search": placement["conv_rect_pool"],
                              "lifecycle_refit_and_swap": lifecycle["conv_rect_pool"],
-                             "mesh_slots": mesh["conv_rect_pool"]},
+                             "mesh_slots": mesh["conv_rect_pool"],
+                             "mesh_spec_layouts": mesh_specs["conv_rect_pool"]},
         "max_abs_err": max(r["max_abs_err"] for r in [
             fused_prod, fused_prod_f32, fused_cifar48, *fused_odd, random_cifar_rec]),
         "ms": fused_prod["ms"],

@@ -45,13 +45,19 @@ write).  The log is read ONCE per process: outcomes appended during a run
 train the NEXT process, so a ranking never changes between a baseline and
 a comparison fit inside one process.
 
-The mesh candidates come from the block solver's mesh ladder
-(``solvers.block``): every ``(data, model)`` factorization of the mesh's
-slots in the default layout, their hints from the spec arithmetic here
-(:func:`best_spec`, :func:`spec_chip_bytes`).  Not ported: the two lowerers
-of a spec string to a sharded layout (:func:`spec_pspec`,
-:func:`spec_sharding`) and the ``KEYSTONE_AUTOSHARD_SPECS`` knob, which
-switches the spec-variant candidates (ROADMAP Queue 1 item 15c).
+The mesh candidates come from the block solvers' mesh ladders
+(``solvers.block``, ``solvers.weighted``): every ``(data, model)``
+factorization of the mesh's slots in the default layout, then, per mesh,
+the per-operand spec assignments (``Candidate.specs``, e.g. the class
+columns of the labels over the model axis).  A spec string names one mesh
+axis over one dimension (``data@dim0``, ``model@dim1``) or full
+replication (``replicated``); :func:`spec_pspec` lowers it to the
+per-dimension axis names of the JAX ``PartitionSpec`` and
+:func:`spec_sharding` to a ``parallel.mesh.SpecSharding`` that places a
+tensor on the mesh's slots, so a spec candidate executes a real layout and
+its hints charge that layout's bytes (:func:`spec_chip_bytes`).
+``KEYSTONE_AUTOSHARD_SPECS=0`` drops the spec candidates (one layout per
+mesh shape).
 """
 
 from __future__ import annotations
@@ -77,6 +83,10 @@ _logger = logging.getLogger("keystone_tpu_torch.autoshard")
 
 #: env var: "0"/"off"/"false" restores the hand ladders process-wide.
 AUTOSHARD_ENV = "KEYSTONE_AUTOSHARD"
+
+#: env var: "0"/"off"/"false" drops the per-operand SPEC candidates
+#: from the enumeration (one layout per mesh shape).
+SPECS_ENV = "KEYSTONE_AUTOSHARD_SPECS"
 
 #: env var: plan-outcome log path; default ``~/.keystone_plans.jsonl``;
 #: "0"/"off"/"none" disables persistence.
@@ -110,6 +120,12 @@ def enabled() -> bool:
     """Search is the default; ``KEYSTONE_AUTOSHARD=0`` restores the hand
     ladders."""
     return not _env_off(AUTOSHARD_ENV)
+
+
+def specs_enabled() -> bool:
+    """Spec-assignment candidates are enumerated by default when the search
+    runs; ``KEYSTONE_AUTOSHARD_SPECS=0`` leaves one layout per mesh shape."""
+    return not _env_off(SPECS_ENV)
 
 
 # -- program fingerprints ------------------------------------------------------
@@ -177,22 +193,34 @@ def best_spec(aval, mesh_shape: dict) -> dict:
     return min(cands, key=lambda c: (c["per_chip_bytes"], c["spec"]))
 
 
-def spec_pspec(spec: str, ndim: int):
-    """Lower one spec string to the partition it names: the mesh tiers run
-    the default layout only; spec layouts are ROADMAP Queue 1 item 15c."""
-    raise NotImplementedError(
-        f"spec_pspec({spec!r}, {ndim}): the mesh tiers run the default layout only; "
-        "lowering a sharding spec is ROADMAP Queue 1 item 15c"
-    )
+def spec_pspec(spec: str, ndim: int) -> tuple:
+    """Lower one spec string to the mesh axis of each of ``ndim``
+    dimensions: the tuple of the JAX ``PartitionSpec`` it names
+    (``"model@dim1"``, 2 -> ``(None, "model")``)."""
+    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+    if spec == "replicated":
+        return (None,) * ndim
+    axis, sep, dim = spec.partition("@dim")
+    if not sep or axis not in ("data", "model") or not dim.isdigit():
+        raise ValueError(
+            f"bad sharding spec {spec!r} (want 'replicated', 'data@dimN' or 'model@dimN')"
+        )
+    i = int(dim)
+    if i >= ndim:
+        raise ValueError(f"spec {spec!r} names dim {i} of a {ndim}-d operand")
+    parts: list = [None] * ndim
+    parts[i] = DATA_AXIS if axis == "data" else MODEL_AXIS
+    return tuple(parts)
 
 
 def spec_sharding(spec: str, mesh, ndim: int):
-    """Lower one spec string to a sharded layout on ``mesh``: the mesh
-    tiers run the default layout only (ROADMAP Queue 1 item 15c)."""
-    raise NotImplementedError(
-        f"spec_sharding({spec!r}, ..., {ndim}): the mesh tiers run the default layout "
-        "only; lowering a sharding spec is ROADMAP Queue 1 item 15c"
-    )
+    """Lower one spec string to the layout on ``mesh`` that the mesh tiers
+    place an operand with (``parallel.mesh.SpecSharding``; its ``place``
+    builds the per-slot record)."""
+    from ..parallel.mesh import SpecSharding
+
+    return SpecSharding(mesh, spec_pspec(spec, ndim))
 
 
 def spec_chip_bytes(shape, dtype, spec: str, mesh_shape: dict) -> int:

@@ -33,7 +33,7 @@ the analytic :class:`CostModel` over the port's device rates
 (``core.profiler.DEVICE_RATES``) and the cross-program
 :class:`CalibrationModel`, and the snapshot advisor
 (:func:`advise_snapshot`).  Single device: a mesh raises, naming the
-distribution item of the roadmap (item 15c).
+distribution item of the roadmap (item 15c-2).
 """
 
 from __future__ import annotations
@@ -266,7 +266,7 @@ def _single_device(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "the auto-Cacher plans for one device here; a mesh waits for the "
-            "distribution item (ROADMAP Queue 1 item 15c)"
+            "distribution item (ROADMAP Queue 1 item 15c-2)"
         )
 
 

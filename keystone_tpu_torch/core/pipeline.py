@@ -444,7 +444,7 @@ class Cacher(Transformer):
     Spark's ``.cache()`` becomes: move the value to the device ``sharding``
     names (a ``torch.device`` or its name; None keeps it where it is) and,
     on a card, wait until it is resident.  A mesh sharding waits for the
-    distribution item of the roadmap (item 15c) and raises.
+    distribution item of the roadmap (item 15c-2) and raises.
 
     ``memoize=True`` (set by ``core.optimize``) makes the barrier also
     remember one materialized value, keyed on the identity of the
@@ -471,7 +471,7 @@ class Cacher(Transformer):
             if not isinstance(self.sharding, (torch.device, str)):
                 raise NotImplementedError(
                     f"Cacher sharding {self.sharding!r}: a mesh layout waits for the "
-                    "distribution item (ROADMAP Queue 1 item 15c); give a torch.device"
+                    "distribution item (ROADMAP Queue 1 item 15c-2); give a torch.device"
                 )
             batch = _to_device(batch, torch.device(self.sharding))
         _synchronize(batch)

@@ -7,6 +7,7 @@ import torch
 from ..core.pipeline import Estimator, Transformer, node
 from ..parallel.collectives import sharded_moments
 from ..parallel.mesh import ShardedRows
+from ..utils.platform import resolve_device
 from ..utils.stats import sqrt_rn, sum_rows
 
 
@@ -184,12 +185,14 @@ class RandomSignNode(Transformer):
         return batch * self.signs
 
     @staticmethod
-    def create(size: int, generator: torch.Generator, device="cpu") -> "RandomSignNode":
+    def create(size: int, generator: torch.Generator, device="cuda") -> "RandomSignNode":
         """Fair ±1 signs drawn from ``generator`` (a CPU generator, so the
-        signs do not depend on the device).  They do not reproduce the JAX
-        package's ``jax.random.bernoulli`` bits."""
+        signs do not depend on the device), on ``device`` (the card unless
+        the caller asks for the CPU; ``cuda`` without a card raises).  They
+        do not reproduce the JAX package's ``jax.random.bernoulli`` bits."""
+        dev = resolve_device(device)
         draws = torch.randint(0, 2, (size,), generator=generator, dtype=torch.int64)
-        return RandomSignNode((2.0 * draws - 1.0).to(torch.float32).to(device))
+        return RandomSignNode((2.0 * draws - 1.0).to(torch.float32).to(dev))
 
 
 @node(meta_fields=("max_val", "alpha"))

@@ -19,6 +19,16 @@ the data axis are ``parallel.collectives``' fixed-order sums.  Where the JAX
 package hands a sharded array to ``jnp`` code, the port calls a sharded form
 explicitly or gathers the rows in data order (:meth:`ShardedRows.gather`).
 
+A :class:`SpecSharding` is a spec string of the placement search
+(``core.autoshard.spec_sharding``: ``replicated``, ``data@dimN``,
+``model@dimN``) lowered onto a mesh, the counterpart of a ``NamedSharding``:
+its per-slot index map equals ``NamedSharding.devices_indices_map`` slot
+for slot.  :meth:`SpecSharding.place` builds the layout: ``data@dim0`` is a
+``ShardedRows`` (so the default layout keeps its bits), every other spec a
+:class:`SpecLayout`, an explicit record of per-slot tensors.  Slots of one
+device share one copy of what they hold; admission charges every slot its
+own bytes all the same (:func:`slot_nbytes`).
+
 Multi-process meshes (``mesh_spans_processes``, ``host_local_mesh``) wait
 for ``parallel/distributed.py`` (ROADMAP Queue 1 item 16).
 """
@@ -196,7 +206,7 @@ def mesh_from_flags(p, a, refused: tuple = ()) -> Mesh | None:
     if a.mesh:
         for flag in refused:
             if getattr(a, flag, None):
-                p.error(f"--{flag} beside --mesh is not ported (ROADMAP Queue 1 item 15c)")
+                p.error(f"--{flag} beside --mesh is not ported (ROADMAP Queue 1 item 15c-2)")
     return parse_mesh(a.mesh, a.device)
 
 
@@ -362,6 +372,150 @@ def padded_shard_rows(x, mesh: Mesh | None = None, nvalid: int | None = None):
             row.append(same if same is not None else on_slot(block, dev))
         shards.append(row)
     return ShardedRows(mesh, shards, n), n
+
+
+class SpecSharding:
+    """A spec lowered onto ``mesh``: ``spec`` holds one entry per dimension,
+    the mesh axis that splits it (``DATA_AXIS`` or ``MODEL_AXIS``) or None,
+    with at most one axis named (the spec vocabulary names one).  A split
+    dimension is cut in order into equal pieces over its axis and the
+    tensor is replicated over the other axis."""
+
+    def __init__(self, mesh: Mesh, spec: tuple):
+        named = [(dim, ax) for dim, ax in enumerate(spec) if ax is not None]
+        if len(named) > 1 or any(ax not in mesh.axis_names for _dim, ax in named):
+            raise ValueError(f"a spec layout splits one dimension over one mesh axis, got {spec}")
+        self.mesh, self.spec = mesh, tuple(spec)
+        #: (dim, axis) of the split, None when every slot holds the whole
+        #: tensor (no axis named, or the named axis has size 1).
+        self.split = named[0] if named and mesh.shape[named[0][1]] > 1 else None
+
+    def __repr__(self) -> str:
+        return f"SpecSharding(mesh {mesh_desc(self.mesh)}, {self.spec})"
+
+    def devices_indices_map(self, shape) -> dict:
+        """Slot ``(d, m)`` -> the tuple of slices of a ``shape`` tensor that
+        the slot holds (``slice(None)`` for a dimension held whole).  A
+        split dimension that its axis does not divide raises
+        ``ValueError``."""
+        shape = tuple(int(n) for n in shape)
+        if len(shape) != len(self.spec):
+            raise ValueError(f"{self} places {len(self.spec)}-d tensors, got shape {shape}")
+        whole = (slice(None),) * len(shape)
+        d_sz, m_sz = self.mesh.devices.shape
+        if self.split is None:
+            return {(d, m): whole for d in range(d_sz) for m in range(m_sz)}
+        dim, axis = self.split
+        size = self.mesh.shape[axis]
+        if shape[dim] % size:
+            raise ValueError(
+                f"{self}: dimension {dim} of size {shape[dim]} is not a multiple of the "
+                f"{axis} axis ({size}); pad it first")
+        per = shape[dim] // size
+        out = {}
+        for d in range(d_sz):
+            for m in range(m_sz):
+                at = d if axis == DATA_AXIS else m
+                idx = list(whole)
+                idx[dim] = slice(at * per, (at + 1) * per)
+                out[d, m] = tuple(idx)
+        return out
+
+    def place(self, t: torch.Tensor):
+        """``t`` laid out on the mesh.  Rows over the data axis
+        (``data@dim0``) give the ``ShardedRows`` of :func:`padded_shard_rows`
+        (no pad rows: the axis must divide them); any other spec a
+        :class:`SpecLayout`.  A slot on ``t``'s device holds a view of
+        ``t``; slots of one device share one tensor."""
+        index = self.devices_indices_map(t.shape)
+        if self.spec[:1] == (DATA_AXIS,) and all(ax is None for ax in self.spec[1:]):
+            return padded_shard_rows(t, self.mesh)[0]
+        held: dict = {}
+        shards = []
+        for d, row in enumerate(self.mesh.devices):
+            out_row = []
+            for m, dev in enumerate(row):
+                key = (device_key(dev), index[d, m])
+                if key not in held:
+                    held[key] = on_slot(t[index[d, m]], dev)
+                out_row.append(held[key])
+            shards.append(out_row)
+        return SpecLayout(self, tuple(int(n) for n in t.shape), shards)
+
+
+@dataclasses.dataclass(eq=False)
+class SpecLayout:
+    """One tensor of global ``shape`` laid out by ``sharding``:
+    ``shards[d][m]`` is the piece slot ``(d, m)`` holds, on its device
+    (``sharding.devices_indices_map(shape)[d, m]`` of the whole)."""
+
+    sharding: SpecSharding
+    shape: tuple
+    shards: list  #: [data][model] -> torch.Tensor
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.sharding.mesh
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0][0].dtype
+
+    def index_map(self) -> dict:
+        """Slot ``(d, m)`` -> the slices of the whole tensor it holds."""
+        return self.sharding.devices_indices_map(self.shape)
+
+    def gather(self) -> torch.Tensor:
+        """The whole tensor on slot (0, 0)'s device."""
+        return self.window(tuple(slice(None) for _ in self.shape), (0, 0))
+
+    def window(self, index: tuple, slot: tuple) -> torch.Tensor:
+        """The ``index`` window (a tuple of slices, one per dimension) of
+        the whole tensor on ``slot``'s device: a view of the slot's own
+        piece when it holds the window, else the pieces of the slots along
+        the split axis (in the slot's own row or column of the mesh) that
+        hold it, copied to the slot's device and joined in order."""
+        index = tuple(slice(*s.indices(int(n))) for s, n in zip(index, self.shape))
+        own = self.index_map()
+        dev = self.mesh.devices[slot]
+
+        def local(at, want):
+            got = own[at]
+            return tuple(slice(w.start - (g.start or 0), w.stop - (g.start or 0))
+                         for w, g in zip(want, got))
+
+        if _covers(own[slot], index, self.shape):
+            return on_slot(self.shards[slot[0]][slot[1]][local(slot, index)], dev)
+        dim, axis = self.sharding.split
+        size = self.mesh.shape[axis]
+        parts = []
+        for at in range(size):
+            src = (at, slot[1]) if axis == DATA_AXIS else (slot[0], at)
+            piece = own[src][dim]
+            lo, hi = max(piece.start, index[dim].start), min(piece.stop, index[dim].stop)
+            if lo >= hi:
+                continue
+            want = list(index)
+            want[dim] = slice(lo, hi)
+            parts.append(on_slot(self.shards[src[0]][src[1]][local(src, tuple(want))], dev))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def _covers(held: tuple, index: tuple, shape: tuple) -> bool:
+    """Does the ``held`` window contain ``index`` (both slices of ``shape``)?"""
+    for h, w, n in zip(held, index, shape):
+        lo, hi, _ = h.indices(int(n))
+        if w.start < lo or w.stop > hi:
+            return False
+    return True
+
+
+def slot_nbytes(record) -> np.ndarray:
+    """``[data, model]``: the bytes each slot of a ``ShardedRows`` or
+    :class:`SpecLayout` holds, as admission charges them (slots sharing a
+    device's tensor each counted)."""
+    return np.array([[int(t.numel()) * t.element_size() for t in row] for row in record.shards],
+                    dtype=np.int64)
 
 
 def _same_layout(a: Mesh, b: Mesh) -> bool:

@@ -48,9 +48,11 @@ tier bit for bit, and a data-axis mesh differs from it only in the order
 of the partial sums.  Each mesh tier is admitted per slot
 (``core.memory.min_chip_budget``: a slot gets its card's budget divided by
 the mesh's slots on that card); ``last_fit_report.mesh_shape`` says which
-mesh ran.  Only the default layout runs (rows over the data axis, model
-columns over the model axis): the spec variants of the JAX search are
-ROADMAP Queue 1 item 15c.
+mesh ran.  When the search runs, every mesh shape also offers the JAX
+package's spec assignments (:func:`_bcd_spec_variants`: the label columns
+over the model axis, replicated models, replicated labels and models),
+each executed as that layout (``autoshard.spec_sharding``) with the
+default tier's products, so bit for bit the default layout's model.
 """
 
 from __future__ import annotations
@@ -410,18 +412,27 @@ def _fused_bcd_impl(x, labels, lam: float, nvalid: int, num_iter: int, widths):
     return models, label_mean, means
 
 
-def _fused_bcd_mesh_impl(x: ShardedRows, labels: ShardedRows, lam: float, nvalid: int,
-                         num_iter: int, widths):
+def _fused_bcd_mesh_impl(x: ShardedRows, labels, lam: float, nvalid: int, num_iter: int,
+                         widths, models_spec: str = "model@dim2"):
     """The fused tier over a mesh: ``x`` the row-sharded blocked design
-    matrix (as :func:`_fused_bcd_impl`'s), ``labels`` row-sharded on the
-    same layout with the class columns padded to a multiple of the model
-    axis.  Slot ``(d, m)`` works on data block ``d``'s rows and model
-    column share ``m``; the means, the block grams and every update's
-    right-hand side are the per-block steps' partials added over the data
-    axis in data order, and each factor is made once and replicated.  The
-    result is on slot (0, 0)'s device.
+    matrix (as :func:`_fused_bcd_impl`'s), ``labels`` the ``[rows, k_pad]``
+    labels with the class columns padded to a multiple of the model axis,
+    row-sharded on the same layout (the default) or in a spec layout
+    (``parallel.mesh.SpecLayout``: class columns over the model axis, or
+    replicated).  Slot ``(d, m)`` works on data block ``d``'s rows and model
+    column share ``m``, read from wherever its labels layout holds them;
+    the means, the block grams and every update's right-hand side are the
+    per-block steps' partials added over the data axis in data order, and
+    each factor is made once and replicated.  ``models_spec``
+    ``"model@dim2"`` keeps each model slot's column share of the models;
+    ``"replicated"`` gives every device the whole models, each update's
+    shares copied to it as they are solved.  A layout changes where tensors
+    live, never a product's shape, so every layout gives the same bits.
+    The result is on slot (0, 0)'s device.
 
     Returns (models [B, bs, k_pad], label_mean [k_pad], means [B, bs])."""
+    if models_spec not in ("model@dim2", "replicated"):
+        raise ValueError(f"unsupported models spec {models_spec!r}")
     mesh = x.mesh
     dev = mesh.devices
     d_sz, m_sz = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
@@ -434,7 +445,10 @@ def _fused_bcd_mesh_impl(x: ShardedRows, labels: ShardedRows, lam: float, nvalid
     for d, m in slots:
         rows = torch.arange(int(first[d]), int(first[d + 1]), device=dev[d, m])
         mask[d, m] = (rows < nvalid).to(dtype)[:, None]
-        y[d, m] = labels.shards[d][m][:, m * km : (m + 1) * km].contiguous()
+        cols = slice(m * km, (m + 1) * km)
+        share = (labels.shards[d][m][:, cols] if isinstance(labels, ShardedRows)
+                 else labels.window((slice(int(first[d]), int(first[d + 1])), cols), (d, m)))
+        y[d, m] = share.contiguous()
     label_mean = [
         psum([(y[d, m] * mask[d, m]).sum(dim=0) for d in range(d_sz)]) / nvalid
         for m in range(m_sz)
@@ -462,35 +476,73 @@ def _fused_bcd_mesh_impl(x: ShardedRows, labels: ShardedRows, lam: float, nvalid
     means_on = {k: on_slot(means, d) for k, d in devices.items()}
     chol_on = {k: [on_slot(c, d) for c in chol] for k, d in devices.items()}
 
-    models = [torch.zeros((nb, bs, km), dtype=dtype, device=dev[0, m]) for m in range(m_sz)]
+    if models_spec == "replicated":
+        whole = {k: torch.zeros((nb, bs, m_sz * km), dtype=dtype, device=d)
+                 for k, d in devices.items()}
+
+        def model_share(d, m, i):
+            return whole[device_key(dev[d, m])][i][:, m * km : (m + 1) * km].contiguous()
+    else:
+        models = [torch.zeros((nb, bs, km), dtype=dtype, device=dev[0, m]) for m in range(m_sz)]
+
+        def model_share(d, m, i):
+            return on_slot(models[m][i], dev[d, m])
+
     for _ in range(num_iter):
         for i in range(nb):
             parts = {
                 (d, m): _bcd_block_rhs(
                     block(d, m, i), means_on[device_key(dev[d, m])][i], mask[d, m],
-                    residual[d, m], on_slot(models[m][i], dev[d, m]),
+                    residual[d, m], model_share(d, m, i),
                 )
                 for d, m in slots
             }
             for m in range(m_sz):
                 atb = psum([parts[d, m][2] for d in range(d_sz)])
                 m_new = cho_solve(chol_on[device_key(dev[0, m])][i], atb)
-                models[m][i] = m_new
+                if models_spec == "replicated":
+                    for k, d in devices.items():
+                        whole[k][i][:, m * km : (m + 1) * km] = on_slot(m_new, d)
+                else:
+                    models[m][i] = m_new
                 for d in range(d_sz):
                     a_i, r_i, _ = parts[d, m]
                     residual[d, m] = r_i - a_i @ on_slot(m_new, dev[d, m])
+    label_mean = (label_mean[0] if m_sz == 1
+                  else torch.cat([on_slot(t, head) for t in label_mean]))
+    if models_spec == "replicated":
+        return whole[device_key(head)], label_mean, means
     if m_sz == 1:
-        return models[0], label_mean[0], means
-    return (torch.cat([on_slot(t, head) for t in models], dim=2),
-            torch.cat([on_slot(t, head) for t in label_mean]), means)
+        return models[0], label_mean, means
+    return torch.cat([on_slot(t, head) for t in models], dim=2), label_mean, means
 
 
-def _execute_fused_bcd_mesh(plan, x, labels, lam: float, nvalid: int, num_iter: int, widths):
-    """Run one mesh tier (:func:`_fused_bcd_mesh_impl`).  Module level so
-    the fault harness can intercept it: a test injects an out-of-memory
-    error here to drive the mesh ladder's step-down."""
+def _execute_fused_bcd_mesh(plan, x, labels, lam: float, nvalid: int, num_iter: int, widths,
+                            specs=None):
+    """Run one mesh tier (:func:`_fused_bcd_mesh_impl`) in the layout
+    ``specs`` names (a candidate's spec assignment; None is the default).
+    Module level so the fault harness can intercept it: a test injects an
+    out-of-memory error here to drive the mesh ladder's step-down."""
     del plan
-    return _fused_bcd_mesh_impl(x, labels, lam, nvalid, num_iter, widths)
+    return _fused_bcd_mesh_impl(x, labels, lam, nvalid, num_iter, widths,
+                                (specs or {}).get("models", "model@dim2"))
+
+
+def _bcd_spec_variants(m) -> list[dict]:
+    """The per-operand spec assignments the BCD placement search enumerates
+    for one mesh shape beyond the default layout (row-sharded inputs, model
+    columns over the model axis), as the JAX package's: the label columns
+    over the model axis (the wide-class layout), replicated models, and
+    replicated labels and models.  Legal by construction (the class columns
+    are padded to a model-axis multiple first) and in a fixed order."""
+    d_sz, m_sz = m.shape[DATA_AXIS], m.shape[MODEL_AXIS]
+    out: list[dict] = []
+    if m_sz > 1:
+        out.append({"labels": "model@dim1"})
+        out.append({"models": "replicated"})
+    if d_sz * m_sz > 1:
+        out.append({"labels": "replicated", "models": "replicated"})
+    return out
 
 
 # -- the resumable BCD state (the JAX package's on-disk format) ---------------
@@ -1072,21 +1124,37 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         def meta(shape, dt):
             return torch.empty(shape, dtype=dt, device="meta")
 
-        def mesh_tier(m, prior_rank: int, hand: bool) -> autoshard.Candidate:
+        def mesh_tier(m, prior_rank: int, hand: bool, specs=None) -> autoshard.Candidate:
+            """One fused-mesh candidate: ``specs`` None is the default layout
+            (the hand rung); a spec assignment executes that layout, its
+            hints and admission charging that layout's per-slot bytes."""
             name = f"fused[mesh {mesh_desc(m)}]"
+            if specs:
+                name = f"fused[mesh {mesh_desc(m)}|{autoshard.spec_tag(specs)}]"
             d_sz, m_sz = m.shape[DATA_AXIS], m.shape[MODEL_AXIS]
             n_pad, k_pad = n0 + (-n0) % d_sz, k + (-k) % m_sz
             mdict = dict(m.shape)
-            res_b = autoshard.spec_chip_bytes((n_pad, k_pad), dtype, "data@dim0", mdict)
-            models_b = autoshard.spec_chip_bytes((nb, bs, k_pad), dtype, "model@dim2", mdict)
+            lspec = (specs or {}).get("labels", "data@dim0")
+            mspec = (specs or {}).get("models", "model@dim2")
+            # The residual carries charged in the labels layout, the models
+            # in theirs (the JAX package's accounting).
+            res_b = autoshard.spec_chip_bytes((n_pad, k_pad), dtype, lspec, mdict)
+            models_b = autoshard.spec_chip_bytes((nb, bs, k_pad), dtype, mspec, mdict)
             # Per-slot transient floor: one centred row block, the
             # replicated factor stack, two residual carries, the models.
             floor = it * (n_pad * bs // d_sz + nb * bs * bs) + 2 * res_b + models_b
-            hints = {
-                "arg_bytes": sum(
+            if specs:
+                # The bytes of the layout the candidate executes.
+                arg_bytes = (autoshard.spec_chip_bytes((n_pad, nb * bs), xdt, "data@dim0", mdict)
+                             + autoshard.spec_chip_bytes((n_pad, k_pad), dtype, lspec, mdict))
+            else:
+                # The lower bound: each operand's cheapest legal spec.
+                arg_bytes = sum(
                     autoshard.best_spec(meta(shape, dt), mdict)["per_chip_bytes"]
                     for shape, dt in (((n_pad, nb * bs), xdt), ((n_pad, k_pad), dtype))
-                ),
+                )
+            hints = {
+                "arg_bytes": arg_bytes,
                 "temp_bytes": floor,
                 "out_bytes": it * (k_pad + nb * bs) + models_b,
                 "flops": (2.0 * n_pad * bs * bs * nb
@@ -1100,8 +1168,9 @@ class BlockLeastSquaresEstimator(LabelEstimator):
                 budget, _dev = kmem.min_chip_budget(m)
                 return kmem.plan_bytes(
                     f"bcd_{name}",
-                    argument_bytes=kmem.shard_bytes((n_pad, nb * bs), xdt, m)
-                    + kmem.shard_bytes((n_pad, k_pad), dtype, m),
+                    argument_bytes=(arg_bytes if specs else
+                                    kmem.shard_bytes((n_pad, nb * bs), xdt, m)
+                                    + kmem.shard_bytes((n_pad, k_pad), dtype, m)),
                     temp_bytes=floor,
                     output_bytes=hints["out_bytes"],
                     budget=budget,
@@ -1109,13 +1178,14 @@ class BlockLeastSquaresEstimator(LabelEstimator):
 
             def run(plan):
                 report.mesh_shape = dict(m.shape)
-                x, y = self._mesh_inputs(features, labels, num_features, widths, n0, m)
+                x, y = self._mesh_inputs(features, labels, num_features, widths, n0, m, lspec)
                 models, label_mean, means = _execute_fused_bcd_mesh(
-                    plan, x, y, lam, n0, self.num_iter, widths)
+                    plan, x, y, lam, n0, self.num_iter, widths, specs)
                 return models[:, :, :k], label_mean[:k], means
 
             return autoshard.Candidate(name, "fused_mesh", plan, run, hints=hints,
-                                       mesh_axes=mdict, prior_rank=prior_rank, hand=hand)
+                                       mesh_axes=mdict, prior_rank=prior_rank, hand=hand,
+                                       specs=dict(specs) if specs else None)
 
         def plan_single():
             return kmem.MemoryPlan(
@@ -1140,10 +1210,19 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         if rm is not None:
             cands.append(mesh_tier(rm, 1, True))
         if autoshard.will_search(plan_arg):
+            # The searched set: the other factorizations of the same slots,
+            # then (KEYSTONE_AUTOSHARD_SPECS) the spec assignments of every
+            # mesh shape, ranked after the hand rungs on an untrained prior.
             hand_shapes = {mesh_desc(c) for c in (mesh, rm) if c is not None}
+            searched = [c for c in (mesh, rm) if c is not None]
             for extra in enumerate_meshes(list(mesh.devices.flat)):
                 if mesh_desc(extra) not in hand_shapes:
+                    searched.append(extra)
                     cands.append(mesh_tier(extra, len(cands), False))
+            if autoshard.specs_enabled():
+                for sm in searched:
+                    for sp in _bcd_spec_variants(sm):
+                        cands.append(mesh_tier(sm, len(cands), False, specs=sp))
         cands.append(autoshard.Candidate(
             "single_device", "single_device", plan_single, run_single,
             hints={
@@ -1172,16 +1251,21 @@ class BlockLeastSquaresEstimator(LabelEstimator):
             report.chosen = f"single_device/{inner_chosen[0]}"
         return out
 
-    def _mesh_inputs(self, features, labels, num_features, widths, nvalid: int, mesh):
-        """(x, y): the blocked design matrix and the labels (columns padded
-        to a multiple of the model axis, in the features' dtype) sharded
-        over ``mesh``.  A tensor's data blocks are views where no pad rows
-        are added; each slot's design block is built once per device."""
+    def _mesh_inputs(self, features, labels, num_features, widths, nvalid: int, mesh,
+                     labels_spec: str = "data@dim0"):
+        """(x, y): the blocked design matrix sharded over ``mesh`` and the
+        labels (columns padded to a multiple of the model axis, in the
+        features' dtype) in the ``labels_spec`` layout: row-sharded on x's
+        layout by default, else the whole padded labels placed by
+        ``autoshard.spec_sharding``.  A tensor's data blocks are views where
+        no pad rows are added; each slot's design block is built once per
+        device."""
         bs = max(widths)
         m_sz = mesh.shape[MODEL_AXIS]
         listed = isinstance(features, (list, tuple))
         feats = [padded_shard_rows(f, mesh, nvalid=nvalid)[0] for f in _feature_list(features)]
-        ys = padded_shard_rows(labels, mesh, nvalid=nvalid)[0]
+        ys = (padded_shard_rows(labels, mesh, nvalid=nvalid)[0]
+              if labels_spec == "data@dim0" else None)
         built: dict = {}
         xs, yl = [], []
         for d in range(mesh.shape[DATA_AXIS]):
@@ -1192,13 +1276,20 @@ class BlockLeastSquaresEstimator(LabelEstimator):
                     parts = [f.shards[d][m] for f in feats]
                     x_dm, _ = _blocked_design_matrix(parts if listed else parts[0], bs,
                                                      num_features)
-                    y_dm = _pad_cols(ys.shards[d][m].to(x_dm.dtype), m_sz)[0]
+                    y_dm = (None if ys is None
+                            else _pad_cols(ys.shards[d][m].to(x_dm.dtype), m_sz)[0])
                     built[key] = (x_dm, y_dm)
                 xrow.append(built[key][0])
                 yrow.append(built[key][1])
             xs.append(xrow)
             yl.append(yrow)
-        return ShardedRows(mesh, xs, nvalid), ShardedRows(mesh, yl, nvalid)
+        x = ShardedRows(mesh, xs, nvalid)
+        if ys is not None:
+            return x, ShardedRows(mesh, yl, nvalid)
+        y = on_slot(torch.as_tensor(unshard(labels))[:nvalid], mesh.devices[0, 0])
+        y = _pad_cols(y.to(xs[0][0].dtype), m_sz)[0]
+        y = torch.nn.functional.pad(y, (0, 0, 0, x.rows - nvalid))
+        return x, autoshard.spec_sharding(labels_spec, mesh, 2).place(y)
 
     def _mapper(self, out, widths) -> BlockLinearMapper:
         models, label_mean, means = out

@@ -50,10 +50,16 @@ gathering those classes' rows from the data slots, so each chunk is
 batched as on one device (the JAX package splits each chunk over the
 model axis instead; here that made each batched solve ``M`` times
 narrower and changed its bits).  So a mesh without a data axis (1x1, 1xM)
-is the fused tier bit for bit.  Each mesh tier is admitted per slot (``core.memory.min_chip_budget``);
-``last_fit_report.mesh_shape`` says which mesh ran.  Only the default
-layout runs: the spec variants of the JAX search are ROADMAP Queue 1 item
-15c.
+is the fused tier bit for bit.  Each mesh tier is admitted per slot
+(``core.memory.min_chip_budget``); ``last_fit_report.mesh_shape`` says
+which mesh ran.  When the search runs, every mesh shape also offers the
+JAX package's spec assignments (:func:`_bwls_spec_variants`): the sorted
+labels' class columns split in order over the model axis, or the labels
+replicated.  Such a candidate places the sorted labels in that layout
+(``autoshard.spec_sharding``) and the tier reads each data slot's rows of
+every class column from the slots that hold them; the residual and every
+product keep the default tier's shapes and the chunk assignment is
+unchanged, so it is bit for bit the default layout's model.
 
 With ``core.numerics`` on, the fit records per-block κ estimates of its
 design matrix (a row-capped probe) in ``last_fit_report.conditioning``.
@@ -78,6 +84,7 @@ from ..parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     ShardedRows,
+    SpecLayout,
     current_mesh,
     enumerate_meshes,
     mesh_desc,
@@ -484,11 +491,29 @@ def _mesh_take(x_blocks, res, rows_out: int, device):
     return take
 
 
+def _bwls_spec_variants(m, n_classes: int) -> list[dict]:
+    """The per-operand spec assignments the BWLS placement search enumerates
+    for one mesh shape beyond the default layout, as the JAX package's: the
+    label columns over the model axis (the wide-class layout, when the
+    class count divides the axis) and replicated labels.  In a fixed
+    order."""
+    d_sz, m_sz = m.shape[DATA_AXIS], m.shape[MODEL_AXIS]
+    out: list[dict] = []
+    if m_sz > 1 and n_classes % m_sz == 0:
+        out.append({"labels": "model@dim1"})
+    if d_sz * m_sz > 1:
+        out.append({"labels": "replicated"})
+    return out
+
+
 def _bwls_mesh_solve(x_blocks, y_blocks, ctx: _SolveCtx, mesh, lam: float, w: float,
                      num_iter: int, widths):
     """The solve over a mesh: ``x_blocks[d]`` ``[p_tot / d, B*bs]`` and
     ``y_blocks[d]`` are data slot ``d``'s run of the sorted, zero-tailed
-    design matrix and labels (on slot ``(d, 0)``'s device).  Every row sum
+    design matrix and labels (on slot ``(d, 0)``'s device).  ``y_blocks``
+    may instead be the whole sorted labels in a spec layout
+    (``parallel.mesh.SpecLayout``): each data slot then reads its run of
+    every class column from the slots that hold it.  Every row sum
     (population sums and grams, class sums, ``XᵀR``) is the per-block
     steps' partials added over the data axis in data order; model slot
     ``m`` solves its class chunks (:func:`_class_chunks`) on slot
@@ -498,10 +523,13 @@ def _bwls_mesh_solve(x_blocks, y_blocks, ctx: _SolveCtx, mesh, lam: float, w: fl
     d_sz, m_sz = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
     bs, nb = max(widths), len(widths)
     num_classes, head = ctx.num_classes, dev[0, 0]
-    dtype = y_blocks[0].dtype
     rows_out = ctx.p_tot // d_sz
     n = float(ctx.n)
     data_devs = [dev[d, 0] for d in range(d_sz)]
+    if isinstance(y_blocks, SpecLayout):
+        y_blocks = [y_blocks.window((slice(d * rows_out, (d + 1) * rows_out), slice(None)),
+                                    (d, 0)) for d in range(d_sz)]
+    dtype = y_blocks[0].dtype
     lengths = [torch.from_numpy(_run_lengths(ctx.runs, d * rows_out, (d + 1) * rows_out))
                .to(data_devs[d]) for d in range(d_sz)]
     counts_f = ctx.counts.to(dtype)
@@ -915,15 +943,23 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
             return [on_slot(whole[d * rows_out : (d + 1) * rows_out], dev)
                     for d, dev in enumerate(devs)]
 
-        def mesh_tier(m, prior_rank: int, hand: bool) -> autoshard.Candidate:
+        def mesh_tier(m, prior_rank: int, hand: bool, specs=None) -> autoshard.Candidate:
+            """One fused-mesh candidate: ``specs`` None is the default layout
+            (the hand rung); a spec assignment places the sorted labels in
+            that layout, its hints and admission charging its bytes."""
             name = f"fused[mesh {mesh_desc(m)}]"
+            if specs:
+                name = f"fused[mesh {mesh_desc(m)}|{autoshard.spec_tag(specs)}]"
             d_sz, m_sz = m.shape[DATA_AXIS], m.shape[MODEL_AXIS]
             mdict = dict(m.shape)
+            lspec = (specs or {}).get("labels", "data@dim0")
             # The tier's padded layout, reckoned without the class sort.
             p_tot = n + n_max + (-(n + n_max)) % d_sz
             chunk = max(1, min(self.class_chunk, n_classes))
             chunk = -(-chunk // m_sz) * m_sz
-            res_b = autoshard.spec_chip_bytes((p_tot, n_classes), dtype, "data@dim0", mdict)
+            # The residual carries charged in the labels layout (the JAX
+            # package's accounting).
+            res_b = autoshard.spec_chip_bytes((p_tot, n_classes), dtype, lspec, mdict)
             # Per-slot transient floor: two residual carries, one row block
             # slice, one chunk's class-solve slab, the replicated statistics
             # and models.
@@ -934,13 +970,20 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
             # The regroup's send and receive buffers: at most 2·p_tot/d rows
             # each under the skew guard.
             exchange = 4 * (p_tot // d_sz) * d_tot * itx if regrouped else 0
-            hints = {
-                # Per-operand bytes through the spec enumeration's minimum;
-                # the valid/segment vectors charged replicated.
-                "arg_bytes": sum(
+            if specs:
+                # The bytes of the layout the candidate executes; the
+                # valid/segment vectors charged replicated.
+                arg_bytes = (autoshard.spec_chip_bytes((p_tot, d_tot), xdt, "data@dim0", mdict)
+                             + autoshard.spec_chip_bytes((p_tot, n_classes), dtype, lspec, mdict)
+                             + it * p_tot)
+            else:
+                # The lower bound: each operand's cheapest legal spec.
+                arg_bytes = sum(
                     autoshard.best_spec(meta(shape, dt), mdict)["per_chip_bytes"]
                     for shape, dt in (((p_tot, d_tot), xdt), ((p_tot, n_classes), dtype))
-                ) + it * p_tot,
+                ) + it * p_tot
+            hints = {
+                "arg_bytes": arg_bytes,
                 "temp_bytes": floor,
                 "out_bytes": it * (nb * bs * n_classes + n_classes),
                 "flops": self.num_iter * nb * (
@@ -957,8 +1000,10 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
                 budget, _dev = kmem.min_chip_budget(m)
                 return kmem.plan_bytes(
                     f"bwls_{name}",
-                    argument_bytes=kmem.shard_bytes((p_tot, d_tot), xdt, m)
-                    + kmem.shard_bytes((p_tot, n_classes), dtype, m) + it * p_tot,
+                    argument_bytes=(arg_bytes if specs else
+                                    kmem.shard_bytes((p_tot, d_tot), xdt, m)
+                                    + kmem.shard_bytes((p_tot, n_classes), dtype, m)
+                                    + it * p_tot),
                     temp_bytes=floor + exchange,
                     output_bytes=hints["out_bytes"],
                     budget=budget,
@@ -969,13 +1014,19 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
                 ctx = _SolveCtx.of(class_idx, n_classes, dtype, w, self.class_chunk,
                                    m.devices[0, 0], data=d_sz, model=m_sz)
                 xs = sorted_blocks(ctx, m, feats, design)
-                ys = sorted_blocks(ctx, m, [labels],
-                                   lambda parts: torch.as_tensor(parts[0]).to(dtype))
+                if lspec == "data@dim0":
+                    ys = sorted_blocks(ctx, m, [labels],
+                                       lambda parts: torch.as_tensor(parts[0]).to(dtype))
+                else:
+                    whole = on_slot(torch.as_tensor(_true_rows(labels, n)), m.devices[0, 0])
+                    ys = autoshard.spec_sharding(lspec, m, 2).place(
+                        ctx.sort_pad(whole.to(dtype)))
                 return _execute_fused_bwls_mesh(plan, xs, ys, ctx, m, lam, w, self.num_iter,
                                                 widths)
 
             return autoshard.Candidate(name, "fused_mesh", plan, run, hints=hints,
-                                       mesh_axes=mdict, prior_rank=prior_rank, hand=hand)
+                                       mesh_axes=mdict, prior_rank=prior_rank, hand=hand,
+                                       specs=dict(specs) if specs else None)
 
         def plan_single():
             return kmem.MemoryPlan(
@@ -999,10 +1050,19 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         if rm is not None:
             cands.append(mesh_tier(rm, 1, True))
         if autoshard.will_search(plan_arg):
+            # The searched set: the other factorizations of the same slots,
+            # then (KEYSTONE_AUTOSHARD_SPECS) the spec assignments of every
+            # mesh shape, ranked after the hand rungs on an untrained prior.
             hand_shapes = {mesh_desc(c) for c in (mesh, rm) if c is not None}
+            searched = [c for c in (mesh, rm) if c is not None]
             for extra in enumerate_meshes(list(mesh.devices.flat)):
                 if mesh_desc(extra) not in hand_shapes:
+                    searched.append(extra)
                     cands.append(mesh_tier(extra, len(cands), False))
+            if autoshard.specs_enabled():
+                for sm in searched:
+                    for sp in _bwls_spec_variants(sm, n_classes):
+                        cands.append(mesh_tier(sm, len(cands), False, specs=sp))
         p_one = n + n_max
         cands.append(autoshard.Candidate(
             "single_device", "single_device", plan_single, run_single,

@@ -41,7 +41,7 @@ moments and the block solve reduce over the data axis, and the solve runs
 the block solver's mesh ladder.  Filter learning stays on ``--device``, as
 the reference's driver-local ZCA fit.  ``--autoCache``, ``--autoTune`` and
 ``--pipelineFile`` are usage errors beside ``--mesh`` (ROADMAP Queue 1
-item 15c).
+item 15c-2).
 
 Run: ``python -m keystone_tpu_torch.workloads.cifar_random_patch
 --trainLocation train.bin --testLocation test.bin [--device cpu]``.
@@ -153,6 +153,11 @@ class RandomCifarConfig:
     #: ``KEYSTONE_AUTOSHARD``); the searched table lands in
     #: ``results["placement"]`` whenever a search ran.
     auto_shard: bool = False
+    #: Placement override handed to the solve's ``fit(plan=...)`` ahead of
+    #: ``auto_shard``: False the hand ladder, True the search, a
+    #: ``PlacementPlan`` or a list of candidate names replays that ranking
+    #: (a spec candidate's name forces its layout to the head).
+    solve_plan: object = None
 
 
 def learn_filters(
@@ -476,7 +481,8 @@ def run(
         model = solver.fit(
             train_features, labels, checkpoint=conf.solve_checkpoint,
             resume_from=conf.solve_resume,
-            plan=True if conf.auto_shard else None,
+            plan=(conf.solve_plan if conf.solve_plan is not None
+                  else True if conf.auto_shard else None),
         )
         log_fit_report(solver, _log, "cifar random-patch solve")
         # Typed failure (FloatingPointError) instead of NaN predictions.

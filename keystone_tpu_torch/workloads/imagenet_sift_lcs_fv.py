@@ -41,7 +41,7 @@ placement chosen by the placement search
 features (K2) run slot by slot, and the class-weighted solve runs its mesh
 ladder.  A streamed split keeps its unsharded passes.  ``--autoCache``,
 ``--autoTune`` and ``--pipelineFile`` beside ``--mesh`` are usage errors
-(ROADMAP Queue 1 item 15c).
+(ROADMAP Queue 1 item 15c-2).
 """
 
 from __future__ import annotations
@@ -339,7 +339,7 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
     dev = resolve_device(conf.device)
     if mesh is not None and conf.auto_cache:
         raise ValueError("the auto-Cacher under a mesh is not ported (ROADMAP Queue 1 "
-                         "item 15c)")
+                         "item 15c-2)")
     t0 = time.perf_counter()
 
     def lap(start: float) -> float:

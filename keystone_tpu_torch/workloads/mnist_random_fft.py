@@ -21,7 +21,7 @@ serving tier (``workloads.serve_common``) and answer test rows through it.
 ``--mesh`` row-shards both splits over the mesh's data axis (the features
 are row-wise, and zero pad rows stay zero through them) and solves over the
 mesh (``BlockLeastSquaresEstimator(mesh=)``); ``--autoCache`` and
-``--pipelineFile`` are usage errors beside it (ROADMAP Queue 1 item 15c).
+``--pipelineFile`` are usage errors beside it (ROADMAP Queue 1 item 15c-2).
 
 Run: ``python -m keystone_tpu_torch.workloads.mnist_random_fft
 --trainLocation train.csv --testLocation test.csv [--device cpu]``.
@@ -100,6 +100,11 @@ class MnistRandomFFTConfig:
     #: ``KEYSTONE_AUTOSHARD``); the searched table lands in
     #: ``results["placement"]`` whenever a search ran.
     auto_shard: bool = False
+    #: Placement override handed to the solve's ``fit(plan=...)`` ahead of
+    #: ``auto_shard``: False the hand ladder, True the search, a
+    #: ``PlacementPlan`` or a list of candidate names replays that ranking
+    #: (a spec candidate's name forces its layout to the head).
+    solve_plan: object = None
 
 
 def fft_chain(signs) -> Pipeline:
@@ -200,7 +205,8 @@ def run(conf: MnistRandomFFTConfig, train: LabeledData, test: LabeledData, mesh=
         model = solver.fit(
             training_batches, labels, checkpoint=conf.solve_checkpoint,
             resume_from=conf.solve_resume,
-            plan=True if conf.auto_shard else None,
+            plan=(conf.solve_plan if conf.solve_plan is not None
+                  else True if conf.auto_shard else None),
         )
         log_fit_report(solver, _log, "mnist random-fft solve")
         assert_all_finite(model, "mnist random-fft model")

@@ -20,7 +20,7 @@ search (``fv_common.searched_bucket_featurize``, its record in
 features (K2) run slot by slot, and the block solve runs its mesh ladder.
 A streamed split keeps its unsharded descriptor pass.  ``--autoCache``,
 ``--autoTune`` and ``--pipelineFile`` beside ``--mesh`` are usage errors
-(ROADMAP Queue 1 item 15c), and ``--solveCheckpoint`` raises under a mesh
+(ROADMAP Queue 1 item 15c-2), and ``--solveCheckpoint`` raises under a mesh
 as the block solve does.
 
 ``--streamIngest`` streams each tar through ``core.ingest`` (decode of the
@@ -215,7 +215,7 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages,
     feat_dim = 2 * conf.desc_dim * conf.vocab_size
     if mesh is not None and conf.auto_cache:
         raise ValueError("the auto-Cacher under a mesh is not ported (ROADMAP Queue 1 "
-                         "item 15c)")
+                         "item 15c-2)")
 
     def lap(start: float) -> float:
         synchronize(dev)

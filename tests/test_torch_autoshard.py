@@ -15,18 +15,18 @@ against the JAX package itself:
   and its placement's ranking and chosen tier are the JAX fit's on the same
   inputs, for BCD and BWLS.
 
-Waiting for ROADMAP Queue 1 item 15 (the mesh runtime), and so not ported
-here: ``test_spec_pspec_lowers_every_vocabulary_entry``,
+The spec cases (``test_spec_pspec_lowers_every_vocabulary_entry``,
 ``test_spec_sharding_places_arrays_per_spec``,
-``test_spec_candidates_bytes_lower_bound_of_compiled_layouts``,
+``test_spec_candidates_bytes_lower_bound_of_compiled_layouts`` (as
+``..._of_placed_layouts``: PyTorch compiles no layout),
 ``test_fit_mesh_search_enumerates_factorizations_deterministically``,
 ``test_mesh_search_enumerates_spec_candidates``,
 ``test_forced_spec_plan_executes_layout_bit_identical``,
 ``test_bwls_mesh_search_spec_candidates_execute``,
 ``test_specs_env_disables_spec_dimension``,
 ``test_searched_featurize_placement`` and
-``test_plan_view_renders_spec_column``.  Here the two lowerers raise
-``NotImplementedError`` naming the item.
+``test_plan_view_renders_spec_column``) are held on the mesh in
+``tests/test_torch_mesh_specs.py``.
 """
 
 import json
@@ -206,13 +206,6 @@ def test_spec_chip_bytes_matches_enumeration():
                 c["per_chip_bytes"])
     with pytest.raises(ValueError):
         autoshard.spec_chip_bytes((7,), torch.float32, "data@dim0", mesh_shape)
-
-
-def test_spec_lowerers_wait_for_the_mesh_runtime():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        autoshard.spec_pspec("data@dim0", 2)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        autoshard.spec_sharding("replicated", make_mesh(devices=CUDA8), 2)
 
 
 def test_spec_tag_compact():

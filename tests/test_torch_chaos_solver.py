@@ -13,7 +13,13 @@ fused tier has failed is the stepwise tier's.  An injected out-of-memory
 error is ``torch.OutOfMemoryError``.  ``plan_mispredict`` kills the
 placement search's top-ranked plan (the fused tier) and holds the run to
 the harness's step-down oracle (``chaos._stepdown_oracle``): the fit chose
-the next-ranked plan, counted ``autoshard_stepdown``."""
+the next-ranked plan, counted ``autoshard_stepdown``.  ``spec_mispredict``
+runs both workloads on a 4x2 mesh of CPU slots that this file builds: a
+spec candidate on the head mesh of the fault-free mesh run's placement is
+forced to the top through ``conf.solve_plan``, its mesh tier
+(``solvers.block._execute_fused_bcd_mesh``) dies out of memory, and the run
+must step down to the default layout, counted, with predictions equal to
+the fault-free mesh run's."""
 
 import contextlib
 import os
@@ -27,12 +33,14 @@ import chaos
 from keystone_tpu_torch.core.resilience import DeadlineExceeded, counters, deadline
 from keystone_tpu_torch.loaders.cifar import cifar_loader
 from keystone_tpu_torch.loaders.csv_loader import LabeledData
+from keystone_tpu_torch.parallel.mesh import make_mesh
 from keystone_tpu_torch.solvers import block as block_mod
 from keystone_tpu_torch.workloads import cifar_random_patch as pcifar
 from keystone_tpu_torch.workloads import mnist_random_fft as pmnist
 from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
-FAMILIES = ("solver_oom", "oom_cascade", "preempt_resume", "deadline", "plan_mispredict")
+FAMILIES = ("solver_oom", "oom_cascade", "preempt_resume", "deadline", "plan_mispredict",
+            "spec_mispredict")
 
 
 def _schedule(kind: str) -> chaos.Fault:
@@ -53,20 +61,34 @@ def cases(tmp_path_factory):
     chaos._write_synthetic_cifar(root / "test.bin", 36, rng, base=palette)
     cifar = [cifar_loader(str(root / name)) for name in ("train.bin", "test.bin")]
 
-    def run_mnist(**kw):
+    def run_mnist(mesh=None, **kw):
         conf = pmnist.MnistRandomFFTConfig(num_ffts=2, block_size=512, lam=1e-2,
                                            mnist_image_size=64, num_classes=5,
                                            device="cpu", **kw)
-        return pmnist.run(conf, *mnist)
+        return pmnist.run(conf, *mnist, mesh=mesh)
 
-    def run_cifar(**kw):
+    def run_cifar(mesh=None, **kw):
         conf = pcifar.RandomCifarConfig(num_filters=8, patch_size=6, patch_steps=4, lam=10.0,
                                         whitener_size=300, featurize_chunk=36,
                                         num_classes=4, device="cpu", **kw)
-        return pcifar.run(conf, *cifar)
+        return pcifar.run(conf, *cifar, mesh=mesh)
 
     runners = {"mnist": run_mnist, "cifar": run_cifar}
     return runners, {name: run()["test_predictions"] for name, run in runners.items()}
+
+
+#: The mesh ``spec_mispredict`` runs under: eight CPU slots as (data 4,
+#: model 2), so the head's mesh has spec candidates (the harness's
+#: ``chaos._spec_mesh`` builds the JAX one).
+SPEC_MESH = make_mesh(4, 2, devices=[torch.device("cpu")] * 8)
+
+
+@pytest.fixture(scope="module")
+def mesh_baselines(cases):
+    """The fault-free mesh run of each workload: its predictions are the
+    ``spec_mispredict`` oracle and its placement names the spec to force."""
+    runners, _ = cases
+    return {name: run(mesh=SPEC_MESH) for name, run in runners.items()}
 
 
 class _OomFaults:
@@ -106,10 +128,25 @@ class _Preempted(RuntimeError):
     """The injected preemption between two BCD blocks."""
 
 
-def _faulted(kind: str, run, tmp_path):
+def _forced_spec(placement: dict) -> list[str]:
+    """The first spec candidate on the head's mesh that the search did not
+    prune, as ``tests/chaos.py`` picks it for ``spec_mispredict``."""
+    head = next(c for c in placement["candidates"] if c["name"] == placement["ranking"][0])
+    return next([c["name"]] for c in placement["candidates"]
+                if c.get("specs") and not c["pruned"] and c["mesh"] == head["mesh"])
+
+
+def _faulted(kind: str, run, tmp_path, mesh_base=None):
     """One schedule of the family ``kind``; returns the run's results or
     raises its error."""
     fault = _schedule(kind)
+    if kind == "spec_mispredict":
+        before = counters.get("autoshard_stepdown")
+        with _OomFaults("_execute_fused_bcd_mesh", fault.params["failures"]):
+            res = run(mesh=SPEC_MESH, solve_plan=_forced_spec(mesh_base["placement"]))
+        chaos._stepdown_oracle(res, counters.get("autoshard_stepdown") - before,
+                               require_specs=True, require_mesh=True)
+        return res
     if kind == "solver_oom":
         with _OomFaults("_fused_bcd_impl", fault.params["failures"]):
             return run()
@@ -153,12 +190,16 @@ def _faulted(kind: str, run, tmp_path):
 
 @pytest.mark.parametrize("workload", ["mnist", "cifar"])
 @pytest.mark.parametrize("kind", FAMILIES)
-def test_faulted_run_is_equal_or_typed(kind, workload, cases, tmp_path):
+def test_faulted_run_is_equal_or_typed(kind, workload, cases, tmp_path, request):
     runners, baseline = cases
+    mesh_base = None
+    if kind == "spec_mispredict":
+        mesh_base = request.getfixturevalue("mesh_baselines")[workload]
+        baseline = {workload: mesh_base["test_predictions"]}
     before = counters.snapshot()
     t0 = time.monotonic()
     try:
-        res = _faulted(kind, runners[workload], tmp_path)
+        res = _faulted(kind, runners[workload], tmp_path, mesh_base)
     except DeadlineExceeded as e:
         outcome, counted = "typed_error", counters.get("deadline_exceeded") - before.get(
             "deadline_exceeded", 0)
@@ -170,6 +211,12 @@ def test_faulted_run_is_equal_or_typed(kind, workload, cases, tmp_path):
     assert time.monotonic() - t0 < 60.0
     delta = {k: v - before.get(k, 0) for k, v in counters.snapshot().items()
              if v != before.get(k, 0)}
+    if kind == "spec_mispredict":
+        assert delta.get("autoshard_stepdown") == delta.get("solver_oom_retry") == 1, delta
+        placement = res["placement"]
+        assert placement["chosen"] == placement["ranking"][1] == "fused[mesh 4x2]"
+        assert placement["ranking"][0] == _forced_spec(mesh_base["placement"])[0]
+        assert res["fit_report"]["chosen_tier"] == "fused[mesh 4x2]"
     if kind in ("solver_oom", "oom_cascade", "plan_mispredict"):
         assert delta.get("solver_oom_retry") == (1 if kind != "oom_cascade" else 2), delta
         assert res["fit_report"]["chosen_tier"] == (

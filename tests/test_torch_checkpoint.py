@@ -167,7 +167,8 @@ PORT_NODES = {
         CosineRandomFeatures.create(6, 16, 0.5, torch.Generator().manual_seed(0)),
         _t(_f32(rng, 4, 6))),
     "random_sign_node": lambda rng: (
-        RandomSignNode.create(10, torch.Generator().manual_seed(1)), _t(_f32(rng, 3, 10))),
+        RandomSignNode.create(10, torch.Generator().manual_seed(1), device="cpu"),
+        _t(_f32(rng, 3, 10))),
 }
 
 

@@ -414,11 +414,19 @@ def test_searched_ladder_walks_every_factorization_before_the_floor(rng, monkeyp
     est = BlockLeastSquaresEstimator(8, num_iter=2, lam=0.3, mesh=_mesh(4, 2))
     est.fit(_t(a), _t(b), plan=True)
     placement = est.last_fit_report.placement
-    assert seen == ["4x2", "8x1", "2x4", "1x8"]
-    assert placement["ranking"] == ["fused[mesh 4x2]", "fused[mesh 8x1]", "fused[mesh 2x4]",
-                                    "fused[mesh 1x8]", "single_device"]
+    # Every factorization in the default layout, then the spec candidates
+    # of each mesh shape (they die on the same meshes), then the floor.
+    ranking = placement["ranking"]
+    assert ranking[:4] == ["fused[mesh 4x2]", "fused[mesh 8x1]", "fused[mesh 2x4]",
+                           "fused[mesh 1x8]"]
+    assert ranking[4:-1] == [f"fused[mesh {s}|{tag}]" for s in ("4x2", "8x1", "2x4", "1x8")
+                             for tag in ("labels=model@dim1", "models=rep",
+                                         "labels=rep,models=rep")
+                             if s != "8x1" or tag == "labels=rep,models=rep"]
+    assert ranking[-1] == "single_device"
+    assert seen == [name[len("fused[mesh "):][:3] for name in ranking[:-1]]
     assert est.last_fit_report.chosen == "single_device/fused"
-    assert counters.snapshot()["autoshard_stepdown"] - before == 4
+    assert counters.snapshot()["autoshard_stepdown"] - before == len(ranking) - 1
     assert placement["devices"] == "cpu x8 on 1"
     meshes = {c["name"]: c["mesh"] for c in placement["candidates"]}
     assert meshes["fused[mesh 2x4]"] == {DATA_AXIS: 2, MODEL_AXIS: 4}

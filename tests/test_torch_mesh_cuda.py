@@ -5,7 +5,9 @@ and chunk (model slots of one card share the data slot's rows and
 results), each slot in its device's scope, the features those of the
 unsharded pass, and eight slots compute Fisher features through K2
 (``fv_stats``), ``torch.equal`` to the unsharded pass (its split count is
-batch-invariant).
+batch-invariant), and every spec candidate of the BCD and BWLS mesh
+ladders on 4x2 slots of ``cuda:0`` runs its layout ``torch.equal`` to the
+default layout.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 without them:
@@ -21,8 +23,9 @@ import torch
 
 from keystone_tpu_torch.ops import fv_stats as fs
 from keystone_tpu_torch.ops import rect_pool
-from keystone_tpu_torch.parallel.mesh import make_mesh
+from keystone_tpu_torch.parallel.mesh import make_mesh, padded_shard_rows
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
+from keystone_tpu_torch.solvers.weighted import BlockWeightedLeastSquaresEstimator
 from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
 from keystone_tpu_torch.workloads import cifar_random_patch as cifar
 from keystone_tpu_torch.workloads import fv_common
@@ -106,3 +109,37 @@ def test_eight_slots_compute_fisher_vectors_through_the_kernel(cuda_device, shap
         want += shape[0] * math.ceil(per / fs.launch_geometry(per, 80, cols, k).group)
     assert fs.launches == want
     assert torch.equal(sharded, whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["bcd", "bwls"])
+def test_spec_candidates_execute_on_eight_slots(cuda_device, solver):
+    """Each spec candidate of the 4x2 head, forced to the top, runs its
+    layout and gives the default layout's model bit for bit on the card."""
+    rng = np.random.default_rng(3)
+    n, d, k = 2000, 600, (10 if solver == "bcd" else 16)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy(
+        (2.0 * np.eye(k)[rng.integers(0, k, n)] - 1.0).astype(np.float32)).to(cuda_device)
+    mesh = make_mesh(4, 2, devices=[cuda_device] * 8)
+    if solver == "bwls":
+        x, y = (padded_shard_rows(t, mesh)[0] for t in (x, y))
+
+    def estimator():
+        return (BlockLeastSquaresEstimator(256, num_iter=2, lam=1.0, mesh=mesh)
+                if solver == "bcd" else
+                BlockWeightedLeastSquaresEstimator(256, 1, 0.1, 0.25, mesh=mesh))
+
+    est = estimator()
+    base = est.fit(x, y, plan=True)
+    placement = est.last_fit_report.placement
+    assert est.last_fit_report.chosen == placement["ranking"][0] == "fused[mesh 4x2]"
+    names = [c["name"] for c in placement["candidates"]
+             if c["specs"] and c["mesh"] == {"data": 4, "model": 2}]
+    assert len(names) == (3 if solver == "bcd" else 2)
+    for name in names:
+        forced = estimator()
+        got = forced.fit(x, y, plan=[name])
+        assert forced.last_fit_report.chosen == name
+        assert torch.equal(got.b, base.b), name
+        assert all(torch.equal(a, b) for a, b in zip(got.xs, base.xs)), name

@@ -66,17 +66,26 @@ def test_random_sign_node_carries_jax_signs(rng):
 
 
 def test_random_sign_node_create_is_seeded_and_fair():
-    a = RandomSignNode.create(1000, torch.Generator().manual_seed(7))
-    b = RandomSignNode.create(1000, torch.Generator().manual_seed(7))
-    c = RandomSignNode.create(1000, torch.Generator().manual_seed(8))
+    a = RandomSignNode.create(1000, torch.Generator().manual_seed(7), device="cpu")
+    b = RandomSignNode.create(1000, torch.Generator().manual_seed(7), device="cpu")
+    c = RandomSignNode.create(1000, torch.Generator().manual_seed(8), device="cpu")
     assert torch.equal(a.signs, b.signs) and not torch.equal(a.signs, c.signs)
     assert a.signs.dtype == torch.float32 and a.signs.device.type == "cpu"
     assert set(a.signs.unique().tolist()) == {-1.0, 1.0}
     assert 400 < int((a.signs > 0).sum()) < 600
     # one generator feeds successive nodes with fresh draws
     gen = torch.Generator().manual_seed(7)
-    first, second = (RandomSignNode.create(1000, gen) for _ in range(2))
+    first, second = (RandomSignNode.create(1000, gen, device="cpu") for _ in range(2))
     assert torch.equal(first.signs, a.signs) and not torch.equal(second.signs, a.signs)
+
+
+def test_random_sign_node_create_defaults_to_the_card():
+    """An entry point runs on the card unless the caller asks for the CPU:
+    without one the default raises rather than fall back."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default places the signs on it")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        RandomSignNode.create(8, torch.Generator().manual_seed(7))
 
 
 @pytest.mark.parametrize("max_val,alpha", [(0.0, 0.0), (0.0, 1.0), (0.5, 0.25), (-1.0, 0.0)])

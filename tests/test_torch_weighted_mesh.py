@@ -252,9 +252,18 @@ def test_searched_ladder_walks_every_factorization_before_the_floor(rng, monkeyp
     est = BlockWeightedLeastSquaresEstimator(**EST, mesh=_mesh(4, 2))
     est.fit(*_t(feats, labels), plan=True)
     placement = est.last_fit_report.placement
-    assert seen == ["4x2", "8x1", "2x4", "1x8"]
-    assert placement["ranking"] == ["fused[mesh 4x2]", "fused[mesh 8x1]", "fused[mesh 2x4]",
-                                    "fused[mesh 1x8]", "single_device"]
+    # Every factorization in the default layout, then the spec candidates
+    # of each mesh shape (they die on the same meshes; the wide-class one
+    # where the 4 classes divide the model axis), then the floor.
+    ranking = placement["ranking"]
+    assert ranking[:4] == ["fused[mesh 4x2]", "fused[mesh 8x1]", "fused[mesh 2x4]",
+                           "fused[mesh 1x8]"]
+    assert ranking[4:-1] == [f"fused[mesh {d}x{m}|{tag}]"
+                             for d, m in ((4, 2), (8, 1), (2, 4), (1, 8))
+                             for tag in ("labels=model@dim1", "labels=rep")
+                             if tag == "labels=rep" or (m > 1 and 4 % m == 0)]
+    assert ranking[-1] == "single_device"
+    assert seen == [name[len("fused[mesh "):][:3] for name in ranking[:-1]]
     assert est.last_fit_report.chosen == "single_device/fused"
     assert placement["devices"] == "cpu x8 on 1"
 
