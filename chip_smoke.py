@@ -351,7 +351,28 @@ which raises (and so exits non-zero) on failure:
    for phase 26(d)'s class-weighted solve, row-sharded on ``(4, 2)``: the
    search's ranking, then every candidate once; (d) both searches again
    with ``KEYSTONE_AUTOSHARD_SPECS=0``: no spec candidate, the others in
-   the same order, the rankings printed.
+   the same order, the rankings printed;
+32. the auto-Cacher and the reshard checkpoint loader on slots of
+   ``cuda:0``: (a) ``cifar.run`` with ``auto_cache`` and ``pipeline_file``
+   on phase 3's files on ``(4, 2)``: the cache plan with each decision's
+   per-slot charge against the slot budget, K1 once per data slot and
+   chunk (the optimizer's four sample passes included, the training split
+   featurized once), model and predictions ``torch.equal`` to phase 29's
+   4x2 run; then ``cifar.main`` with the same ``--pipelineFile`` (and
+   ``--mesh 1``) restores it without reading the training split and
+   predicts the same; (b) VOCSIFTFisher with ``auto_cache`` on phase 6's
+   images on ``(8, 1)``: scores ``np.array_equal`` to phase 30's 8x1 run,
+   K2's launches; (c) (a)'s servable with its scaler mean and block
+   weights placed ``data@dim0`` on ``(4, 2)`` and saved under
+   ``use_mesh``: the naive load raises ``CheckpointMismatch``;
+   ``load_pipeline(mesh=)`` onto ``(2, 1)`` and ``(1, 1)`` (and on ``(1,
+   1)`` host-staged under ``KEYSTONE_RESHARD_CHUNK_BYTES=16K``), lowered
+   with ``parallel.mesh.replicate`` and applied to the 10,000 test images:
+   predictions equal to (a)'s with K1 launched, ``ckpt_reshard`` counted,
+   the reshard stats and the load seconds printed; (d) phase 22's tar
+   with ``--deviceDecode`` on ``(4, 2)`` with the ingest autotuner
+   evaluating every chunk and without it: K3 and K1 launch, predictions
+   equal.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -359,6 +380,7 @@ Without a CUDA card it exits with code 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import glob
@@ -389,7 +411,7 @@ from keystone_tpu_torch.core import optimize as kopt
 from keystone_tpu_torch.core import profiler as kprof
 from keystone_tpu_torch.core import resilience, trace, wire
 from keystone_tpu_torch.core import serve as kserve
-from keystone_tpu_torch.core.checkpoint import load_pipeline
+from keystone_tpu_torch.core.checkpoint import CheckpointMismatch, load_pipeline, save_pipeline
 from keystone_tpu_torch.core import snapshot as ksnap
 from keystone_tpu_torch.core.logging import stage_timer
 from keystone_tpu_torch.core.pipeline import Pipeline
@@ -423,7 +445,13 @@ from keystone_tpu_torch.ops.sift import SIFTExtractor
 from keystone_tpu_torch.ops.stats import SignedHellingerMapper, StandardScaler
 from keystone_tpu_torch.solvers.gmm import GaussianMixtureModel
 from keystone_tpu_torch.ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
-from keystone_tpu_torch.parallel.mesh import make_mesh, padded_shard_rows, unshard
+from keystone_tpu_torch.parallel.mesh import (
+    make_mesh,
+    padded_shard_rows,
+    replicate,
+    unshard,
+    use_mesh,
+)
 from keystone_tpu_torch.solvers import block as block_mod
 from keystone_tpu_torch.solvers import weighted as weighted_mod
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
@@ -3588,7 +3616,6 @@ def run_lifecycle(card: str, data_dir: Path, c22: dict, snap24: dict) -> dict:
     rng = np.random.default_rng(28)
     palette22 = np.random.default_rng(22).uniform(40, 215, (N_CLASSES, 3))
     stem = str(data_dir / "lifecycle_incumbent")
-    from keystone_tpu_torch.core.checkpoint import save_pipeline
     save_pipeline(stem, servable, numerics_baseline=knum.OutputSketch.for_outputs(
         snap24["predictions"]).record())
     pool = cifar48_split(16 * LIFECYCLE_SHIFTED, rng, palette22)
@@ -3761,6 +3788,7 @@ def run_mesh(card: str, fitted: dict, timit12: dict) -> dict:
 
     # (c) the fit on both meshes of the card's eight slots.
     rec["runs"] = {}
+    kept = {}
     for name, mesh in meshes.items():
         torch.cuda.empty_cache()
         rp.fused_launches = 0
@@ -3789,6 +3817,11 @@ def run_mesh(card: str, fitted: dict, timit12: dict) -> dict:
                 and abs(r["test_error"] - plain["test_error"]) < 1.1
                 and r["chosen"] == f"fused[mesh {name}]"):
             raise AssertionError(f"Cifar on mesh {name}: {r}")
+        if name == "4x2":
+            # Phase 32 holds its --autoCache run to this one.
+            model = res["servable"].nodes[-2]
+            kept = {"predictions": res["test_predictions"],
+                    "model": [t.cpu() for t in (*model.xs, model.b)]}
         del res
     del plain
 
@@ -3824,7 +3857,7 @@ def run_mesh(card: str, fitted: dict, timit12: dict) -> dict:
         raise AssertionError(f"TIMIT on eight slots: {rec['timit']}")
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"phase 29: {rec['seconds']:.2f} s")
-    return {"conv_rect_pool": launches}
+    return {"conv_rect_pool": launches, "cifar_4x2": kept}
 
 
 # Phase 30: the (e) part's small CLI inputs (images per split of phase 6's
@@ -3924,6 +3957,7 @@ def run_mesh_fv(card: str, data_dir: Path, fitted: dict, phase6: dict, inet17: d
             "features_max_abs": float(whole_feats.abs().max())}
         del desc, feats
     del whole_desc, whole_feats, bundle, featurize
+    voc_scores = {}
     for name, mesh in meshes.items():
         data = mesh.shape["data"]
         torch.cuda.empty_cache()
@@ -3934,6 +3968,7 @@ def run_mesh_fv(card: str, data_dir: Path, fitted: dict, phase6: dict, inet17: d
             res = voc.run(conf, train, test, mesh=mesh)
             secs = time.perf_counter() - t
         launches += fs.launches
+        voc_scores[name] = res["test_scores"]
         want_rows = slot_rows(bucket_sizes(train.images), data) + slot_rows(
             bucket_sizes(test.images), data)
         r = rec["voc"][name] = {
@@ -4140,7 +4175,8 @@ def run_mesh_fv(card: str, data_dir: Path, fitted: dict, phase6: dict, inet17: d
     torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"phase 30: {rec['seconds']:.2f} s")
-    return {"fv_stats": launches, "fv_stats_slot": rec["fv_stats_slot"]}
+    return {"fv_stats": launches, "fv_stats_slot": rec["fv_stats_slot"],
+            "voc_8x1_scores": voc_scores["8x1"]}
 
 
 class FitInputs:
@@ -4327,6 +4363,178 @@ def run_mesh_specs(card: str, fitted: dict) -> dict:
     return {"conv_rect_pool": launches}
 
 
+def slot_charge(plan: dict, data: int) -> dict:
+    """A cache plan's per-slot charge: each decision's bytes over the data
+    slots (what ``plan_caches(mesh=)`` admits) and the gate's allowance."""
+    return {"budget_bytes": plan["budget_bytes"], "cached": plan["cached"],
+            "per_slot_bytes": {d["name"]: d["output_bytes"] // data
+                               for d in plan["decisions"]},
+            "reasons": [d["reason"] for d in plan["decisions"]]}
+
+
+def run_mesh_cache_ckpt(card: str, fitted: dict, phase6: dict, c22: dict, cifar29: dict,
+                        voc30: np.ndarray) -> dict:
+    """Phase 32: the auto-Cacher and the reshard checkpoint loader on slots
+    of the card.  Each path runs with the kernel counts set to 0 just
+    before it and read just after.  Returns the launches by kernel."""
+    t_phase = time.perf_counter()
+    slots = [torch.device("cuda", 0)] * 8
+    m42, m81 = make_mesh(4, 2, devices=slots), make_mesh(8, 1, devices=slots)
+    rec: dict = {"phase": "32: the auto-Cacher and the reshard loader on the mesh",
+                 "card": card}
+    total = {"conv_rect_pool": 0, "fv_stats": 0, "decode_pixels": 0}
+    conf = cifar.RandomCifarConfig(lam=10.0, device="cuda")  # MAIN_FLAGS' values
+    train = cifar_loader(str(fitted["cifar_train"]))
+    test = cifar_loader(str(fitted["cifar_test"]))
+    stem = fitted["cifar_stem"].parent / "cifar_mesh_servable"
+    per = math.ceil(conf.featurize_chunk / 4)
+
+    # (a) Cifar --autoCache --pipelineFile on 4x2: the plan's per-slot
+    # charge, the model and predictions against phase 29's 4x2 run, then a
+    # main call that restores the file.
+    torch.cuda.empty_cache()
+    rp.launches = rp.fused_launches = 0
+    t = time.perf_counter()
+    res = cifar.run(dataclasses.replace(conf, auto_cache=True, pipeline_file=str(stem)),
+                    train, test, mesh=m42)
+    secs = time.perf_counter() - t
+    k1 = rp.fused_launches
+    total["conv_rect_pool"] += k1
+    # Per data slot: the warm chunk, the optimizer's four passes over its
+    # one-chunk sample, the training split once (the fitted apply replays
+    # the memo) and the test split.
+    want = 4 * (1 + 4 + math.ceil(math.ceil(N_TRAIN / 4) / per)
+                + math.ceil(math.ceil(N_TEST / 4) / per))
+    model = res["servable"].nodes[-2]
+    rec["cifar"] = {
+        "plan": slot_charge(res["cache_plan"], 4), "conv_rect_pool_launches": k1,
+        "expected_launches": want, "rect_pool_launches": rp.launches,
+        "model_equal_phase29": all(torch.equal(a.cpu(), b) for a, b in
+                                   zip((*model.xs, model.b), cifar29["model"])),
+        "predictions_equal_phase29": bool(np.array_equal(res["test_predictions"],
+                                                         cifar29["predictions"])),
+        "test_error": res["test_error"], "featurize_seconds": res["featurize_seconds"],
+        "seconds": secs}
+    rp.fused_launches = 0
+    t = time.perf_counter()
+    back = cifar.main(["--trainLocation", str(fitted["cifar_train"]) + ".absent",
+                       "--testLocation", str(fitted["cifar_test"]), *MAIN_FLAGS,
+                       "--pipelineFile", str(stem), "--mesh", "1"])
+    rec["cifar"]["restored"] = {
+        "restored": back.get("restored", False), "seconds": time.perf_counter() - t,
+        "conv_rect_pool_launches": rp.fused_launches,
+        "predictions_equal": bool(np.array_equal(back["test_predictions"],
+                                                 res["test_predictions"]))}
+    total["conv_rect_pool"] += rp.fused_launches
+    log(json.dumps({"phase": "32(a) Cifar --autoCache --pipelineFile on 4x2", "card": card,
+                    **rec["cifar"]}))
+    r = rec["cifar"]
+    if not (r["plan"]["cached"] == ["conv_featurize"] and k1 == want and not rp.launches
+            and r["model_equal_phase29"] and r["predictions_equal_phase29"]
+            and r["restored"]["restored"] and r["restored"]["predictions_equal"]
+            and r["restored"]["conv_rect_pool_launches"]):
+        raise AssertionError(f"Cifar --autoCache on 4x2: {r}")
+    servable, predictions = res["servable"], res["test_predictions"]
+    del res, back
+
+    # (b) VOC --autoCache on 8x1, against phase 30's 8x1 scores.
+    torch.cuda.empty_cache()
+    fs.launches = 0
+    t = time.perf_counter()
+    vres = voc.run(voc.SIFTFisherConfig(**VOC_CONF, auto_cache=True), phase6["train"],
+                   phase6["test"], mesh=m81)
+    total["fv_stats"] += fs.launches
+    rec["voc"] = {"plan": slot_charge(vres["cache_plan"], 8), "fv_stats_launches": fs.launches,
+                  "scores_equal_phase30": bool(np.array_equal(vres["test_scores"], voc30)),
+                  "map": vres["map"], "phase6_map": phase6["map"],
+                  "seconds": time.perf_counter() - t}
+    log(json.dumps({"phase": "32(b) VOC --autoCache on 8x1", "card": card, **rec["voc"]}))
+    if not (rec["voc"]["scores_equal_phase30"] and fs.launches):
+        raise AssertionError(f"VOC --autoCache on 8x1: {rec['voc']}")
+    del vres
+
+    # (c) (a)'s servable with its scaler mean and block weights placed
+    # data@dim0 on 4x2, saved under the mesh, loaded onto 2x1 and 1x1
+    # (on 1x1 also host-staged under a 16 KiB chunk, which two of its eight
+    # arrays exceed) and applied.
+    scaler, model = (copy.copy(n) for n in servable.nodes[-3:-1])
+    scaler.mean = autoshard.spec_sharding("data@dim0", m42, 1).place(scaler.mean)
+    model.xs = [autoshard.spec_sharding("data@dim0", m42, 2).place(x) for x in model.xs]
+    sharded = fitted["cifar_stem"].parent / "cifar_sharded_servable"
+    with use_mesh(m42):
+        save_pipeline(str(sharded), Pipeline([*servable.nodes[:-3], scaler, model,
+                                              servable.nodes[-1]]))
+    del servable, scaler, model
+    try:
+        load_pipeline(str(sharded), device="cuda")
+        naive = "loaded"
+    except CheckpointMismatch as e:
+        naive = str(e)
+    rec["reshard"] = {"naive_load": naive, "loads": {}}
+    for name, shape, chunk in (("2x1", (2, 1), None), ("1x1", (1, 1), None),
+                               ("1x1 host-staged", (1, 1), "16K")):
+        mesh = make_mesh(*shape, devices=slots[: shape[0] * shape[1]])
+        before = resilience.counters.get("ckpt_reshard")
+        rp.fused_launches = 0
+        stats: dict = {}
+        with env_set(**({"KEYSTONE_RESHARD_CHUNK_BYTES": chunk} if chunk else {})):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            restored = load_pipeline(str(sharded), mesh=mesh, report=stats)
+            torch.cuda.synchronize()
+            load_secs = time.perf_counter() - t
+        pred = cifar.apply_servable_chunked(replicate(restored, "cuda"), test.images,
+                                            conf.featurize_chunk)
+        total["conv_rect_pool"] += rp.fused_launches
+        rec["reshard"]["loads"][name] = {
+            "ckpt_reshard": resilience.counters.get("ckpt_reshard") - before, **stats,
+            "load_seconds": load_secs, "conv_rect_pool_launches": rp.fused_launches,
+            "predictions_equal": bool(np.array_equal(pred, predictions))}
+        del restored
+    log(json.dumps({"phase": "32(c) the reshard loader", "card": card, **rec["reshard"]}))
+    loads = rec["reshard"]["loads"]
+    if not ("refusing" in naive and "mesh=" in naive
+            and all(v["ckpt_reshard"] == 1 and v["predictions_equal"]
+                    and v["conv_rect_pool_launches"] for v in loads.values())
+            and loads["1x1 host-staged"]["host_staged"] and not loads["1x1"]["host_staged"]):
+        raise AssertionError(f"the reshard loader: {rec['reshard']}")
+
+    # (d) Phase 22's tar, --autoTune evaluating every chunk, on 4x2,
+    # against the same run without it.
+    runs = {}
+    empty = LabeledImageBatch(c22["train"].images[:0], c22["train"].labels[:0])
+    for tuned in (False, True):
+        torch.cuda.empty_cache()
+        rp.launches = rp.fused_launches = jd.launches = jd.decode_launches = 0
+        with env_set(KEYSTONE_AUTOTUNE_INTERVAL="1"):
+            out = cifar.run(dataclasses.replace(c22["conf"], stream_test_tar=str(c22["tar"]),
+                                                auto_tune=tuned), c22["train"], empty, mesh=m42)
+        total["conv_rect_pool"] += rp.fused_launches
+        total["decode_pixels"] += jd.decode_launches
+        runs[tuned] = {"launches": {"conv_rect_pool": rp.fused_launches,
+                                    "decode_pixels": jd.decode_launches,
+                                    "rect_pool": rp.launches, "idct_blocks": jd.launches},
+                       "seconds": out["seconds"], "predictions": out["test_predictions"],
+                       "autotune": out.get("autotune")}
+    at = runs[True]["autotune"]
+    rec["tar"] = {"launches": runs[True]["launches"],
+                  "untuned_launches": runs[False]["launches"],
+                  "retunes": at["retunes"], "final_config": at["final_config"],
+                  "seconds": runs[True]["seconds"], "untuned_seconds": runs[False]["seconds"],
+                  "predictions_equal": bool(np.array_equal(runs[True]["predictions"],
+                                                           runs[False]["predictions"]))}
+    log(json.dumps({"phase": "32(d) phase 22's tar --autoTune on 4x2", "card": card,
+                    **rec["tar"]}))
+    lt = rec["tar"]["launches"]
+    if not (rec["tar"]["predictions_equal"] and lt["conv_rect_pool"] and lt["decode_pixels"]
+            and not (lt["rect_pool"] or lt["idct_blocks"])):
+        raise AssertionError(f"--autoTune on 4x2: {rec['tar']}")
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 32: {rec['seconds']:.2f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -4503,12 +4711,15 @@ def smoke(data_dir: Path) -> int:
     placement = run_placement(card, fitted, phase6, timit12)
     lifecycle = run_lifecycle(card, data_dir, cifar_tar, snap24)
     log(f"phase 28: {time.perf_counter() - t28:.2f} s")
-    del cifar_tar, snap24
+    del snap24
     mesh = run_mesh(card, fitted, timit12)
     del timit12
     mesh_fv = run_mesh_fv(card, data_dir, fitted, phase6, inet17, ng15, ladder["bwls_fused"])
-    del phase6, inet17
+    del inet17
     mesh_specs = run_mesh_specs(card, fitted)
+    mesh_cache = run_mesh_cache_ckpt(card, fitted, phase6, cifar_tar, mesh["cifar_4x2"],
+                                     mesh_fv["voc_8x1_scores"])
+    del phase6, cifar_tar
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -4521,7 +4732,7 @@ def smoke(data_dir: Path) -> int:
                      + snaps["conv_rect_pool"] + serving["conv_rect_pool"]
                      + optimizer["conv_rect_pool"] + placement["conv_rect_pool"]
                      + lifecycle["conv_rect_pool"] + mesh["conv_rect_pool"]
-                     + mesh_specs["conv_rect_pool"]),
+                     + mesh_specs["conv_rect_pool"] + mesh_cache["conv_rect_pool"]),
         "launches_by_path": {"random_patch_cifar": main_launches,
                              "random_cifar": random_cifar_rec["launches"],
                              "random_patch_cifar_jpeg_tar": tar_launches["conv_rect_pool"],
@@ -4532,7 +4743,8 @@ def smoke(data_dir: Path) -> int:
                              "placement_search": placement["conv_rect_pool"],
                              "lifecycle_refit_and_swap": lifecycle["conv_rect_pool"],
                              "mesh_slots": mesh["conv_rect_pool"],
-                             "mesh_spec_layouts": mesh_specs["conv_rect_pool"]},
+                             "mesh_spec_layouts": mesh_specs["conv_rect_pool"],
+                             "mesh_auto_cache_and_reshard": mesh_cache["conv_rect_pool"]},
         "max_abs_err": max(r["max_abs_err"] for r in [
             fused_prod, fused_prod_f32, fused_cifar48, *fused_odd, random_cifar_rec]),
         "ms": fused_prod["ms"],
@@ -4565,7 +4777,7 @@ def smoke(data_dir: Path) -> int:
                      + restored["fv_stats_in_memory"] + restored["fv_stats_jpeg_tars"]
                      + snaps["fv_stats"] + serving["fv_stats"] + ladder["fv_stats"]
                      + optimizer["fv_stats"] + inet_restored + placement["fv_stats"]
-                     + mesh_fv["fv_stats"]),
+                     + mesh_fv["fv_stats"] + mesh_cache["fv_stats"]),
         "launches_by_path": {"voc_in_memory": voc_launches, "voc_jpeg_tars": tar_fv_launches,
                              "imagenet_in_memory": inet_launches,
                              "imagenet_jpeg_tars": inet_tar_fv,
@@ -4577,7 +4789,8 @@ def smoke(data_dir: Path) -> int:
                              "voc_auto_cache": optimizer["fv_stats"],
                              "imagenet_restored": inet_restored,
                              "voc_placement_search": placement["fv_stats"],
-                             "mesh_slots": mesh_fv["fv_stats"]},
+                             "mesh_slots": mesh_fv["fv_stats"],
+                             "voc_mesh_auto_cache": mesh_cache["fv_stats"]},
         "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd, *fv_imagenet.values()]),
         "ms": fv_prod["ms"],
         "plain_ms": fv_prod["plain_ms"],
@@ -4604,13 +4817,14 @@ def smoke(data_dir: Path) -> int:
         "replaces": "keystone_tpu/ops/jpeg_device.py:743",
         "launches": (decode_launches + inet_tar_decode + tar_launches["decode_pixels"]
                      + restored["decode_pixels"] + snaps["decode_pixels"]
-                     + optimizer["decode_pixels"]),
+                     + optimizer["decode_pixels"] + mesh_cache["decode_pixels"]),
         "launches_by_path": {"voc_jpeg_tars": decode_launches,
                              "imagenet_jpeg_tars": inet_tar_decode,
                              "cifar_jpeg_tar": tar_launches["decode_pixels"],
                              "voc_restored_jpeg_tars": restored["decode_pixels"],
                              "snapshots_and_backends": snaps["decode_pixels"],
-                             "cifar_jpeg_tar_auto_tune": optimizer["decode_pixels"]},
+                             "cifar_jpeg_tar_auto_tune": optimizer["decode_pixels"],
+                             "cifar_jpeg_tar_mesh_auto_tune": mesh_cache["decode_pixels"]},
         "max_abs_err": max(r["max_abs_err"] for r in decode_checks),
         "ms": decode_times[64]["ms"],
         "plain_ms": decode_times[64]["plain_ms"],

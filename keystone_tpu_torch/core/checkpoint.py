@@ -18,13 +18,43 @@ Writes are atomic (tmp file + ``os.replace``), and the manifest carries the
 ``.npz``'s hash, so a preempted save never leaves a pair a later
 ``load_or_fit`` would trust.
 
-A port save records one device and only replicated arrays.  Loading a
-checkpoint whose arrays the JAX package saved sharded over a mesh raises
-:class:`CheckpointMismatch`: the reshard loader is not ported.
+**Sharding records.**  The manifest records the topology of the save (the
+platform, the device count and the ambient ``parallel.mesh.use_mesh``
+shape, slots counted as devices) and, per array, the layout it was split
+in, in ``core.autoshard``'s spec vocabulary: a leaf that is a
+``ShardedRows`` records ``data@dim0``, a ``SpecLayout`` the spec its
+``SpecSharding`` was lowered from.  Either is gathered to the host in data
+order first, and clears ``all_replicated`` when it is split over more than
+one slot.  A plain tensor records as replicated, so the servables the
+workloads save (the mesh tiers unshard their models) stay all-replicated.
+Each package reads the other's sharded files.
+
+**Loading.**  With ``mesh=None`` a checkpoint holding sharded arrays loads
+only on the topology it recorded: elsewhere :class:`CheckpointMismatch`
+names both topologies and the ``mesh=`` way out.  With a port ``Mesh``
+every array is placed onto that mesh by :class:`_Resharder`: its recorded
+spec re-lowered where the dimension still divides the axis, else
+replicated, each placement charged per slot against the mesh's slot
+budget, and a placement nothing admits a typed :class:`CheckpointError`.
+
+**Restored nodes on a mesh.**  A leaf placed on a mesh is a layout record
+(``ShardedRows`` or ``SpecLayout``), not a tensor, and the port's nodes
+compute on tensors; a record handed to a PyTorch operator raises
+``parallel.mesh.LayoutLeafError``.  A node computes once it is lowered to
+a device: ``parallel.mesh.replicate(node, device)`` turns each record into
+the whole tensor on that device (one copy per device, bytes moved, nothing
+computed) and builds the node's derived state (``_restore``, deferred
+until then).  So ``map_rows(node, rows)`` runs a restored node slot by
+slot on sharded rows, and ``replicate(node, x.device)(x)`` on a tensor;
+either gives the original node's bits.
+
+Multi-process meshes (the JAX package's ``crosshost`` placement) wait for
+the distribution item of the roadmap (item 16b).
 
 Public surface:
   save_pipeline(path, pipe, numerics_baseline) -> writes <stem>.npz + <stem>.json
   load_pipeline(path, device="cuda")           -> rebuilt object, tensors on device
+  load_pipeline(path, mesh=M)                  -> leaves laid out on mesh M
   checkpoint_exists(path)                      -> bool (both files present)
   load_numerics_baseline(path)                 -> the fit-time output sketch or None
   load_or_fit(path, est, *a)                   -> load if present, else fit + save
@@ -44,6 +74,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..parallel.mesh import ShardedRows, SpecLayout, holds_record
 from ..utils.platform import resolve_device
 from .pipeline import NODE_REGISTRY, Pipeline
 
@@ -74,27 +105,48 @@ _DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
 #: raw bytes and re-viewed on load.
 _RAW = frozenset({"bfloat16", "float8_e4m3fn", "float8_e5m2"})
 
+#: Transfer granularity of the reshard loader: an array above it is copied
+#: to the mesh window by window from the host (``SpecSharding.place_staged``)
+#: instead of in one copy, so no device stages a whole large array.
+RESHARD_CHUNK_ENV = "KEYSTONE_RESHARD_CHUNK_BYTES"
+_DEFAULT_RESHARD_CHUNK = 64 * 2**20
+
 
 class CheckpointError(RuntimeError):
     """Unserializable node, missing/corrupt artifact, or schema mismatch."""
 
 
 class CheckpointMismatch(CheckpointError):
-    """The checkpoint holds arrays that were sharded over a device mesh
-    (written by the JAX package under a mesh); restoring them here would
-    silently change the placement of a model that was solved distributed.
-    Re-load on the recorded topology in the JAX package, or re-fit."""
+    """The checkpoint was written under a different device/mesh topology
+    than the loading process and its arrays were not all replicated:
+    restoring them would silently change the placement of a model that was
+    solved distributed.  Load it with ``mesh=``, on the recorded topology,
+    or re-fit."""
 
 
 def _current_topology() -> dict:
     """Device fingerprint recorded into every manifest, in the JAX
-    package's keys: the platform, the visible device count, no mesh."""
+    package's keys: the platform, the visible device count and the ambient
+    ``use_mesh`` shape (its slots counted as devices), if any."""
+    from ..parallel.mesh import current_mesh
+
     cuda = torch.cuda.is_available()
+    mesh = current_mesh()
     return {
         "platform": "gpu" if cuda else "cpu",
         "device_count": torch.cuda.device_count() if cuda else 1,
-        "mesh": None,
+        "mesh": dict(mesh.shape) if mesh is not None else None,
     }
+
+
+def _record_spec(v) -> str:
+    """The spec a layout record is split in: ``data@dim0`` for a
+    ``ShardedRows`` over more than one data slot, the spec of a
+    ``SpecLayout``'s sharding, ``replicated`` when every slot holds the
+    whole array."""
+    if isinstance(v, ShardedRows):
+        return "data@dim0" if v.mesh.shape["data"] > 1 else "replicated"
+    return v.sharding.spec_string
 
 
 def checkpoint_paths(path: str) -> tuple[str, str]:
@@ -145,14 +197,23 @@ class _Encoder:
     def __init__(self):
         self.arrays: dict[str, np.ndarray] = {}
         self.specs: dict[str, dict] = {}
+        self.all_replicated = True
         self._n = 0
 
     def add_array(self, v) -> str:
         key = f"a{self._n}"
         self._n += 1
+        sharding = "replicated"
+        if isinstance(v, (ShardedRows, SpecLayout)):
+            sharding = _record_spec(v)
+            v = v.gather()
         arr, name = _host_array(v)
         shape = list(v.shape)
         spec = {"dtype": name, "shape": shape}
+        if sharding != "replicated":
+            # Absent means replicated: a reshard load re-lowers this spec.
+            spec["sharding"] = sharding
+            self.all_replicated = False
         if name in _RAW or arr.dtype.kind not in "biufc":
             # raw-bytes transport for npz-hostile dtypes (e.g. bfloat16)
             spec["raw"] = True
@@ -166,7 +227,7 @@ class _Encoder:
             return {"t": "none"}
         if isinstance(v, (bool, int, float, str)):
             return {"t": "py", "v": v}
-        if isinstance(v, (torch.Tensor, np.ndarray, np.generic)):
+        if isinstance(v, (torch.Tensor, np.ndarray, np.generic, ShardedRows, SpecLayout)):
             return {"t": "arr", "k": self.add_array(v)}
         if isinstance(v, torch.dtype):
             if v not in _DTYPE_NAMES:
@@ -243,7 +304,10 @@ def _tensor(arr: np.ndarray, aspec: dict, where: str, key: str, device) -> torch
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def _decode(spec: dict, arrays, array_specs: dict, where: str, device) -> Any:
+def _decode(spec: dict, arrays, array_specs: dict, where: str, put) -> Any:
+    """Rebuild one manifest entry; ``put(arr, aspec, key, where)`` turns
+    each array into its leaf (a tensor on the load's device, or a layout
+    record on the load's mesh)."""
     t = spec.get("t")
     if t == "none":
         return None
@@ -256,30 +320,30 @@ def _decode(spec: dict, arrays, array_specs: dict, where: str, device) -> Any:
         aspec = array_specs.get(key)
         if aspec is None:
             raise CheckpointError(f"{where}: array {key!r} missing from manifest")
-        return _tensor(arrays[key], aspec, where, key, device)
+        return put(arrays[key], aspec, key, where)
     if t == "dtype":
         dt = _TORCH_DTYPES.get(spec["v"])
         if dt is None:
             raise CheckpointError(f"{where}: dtype {spec['v']!r} has no torch counterpart")
         return dt
     if t in ("list", "tuple"):
-        vals = [_decode(s, arrays, array_specs, f"{where}[{i}]", device)
+        vals = [_decode(s, arrays, array_specs, f"{where}[{i}]", put)
                 for i, s in enumerate(spec["v"])]
         return tuple(vals) if t == "tuple" else vals
     if t == "dict":
-        return {k: _decode(s, arrays, array_specs, f"{where}[{k!r}]", device)
+        return {k: _decode(s, arrays, array_specs, f"{where}[{k!r}]", put)
                 for k, s in spec["v"].items()}
     if t == "pipeline":
-        return Pipeline([_decode(s, arrays, array_specs, f"{where}.nodes[{i}]", device)
+        return Pipeline([_decode(s, arrays, array_specs, f"{where}.nodes[{i}]", put)
                          for i, s in enumerate(spec["nodes"])])
     if t == "blm":
         from ..solvers.block import BlockLinearMapper
 
         return BlockLinearMapper(
-            list(_decode(spec["xs"], arrays, array_specs, f"{where}.xs", device)),
+            list(_decode(spec["xs"], arrays, array_specs, f"{where}.xs", put)),
             int(spec["block_size"]),
-            _decode(spec["b"], arrays, array_specs, f"{where}.b", device),
-            list(_decode(spec["scalers"], arrays, array_specs, f"{where}.scalers", device)),
+            _decode(spec["b"], arrays, array_specs, f"{where}.b", put),
+            list(_decode(spec["scalers"], arrays, array_specs, f"{where}.scalers", put)),
         )
     if t == "node":
         name = spec["cls"]
@@ -302,10 +366,12 @@ def _decode(spec: dict, arrays, array_specs: dict, where: str, device) -> Any:
         for group, fields in (("data", data_fields), ("meta", meta_fields)):
             for f in fields:
                 object.__setattr__(
-                    obj, f, _decode(spec[group][f], arrays, array_specs, f"{where}.{f}", device)
+                    obj, f, _decode(spec[group][f], arrays, array_specs, f"{where}.{f}", put)
                 )
+        # Derived state is built from tensors: a node whose leaves landed
+        # on a mesh builds it when parallel.mesh.replicate lowers them.
         restore = getattr(obj, "_restore", None)
-        if restore is not None:
+        if restore is not None and not any(holds_record(getattr(obj, f)) for f in data_fields):
             restore()
         return obj
     raise CheckpointError(f"{where}: unknown manifest entry type {t!r}")
@@ -333,7 +399,7 @@ def save_pipeline(path: str, pipe, numerics_baseline: dict | None = None) -> str
         # atomic renames, so the hash check on load rejects a mixed pair.
         "npz_sha256": hashlib.sha256(npz_bytes).hexdigest(),
         "topology": _current_topology(),
-        "all_replicated": True,
+        "all_replicated": enc.all_replicated,
         "root": root,
         "arrays": enc.specs,
     }
@@ -344,6 +410,84 @@ def save_pipeline(path: str, pipe, numerics_baseline: dict | None = None) -> str
     _logger.info("saved checkpoint %s (%d arrays, %.1f KiB)", npz_path, len(enc.arrays),
                  len(npz_bytes) / 1024)
     return os.path.splitext(npz_path)[0]
+
+
+class _Resharder:
+    """Places checkpointed host arrays onto a target mesh: the
+    ``load_pipeline(mesh=)`` placement engine (the JAX package's, one
+    process).
+
+    Per array: the recorded spec (manifest ``"sharding"``) is re-lowered
+    onto the mesh (``core.autoshard.spec_sharding``) when its dimension
+    still divides the axis there, else the array is replicated.  Every
+    placement is charged per slot (``autoshard.spec_chip_bytes``) through
+    ``memory.plan_bytes`` against the mesh's slot budget
+    (``memory.min_chip_budget``, read once per load).  A replicated
+    placement the budget denies falls back to the smallest dividing spec
+    (``autoshard.best_spec``), counted ``spec_fallback``; a placement
+    nothing admits is a typed ``CheckpointError``, never an out-of-memory
+    error halfway through.  An array above ``KEYSTONE_RESHARD_CHUNK_BYTES``
+    is copied window by window from the host (``host_staged``); below it,
+    in one copy to the first slot's device, which its other slots there
+    view.  Both give the same bits."""
+
+    def __init__(self, mesh):
+        from . import memory as kmem
+
+        self.mesh = mesh
+        self.mesh_shape = dict(mesh.shape)
+        raw = os.environ.get(RESHARD_CHUNK_ENV, "").strip()
+        self.chunk_bytes = kmem.parse_bytes(raw) if raw else _DEFAULT_RESHARD_CHUNK
+        self.budget, _ = kmem.min_chip_budget(mesh)
+        self.stats = {"arrays": 0, "resharded": 0, "host_staged": 0, "spec_fallback": 0,
+                      "bytes": 0}
+
+    def _target_spec(self, t: torch.Tensor, recorded: str) -> str:
+        from . import autoshard
+
+        if recorded not in ("replicated", "opaque"):
+            try:
+                autoshard.spec_pspec(recorded, t.ndim)
+                autoshard.spec_chip_bytes(t.shape, t.dtype, recorded, self.mesh_shape)
+                return recorded
+            except ValueError:
+                pass  # the recorded dimension no longer divides: replicate
+        return "replicated"
+
+    def put(self, arr: np.ndarray, aspec: dict, key: str, where: str):
+        from . import autoshard
+        from . import memory as kmem
+
+        t = _tensor(arr, aspec, where, key, "cpu")
+        recorded = aspec.get("sharding", "replicated")
+        spec = self._target_spec(t, recorded)
+        self.stats["arrays"] += 1
+        per_slot = autoshard.spec_chip_bytes(t.shape, t.dtype, spec, self.mesh_shape)
+        plan = kmem.plan_bytes(f"ckpt_reshard:{key}", output_bytes=per_slot,
+                               budget=self.budget)
+        if not plan.admitted and spec == "replicated":
+            # No slot holds the whole array: split it instead.
+            cand = autoshard.best_spec(t, self.mesh_shape)
+            if cand["spec"] != "replicated":
+                spec, per_slot = cand["spec"], int(cand["per_chip_bytes"])
+                self.stats["spec_fallback"] += 1
+                plan = kmem.plan_bytes(f"ckpt_reshard:{key}:{spec}", output_bytes=per_slot,
+                                       budget=self.budget)
+        if not plan.admitted:
+            raise CheckpointError(
+                f"{where}: array {key!r} ({aspec['dtype']}{list(t.shape)}) does not fit the "
+                f"target mesh — {kmem.fmt_bytes(per_slot)}/slot under spec {spec!r} vs "
+                f"budget {kmem.fmt_bytes(self.budget or 0)} ({plan.reason})"
+            )
+        sharding = autoshard.spec_sharding(spec, self.mesh, t.ndim)
+        if spec != "replicated" or recorded != "replicated":
+            self.stats["resharded"] += 1
+        nbytes = t.numel() * t.element_size()
+        self.stats["bytes"] += nbytes
+        if nbytes > self.chunk_bytes and t.ndim:
+            self.stats["host_staged"] += 1
+            return sharding.place_staged(t)
+        return sharding.place(t.to(self.mesh.devices[0, 0]))
 
 
 #: The modules that register the stock node classes.
@@ -370,13 +514,26 @@ def _read_manifest(manifest_path: str) -> dict:
         raise CheckpointError(f"cannot read manifest {manifest_path}: {e}") from e
 
 
-def load_pipeline(path: str, device="cuda"):
+def load_pipeline(path: str, device="cuda", mesh=None, report: dict | None = None):
     """Rebuild a fitted node/pipeline saved by :func:`save_pipeline` (or by
     the JAX package's), its tensors on ``device`` (the card unless the
     caller asks for the CPU; ``"cuda"`` without a card raises).  Validates
     the format version, the topology guard and every array's dtype/shape
-    against the manifest before constructing anything."""
-    dev = resolve_device(device)
+    against the manifest before constructing anything.
+
+    ``mesh``: ``None`` keeps the strict guard — sharded arrays recorded
+    under another topology raise :class:`CheckpointMismatch`.  A port
+    ``parallel.mesh.Mesh`` opts in to redistribution: every array leaf is
+    laid out on the mesh's slots (``device`` is not read), as
+    :class:`_Resharder` says, counted ``ckpt_reshard``; see the module
+    docstring for computing with the restored nodes.  ``report``, a dict
+    the caller passes, receives the mesh load's counts: ``arrays``,
+    ``resharded``, ``host_staged``, ``spec_fallback`` and ``bytes``."""
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        for d in {torch.device(d) for d in mesh.devices.flat}:
+            resolve_device(d)
     _ensure_standard_registry()
     npz_path, manifest_path = checkpoint_paths(path)
     manifest = _read_manifest(manifest_path)
@@ -388,15 +545,18 @@ def load_pipeline(path: str, device="cuda"):
             f"(this build reads {FORMAT_VERSION})"
         )
     recorded = manifest.get("topology")
-    if not manifest.get("all_replicated", True):
-        raise CheckpointMismatch(
-            f"{manifest_path}: checkpoint holds sharded (non-replicated) "
-            f"arrays recorded under topology {recorded}, and this package "
-            f"restores onto one device ({_current_topology()}) — refusing to "
-            "silently reshard.  Load it on the recorded topology in the JAX "
-            "package, or re-fit"
-        )
-    if recorded is None:
+    if mesh is None and recorded is not None and not manifest.get("all_replicated", True):
+        current = _current_topology()
+        if recorded != current:
+            raise CheckpointMismatch(
+                f"{manifest_path}: checkpoint holds sharded (non-replicated) "
+                f"arrays recorded under topology {recorded} but this process "
+                f"is {current} — refusing to silently reshard.  Pass "
+                "load_pipeline(..., mesh=<target Mesh>) to redistribute the "
+                "state onto the mesh you have, load on the recorded "
+                "topology, or re-fit"
+            )
+    elif mesh is None and recorded is None:
         _logger.warning(
             "%s: no topology recorded (pre-topology-guard checkpoint) — "
             "loading without a placement check", manifest_path,
@@ -418,8 +578,28 @@ def load_pipeline(path: str, device="cuda"):
     extra = set(manifest["arrays"]) - set(arrays)
     if extra:
         raise CheckpointError(f"{npz_path}: arrays {sorted(extra)} named in manifest are missing")
-    obj = _decode(manifest["root"], arrays, manifest["arrays"], "root", dev)
-    _logger.info("loaded checkpoint %s (%d arrays) onto %s", npz_path, len(arrays), dev)
+    if mesh is None:
+        obj = _decode(manifest["root"], arrays, manifest["arrays"], "root",
+                      lambda arr, aspec, key, where: _tensor(arr, aspec, where, key, dev))
+        _logger.info("loaded checkpoint %s (%d arrays) onto %s", npz_path, len(arrays), dev)
+        return obj
+    from ..parallel.mesh import mesh_desc
+    from .resilience import counters
+
+    resharder = _Resharder(mesh)
+    obj = _decode(manifest["root"], arrays, manifest["arrays"], "root", resharder.put)
+    st = resharder.stats
+    if report is not None:
+        report.update(st)
+    if st["arrays"]:
+        counters.record(
+            "ckpt_reshard",
+            f"{npz_path}: {st['arrays']} array(s) ({st['bytes']} B) placed onto mesh "
+            f"{mesh_desc(mesh)} [{st['resharded']} resharded, {st['host_staged']} "
+            f"host-staged, {st['spec_fallback']} spec-fallback]",
+        )
+    _logger.info("loaded checkpoint %s resharded onto mesh %s (%d arrays, %d host-staged)",
+                 npz_path, mesh_desc(mesh), st["arrays"], st["host_staged"])
     return obj
 
 

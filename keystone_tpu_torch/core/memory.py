@@ -395,17 +395,22 @@ def plan_cache_bytes(
     label: str,
     nbytes: int,
     *,
+    mesh=None,
     budget: int | None | object = _UNSET,
     headroom: float = 0.5,
 ) -> MemoryPlan:
     """Admit or deny holding ``nbytes`` of materialized intermediates
     resident on the card — the auto-Cacher's admission gate
     (core.optimize).  Data only, so admission is a straight byte comparison
-    against ``headroom`` of :func:`hbm_budget`: a cache that fills all free
-    memory starves the very solve it was meant to speed up, so the default
-    admits at most half.  No budget known -> admitted unanalysed (the CPU),
-    never guessed.  Denials are counted under ``cache_admission_denied``
-    and every verdict is an ``hbm_admission`` trace event."""
+    against ``headroom`` of :func:`hbm_budget`, or under a ``mesh`` of
+    :func:`min_chip_budget` (callers divide a sharded cache's bytes per
+    slot first): a cache that fills all free memory starves the very solve
+    it was meant to speed up, so the default admits at most half.  No
+    budget known -> admitted unanalysed (the CPU), never guessed.  Denials
+    are counted under ``cache_admission_denied`` and every verdict is an
+    ``hbm_admission`` trace event."""
+    if mesh is not None and budget is _UNSET:
+        budget, _worst = min_chip_budget(mesh)
     if budget is _UNSET:
         budget = hbm_budget()
     if budget is None:
@@ -426,6 +431,7 @@ def plan_cache_bytes(
     h = fmt_bytes
     reason = (
         ("fits: " if admitted else "DENIED: ")
+        + ("per-chip " if mesh is not None else "")
         + f"cached {h(nbytes)} vs {h(allowed)} "
         f"(budget {h(budget)} x headroom {headroom})"
     )

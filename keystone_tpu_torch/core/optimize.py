@@ -9,11 +9,13 @@ ingest autotuner (counterpart of keystone_tpu/core/optimize.py).
   ``recompute_seconds x (reuse - 1)`` exceeds the amortized cost of
   holding ``output_bytes`` resident (bytes / :func:`cache_gbps`); every
   insertion is admitted through ``core.memory.plan_cache_bytes`` against
-  the card's budget, biggest win first, so a denial drops the cheapest
-  wins.  The decision table lands in a :class:`CachePlan`, in the JAX
+  the card's budget (under a mesh, each slot's share of the row-sharded
+  cache against the slot budget), biggest win first, so a denial drops
+  the cheapest wins.  The decision table lands in a :class:`CachePlan`, in the JAX
   package's JSON.
 * :func:`apply_cache_plan` — the pipeline rebuilt with memoizing
-  ``Cacher`` nodes after each cached node.
+  ``Cacher`` nodes after each cached node (committing to a
+  ``parallel.mesh.SpecSharding`` when given one).
 * :func:`auto_cache_chain` — the whole pass for a chained estimator:
   profile the upstream transformer on a sample (after one warm-up
   application, so a kernel's first-use build and the BLAS set-up are not
@@ -32,8 +34,7 @@ Also here, for the placement search (``core.autoshard``):
 the analytic :class:`CostModel` over the port's device rates
 (``core.profiler.DEVICE_RATES``) and the cross-program
 :class:`CalibrationModel`, and the snapshot advisor
-(:func:`advise_snapshot`).  Single device: a mesh raises, naming the
-distribution item of the roadmap (item 15c-2).
+(:func:`advise_snapshot`).
 """
 
 from __future__ import annotations
@@ -189,9 +190,10 @@ def plan_caches(
     ``core.memory.plan_cache_bytes`` cumulatively, BIGGEST win first, so a
     denial drops the cheapest-win caches: the degradation path under a
     tight ``KEYSTONE_HBM_BUDGET`` is fewer (or no) caches, never a
-    caching-induced OOM.  One device: a ``mesh`` raises."""
-    _single_device(mesh)
+    caching-induced OOM.  Under a ``mesh`` a row-sharded cache charges its
+    per-slot share (bytes / data-axis size) against the slot budget."""
     rate = gbps if gbps is not None else cache_gbps()
+    per_slot = 1 if mesh is None else max(1, int(mesh.shape.get("data", 1)))
     decisions: list[CacheDecision] = []
     eligible: list[CacheDecision] = []
     for c in candidates:
@@ -236,7 +238,8 @@ def plan_caches(
     for d in eligible:
         mp = kmem.plan_cache_bytes(
             f"cache:{d.name}",
-            cum + d.output_bytes,
+            (cum + d.output_bytes) // per_slot,
+            mesh=mesh,
             budget=budget,
             headroom=headroom,
         )
@@ -260,14 +263,6 @@ def plan_caches(
         dropped=list(plan.dropped),
     )
     return plan
-
-
-def _single_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the auto-Cacher plans for one device here; a mesh waits for the "
-            "distribution item (ROADMAP Queue 1 item 15c-2)"
-        )
 
 
 def candidates_from_profile(
@@ -363,8 +358,9 @@ def auto_cache_chain(
        under ``track_reuse`` (fit + one fitted application — the workload
        usage that recomputes upstream intermediates);
     3. scale costs to ``dataset_rows`` and run :func:`plan_caches` through
-       the HBM admission gate;
-    4. rebuild the chain around the Cacher-annotated pipeline.
+       the HBM admission gate (per slot under ``mesh``);
+    4. rebuild the chain around the Cacher-annotated pipeline (each Cacher
+       committing to ``sharding``, when given).
 
     Returns ``(optimized_chain, CachePlan)``.  With every cache denied the
     optimized chain is behaviorally identical to the input (and produces
@@ -377,7 +373,6 @@ def auto_cache_chain(
         )
     xform = chain.xform
     pipe = xform if isinstance(xform, Pipeline) else Pipeline([xform])
-    _single_device(mesh)
     sample_rows = int(getattr(sample, "shape", [len(sample)])[0])
     with trace.span("optimize.auto_cache", nodes=len(pipe.nodes)):
         _synchronize(pipe(sample))

@@ -18,6 +18,11 @@ each node's time and output bytes into a :class:`PipelineProfile` (the JAX
 package's JSON, so either package reads the other's), and the memoizing
 :class:`Cacher` lets a pipeline re-applied to the very same input object
 resume after its last cached node (``core.optimize`` inserts them).
+
+Row-sharded batches (``parallel.mesh.ShardedRows``) flow through a
+``Pipeline`` as they are: a node that computes on tensors runs on them
+slot by slot (``parallel.mesh.map_rows``, pad rows zeroed again), while a
+``Cacher`` and a nested ``Pipeline`` take the record itself.
 """
 
 from __future__ import annotations
@@ -152,7 +157,11 @@ def _output_stats(out) -> tuple[int, str | None, tuple | None, int]:
 
 
 def _leaves(obj):
-    if isinstance(obj, dict):
+    if _is_record(obj):
+        # Each slot's tensor (slots of one device share theirs).
+        for row in obj.shards:
+            yield from row
+    elif isinstance(obj, dict):
         for v in obj.values():
             yield from _leaves(v)
     elif isinstance(obj, (list, tuple)):
@@ -294,7 +303,7 @@ class Pipeline(Transformer):
             n = self.nodes[i]
             if counts is not None:
                 _record_exec(n, counts)
-            batch = n(batch)
+            batch = _apply(n, batch)
             if probing:
                 numerics.probe(f"pipeline.{_node_label(n)}", batch)
             if key is not None and i in cachers:
@@ -322,7 +331,7 @@ class Pipeline(Transformer):
                 label = _node_label(n)
                 with trace.span(f"node:{label}", index=i) as sp:
                     t0 = time.perf_counter()
-                    batch = n(batch)
+                    batch = _apply(n, batch)
                     if sync:
                         _synchronize(batch)
                     dt = time.perf_counter() - t0
@@ -348,6 +357,24 @@ class Pipeline(Transformer):
 
     def __repr__(self):
         return "Pipeline(" + " >> ".join(repr(n) for n in self.nodes) + ")"
+
+
+def _apply(n: Transformer, batch):
+    """``n`` on ``batch``; on row-sharded rows slot by slot
+    (``parallel.mesh.map_rows``) unless ``n`` is a ``Cacher`` or a
+    ``Pipeline``, which take the record itself."""
+    if isinstance(n, (Cacher, Pipeline)) or not _is_record(batch):
+        return n(batch)
+    from ..parallel.mesh import map_rows
+
+    return map_rows(n, batch)
+
+
+def _is_record(obj) -> bool:
+    """Is ``obj`` a mesh layout record (``ShardedRows``, ``SpecLayout``)?"""
+    from ..parallel.mesh import ShardedRows, SpecLayout
+
+    return isinstance(obj, (ShardedRows, SpecLayout))
 
 
 def _capturing() -> bool:
@@ -441,10 +468,14 @@ class Identity(Transformer):
 class Cacher(Transformer):
     """Materialization barrier (reference nodes/util/Cacher.scala:13-23).
 
-    Spark's ``.cache()`` becomes: move the value to the device ``sharding``
-    names (a ``torch.device`` or its name; None keeps it where it is) and,
-    on a card, wait until it is resident.  A mesh sharding waits for the
-    distribution item of the roadmap (item 15c-2) and raises.
+    Spark's ``.cache()`` becomes: commit the value to what ``sharding``
+    names and, on a card, wait until each device holding it is done.  A
+    ``torch.device`` (or its name) moves the value there; a mesh layout
+    (``parallel.mesh.SpecSharding``, as ``core.autoshard.spec_sharding``
+    lowers a spec) lays it out on the mesh with ``place``, a record already
+    in that layout passing through unchanged and any other record gathered
+    first; None keeps the value where it is.  The nodes after a mesh
+    layout see the record (``Pipeline`` runs them slot by slot).
 
     ``memoize=True`` (set by ``core.optimize``) makes the barrier also
     remember one materialized value, keyed on the identity of the
@@ -465,15 +496,24 @@ class Cacher(Transformer):
     def __call__(self, batch):
         import torch
 
+        from ..parallel.mesh import SpecSharding
+
         if _capturing():
             return batch  # the graph owns its buffers
-        if self.sharding is not None:
-            if not isinstance(self.sharding, (torch.device, str)):
-                raise NotImplementedError(
-                    f"Cacher sharding {self.sharding!r}: a mesh layout waits for the "
-                    "distribution item (ROADMAP Queue 1 item 15c-2); give a torch.device"
-                )
+        if isinstance(self.sharding, SpecSharding):
+            if not self.sharding.holds(batch):
+                if _is_record(batch):
+                    batch = batch.gather()
+                elif not isinstance(batch, torch.Tensor):
+                    batch = torch.as_tensor(batch)
+                batch = self.sharding.place(batch)
+        elif isinstance(self.sharding, (torch.device, str)):
             batch = _to_device(batch, torch.device(self.sharding))
+        elif self.sharding is not None:
+            raise TypeError(
+                f"Cacher sharding {self.sharding!r}: give a torch.device or a "
+                "parallel.mesh.SpecSharding"
+            )
         _synchronize(batch)
         return batch
 

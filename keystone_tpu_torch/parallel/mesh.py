@@ -29,6 +29,19 @@ for slot.  :meth:`SpecSharding.place` builds the layout: ``data@dim0`` is a
 device share one copy of what they hold; admission charges every slot its
 own bytes all the same (:func:`slot_nbytes`).
 
+A layout record is not a tensor: a PyTorch operator handed one raises the
+typed :class:`LayoutLeafError`.  A node restored onto a mesh
+(``core.checkpoint.load_pipeline(mesh=)``) holds records as its leaves and
+computes once they are lowered: :func:`replicate` turns every record a node
+holds into the whole tensor on one device (a ``SpecLayout``'s window over
+its whole shape, read on a slot of that device; a ``ShardedRows``' rows
+joined in data order), one copy per device, and then builds the node's
+derived state (``_restore``).  So ``map_rows(node, rows)`` runs a restored
+node slot by slot on sharded rows, and ``replicate(node, x.device)(x)`` on
+a plain tensor; the lowering moves bytes and does no arithmetic.  A
+``Pipeline`` hands sharded rows to each node that computes on tensors
+through :func:`map_rows` (``core.pipeline``).
+
 Multi-process meshes (``mesh_spans_processes``, ``host_local_mesh``) wait
 for ``parallel/distributed.py`` (ROADMAP Queue 1 item 16).
 """
@@ -199,17 +212,6 @@ def add_mesh_flag(p) -> None:
     )
 
 
-def mesh_from_flags(p, a, refused: tuple = ()) -> Mesh | None:
-    """``--mesh`` parsed over ``a.device``; each flag named in ``refused``
-    (its mesh half is not ported) is a usage error beside it
-    (``p.error`` exits)."""
-    if a.mesh:
-        for flag in refused:
-            if getattr(a, flag, None):
-                p.error(f"--{flag} beside --mesh is not ported (ROADMAP Queue 1 item 15c-2)")
-    return parse_mesh(a.mesh, a.device)
-
-
 def device_key(device) -> tuple:
     """``(type, index)`` of a device: ``cuda`` and ``cuda:0`` are one card."""
     d = torch.device(device)
@@ -232,8 +234,26 @@ def on_slot(t: torch.Tensor, device) -> torch.Tensor:
     return t if _same_device(t.device, device) else t.to(device)
 
 
+class LayoutLeafError(RuntimeError):
+    """A mesh layout record (``ShardedRows``, ``SpecLayout``) reached a
+    PyTorch operator, which takes tensors.  (Not a ``TypeError``: PyTorch
+    turns one raised inside a binary operator into ``NotImplemented``.)"""
+
+
+class _LayoutRecord:
+    """Refuses PyTorch operators, typed (``__torch_function__``)."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", func)
+        raise LayoutLeafError(
+            f"{cls.__name__} handed to torch {name}: a mesh layout is not a tensor — "
+            "lower it with parallel.mesh.replicate(obj, device) or gather(), or run the "
+            "node over sharded rows with parallel.mesh.map_rows")
+
+
 @dataclasses.dataclass(eq=False)
-class ShardedRows:
+class ShardedRows(_LayoutRecord):
     """Rows of one array over a mesh: ``shards[d][m]`` is data block ``d``
     (``rows // data`` rows, in order) on slot ``(d, m)``'s device.  Rows at
     index >= ``nvalid`` are pad rows, zero where the record was made.
@@ -265,9 +285,10 @@ class ShardedRows:
         """One tensor per data index (model slot 0's), in data order."""
         return [row[0] for row in self.shards]
 
-    def gather(self) -> torch.Tensor:
-        """The true rows, in data order, on slot (0, 0)'s device."""
-        dev = self.mesh.devices[0, 0]
+    def gather(self, device=None) -> torch.Tensor:
+        """The true rows, in data order, on ``device`` (slot (0, 0)'s by
+        default)."""
+        dev = self.mesh.devices[0, 0] if device is None else device
         return torch.cat([on_slot(b, dev) for b in self.data_blocks()])[: self.nvalid]
 
     def apply(self, fn) -> "ShardedRows":
@@ -310,12 +331,16 @@ def _per_distinct(shards: list, fn) -> list:
 
 def replicate(obj, device):
     """``obj`` with every tensor it holds in ``device``'s memory: a tensor,
-    a list or tuple, or a pipeline node (``core.pipeline.Transformer``: a
+    a layout record (lowered to the whole tensor: :func:`lower`), a list,
+    tuple or dict, or a pipeline node (``core.pipeline.Transformer``: a
     shallow copy with its attributes replicated, a ``torch.device``
-    attribute among them).  Anything else, and anything already there, is
-    returned as it is."""
+    attribute among them; a node that held layout records builds its
+    derived state, ``_restore``, from the lowered tensors).  Anything else,
+    and anything already there, is returned as it is."""
     if isinstance(obj, torch.Tensor):
         return on_slot(obj, device)
+    if isinstance(obj, (ShardedRows, SpecLayout)):
+        return lower(obj, device)
     if isinstance(obj, torch.device):
         return obj if _same_device(obj, device) else torch.device(device)
     if isinstance(obj, (list, tuple)):
@@ -323,6 +348,9 @@ def replicate(obj, device):
         if all(a is b for a, b in zip(items, obj)):
             return obj
         return type(obj)(items)
+    if isinstance(obj, dict):
+        out = {k: replicate(v, device) for k, v in obj.items()}
+        return obj if all(out[k] is v for k, v in obj.items()) else out
     from ..core.pipeline import Transformer
 
     if not isinstance(obj, Transformer):
@@ -332,7 +360,31 @@ def replicate(obj, device):
         return obj
     out = copy.copy(obj)
     vars(out).update(fields)
+    restore = getattr(out, "_restore", None)
+    if restore is not None and any(holds_record(v) for v in vars(obj).values()):
+        restore()
     return out
+
+
+def lower(record, device) -> torch.Tensor:
+    """A layout record as the whole tensor on ``device``: a ``ShardedRows``'
+    true rows joined in data order, a ``SpecLayout``'s window over its whole
+    shape read on a slot of that device (slot (0, 0) when none is), so a
+    slot holding the whole tensor gives a view of its piece.  Bytes move;
+    nothing is computed."""
+    if isinstance(record, ShardedRows):
+        return record.gather(device)
+    slot = next((s for s in np.ndindex(record.mesh.devices.shape)
+                 if _same_device(record.mesh.devices[s], device)), (0, 0))
+    whole = record.window(tuple(slice(None) for _ in record.shape), slot)
+    return on_slot(whole, device)
+
+
+def holds_record(v) -> bool:
+    """Is ``v`` a layout record, or a list or tuple holding one?"""
+    if isinstance(v, (list, tuple)):
+        return any(holds_record(o) for o in v)
+    return isinstance(v, (ShardedRows, SpecLayout))
 
 
 def padded_shard_rows(x, mesh: Mesh | None = None, nvalid: int | None = None):
@@ -421,6 +473,28 @@ class SpecSharding:
                 out[d, m] = tuple(idx)
         return out
 
+    @property
+    def spec_string(self) -> str:
+        """The spec this layout was lowered from (``core.autoshard``'s
+        vocabulary): ``'replicated'`` when every slot holds the whole
+        tensor, else ``'<axis>@dim<N>'``."""
+        if self.split is None:
+            return "replicated"
+        dim, axis = self.split
+        return f"{axis}@dim{dim}"
+
+    def _rows(self) -> bool:
+        """Is this the rows-over-the-data-axis layout (``data@dim0``)?"""
+        return self.spec[:1] == (DATA_AXIS,) and all(ax is None for ax in self.spec[1:])
+
+    def holds(self, record) -> bool:
+        """Is ``record`` already laid out this way on this mesh's devices?"""
+        if isinstance(record, ShardedRows):
+            return (self._rows() and len(record.shape) == len(self.spec)
+                    and _same_layout(record.mesh, self.mesh))
+        return (isinstance(record, SpecLayout) and record.sharding.spec == self.spec
+                and _same_layout(record.mesh, self.mesh))
+
     def place(self, t: torch.Tensor):
         """``t`` laid out on the mesh.  Rows over the data axis
         (``data@dim0``) give the ``ShardedRows`` of :func:`padded_shard_rows`
@@ -428,8 +502,22 @@ class SpecSharding:
         :class:`SpecLayout`.  A slot on ``t``'s device holds a view of
         ``t``; slots of one device share one tensor."""
         index = self.devices_indices_map(t.shape)
-        if self.spec[:1] == (DATA_AXIS,) and all(ax is None for ax in self.spec[1:]):
+        if self._rows():
             return padded_shard_rows(t, self.mesh)[0]
+        return self._assemble(tuple(int(n) for n in t.shape), index,
+                              lambda idx, dev: on_slot(t[idx], dev))
+
+    def place_staged(self, t: torch.Tensor):
+        """:meth:`place` for a tensor in host memory, copied window by
+        window: each distinct (device, window) once, one copy at a time,
+        so no device ever stages the whole tensor."""
+        shape = tuple(int(n) for n in t.shape)
+        return self._assemble(shape, self.devices_indices_map(shape),
+                              lambda idx, dev: t[idx].to(dev))
+
+    def _assemble(self, shape: tuple, index: dict, piece):
+        """The record whose slot ``(d, m)`` holds ``piece(index[d, m],
+        device)``, made once per distinct (device, window)."""
         held: dict = {}
         shards = []
         for d, row in enumerate(self.mesh.devices):
@@ -437,14 +525,16 @@ class SpecSharding:
             for m, dev in enumerate(row):
                 key = (device_key(dev), index[d, m])
                 if key not in held:
-                    held[key] = on_slot(t[index[d, m]], dev)
+                    held[key] = piece(index[d, m], dev)
                 out_row.append(held[key])
             shards.append(out_row)
-        return SpecLayout(self, tuple(int(n) for n in t.shape), shards)
+        if self._rows():
+            return ShardedRows(self.mesh, shards, shape[0])
+        return SpecLayout(self, shape, shards)
 
 
 @dataclasses.dataclass(eq=False)
-class SpecLayout:
+class SpecLayout(_LayoutRecord):
     """One tensor of global ``shape`` laid out by ``sharding``:
     ``shards[d][m]`` is the piece slot ``(d, m)`` holds, on its device
     (``sharding.devices_indices_map(shape)[d, m]`` of the whole)."""

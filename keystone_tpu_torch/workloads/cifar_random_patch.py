@@ -39,9 +39,13 @@ mesh's data axis: every slot featurizes its own rows in chunks of
 ``featurize_chunk / data`` (one K1 launch per slot and chunk), the scaler's
 moments and the block solve reduce over the data axis, and the solve runs
 the block solver's mesh ladder.  Filter learning stays on ``--device``, as
-the reference's driver-local ZCA fit.  ``--autoCache``, ``--autoTune`` and
-``--pipelineFile`` are usage errors beside ``--mesh`` (ROADMAP Queue 1
-item 15c-2).
+the reference's driver-local ZCA fit.  Beside ``--mesh``, ``--autoCache``
+profiles the row-sharded featurize and charges its cache per data slot
+(the ``Pipeline`` runs the scaler on the cached rows slot by slot),
+``--pipelineFile`` saves the servable chain (replicated: the solve
+unshards its model), which a later run restores and scores on one device,
+and ``--autoTune`` tunes the streamed test split, which keeps its
+unsharded pass.
 
 Run: ``python -m keystone_tpu_torch.workloads.cifar_random_patch
 --trainLocation train.bin --testLocation test.bin [--device cpu]``.
@@ -78,8 +82,8 @@ from ..parallel.mesh import (
     DATA_AXIS,
     add_mesh_flag,
     map_rows,
-    mesh_from_flags,
     padded_shard_rows,
+    parse_mesh,
     unshard,
 )
 from ..solvers.block import BlockLeastSquaresEstimator
@@ -435,12 +439,15 @@ def run(
         # StandardScaler``: the fit and the fitted application each push
         # the images through the featurizer (reuse 2, measured on a
         # sample), and a memoizing Cacher replays the fit's features when
-        # the recompute beats holding them.  The memo is keyed on the
+        # the recompute beats holding them (charged per data slot under a
+        # mesh, where the features are row-sharded and the Pipeline runs
+        # the scaler on them slot by slot).  The memo is keyed on the
         # identity of the pipeline's input, so the fit and the fitted
         # chain get the very same host array.
         images = train.images
         feat_node = FunctionTransformer(
-            lambda imgs: featurize_chunked(conv_pipe, imgs, conf.featurize_chunk, dev),
+            lambda imgs: featurize_chunked(conv_pipe, imgs, conf.featurize_chunk, dev,
+                                           mesh=mesh),
             name="conv_featurize",
         )
         chain, cache_plan = optimize.auto_cache_chain(
@@ -732,7 +739,7 @@ def main(argv=None) -> dict:
         auto_shard=a.autoShard,
     )
     resolve_device(conf.device)
-    mesh = mesh_from_flags(p, a, ("autoCache", "autoTune", "pipelineFile"))
+    mesh = parse_mesh(a.mesh, a.device)
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)
     try:
         with stage_timer("load"):

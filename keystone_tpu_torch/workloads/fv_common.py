@@ -20,6 +20,7 @@ PCA-projected training descriptors (``--autoCache``).
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import Callable
@@ -266,14 +267,15 @@ def scatter_features(buckets: dict, transform, n_total: int, feature_dim: int) -
 
 
 def plan_pca_materialization(desc_buckets: dict, batch_pca, reuse: int, *,
-                             label: str = "pca_descriptors"):
+                             label: str = "pca_descriptors", mesh=None):
     """The auto-Cacher's decision (``core.optimize``) on the PCA-projected
     training descriptors, which GMM sampling and the Fisher features both
     consume.  The projection is timed on the smallest bucket, after one
     warm-up call (a first call on the card can hold a kernel's first-use
     build and the BLAS set-up, which the dataset ratio would scale up);
     seconds and bytes scale to the whole set, and the caching inequality
-    runs through the card's admission gate.
+    runs through the card's admission gate (under ``mesh``, each data
+    slot's share of row-sharded buckets against the slot budget).
 
     Returns ``(CachePlan, materialize)``.  ``materialize`` keeps the
     projected set whole between its consumers (the raw buckets dropped
@@ -283,10 +285,11 @@ def plan_pca_materialization(desc_buckets: dict, batch_pca, reuse: int, *,
     from ..core import optimize
     from ..core.pipeline import _synchronize
 
-    _shape, (_idx, probe) = min(desc_buckets.items(), key=lambda kv: kv[1][1].numel())
-    _synchronize(batch_pca(probe))
+    _shape, (_idx, probe) = min(desc_buckets.items(),
+                                key=lambda kv: math.prod(kv[1][1].shape))
+    _synchronize(per_bucket(batch_pca, probe))
     t0 = time.perf_counter()
-    out = batch_pca(probe)
+    out = per_bucket(batch_pca, probe)
     _synchronize(out)
     probe_secs = time.perf_counter() - t0
     probe_cols = int(probe.shape[0]) * int(probe.shape[2])
@@ -297,7 +300,7 @@ def plan_pca_materialization(desc_buckets: dict, batch_pca, reuse: int, *,
             index=0, name=label, seconds=probe_secs * scale,
             output_bytes=int(out.nbytes * scale), reuse=reuse,
         )
-    ])
+    ], mesh=mesh)
     return plan, plan.decisions[0].cached
 
 

@@ -39,9 +39,11 @@ placement chosen by the placement search
 (``fv_common.searched_bucket_featurize``; the training passes' records in
 ``results["placement"]``); descriptors, the PCA projection and the Fisher
 features (K2) run slot by slot, and the class-weighted solve runs its mesh
-ladder.  A streamed split keeps its unsharded passes.  ``--autoCache``,
-``--autoTune`` and ``--pipelineFile`` beside ``--mesh`` are usage errors
-(ROADMAP Queue 1 item 15c-2).
+ladder.  A streamed split keeps its unsharded passes (``--autoTune`` tunes
+them as without a mesh).  Beside ``--mesh``, ``--autoCache`` charges each
+branch's projected descriptors per data slot against the slot budget, and
+``--pipelineFile`` saves the fitted bundle, which a later run restores and
+applies on the mesh.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ from ..ops.lcs import LCSExtractor
 from ..ops.sift import SIFTExtractor
 from ..ops.stats import SignedHellingerMapper
 from ..ops.util import ClassLabelIndicatorsFromIntLabels, TopKClassifier, ZipVectors
-from ..parallel.mesh import add_mesh_flag, mesh_from_flags
+from ..parallel.mesh import add_mesh_flag, parse_mesh
 from ..solvers.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from ..solvers.pca import BatchPCATransformer, compute_pca
 from ..solvers.weighted import BlockWeightedLeastSquaresEstimator
@@ -206,14 +208,16 @@ def descriptor_buckets(conf: ImageNetSiftLcsFVConfig, images, branch: str, mesh=
     return out
 
 
-def _fit_branch(conf: ImageNetSiftLcsFVConfig, desc_buckets: dict, branch: str, lap) -> tuple:
+def _fit_branch(conf: ImageNetSiftLcsFVConfig, desc_buckets: dict, branch: str, lap,
+                mesh=None) -> tuple:
     """Fit (or load) the branch's PCA and GMM from the training descriptors
     and project them.  ``desc_buckets`` is consumed: each raw bucket is
     dropped as soon as its projection exists, so the raw set and the
     projected set never both stay whole.  With ``conf.auto_cache`` the
     auto-Cacher decides that materialization; denied, the raw buckets stay
     and each consumer projects one bucket at a time (the same bits), and
-    the projected buckets come back as None.  Returns (batch_pca, gmm,
+    the projected buckets come back as None; under ``mesh`` it charges the
+    projection per data slot.  Returns (batch_pca, gmm,
     projected buckets or None, seconds by stage, the cache plan or None)."""
     dev = resolve_device(conf.device)
     pca_file, (mean_f, var_f, wts_f) = conf.branch_files(branch)
@@ -235,7 +239,7 @@ def _fit_branch(conf: ImageNetSiftLcsFVConfig, desc_buckets: dict, branch: str, 
         # GMM sampling (when a GMM is fitted) and the Fisher features.
         reuse = (0 if mean_f is not None else 1) + 1
         plan, materialize = plan_pca_materialization(
-            desc_buckets, batch_pca, reuse, label=f"{branch}_pca_descriptors")
+            desc_buckets, batch_pca, reuse, label=f"{branch}_pca_descriptors", mesh=mesh)
         _log.info("%s branch %s", branch, plan.summary())
 
     t = time.perf_counter()
@@ -306,7 +310,7 @@ def branch_features(conf: ImageNetSiftLcsFVConfig, train_images, test_images, br
     t = time.perf_counter()
     train_desc = descriptor_buckets(conf, train_images, branch, mesh, placement_out)
     describe_secs = lap(t)
-    batch_pca, gmm, pca_desc, secs, plan = _fit_branch(conf, train_desc, branch, lap)
+    batch_pca, gmm, pca_desc, secs, plan = _fit_branch(conf, train_desc, branch, lap, mesh)
     secs["describe"] = describe_secs
     t = time.perf_counter()
     feat_dim = 2 * conf.desc_dim * conf.vocab_size
@@ -337,9 +341,6 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
     ends after a synchronize."""
     configure_logging()
     dev = resolve_device(conf.device)
-    if mesh is not None and conf.auto_cache:
-        raise ValueError("the auto-Cacher under a mesh is not ported (ROADMAP Queue 1 "
-                         "item 15c-2)")
     t0 = time.perf_counter()
 
     def lap(start: float) -> float:
@@ -564,7 +565,7 @@ def main(argv=None) -> dict:
         auto_shard=a.autoShard,
     )
     resolve_device(conf.device)
-    mesh = mesh_from_flags(p, a, ("autoCache", "autoTune", "pipelineFile"))
+    mesh = parse_mesh(a.mesh, a.device)
     restoring = conf.pipeline_file is not None and checkpoint_exists(conf.pipeline_file)
 
     def load(path: str):

@@ -28,7 +28,7 @@ from ..evaluation.multiclass import MulticlassClassifierEvaluator
 from ..loaders.cifar import LabeledImageBatch, cifar_loader
 from ..ops.images import GrayScaler, ImageVectorizer
 from ..ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
-from ..parallel.mesh import add_mesh_flag, mesh_from_flags
+from ..parallel.mesh import add_mesh_flag, parse_mesh
 from ..solvers.linear import LinearMapEstimator
 from ..utils.platform import resolve_device, synchronize
 
@@ -97,7 +97,7 @@ def main(argv=None) -> dict:
         train_location=a.trainLocation, test_location=a.testLocation, device=a.device
     )
     resolve_device(conf.device)
-    mesh = mesh_from_flags(p, a)
+    mesh = parse_mesh(a.mesh, a.device)
     train = cifar_loader(conf.train_location)
     test = cifar_loader(conf.test_location)
     return run(conf, train, test, mesh=mesh)

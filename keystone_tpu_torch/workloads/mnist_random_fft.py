@@ -20,8 +20,10 @@ data, fits nothing and scores the test split.  ``--serve`` /
 serving tier (``workloads.serve_common``) and answer test rows through it.
 ``--mesh`` row-shards both splits over the mesh's data axis (the features
 are row-wise, and zero pad rows stay zero through them) and solves over the
-mesh (``BlockLeastSquaresEstimator(mesh=)``); ``--autoCache`` and
-``--pipelineFile`` are usage errors beside it (ROADMAP Queue 1 item 15c-2).
+mesh (``BlockLeastSquaresEstimator(mesh=)``); beside it ``--autoCache``
+charges the row-sharded feature batches per data slot against the slot
+budget, and ``--pipelineFile`` saves the servable chain, which a later run
+restores and scores on one device.
 
 Run: ``python -m keystone_tpu_torch.workloads.mnist_random_fft
 --trainLocation train.csv --testLocation test.csv [--device cpu]``.
@@ -54,7 +56,7 @@ from ..ops.util import (
     MaxClassifier,
     ZipVectors,
 )
-from ..parallel.mesh import add_mesh_flag, map_rows, mesh_from_flags, padded_shard_rows
+from ..parallel.mesh import add_mesh_flag, map_rows, padded_shard_rows, parse_mesh
 from ..solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
 from ..utils.platform import resolve_device, synchronize
 from . import serve_common
@@ -383,7 +385,7 @@ def main(argv=None) -> dict:
         auto_shard=a.autoShard,
     )
     resolve_device(conf.device)
-    mesh = mesh_from_flags(p, a, ("autoCache", "pipelineFile"))
+    mesh = parse_mesh(a.mesh, a.device)
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)
     try:
         t_load = time.perf_counter()

@@ -35,7 +35,7 @@ from ..loaders.newsgroups import CLASSES, NewsgroupsData, newsgroups_loader
 from ..ops.nlp import LowerCase, NGramsFeaturizer, TermFrequency, Tokenizer, Trim
 from ..ops.sparse import CommonSparseFeatures
 from ..ops.util import MaxClassifier
-from ..parallel.mesh import add_mesh_flag, mesh_from_flags, use_mesh
+from ..parallel.mesh import add_mesh_flag, parse_mesh, use_mesh
 from ..solvers.naive_bayes import NaiveBayesEstimator
 from ..utils.platform import resolve_device, synchronize
 
@@ -126,7 +126,7 @@ def main(argv=None) -> dict:
         device=a.device,
     )
     resolve_device(conf.device)
-    mesh = mesh_from_flags(p, a)
+    mesh = parse_mesh(a.mesh, a.device)
     train = newsgroups_loader(conf.train_location)
     test = newsgroups_loader(conf.test_location)
     return run(conf, train, test, mesh=mesh)

@@ -35,7 +35,7 @@ from ..loaders.cifar import LabeledImageBatch, cifar_loader
 from ..ops.conv_fused import FusedConvFeaturizer
 from ..ops.stats import StandardScaler
 from ..ops.util import ClassLabelIndicatorsFromIntLabels, MaxClassifier
-from ..parallel.mesh import add_mesh_flag, map_rows, mesh_from_flags, unshard
+from ..parallel.mesh import add_mesh_flag, map_rows, parse_mesh, unshard
 from ..solvers.linear import LinearMapEstimator
 from ..utils.platform import resolve_device, synchronize
 from .cifar_random_patch import featurize_chunked
@@ -181,7 +181,7 @@ def main(argv=None) -> dict:
         device=a.device,
     )
     resolve_device(conf.device)
-    mesh = mesh_from_flags(p, a)
+    mesh = parse_mesh(a.mesh, a.device)
     train = cifar_loader(conf.train_location)
     test = cifar_loader(conf.test_location)
     return run(conf, train, test, mesh=mesh)

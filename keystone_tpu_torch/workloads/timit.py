@@ -42,7 +42,7 @@ from ..loaders.timit import (
 )
 from ..ops.stats import CosineRandomFeatures, StandardScaler
 from ..ops.util import ClassLabelIndicatorsFromIntLabels, GroupConcatFeaturizer, MaxClassifier
-from ..parallel.mesh import add_mesh_flag, map_rows, mesh_from_flags, padded_shard_rows
+from ..parallel.mesh import add_mesh_flag, map_rows, padded_shard_rows, parse_mesh
 from ..solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
 from ..utils.platform import resolve_device, synchronize
 
@@ -201,7 +201,7 @@ def main(argv=None) -> dict:
         device=a.device,
     )
     resolve_device(conf.device)
-    mesh = mesh_from_flags(p, a)
+    mesh = parse_mesh(a.mesh, a.device)
     t_load = time.perf_counter()
     data = timit_features_loader(
         conf.train_data_location,

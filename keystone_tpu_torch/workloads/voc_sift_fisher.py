@@ -18,10 +18,13 @@ over the mesh's data slots, with the placement chosen by the placement
 search (``fv_common.searched_bucket_featurize``, its record in
 ``results["placement"]``); SIFT, the PCA projection and the Fisher
 features (K2) run slot by slot, and the block solve runs its mesh ladder.
-A streamed split keeps its unsharded descriptor pass.  ``--autoCache``,
-``--autoTune`` and ``--pipelineFile`` beside ``--mesh`` are usage errors
-(ROADMAP Queue 1 item 15c-2), and ``--solveCheckpoint`` raises under a mesh
-as the block solve does.
+A streamed split keeps its unsharded descriptor pass (``--autoTune``
+tunes it as without a mesh).  Beside ``--mesh``, ``--autoCache`` charges
+the projected descriptors per data slot against the slot budget,
+``--pipelineFile`` saves the fitted bundle (replicated: the solve unshards
+its model) and a later run restores it and featurizes the test split on
+the mesh; ``--solveCheckpoint`` raises under a mesh as the block solve
+does.
 
 ``--streamIngest`` streams each tar through ``core.ingest`` (decode of the
 next chunks overlaps SIFT of this one); with ``--deviceDecode`` the host
@@ -75,7 +78,7 @@ from ..loaders.image_loaders import (
 )
 from ..ops.sift import SIFTExtractor
 from ..ops.util import ClassLabelIndicatorsFromIntArrayLabels
-from ..parallel.mesh import add_mesh_flag, mesh_from_flags
+from ..parallel.mesh import add_mesh_flag, parse_mesh
 from ..solvers.block import BlockLeastSquaresEstimator, bcd_checkpoint_path
 from ..solvers.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from ..solvers.pca import BatchPCATransformer, compute_pca
@@ -213,9 +216,6 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages,
     holds the solve's record under ``"solver"`` beside the featurize's."""
     dev = resolve_device(conf.device)
     feat_dim = 2 * conf.desc_dim * conf.vocab_size
-    if mesh is not None and conf.auto_cache:
-        raise ValueError("the auto-Cacher under a mesh is not ported (ROADMAP Queue 1 "
-                         "item 15c-2)")
 
     def lap(start: float) -> float:
         synchronize(dev)
@@ -243,7 +243,7 @@ def fit_bundle(conf: SIFTFisherConfig, train: MultiLabeledImages,
             # GMM sampling (when a GMM is fitted) and the Fisher features.
             reuse = (0 if conf.gmm_mean_file is not None else 1) + 1
             cache_plan, materialize = plan_pca_materialization(
-                train_desc, batch_pca, reuse, label="voc_pca_descriptors")
+                train_desc, batch_pca, reuse, label="voc_pca_descriptors", mesh=mesh)
             _log.info("%s", cache_plan.summary())
         t_proj = time.perf_counter()
         if materialize:
@@ -553,7 +553,7 @@ def main(argv=None) -> dict:
         auto_shard=a.autoShard,
     )
     resolve_device(conf.device)
-    mesh = mesh_from_flags(p, a, ("autoCache", "autoTune", "pipelineFile"))
+    mesh = parse_mesh(a.mesh, a.device)
     restoring = a.pipelineFile is not None and checkpoint_exists(a.pipelineFile)
 
     def load(path: str):

@@ -12,7 +12,8 @@ which share one on-disk format.
   port checkpoint loads in the JAX package, and both apply alike on the
   same input within the tolerance that node's parity test pins (stated
   per case below).  A checkpoint the JAX package wrote sharded over a
-  mesh raises ``CheckpointMismatch`` in the port.
+  mesh raises ``CheckpointMismatch`` in the port, unless loaded with
+  ``mesh=`` (``tests/test_torch_checkpoint_mesh.py`` holds that load).
 * End to end through ``--pipelineFile``: RandomPatchCifar and
   MnistRandomFFT give equal predictions and VOCSIFTFisher the same MAP
   whichever package fitted and whichever restored; a restored port run
@@ -305,15 +306,21 @@ class TestTopology:
         _assert_leaves_bit_identical(node, load_pipeline(stem, device="cpu"))
 
     def test_sharded_jax_checkpoint_raises_mismatch(self, tmp_path, rng, mesh8):
+        """The naive load is refused; with ``mesh=`` the rows are laid out
+        on the port's slots, bit-equal to what the JAX package saved."""
         from keystone_tpu.parallel.mesh import row_sharding, use_mesh
+        from keystone_tpu_torch.parallel.mesh import ShardedRows, make_mesh
 
-        node = jpca.PCATransformer(
-            jax.device_put(jnp.asarray(_f32(rng, 16, 2)), row_sharding(mesh8)))
+        arr = _f32(rng, 16, 2)
+        node = jpca.PCATransformer(jax.device_put(jnp.asarray(arr), row_sharding(mesh8)))
         with use_mesh(mesh8):
             stem = jck.save_pipeline(str(tmp_path / "sharded"), node)
         with pytest.raises(CheckpointMismatch, match="sharded"):
             load_pipeline(stem, device="cpu")
         assert issubclass(CheckpointMismatch, CheckpointError)
+        placed = load_pipeline(stem, mesh=make_mesh(4, 1, devices=[torch.device("cpu")] * 4))
+        assert isinstance(placed.pca_mat, ShardedRows)
+        assert torch.equal(placed.pca_mat.gather(), torch.from_numpy(arr))
 
 
 def test_predictions_identical_in_fresh_process(tmp_path, rng):

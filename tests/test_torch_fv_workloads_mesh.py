@@ -41,6 +41,7 @@ from keystone_tpu_torch.workloads import newsgroups as png
 from keystone_tpu_torch.workloads import voc_sift_fisher as pvoc
 from test_fisher_pipelines import write_voc_tar
 from test_torch_imagenet import NUM_CLASSES, SMALL_CONF, _write_split
+from test_torch_imagenet import SMALL as INET_FLAGS
 from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 CPU = torch.device("cpu")
@@ -264,17 +265,25 @@ def test_newsgroups_run_on_a_mesh_is_the_unsharded_run_and_jax(ng_tree, mesh8):
 # -- the CLIs ------------------------------------------------------------------------
 
 
-def test_cli_mesh_flag_refusals(voc_data, inet_data):
-    """``--mesh`` is taken; beside it ``--autoCache`` and ``--pipelineFile``
-    are usage errors naming item 15c, and a mesh of more slots than the CPU
-    has devices raises as the JAX package does."""
+def test_cli_mesh_flag_refusals(voc_data, inet_data, tmp_path):
+    """``--mesh`` is taken, and beside it ``--autoCache`` and
+    ``--pipelineFile``: the scores equal the ``--mesh 1`` run's, and the
+    saved bundle restores to them; a mesh of more slots than the CPU has
+    devices raises as the JAX package does."""
     voc = ["--trainLocation", voc_data[0], "--testLocation", voc_data[0], "--labelPath",
-           voc_data[1], "--device", "cpu"]
+           voc_data[1], "--lambda", "0.05", "--descDim", "16", "--vocabSize", "8",
+           "--numPcaSamples", "6000", "--numGmmSamples", "6000", "--device", "cpu"]
     inet = ["--trainLocation", inet_data[0], "--testLocation", inet_data[1], "--labelPath",
-            inet_data[2], "--device", "cpu"]
-    for main, base in ((pvoc.main, voc), (pinet.main, inet)):
-        for flags in (["--autoCache"], ["--pipelineFile", "stem"]):
-            with pytest.raises(SystemExit):
-                main([*base, "--mesh", "1", *flags])
+            inet_data[2], *INET_FLAGS, "--device", "cpu"]
+    for name, main, base in (("voc", pvoc.main, voc), ("inet", pinet.main, inet)):
+        base = [*base, "--mesh", "1"]
+        plain = main(base)
+        stem = str(tmp_path / name)
+        # --autoCache; --pipelineFile fits and saves; again, it restores.
+        for flags, restored in ((["--autoCache"], False), (["--pipelineFile", stem], False),
+                                (["--pipelineFile", stem], True)):
+            res = main([*base, *flags])
+            assert res.get("restored", False) == restored
+            np.testing.assert_array_equal(res["test_scores"], plain["test_scores"])
         with pytest.raises(ValueError, match="mesh 8x1 needs 8 devices, have 1"):
-            main([*base, "--mesh", "8"])
+            main([*base[:-2], "--mesh", "8"])

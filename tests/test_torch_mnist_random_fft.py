@@ -204,8 +204,9 @@ def test_cli_needs_a_card_by_default(csv_files, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    # beside --mesh, the flags whose mesh half is not ported
-    ["--mesh", "1", "--autoCache"], ["--autoShard", "--mesh", "1", "--pipelineFile", "ck"],
+    # beside --mesh: the serving mesh (not ported), a flag without its path
+    ["--mesh", "1", "--autoCache", "--serveMesh", "1x1"], ["--autoShard", "--mesh", "1",
+                                                          "--pipelineFile"],
     ["--solveCheckpoint"],  # the flag needs its path
     ["--resumeFrom"], ["--serveMesh", "2x1"], ["--serve", "--serveMesh", "1x1"],
     ["--blockSize", "300"],

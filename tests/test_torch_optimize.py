@@ -149,8 +149,19 @@ class TestPlanCaches:
         assert all("reason" in d for d in doc["decisions"])
 
     def test_a_mesh_waits_for_distribution(self, no_budget):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            optimize.plan_caches([cand("x", 1.0, 1, reuse=2)], mesh=object())
+        """A mesh is planned for, not refused: a row-sharded cache charges
+        each data slot its share, so 4 data slots admit what one device's
+        budget denies (``tests/test_torch_cacher_mesh.py`` holds the table
+        to the JAX package's)."""
+        from keystone_tpu_torch.parallel.mesh import make_mesh
+
+        rows = [cand("x", 100.0, 4 * 2**20, reuse=2)]
+        budget = 4 * 2**20  # half of it at the default headroom
+        assert optimize.plan_caches(rows, budget=budget).dropped == ["x"]
+        mesh = make_mesh(4, 2, devices=[torch.device("cpu")] * 8)
+        plan = optimize.plan_caches(rows, budget=budget, mesh=mesh)
+        assert [d.name for d in plan.cached()] == ["x"]
+        assert "per-chip cached 1.00MB" in plan.decisions[0].reason
 
 
 ROWS = {
@@ -327,7 +338,8 @@ class TestReuseAndMemo:
 def test_cacher_sharding_path():
     """The counterpart of ``tests/test_pipeline_core.py``'s Cacher case: a
     ``torch.device`` sharding commits the value there, downstream nodes see
-    it, a capture leaves it alone, and a mesh layout raises."""
+    it, a capture leaves it alone, and anything but a device or a mesh
+    layout (``tests/test_torch_cacher_mesh.py``) raises."""
     x = torch.arange(64, dtype=torch.float32).reshape(8, 8)
     cached = Cacher(name="feats", sharding=torch.device("cpu"))(x)
     assert cached.device == torch.device("cpu")
@@ -336,7 +348,7 @@ def test_cacher_sharding_path():
     pipe = Pipeline([Cacher(sharding=torch.device("cpu")),
                      FunctionTransformer(lambda y: y + 1.0)])
     assert torch.equal(pipe(x), x + 1.0)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="SpecSharding"):
         Cacher(sharding=("data", None))(x)
 
 

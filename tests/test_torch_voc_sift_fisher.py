@@ -170,14 +170,18 @@ def test_cli_rejects_unported_stream_flags(voc_tar, flags):
 
 def test_cli_rejects_unported_flags_and_needs_a_card(voc_tar, monkeypatch):
     """``--mesh`` is taken and refuses a mesh of more slots than the CPU has
-    devices, as the JAX package does; beside it ``--autoCache`` is a usage
-    error (ROADMAP Queue 1 item 15c)."""
+    devices, as the JAX package does; beside it ``--autoCache`` is taken,
+    with the scores of the ``--mesh 1`` run."""
     tar, labels = voc_tar
     base = ["--trainLocation", tar, "--testLocation", tar, "--labelPath", labels]
     with pytest.raises(ValueError, match="mesh 8x1 needs 8 devices, have 1"):
         pvoc.main([*base, "--mesh", "8", "--device", "cpu"])
-    with pytest.raises(SystemExit):
-        pvoc.main([*base, "--mesh", "1", "--autoCache", "--device", "cpu"])
+    small = [*base, "--lambda", "0.05", "--descDim", "16", "--vocabSize", "8",
+             "--numPcaSamples", "6000", "--numGmmSamples", "6000", "--mesh", "1",
+             "--device", "cpu"]
+    cached = pvoc.main([*small, "--autoCache"])
+    assert cached["cache_plan"]["decisions"][0]["name"] == "voc_pca_descriptors"
+    np.testing.assert_array_equal(cached["test_scores"], pvoc.main(small)["test_scores"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         pvoc.main(base)

@@ -224,11 +224,25 @@ def test_cli_mesh_one_is_the_run_without_a_mesh(name, cifar_files, mnist_csvs, t
     ("mnist_random_fft", "--autoCache"), ("mnist_random_fft", "--pipelineFile"),
 ])
 def test_cli_flags_without_a_mesh_half_are_usage_errors(name, flag, cifar_files, mnist_csvs,
-                                                        timit_files, tmp_path):
+                                                        timit_files, tmp_path, monkeypatch):
+    """Beside ``--mesh`` the flag is taken: the predictions are the
+    ``--mesh 1`` run's, and a ``--pipelineFile`` the run saved restores to
+    them."""
     module, args = _cli_args(name, cifar_files, mnist_csvs, timit_files)
+    if name in SMALL:
+        cls, fields = SMALL[name]
+        monkeypatch.setattr(module, cls, functools.partial(getattr(module, cls), **fields))
+    args = args + ["--device", "cpu", "--mesh", "1"]
+    plain = module.main(args)
     extra = [flag, str(tmp_path / "ck")] if flag == "--pipelineFile" else [flag]
-    with pytest.raises(SystemExit):
-        module.main(args + ["--device", "cpu", "--mesh", "1"] + extra)
+    runs = [module.main(args + extra)]
+    if flag == "--pipelineFile":
+        runs.append(module.main(args + extra))
+        assert runs[1]["restored"] and not runs[0].get("restored")
+    else:
+        assert "cache_plan" in runs[0]
+    for res in runs:
+        np.testing.assert_array_equal(res["test_predictions"], plain["test_predictions"])
 
 
 def test_cli_mesh_on_cuda_without_a_card_raises(cifar_files, monkeypatch):
