@@ -372,7 +372,24 @@ which raises (and so exits non-zero) on failure:
    the reshard stats and the load seconds printed; (d) phase 22's tar
    with ``--deviceDecode`` on ``(4, 2)`` with the ingest autotuner
    evaluating every chunk and without it: K3 and K1 launch, predictions
-   equal.
+   equal;
+33. serving on slots of ``cuda:0`` (``load_engine(mesh=)``, each bucket
+   one CUDA graph recording every data slot's rows): (a) phase 3's Cifar
+   servable on ``(4, 2)`` at the default buckets: each bucket's parity,
+   capture bytes and per-slot charge against the slot budget, K1 recorded
+   once per data slot in each bucket's graph, 1,024 requests through a
+   mesh-anchored ``ShapeRouter`` ``np.array_equal`` to phase 3's offline
+   predictions, K1's launches equal to replays x data slots; (b) the same
+   router re-anchored onto ``(2, 1)`` then ``(1, 1)`` under live traffic:
+   no request lost, every answer equal, ``mesh_reanchor`` counted twice,
+   each ``reshard_wall_s``; (c) phase 6's VOC bundle on ``(8, 1)``: scores
+   equal to the single-device engine's (or within 1e-5 of their largest
+   magnitude, printed which), K2's launches; (d) a ``MeshEngineFactory``
+   under ``KEYSTONE_HBM_BUDGET=64K`` (a slot's 8K is below one 12,288-byte
+   request, so every mesh bucket is denied) steps down, counted ``router_mesh_stepdown``, to the
+   single-device engine; (e) MnistRandomFFT ``--serve --serveMesh 1x1``
+   with phase 9's ``--pipelineFile``: the same predictions as ``--serve``
+   alone.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -406,6 +423,7 @@ import torch
 from keystone_tpu_torch import _build, convert
 from keystone_tpu_torch.core import autoshard
 from keystone_tpu_torch.core import frontend as kfrontend
+from keystone_tpu_torch.core import memory as kmem
 from keystone_tpu_torch.core import numerics as knum
 from keystone_tpu_torch.core import optimize as kopt
 from keystone_tpu_torch.core import profiler as kprof
@@ -4535,6 +4553,241 @@ def run_mesh_cache_ckpt(card: str, fitted: dict, phase6: dict, c22: dict, cifar2
     return total
 
 
+def mesh_bucket_line(engine, slot_budget) -> dict:
+    """Per bucket of a mesh engine: parity, data slots, the capture's bytes
+    (the whole card's) and the per-slot charge against the slot budget, and
+    the launches its graphs recorded and replayed."""
+    out = {}
+    for b, plan in sorted(engine.memory_plans.items()):
+        ex = engine._exec.get(b)
+        graphs = ex.graphs() if ex is not None else []
+        out[str(b)] = {
+            "parity": engine.parity.get(b), "live": ex is not None,
+            "data_slots": engine._slot_layout(b)[0], "admitted": plan.admitted,
+            "capture_bytes": {k: v for k, v in (plan.reported or {}).items()
+                              if k != "slot_charge_bytes"},
+            "slot_charge_bytes": (plan.reported or {}).get("slot_charge_bytes"),
+            "slot_budget_bytes": slot_budget,
+            "recorded": {k: v["launches"] for k, v in engine.graph_kernels().get(b, {}).items()},
+            "replays": graphs[0].replays if graphs else 0}
+    return out
+
+
+def check_slot_launches(engine, kernel: str) -> int:
+    """Each live bucket's graphs record ``kernel`` once per data slot the
+    bucket uses; its launches are then replays x data slots.  Returns the
+    launches the replays made."""
+    lines = mesh_bucket_line(engine, None)
+    made = engine.graph_launches().get(kernel, 0)
+    want = sum(r["replays"] * r["data_slots"] for r in lines.values() if r["live"])
+    recorded_ok = all(r["recorded"].get(kernel) == r["data_slots"]
+                      for r in lines.values() if r["live"])
+    if not (recorded_ok and made == want):
+        raise AssertionError(f"{engine.label}: {kernel} made {made} launches, expected "
+                             f"{want} (replays x data slots): {lines}")
+    return made
+
+
+def run_mesh_serving(card: str, fitted: dict) -> dict:
+    """Phase 33: serving on slots of the card.  Each part runs with the
+    kernel counts set to 0 just before it and read just after (the
+    wrappers' eager launches plus the graphs' replays).  Returns the
+    launches by kernel."""
+    t_phase = time.perf_counter()
+    slots = [torch.device("cuda", 0)] * 8
+    m42, m81 = make_mesh(4, 2, devices=slots), make_mesh(8, 1, devices=slots)
+    rec: dict = {"phase": "33: serving on slots of the card", "card": card}
+    total = {"conv_rect_pool": 0, "fv_stats": 0}
+    stem = str(fitted["cifar_stem"])
+    images = cifar_loader(str(fitted["cifar_test"])).images
+    reqs = np.asarray(images[:SERVE_BENCH_REQUESTS], np.float32)
+    want = np.asarray(fitted["cifar_pred"][:SERVE_BENCH_REQUESTS])
+    example = np.empty(reqs.shape[1:], np.float32)
+    built: list = []
+
+    def build(shape, dtype, mesh):
+        eng, cold = kserve.load_engine(stem, example, label="cifar_mesh", mesh=mesh)
+        built.append((eng, cold))
+        return eng
+
+    # (a) The Cifar servable on 4x2 behind a mesh-anchored router.
+    torch.cuda.empty_cache()
+    rp.launches = rp.fused_launches = 0
+    factory = kfrontend.MeshEngineFactory(build, mesh=m42)
+    router = kfrontend.ShapeRouter(factory, label="cifar_mesh",
+                                   config=kfrontend.RouterConfig(retire_after_s=600.0))
+    try:
+        t = time.perf_counter()
+        ceng = factory(example.shape, np.float32)
+        build_secs = time.perf_counter() - t
+        router.add_engine(ceng)
+        t = time.perf_counter()
+        futs = [router.submit(r) for r in reqs]
+        answers = np.stack([f.result(120.0) for f in futs])
+        serve_secs = time.perf_counter() - t
+        k1 = check_slot_launches(ceng, "conv_rect_pool")
+        rec["cifar_4x2"] = {
+            "mesh": ceng.record()["mesh"], "router_mesh": router.record()["mesh"],
+            "cold_start": built[0][1], "build_seconds": build_secs,
+            "buckets": mesh_bucket_line(ceng, kmem.min_chip_budget(m42)[0]),
+            "requests": len(reqs), "serve_seconds": serve_secs,
+            "answers_equal_phase3": bool(np.array_equal(answers, want)),
+            "conv_rect_pool_graph_launches": k1, "conv_rect_pool_eager_launches": rp.fused_launches,
+            "rect_pool_launches": rp.launches}
+        total["conv_rect_pool"] += k1 + rp.fused_launches
+        log(json.dumps({"phase": "33(a) Cifar on 4x2 slots", "card": card, **rec["cifar_4x2"]}))
+        r = rec["cifar_4x2"]
+        if not (r["answers_equal_phase3"] and r["mesh"] == r["router_mesh"] == "4x2"
+                and not rp.launches and ceng.parity_ok):
+            raise AssertionError(f"Cifar on 4x2: {r}")
+
+        # (b) Re-anchor onto 2x1, then 1x1, under live traffic.
+        rp.launches = rp.fused_launches = 0
+        before = resilience.counters.get("mesh_reanchor")
+        served: list = []
+        errors: list = []
+        stop = threading.Event()
+
+        def traffic():
+            try:
+                i = 0
+                while not stop.is_set():
+                    batch = [(j % len(reqs), router.submit(reqs[j % len(reqs)]))
+                             for j in range(i, i + 16)]
+                    served.extend((j, f.result(120.0)) for j, f in batch)
+                    i += 16
+            except BaseException as e:  # noqa: BLE001 — surfaced below
+                errors.append(e)
+
+        th = threading.Thread(target=traffic)
+        th.start()
+        time.sleep(0.2)
+        steps = []
+        for shape in ((2, 1), (1, 1)):
+            mesh = make_mesh(*shape, devices=slots[: shape[0] * shape[1]])
+            n0 = len(served)
+            out = router.reanchor(mesh, why="phase 33: the mesh shrinks")
+            steps.append({**out, "answered_during": len(served) - n0})
+        time.sleep(0.2)
+        stop.set()
+        th.join(120.0)
+        engines = [eng for eng, _ in built]
+        k1 = sum(check_slot_launches(eng, "conv_rect_pool") for eng in engines)
+        counted = resilience.counters.get("mesh_reanchor") - before
+        rec["reanchor"] = {
+            "steps": steps, "mesh_reanchor_counted": counted, "answers": len(served),
+            "lost": 0 if not errors else len(errors),
+            "answers_equal": all(np.array_equal(a, want[j]) for j, a in served),
+            "router_mesh": router.record()["mesh"], "errors": [repr(e) for e in errors[:1]],
+            "labels": [eng.label for eng in engines]}
+        log(json.dumps({"phase": "33(b) re-anchor 4x2 -> 2x1 -> 1x1 under traffic",
+                        "card": card, **rec["reanchor"]}))
+        r = rec["reanchor"]
+        if (errors or counted != 2 or not r["answers_equal"] or r["router_mesh"] != "1x1"
+                or any(s["failed"] or not s["reshard_wall_s"] for s in steps)):
+            raise AssertionError(f"the re-anchor: {r}")
+    finally:
+        router.close()
+    # The graphs of (a)'s engine replayed in (b) too: (b)'s launches are the
+    # replays after (a)'s reading, eager launches beside them.
+    total["conv_rect_pool"] += k1 - rec["cifar_4x2"]["conv_rect_pool_graph_launches"]
+    total["conv_rect_pool"] += rp.fused_launches
+    rec["reanchor"]["conv_rect_pool_launches"] = (
+        k1 - rec["cifar_4x2"]["conv_rect_pool_graph_launches"] + rp.fused_launches)
+    del built, ceng, factory, router
+    torch.cuda.empty_cache()
+
+    # (c) Phase 6's VOC bundle on 8x1 against the single-device engine.
+    vconf = voc.SIFTFisherConfig(**VOC_CONF)
+    shapes = sorted({img.shape for img in fitted["voc_test"].images},
+                    key=lambda sh: -sum(img.shape == sh for img in fitted["voc_test"].images))
+    vreq = np.asarray([img for img in fitted["voc_test"].images if img.shape == shapes[0]][:64],
+                      np.float32)
+    wrap = functools.partial(voc.servable_pipeline, vconf)
+    fs.launches = 0
+    t = time.perf_counter()
+    veng, vcold = kserve.load_engine(str(fitted["voc_stem"]), np.empty(vreq.shape[1:], np.float32),
+                                     label="voc_mesh", wrap=wrap, mesh=m81)
+    vbuild = time.perf_counter() - t
+    got = veng.infer(vreq)
+    k2 = check_slot_launches(veng, "fv_stats")
+    eager = fs.launches
+    total["fv_stats"] += k2 + eager
+    one, _ = kserve.load_engine(str(fitted["voc_stem"]), np.empty(vreq.shape[1:], np.float32),
+                                label="voc_one", wrap=wrap)
+    single = one.infer(vreq)
+    equal = bool(np.array_equal(got, single))
+    err = float(np.abs(got - single).max())
+    rec["voc_8x1"] = {
+        "mesh": veng.record()["mesh"], "cold_start": vcold, "build_seconds": vbuild,
+        "buckets": mesh_bucket_line(veng, kmem.min_chip_budget(m81)[0]), "requests": len(vreq),
+        "request_shape": list(vreq.shape[1:]),
+        "vs_single_device": "equal" if equal else "within 1e-5 of max",
+        "max_abs_diff": err, "max_abs": float(np.abs(single).max()),
+        "fv_stats_graph_launches": k2, "fv_stats_eager_launches": eager}
+    log(json.dumps({"phase": "33(c) VOC on 8x1 slots", "card": card, **rec["voc_8x1"]}))
+    if not (equal or err <= 1e-5 * float(np.abs(single).max())) or not veng.parity_ok:
+        raise AssertionError(f"VOC on 8x1: {rec['voc_8x1']}")
+    del veng, one
+    torch.cuda.empty_cache()
+
+    # (d) The factory's ladder under a budget that denies every mesh bucket
+    # (a slot gets 64K / 8 = 8K, below one 12,288-byte request).
+    rp.launches = rp.fused_launches = 0
+    ladder: list = []
+    servable = load_pipeline(stem)  # restored whole, outside the budget
+
+    def build_small(shape, dtype, mesh):
+        eng = kserve.ServingEngine(servable, np.empty(shape, dtype), label="cifar_ladder",
+                                   mesh=mesh)
+        ladder.append(eng)
+        return eng
+
+    before = resilience.counters.get("router_mesh_stepdown")
+    with env_set(KEYSTONE_HBM_BUDGET="64K"):
+        t = time.perf_counter()
+        landed = kfrontend.MeshEngineFactory(build_small, mesh=m42)(example.shape, np.float32)
+        ladder_secs = time.perf_counter() - t
+    steps_down = resilience.counters.get("router_mesh_stepdown") - before
+    ans = landed.infer(reqs[:64])
+    rec["ladder"] = {
+        "budget": "64K", "tiers_built": [e.record()["mesh"] for e in ladder],
+        "landed_mesh": landed.record()["mesh"], "landed_buckets": list(landed.buckets()),
+        "router_mesh_stepdown": steps_down, "seconds": ladder_secs,
+        "answers_equal_phase3": bool(np.array_equal(ans, want[:64])),
+        "conv_rect_pool_launches": rp.fused_launches + sum(
+            e.graph_launches().get("conv_rect_pool", 0) for e in ladder)}
+    total["conv_rect_pool"] += rec["ladder"]["conv_rect_pool_launches"]
+    log(json.dumps({"phase": "33(d) the factory ladder", "card": card, **rec["ladder"]}))
+    if not (steps_down == 2 and landed.mesh is None and rec["ladder"]["answers_equal_phase3"]):
+        raise AssertionError(f"the factory ladder: {rec['ladder']}")
+    del ladder, landed, servable
+    torch.cuda.empty_cache()
+
+    # (e) MNIST --serve --serveMesh 1x1 from the CLI against --serve alone.
+    absent = str(fitted["cifar_stem"].parent / "absent")
+    argv = ["--trainLocation", absent, "--testLocation", str(fitted["mnist"]["test_csv"]),
+            *MNIST_FLAGS, "--pipelineFile", str(fitted["mnist"]["stem"]), "--serve"]
+    plain = mnist.main(argv)
+    meshed = mnist.main([*argv, "--serveMesh", "1x1"])
+    ps, ms = plain["serving"], meshed["serving"]
+    rec["mnist_cli"] = {
+        "mesh": ms["engine"]["mesh"], "cold_start": ms["cold_start"],
+        "predictions_equal": bool(np.array_equal(plain["test_predictions"],
+                                                 meshed["test_predictions"])),
+        "served_bit_identical": [ps["served"]["predictions_bit_identical"],
+                                 ms["served"]["predictions_bit_identical"]],
+        "router_mesh": ms["served"]["router"]["mesh"]}
+    log(json.dumps({"phase": "33(e) MNIST --serve --serveMesh 1x1", "card": card,
+                    **rec["mnist_cli"]}))
+    if not (rec["mnist_cli"]["predictions_equal"] and all(rec["mnist_cli"]["served_bit_identical"])
+            and rec["mnist_cli"]["mesh"] == "1x1"):
+        raise AssertionError(f"MNIST --serveMesh: {rec['mnist_cli']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 33: {rec['seconds']:.2f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -4720,6 +4973,7 @@ def smoke(data_dir: Path) -> int:
     mesh_cache = run_mesh_cache_ckpt(card, fitted, phase6, cifar_tar, mesh["cifar_4x2"],
                                      mesh_fv["voc_8x1_scores"])
     del phase6, cifar_tar
+    mesh_serving = run_mesh_serving(card, fitted)
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -4732,7 +4986,8 @@ def smoke(data_dir: Path) -> int:
                      + snaps["conv_rect_pool"] + serving["conv_rect_pool"]
                      + optimizer["conv_rect_pool"] + placement["conv_rect_pool"]
                      + lifecycle["conv_rect_pool"] + mesh["conv_rect_pool"]
-                     + mesh_specs["conv_rect_pool"] + mesh_cache["conv_rect_pool"]),
+                     + mesh_specs["conv_rect_pool"] + mesh_cache["conv_rect_pool"]
+                     + mesh_serving["conv_rect_pool"]),
         "launches_by_path": {"random_patch_cifar": main_launches,
                              "random_cifar": random_cifar_rec["launches"],
                              "random_patch_cifar_jpeg_tar": tar_launches["conv_rect_pool"],
@@ -4744,7 +4999,8 @@ def smoke(data_dir: Path) -> int:
                              "lifecycle_refit_and_swap": lifecycle["conv_rect_pool"],
                              "mesh_slots": mesh["conv_rect_pool"],
                              "mesh_spec_layouts": mesh_specs["conv_rect_pool"],
-                             "mesh_auto_cache_and_reshard": mesh_cache["conv_rect_pool"]},
+                             "mesh_auto_cache_and_reshard": mesh_cache["conv_rect_pool"],
+                             "mesh_serving": mesh_serving["conv_rect_pool"]},
         "max_abs_err": max(r["max_abs_err"] for r in [
             fused_prod, fused_prod_f32, fused_cifar48, *fused_odd, random_cifar_rec]),
         "ms": fused_prod["ms"],
@@ -4777,7 +5033,7 @@ def smoke(data_dir: Path) -> int:
                      + restored["fv_stats_in_memory"] + restored["fv_stats_jpeg_tars"]
                      + snaps["fv_stats"] + serving["fv_stats"] + ladder["fv_stats"]
                      + optimizer["fv_stats"] + inet_restored + placement["fv_stats"]
-                     + mesh_fv["fv_stats"] + mesh_cache["fv_stats"]),
+                     + mesh_fv["fv_stats"] + mesh_cache["fv_stats"] + mesh_serving["fv_stats"]),
         "launches_by_path": {"voc_in_memory": voc_launches, "voc_jpeg_tars": tar_fv_launches,
                              "imagenet_in_memory": inet_launches,
                              "imagenet_jpeg_tars": inet_tar_fv,
@@ -4790,7 +5046,8 @@ def smoke(data_dir: Path) -> int:
                              "imagenet_restored": inet_restored,
                              "voc_placement_search": placement["fv_stats"],
                              "mesh_slots": mesh_fv["fv_stats"],
-                             "voc_mesh_auto_cache": mesh_cache["fv_stats"]},
+                             "voc_mesh_auto_cache": mesh_cache["fv_stats"],
+                             "mesh_serving": mesh_serving["fv_stats"]},
         "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd, *fv_imagenet.values()]),
         "ms": fv_prod["ms"],
         "plain_ms": fv_prod["plain_ms"],

@@ -4,7 +4,10 @@ process pool in keystone_tpu/core/ingest.py).
 A pool of SPAWNED worker processes decodes tar members in parallel, free of
 the interpreter lock: raw member bytes go in over one task queue per
 worker, and the decoded pixels come back in ``multiprocessing.shared_memory``
-blocks that the chunk assembly stacks straight from.  Each worker runs the
+blocks that the chunk assembly stacks straight from, each worker naming its
+blocks over a pipe of its own.  (A result queue that the workers share is
+guarded by one lock: a worker killed while it holds it leaves every other
+worker blocked on its next answer, and the stream stuck.)  Each worker runs the
 same ``image_loaders.decode_image`` as the thread pool, so the two backends
 give the same pixels.
 
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import itertools
 import multiprocessing
-import queue as _queue
+import multiprocessing.connection
 import time
 from concurrent.futures import TimeoutError as _FutureTimeout
 from multiprocessing import shared_memory
@@ -40,7 +43,7 @@ from .resilience import counters
 _POLL_SECONDS = 0.01
 
 
-def _decode_worker_main(task_q, result_q) -> None:
+def _decode_worker_main(task_q, result_conn) -> None:
     """Entry point of one spawned decode worker.
 
     Receives ``(task_id, member_bytes)``, decodes with
@@ -61,11 +64,11 @@ def _decode_worker_main(task_q, result_q) -> None:
         try:
             img = image_loaders.decode_image(data)
         except image_loaders.HostDecoderUnavailable as e:
-            result_q.put((tid, None, None, None, 0.0, str(e)))
+            result_conn.send((tid, None, None, None, 0.0, str(e)))
             continue
         seconds = time.perf_counter() - start
         if img is None:
-            result_q.put((tid, None, None, None, seconds, None))
+            result_conn.send((tid, None, None, None, seconds, None))
             continue
         shm = shared_memory.SharedMemory(create=True, size=img.nbytes)
         np.ndarray(img.shape, img.dtype, buffer=shm.buf)[:] = img
@@ -74,8 +77,19 @@ def _decode_worker_main(task_q, result_q) -> None:
         # never unlink a block the parent still assembles from, and a
         # block whose name never reached the parent is reclaimed when the
         # parent exits.  The parent's unlink() unregisters it.
-        result_q.put((tid, shm.name, img.shape, img.dtype.str, seconds, None))
+        result_conn.send((tid, shm.name, img.shape, img.dtype.str, seconds, None))
         shm.close()
+
+
+def _unlink_undelivered(item) -> None:
+    """Unlink the block of an answer no chunk will take (at shutdown)."""
+    if item[1] is not None:
+        try:
+            s = shared_memory.SharedMemory(name=item[1])
+            s.close()
+            s.unlink()
+        except FileNotFoundError:
+            pass
 
 
 class ShmArray:
@@ -131,17 +145,18 @@ class _ProcTask:
 
 
 class _PoolWorker:
-    __slots__ = ("proc", "task_q", "pending")
+    __slots__ = ("proc", "task_q", "conn", "pending")
 
-    def __init__(self, proc, task_q):
+    def __init__(self, proc, task_q, conn):
         self.proc = proc
         self.task_q = task_q
+        self.conn = conn  # the read end of the worker's own result pipe
         self.pending: dict = {}  # task id -> _ProcTask, in submission order
 
 
 class ProcessDecodePool:
     """``procs`` spawned decode workers (never forked: the parent runs
-    threads), one task queue each and one shared result queue.
+    threads), one task queue and one result pipe each.
 
     Every shared-memory block the parent attached is in ``_live_shm`` until
     the chunk assembly releases it; :meth:`shutdown` releases what is left,
@@ -152,7 +167,6 @@ class ProcessDecodePool:
 
     def __init__(self, procs: int, on_respawn=None):
         self._ctx = multiprocessing.get_context("spawn")
-        self._result_q = self._ctx.Queue()
         self._workers: list[_PoolWorker] = []
         self._inflight: dict = {}  # task id -> _ProcTask
         self._live_shm: dict = {}  # block name -> SharedMemory
@@ -166,12 +180,14 @@ class ProcessDecodePool:
 
     def _spawn_worker(self) -> _PoolWorker:
         task_q = self._ctx.Queue()
+        reader, writer = self._ctx.Pipe(duplex=False)
         proc = self._ctx.Process(
-            target=_decode_worker_main, args=(task_q, self._result_q),
+            target=_decode_worker_main, args=(task_q, writer),
             name="keystone-decode-proc", daemon=True,
         )
         proc.start()
-        w = _PoolWorker(proc, task_q)
+        writer.close()  # the worker holds the only write end: its death is EOF
+        w = _PoolWorker(proc, task_q, reader)
         self._workers.append(w)
         return w
 
@@ -180,6 +196,9 @@ class ProcessDecodePool:
             if w.proc.is_alive():
                 continue
             self._workers.remove(w)
+            # What the worker answered before it died is delivered first.
+            self._drain_conn(w.conn)
+            w.conn.close()
             lost = list(w.pending.values())
             w.pending.clear()
             w.task_q.cancel_join_thread()
@@ -252,21 +271,26 @@ class ProcessDecodePool:
         task.seconds = seconds
         task._finish(ShmArray(self, shm, shape, np.dtype(dtype)))
 
+    def _drain_conn(self, conn, handle=None) -> bool:
+        """Every answer waiting on one worker's pipe, handled; True if any.
+        A dead worker's pipe ends (EOF, or a message cut short)."""
+        got = False
+        try:
+            while conn.poll():
+                (handle or self._handle)(conn.recv())
+                got = True
+        except (EOFError, OSError):
+            pass
+        return got
+
     def _wait(self, task: _ProcTask, timeout: float):
         end = time.monotonic() + timeout
         while True:
+            conns = [w.conn for w in self._workers]
+            ready = multiprocessing.connection.wait(conns, timeout=_POLL_SECONDS)
             drained = False
-            try:
-                item = self._result_q.get(timeout=_POLL_SECONDS)
-                drained = True
-            except _queue.Empty:
-                item = None
-            while item is not None:
-                self._handle(item)
-                try:
-                    item = self._result_q.get_nowait()
-                except _queue.Empty:
-                    item = None
+            for conn in ready:
+                drained |= self._drain_conn(conn)
             if not task.done and not drained:
                 self._reap_dead_workers()
             if task.done:
@@ -308,20 +332,8 @@ class ProcessDecodePool:
                 w.proc.join(1.0)
             w.task_q.cancel_join_thread()
             w.task_q.close()
-        while True:
-            try:
-                item = self._result_q.get_nowait()
-            except (_queue.Empty, OSError, ValueError):
-                break
-            if item[1] is not None:
-                try:
-                    s = shared_memory.SharedMemory(name=item[1])
-                    s.close()
-                    s.unlink()
-                except FileNotFoundError:
-                    pass
-        self._result_q.cancel_join_thread()
-        self._result_q.close()
+            self._drain_conn(w.conn, handle=_unlink_undelivered)
+            w.conn.close()
         for shm in list(self._live_shm.values()):
             self._release(shm)
         self._inflight.clear()

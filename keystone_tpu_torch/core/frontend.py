@@ -25,17 +25,25 @@ turns those single-shape engines into one multi-shape service:
   router adds the cross-engine sum: a warm add is denied (counted
   ``router_admission_denied``, answered :class:`RetryLater`) when the new
   engine's peak-bucket bytes plus every live engine's would overrun
-  ``core.memory.hbm_budget()``.  On the card an engine's bytes are what
-  its graphs' captures took (the plans' ``reported`` footprint).
+  ``core.memory.hbm_budget()``, or on a mesh-anchored router the anchor
+  mesh's ``min_chip_budget``.  On the card an engine's bytes are what its
+  graphs' captures took (the plans' ``reported`` footprint; a mesh
+  engine's per-slot charge, ``slot_charge_bytes``).
+* **Surviving-mesh re-anchor** — :class:`MeshEngineFactory` walks the
+  solvers' degradation ladder (anchor mesh → ``reduced_mesh`` → the
+  single-device floor) when a tier's build fails or only its denied floor
+  bucket survives (each step counted ``router_mesh_stepdown``), and
+  :meth:`ShapeRouter.reanchor` hot-swaps every live engine onto a new mesh:
+  each replacement is built and registered before its predecessor is
+  unrouted, drained and closed — no request lost, counted
+  ``mesh_reanchor``.
 
 Router state exports into ``trace.metrics`` (``router_engines`` gauge,
 ``router_routes``/``router_misses``/``router_warm_adds``/
 ``router_engine_retired`` counters, ``router_route_overhead_us``
 histogram); every add/retire/denial is a trace instant.
 
-Not ported (they need the mesh): ``MeshEngineFactory``,
-``ShapeRouter.reanchor``, the mesh-anchored budget and ``HostFleet``;
-:meth:`ShapeRouter.record` reports ``"mesh": None``.
+Not ported: ``HostFleet`` and the multi-process mesh (roadmap item 16b).
 
 Env knobs: ``KEYSTONE_ROUTER_WARM_THRESHOLD`` (default ``3``),
 ``KEYSTONE_ROUTER_MIX_WINDOW_S`` (``5``), ``KEYSTONE_ROUTER_RETIRE_AFTER_S``
@@ -54,6 +62,7 @@ from typing import Callable
 
 import numpy as np
 
+from ..parallel import mesh as kmesh
 from . import memory as kmem
 from . import numerics as knum
 from . import telemetry
@@ -208,6 +217,93 @@ class _Entry:
         self.routes = 0
 
 
+class MeshEngineFactory:
+    """Mesh-aware engine factory: builds engines anchored on a target mesh,
+    walking the solvers' degradation tiers — anchor mesh → ``reduced_mesh``
+    (same slots, model axis collapsed) → the single-device floor — when a
+    tier's build raises a typed :class:`~.serve.ServeError` or only its
+    denied floor bucket survives (per-slot admission).  Each step down is
+    counted ``router_mesh_stepdown``; when the floor fails too the factory
+    raises :class:`~.serve.ServingUnavailable`.
+
+    ``build(shape, dtype, mesh_or_none) -> ServingEngine`` constructs one
+    engine on one tier (``None``: a meshless engine).  The anchor moves
+    with :meth:`ShapeRouter.reanchor` (:meth:`set_mesh`), and every later
+    build walks the new ladder.
+    """
+
+    def __init__(self, build, mesh=None):
+        self._build = build
+        self._mesh_lock = threading.Lock()
+        self._mesh = mesh
+
+    @property
+    def mesh(self):
+        with self._mesh_lock:
+            return self._mesh
+
+    def set_mesh(self, mesh) -> None:
+        """Move the anchor (the surviving mesh after device loss)."""
+        with self._mesh_lock:
+            self._mesh = mesh
+
+    def _ladder(self) -> list:
+        mesh = self.mesh
+        tiers = []
+        if mesh is not None:
+            tiers.append(mesh)
+            reduced = kmesh.reduced_mesh(mesh)
+            if reduced is not None:
+                tiers.append(reduced)
+        tiers.append(None)  # the single-device floor: a meshless engine
+        return tiers
+
+    @staticmethod
+    def _tier_desc(tier) -> str:
+        return kmesh.mesh_desc(tier) if tier is not None else "single-device"
+
+    @staticmethod
+    def _denied_bucket(engine: ServingEngine) -> int | None:
+        """A live bucket that only survived as the engine's denied floor:
+        on a mesh tier that is a per-slot admission failure, and a lower
+        tier is tried instead."""
+        live = set(engine.buckets())
+        for bucket, plan in engine.memory_plans.items():
+            if bucket in live and not plan.admitted:
+                return bucket
+        return None
+
+    def __call__(self, shape, dtype) -> ServingEngine:
+        key = tuple(int(d) for d in shape)
+        tiers = self._ladder()
+        last_err: ServeError | None = None
+        for i, tier in enumerate(tiers):
+            try:
+                engine = self._build(key, np.dtype(dtype), tier)
+                denied = self._denied_bucket(engine) if tier is not None else None
+                if denied is None or i + 1 >= len(tiers):
+                    return engine
+                counters.record(
+                    "router_mesh_stepdown",
+                    f"engine for shape {key} on mesh {self._tier_desc(tier)} only "
+                    f"serves through its DENIED floor bucket {denied} (per-slot "
+                    f"admission) — stepping down to {self._tier_desc(tiers[i + 1])}",
+                )
+            except ServeError as e:
+                last_err = e
+                if i + 1 < len(tiers):
+                    counters.record(
+                        "router_mesh_stepdown",
+                        f"engine for shape {key} failed to build on mesh "
+                        f"{self._tier_desc(tier)} ({e}) — stepping down to "
+                        f"{self._tier_desc(tiers[i + 1])}",
+                    )
+        raise ServingUnavailable(
+            f"engine for shape {key} failed on every mesh tier "
+            f"({', '.join(self._tier_desc(t) for t in tiers)}): {last_err}"
+        ) from last_err
+
+
 class ShapeRouter:
     """The multi-shape serving front-end: submit any supported-shape
     request, get a :class:`~.serve.ServeFuture` from the matching engine's
@@ -216,7 +312,10 @@ class ShapeRouter:
     ``engine_factory(shape, dtype) -> ServingEngine`` (optional) warms
     engines for hot unserved shapes; without it, unserved shapes answer
     :class:`NoRouteForShape`.  Engines added via :meth:`add_engine` serve
-    immediately.  Use as a context manager (or call :meth:`close`).
+    immediately.  ``mesh`` anchors the router: its cross-engine admission
+    budgets against the mesh's ``min_chip_budget``, and :meth:`reanchor`
+    moves it; a :class:`MeshEngineFactory` and the router share one anchor.
+    Use as a context manager (or call :meth:`close`).
     """
 
     def __init__(
@@ -227,8 +326,16 @@ class ShapeRouter:
         config: RouterConfig | None = None,
         server_config: ServeConfig | None = None,
         clock=time.monotonic,
+        mesh=None,
     ):
         self._factory = engine_factory
+        if isinstance(engine_factory, MeshEngineFactory):
+            if mesh is not None:
+                engine_factory.set_mesh(mesh)
+            else:
+                mesh = engine_factory.mesh
+        self._mesh = mesh
+        self._last_reanchor: dict | None = None
         self.label = label
         self.config = config or RouterConfig.from_env()
         self._server_config = server_config
@@ -512,15 +619,20 @@ class ShapeRouter:
     def _engine_peak_bytes(self, engine: ServingEngine) -> int:
         """The engine's steady-state device claim: over its LIVE buckets,
         the largest of each plan's total and (on the card) the bytes its
-        capture took (``plan.reported``); an unanalyzed plan counts the
-        padded batch in + out bytes of its bucket."""
+        capture took (``plan.reported``; a mesh engine's per-slot charge);
+        an unanalyzed plan counts the padded batch in + out bytes of its
+        bucket."""
         peak = 0
         live = set(engine.buckets())
         for bucket, plan in engine.memory_plans.items():
             if bucket not in live:
                 continue
             if plan.reported:
-                peak = max(peak, *(int(v) for v in plan.reported.values()))
+                rep = plan.reported
+                # A mesh engine's capture bytes are its card's; a slot is
+                # charged its share.
+                vals = [rep["slot_charge_bytes"]] if "slot_charge_bytes" in rep else rep.values()
+                peak = max(peak, *(int(v) for v in vals))
             if plan.analyzed and plan.total_bytes:
                 peak = max(peak, int(plan.total_bytes))
             elif not plan.reported:
@@ -538,8 +650,11 @@ class ShapeRouter:
         bytes and the candidate's must together fit
         ``core.memory.hbm_budget()`` (an unknown budget admits with the
         reason recorded).  An admitted candidate RESERVES its bytes under
-        the same lock; the reservation clears once the engine is routed."""
-        budget = kmem.hbm_budget()
+        the same lock; the reservation clears once the engine is routed.
+        A mesh-anchored router budgets against the CURRENT anchor's
+        ``min_chip_budget``: after a re-anchor, the surviving mesh's."""
+        mesh = self._mesh
+        budget = kmem.min_chip_budget(mesh)[0] if mesh is not None else kmem.hbm_budget()
         candidate = self._engine_peak_bytes(new_engine)
         with self._lock:
             resident = sum(
@@ -631,6 +746,94 @@ class ShapeRouter:
             self._retire_entry(entry, why="stopped earning traffic")
         return {"retired": [list(e.key) for e in retired]}
 
+    # -- surviving-mesh re-anchor ---------------------------------------------
+
+    def reanchor(self, mesh, *, why: str = "device loss") -> dict:
+        """Hot-swap every live engine onto ``mesh`` (None: the single-device
+        floor) — the surviving-mesh re-anchor after device loss.
+
+        No request is lost: each replacement is built by the factory and
+        REGISTERED before its predecessor is unrouted; the predecessor then
+        drains (every outstanding future resolves) and closes through
+        :meth:`_retire_entry`.  A shape whose rebuild fails keeps its old
+        engine serving and lands in the record's ``failed`` list.  The event
+        is counted ``mesh_reanchor`` and its record is ``last_reanchor`` in
+        :meth:`record`."""
+        t0 = time.perf_counter()
+        if self._factory is None:
+            raise ServingUnavailable(
+                f"router {self.label}: cannot re-anchor without an engine factory"
+            )
+        if isinstance(self._factory, MeshEngineFactory):
+            self._factory.set_mesh(mesh)
+        with self._lock:
+            if self._closed:
+                raise ServingUnavailable("router is closed")
+            self._mesh = mesh
+            old_entries = list(self._engines.values())
+        desc = kmesh.mesh_desc(mesh) if mesh is not None else "single-device"
+        swapped: list[dict] = []
+        failed: list[dict] = []
+        for old in old_entries:
+            try:
+                with trace.span(
+                    "router.reanchor", cat="serve", shape=list(old.key),
+                    label=self.label, mesh=desc,
+                ):
+                    engine = self._factory(old.key, old.engine.example_dtype)
+            except ServeError as e:
+                failed.append({"shape": list(old.key), "error": f"{type(e).__name__}: {e}"})
+                _logger.warning(
+                    "router %s: re-anchor of shape %s onto mesh %s failed (%s) — "
+                    "old engine keeps serving", self.label, old.key, desc, e,
+                )
+                continue
+            if engine.label == old.engine.label:
+                # SLO trackers and drift monitors unregister BY LABEL when
+                # the predecessor retires: the successor takes another name.
+                engine.label = f"{old.engine.label}@{desc}"
+            server = Server(engine, config=self._server_config)
+            now = self._clock()
+            with self._lock:
+                stale = self._closed or self._engines.get(old.key) is not old
+                if not stale:
+                    entry = _Entry(old.key, engine, server, now)
+                    entry.routes = old.routes
+                    entry.last_routed = old.last_routed
+                    self._engines[old.key] = entry
+            if stale:
+                # Retired or replaced mid-build (or the router closed): do
+                # not resurrect the shape.
+                server.close()
+                server.join()
+                telemetry.unregister_slo(engine.label)
+                knum.unregister_drift(engine.label)
+                continue
+            trace.instant(
+                "router_engine_added", shape=list(old.key), label=engine.label, mesh=desc,
+            )
+            self._retire_entry(old, why=f"re-anchored onto mesh {desc} ({why})")
+            swapped.append({"shape": list(old.key), "label": engine.label})
+        wall = time.perf_counter() - t0
+        rec = {"mesh": desc, "why": why, "swapped": swapped, "failed": failed,
+               "reshard_wall_s": round(wall, 6)}
+        with self._lock:
+            self._last_reanchor = rec
+        counters.record(
+            "mesh_reanchor",
+            f"router {self.label}: {len(swapped)} engine(s) re-anchored onto mesh "
+            f"{desc} in {wall:.3f}s ({why}; {len(failed)} failed)",
+        )
+        trace.instant(
+            "router_reanchor", mesh=desc, swapped=len(swapped), failed=len(failed),
+            wall_s=round(wall, 6), why=why,
+        )
+        _logger.info(
+            "router %s: re-anchored %d engine(s) onto mesh %s in %.3fs (%s; %d failed)",
+            self.label, len(swapped), desc, wall, why, len(failed),
+        )
+        return rec
+
     def _retire_entry(self, entry: _Entry, why: str) -> None:
         """Graceful engine retirement of an ALREADY unrouted entry: drain
         (every outstanding future resolves), then close."""
@@ -719,14 +922,16 @@ class ShapeRouter:
             }
             stats = self.stats.record()
             admissions = list(self.admissions)
+            last_reanchor = self._last_reanchor
+            mesh = self._mesh
         out = {
             "label": self.label,
-            "mesh": None,
+            "mesh": kmesh.mesh_desc(mesh) if mesh is not None else None,
             "config": self.config.record(),
             "engines": engines,
             "stats": stats,
             "admissions": admissions,
-            "last_reanchor": None,
+            "last_reanchor": last_reanchor,
         }
         from . import profiler as kprof
 

@@ -54,8 +54,22 @@ the buckets that differ (``serve_bucket_parity_dropped``); when none
 passes, the engine re-anchors on its largest bucket (``parity_ok=False``,
 ``serve_parity_unverified``).
 
-Not ported: serving on a device mesh (``mesh=`` raises).  With the
-profiler on, the launches a graph records are tallied by name and stated
+**Serving on a device mesh** (``mesh=``, a ``parallel.mesh.Mesh`` of slots
+in this process): the fitted state is lowered once per distinct device of
+the mesh (``parallel.mesh.replicate``, before any capture, so nothing moves
+while a graph records).  A bucket that the data axis divides is split into
+``ShardedRows`` of views of the static input, each data slot's rows run by
+``map_rows`` in data order and joined on the device; a bucket it does not
+divide is replicated and computed once per distinct device.  On the card
+each bucket is one CUDA graph per distinct device, recording every slot's
+work there.  Each bucket is admitted per slot against
+``core.memory.min_chip_budget``; a capture's bytes are the whole card's, and
+the slot's charge (``reported["slot_charge_bytes"]``) is the card's capture
+bytes over the mesh's slots on that card.  The eager oracle is the lowered
+chain on slot (0, 0)'s device.  A mesh spanning processes waits for the
+distribution item of the roadmap (item 16b).
+
+With the profiler on, the launches a graph records are tallied by name and stated
 cost (``core.profiler.graph_tally``) and each synced replay is one ledger
 row ``serve:<label>:b<bucket>``; the wrappers' launch counters count no
 recorded launch, and :meth:`ServingEngine.graph_launches` counts the
@@ -79,7 +93,8 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from ..utils.platform import resolve_device, retained_constants
+from ..parallel import mesh as kmesh
+from ..utils.platform import device_scope, resolve_device, retained_constants
 from . import memory as kmem
 from . import numerics as knum
 from . import profiler as kprof
@@ -250,6 +265,57 @@ class _GraphBucket:
         return flops or None, nbytes or None
 
 
+class _MeshBucket:
+    """One bucket of a mesh engine: per distinct device, the rows of the
+    data blocks its slots hold and their work there (a :class:`_GraphBucket`
+    on the card, the eager function on the CPU).  A call hands each device
+    its rows, runs them, and joins each data block's rows, taken from the
+    device of its model slot 0, in data order on the engine's device."""
+
+    def __init__(self, parts: list, per: int, answer: list, device):
+        #: [(device, data blocks in data order, runner)]
+        self.parts = parts
+        self.per = per
+        #: data block -> index into ``parts`` of the device that answers it
+        self.answer = answer
+        self.device = device
+
+    def graphs(self) -> list:
+        return [run for _dev, _blocks, run in self.parts if isinstance(run, _GraphBucket)]
+
+    def __call__(self, dev_batch):
+        per, nblocks = self.per, len(self.answer)
+        outs = []
+        for dev, blocks, run in self.parts:
+            x = dev_batch if len(blocks) == nblocks else torch.cat(
+                [dev_batch[i * per:(i + 1) * per] for i in blocks])
+            outs.append(run(kmesh.on_slot(x, dev)))
+        if len(outs) == 1:
+            return outs[0]
+        pieces = []
+        for i, at in enumerate(self.answer):
+            j = self.parts[at][1].index(i)
+            pieces.append(kmesh.on_slot(outs[at][j * per:(j + 1) * per], self.device))
+        return torch.cat(pieces)
+
+
+def _graphs(ex) -> list:
+    """The CUDA graphs a bucket's executable replays (none on the CPU)."""
+    if isinstance(ex, _GraphBucket):
+        return [ex]
+    return ex.graphs() if isinstance(ex, _MeshBucket) else []
+
+
+def _merge_kernels(graphs: list) -> dict:
+    out: dict = {}
+    for g in graphs:
+        for name, k in g.kernels.items():
+            acc = out.setdefault(name, {"launches": 0, "flops": 0, "bytes": 0})
+            for key in acc:
+                acc[key] += k[key]
+    return out
+
+
 class ServingEngine:
     """One fitted pipeline served through per-bucket CUDA graphs (eager
     buckets on the CPU).
@@ -263,6 +329,10 @@ class ServingEngine:
     (``serve_bucket_denied``), and a bucket that hits
     ``torch.OutOfMemoryError`` at runtime is retired (``serve_burst_oom``)
     and its rows re-run through smaller buckets.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) serves on its slots, as the module
+    docstring says; ``device`` is then slot (0, 0)'s.  A mesh that spans
+    processes is not ported (roadmap item 16b).
     """
 
     def __init__(
@@ -276,15 +346,29 @@ class ServingEngine:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise ServeError(
-                f"serve:{label}: serving on a device mesh is not ported — "
-                "engines here are single-device (mesh=None)"
-            )
-        self.device = resolve_device(device)
-        #: the eager parity/offline oracle applies the object as given.
-        self._oracle_pipe = pipe
-        self._pipe = pipe
+        self.mesh = mesh
+        #: (device type, index) -> the fitted chain lowered onto that device.
+        self._replicas: dict = {}
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._pipe = pipe
+        else:
+            if not isinstance(mesh, kmesh.Mesh):
+                raise ServeError(
+                    f"serve:{label}: mesh= takes a parallel.mesh.Mesh of this process's "
+                    f"devices, not {type(mesh).__name__} (a mesh spanning processes is "
+                    "roadmap item 16b)"
+                )
+            for dev in mesh.devices.flat:
+                if kmesh.device_key(dev) not in self._replicas:
+                    self._replicas[kmesh.device_key(dev)] = kmesh.replicate(
+                        pipe, resolve_device(dev))
+            self.device = resolve_device(mesh.devices[0, 0])
+            self._pipe = self._replicas[kmesh.device_key(self.device)]
+        #: the eager parity/offline oracle: the object as given, or under a
+        #: mesh the lowered whole-tensor chain on slot (0, 0)'s device (a
+        #: restored node's layout records cannot run eagerly).
+        self._oracle_pipe = self._pipe
         self.label = label
         self.config = config or ServeConfig.from_env()
         self.example_shape = tuple(int(d) for d in example.shape)
@@ -308,6 +392,8 @@ class ServingEngine:
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
             self._copy_stream = torch.cuda.Stream(self.device)
+            #: device key -> the stream its graphs capture and replay on.
+            self._streams = {kmesh.device_key(self.device): self._stream}
         self._build()
         if warmup:
             self.warmup()
@@ -337,7 +423,19 @@ class ServingEngine:
         """A bucket's output rows on the host (the replay is complete)."""
         return out.detach().cpu().numpy()
 
+    def _slot_layout(self, bucket: int) -> tuple[int, int]:
+        """``(data blocks, rows per block)`` of a bucket: split over the
+        mesh's data axis when it divides the bucket, else one block that
+        every device computes whole (meshless: one block)."""
+        d = int(self.mesh.shape[kmesh.DATA_AXIS]) if self.mesh is not None else 1
+        if d > 1 and bucket % d == 0:
+            return d, bucket // d
+        return 1, bucket
+
     def _build(self) -> None:
+        # Under a mesh each bucket is admitted per slot: a slot's rows
+        # against the smallest slot budget of the mesh.
+        budget = {} if self.mesh is None else {"budget": kmem.min_chip_budget(self.mesh)[0]}
         for i, bucket in enumerate(self.config.buckets):
             floor = i == 0
             with trace.span(
@@ -347,10 +445,11 @@ class ServingEngine:
                 # of it cannot succeed; on the card the capture measures it.
                 plan = kmem.plan_program(
                     self._pipe,
-                    self._batch_struct(bucket),
+                    self._batch_struct(self._slot_layout(bucket)[1]),
                     label=f"serve:{self.label}:b{bucket}",
                     require_analysis=True,
                     meta_run=False,
+                    **budget,
                 )
                 self.memory_plans[bucket] = plan
                 if plan.admitted or floor:
@@ -369,10 +468,16 @@ class ServingEngine:
                 )
 
     def _compile(self, bucket: int, plan: kmem.MemoryPlan):
-        if self.device.type == "cpu":
+        if self.mesh is None and self.device.type == "cpu":
             return self._pipe  # the eager chain at the bucket's batch
         try:
-            return self._capture(bucket, plan)
+            if self.mesh is not None:
+                return self._mesh_bucket(bucket, plan)
+            graph, alloc, reserved = self._capture(
+                bucket, self.device, self._stream, bucket, self._pipe)
+            plan.reported = {"capture_allocated_bytes": alloc,
+                             "capture_reserved_bytes": reserved}
+            return graph
         except ServeError:
             raise
         except Exception as e:  # noqa: BLE001 — typed, never served eagerly
@@ -381,19 +486,71 @@ class ServingEngine:
                 f"{type(e).__name__}: {e}"
             ) from e
 
-    def _capture(self, bucket: int, plan: kmem.MemoryPlan) -> _GraphBucket:
-        """Warm the chain up once on the engine's stream at this batch, then
-        capture it into a CUDA graph on the same stream and thread."""
-        dev, s = self.device, self._stream
+    def _mesh_bucket(self, bucket: int, plan: kmem.MemoryPlan) -> _MeshBucket:
+        """The bucket over the mesh's slots: per distinct device the data
+        blocks its slots hold, run by :meth:`_slot_work` (captured into one
+        graph per device on the card).  On the card ``plan.reported`` holds
+        the captures' bytes summed over the devices and each slot's charge:
+        the largest of a device's capture bytes over the mesh's slots on
+        that device."""
+        nblocks, per = self._slot_layout(bucket)
+        devices, blocks, slots = {}, {}, {}
+        for (i, _m), dev in np.ndenumerate(self.mesh.devices):
+            key = kmesh.device_key(dev)
+            devices.setdefault(key, resolve_device(dev))
+            held = blocks.setdefault(key, [])
+            if (i if nblocks > 1 else 0) not in held:
+                held.append(i if nblocks > 1 else 0)
+            slots[key] = slots.get(key, 0) + 1
+        keys = list(blocks)
+        answer = [keys.index(kmesh.device_key(self.mesh.devices[i, 0])) for i in range(nblocks)]
+        parts = []
+        alloc = reserved = charge = 0
+        for key in keys:
+            dev = devices[key]
+            work = self._slot_work(key, dev, len(blocks[key]))
+            if dev.type == "cuda":
+                stream = self._streams.get(key)
+                if stream is None:
+                    stream = self._streams[key] = torch.cuda.Stream(dev)
+                work, a, r = self._capture(bucket, dev, stream, len(blocks[key]) * per, work)
+                alloc, reserved = alloc + a, reserved + r
+                charge = max(charge, max(a, r) // slots[key])
+            parts.append((dev, blocks[key], work))
+        if self.device.type == "cuda":
+            plan.reported = {"capture_allocated_bytes": alloc,
+                             "capture_reserved_bytes": reserved,
+                             "slot_charge_bytes": charge}
+        return _MeshBucket(parts, per, answer, self.device)
+
+    def _slot_work(self, key, dev: torch.device, nblocks: int):
+        """The work of one device's slots on the rows of its ``nblocks``
+        data blocks (in data order): each block a view of the input, run
+        through the chain lowered onto ``dev`` by ``map_rows`` and joined
+        on ``dev``; one block runs the chain on the input itself."""
+        replica = self._replicas[key]
+        if nblocks == 1:
+            def work(x):
+                with device_scope(dev):
+                    return replica(x)
+            return work
+        sub = kmesh.make_mesh(nblocks, 1, devices=[dev] * nblocks)
+        return lambda x: kmesh.map_rows(replica, kmesh.padded_shard_rows(x, sub)[0]).gather()
+
+    def _capture(self, bucket: int, dev, s, rows: int, work) -> tuple:
+        """Warm ``work`` up once on stream ``s`` of ``dev`` at ``rows`` rows,
+        then capture it into a CUDA graph on the same stream and thread.
+        Returns the graph and the bytes the capture took (allocated,
+        reserved)."""
         with _CAPTURE_LOCK:
             t0 = time.perf_counter()
             static_in = torch.zeros(
-                (bucket, *self.example_shape), dtype=self._torch_dtype, device=dev
+                (rows, *self.example_shape), dtype=self._torch_dtype, device=dev
             )
             with retained_constants() as constants:
                 s.wait_stream(torch.cuda.current_stream(dev))
                 with torch.cuda.stream(s):
-                    self._pipe(static_in)
+                    work(static_in)
                 s.synchronize()
                 # torch.cuda.graph empties the allocator's cache before it
                 # captures; empty it here first, so the reserved bytes below
@@ -406,10 +563,11 @@ class ServingEngine:
                     with torch.cuda.graph(
                         graph, stream=s, capture_error_mode="thread_local"
                     ):
-                        static_out = self._pipe(static_in)
+                        static_out = work(static_in)
                 alloc1 = torch.cuda.memory_allocated(dev)
                 reserved1 = torch.cuda.memory_reserved(dev)
-            self.capture_seconds[bucket] = time.perf_counter() - t0
+            self.capture_seconds[bucket] = (
+                self.capture_seconds.get(bucket, 0.0) + time.perf_counter() - t0)
         if not isinstance(static_out, torch.Tensor):
             raise ServeError(
                 f"serve:{self.label}: bucket {bucket}: the chain returns "
@@ -417,13 +575,9 @@ class ServingEngine:
             )
         # Other threads allocate and free meanwhile: a delta can come out
         # below zero, and then it says nothing.
-        plan.reported = {
-            "capture_allocated_bytes": max(0, int(
-                alloc1 - alloc0 + static_in.numel() * static_in.element_size()
-            )),
-            "capture_reserved_bytes": max(0, int(reserved1 - reserved0)),
-        }
-        return _GraphBucket(graph, static_in, static_out, kernels, constants, s)
+        alloc = max(0, int(alloc1 - alloc0 + static_in.numel() * static_in.element_size()))
+        return (_GraphBucket(graph, static_in, static_out, kernels, constants, s),
+                alloc, max(0, int(reserved1 - reserved0)))
 
     def _probe_batch(self, rows: int) -> np.ndarray:
         """Deterministic nonzero probe data for the parity check."""
@@ -533,25 +687,28 @@ class ServingEngine:
         Caller gates on ``profiler.enabled()``."""
         with self._lock:
             ex = self._exec.get(bucket)
-        flops, nbytes = ex.cost() if isinstance(ex, _GraphBucket) else (None, None)
+        graphs = _graphs(ex)
+        flops = sum(g.cost()[0] or 0 for g in graphs) or None
+        nbytes = sum(g.cost()[1] or 0 for g in graphs) or None
         kprof.record_program(
             f"serve:{self.label}:b{bucket}", wall_seconds,
             flops=flops, bytes_accessed=nbytes,
         )
 
     def graph_kernels(self) -> dict[int, dict]:
-        """Live bucket -> the kernels its graph recorded (empty on the CPU)."""
+        """Live bucket -> the kernels its graphs recorded (empty on the CPU);
+        a mesh bucket sums its devices' graphs."""
         with self._lock:
             return {
-                b: dict(ex.kernels)
-                for b, ex in self._exec.items() if isinstance(ex, _GraphBucket)
+                b: _merge_kernels(_graphs(ex))
+                for b, ex in self._exec.items() if _graphs(ex)
             }
 
     def graph_launches(self) -> dict[str, int]:
         """Kernel name -> launches made by replays so far: each graph's
         recorded launches times its replays, summed over the live buckets."""
         with self._lock:
-            graphs = [ex for ex in self._exec.values() if isinstance(ex, _GraphBucket)]
+            graphs = [g for ex in self._exec.values() for g in _graphs(ex)]
         out: dict[str, int] = {}
         for ex in graphs:
             for name, k in ex.kernels.items():
@@ -681,7 +838,7 @@ class ServingEngine:
             "config": self.config.record(),
             "example_shape": list(self.example_shape),
             "example_dtype": str(self.example_dtype),
-            "mesh": None,
+            "mesh": kmesh.mesh_desc(self.mesh) if self.mesh is not None else None,
             "device": str(self.device),
             "live_buckets": list(self.buckets()),
             "parity_ok": self.parity_ok,
@@ -711,23 +868,27 @@ def load_engine(
     label: str = "pipeline",
     wrap: Callable[[Any], Any] | None = None,
     device="cuda",
+    mesh=None,
 ) -> tuple[ServingEngine, dict]:
     """Warm-load a fitted pipeline from a ``core.checkpoint`` artifact (the
     port's or the JAX package's) onto ``device`` and stand up its engine,
     measuring the COLD START: restore seconds, the per-bucket build and
     capture (``compile_seconds``), and the warmup inference.  ``wrap``
-    turns the loaded object into the servable chain.  Returns ``(engine,
-    cold_start_record)``."""
+    turns the loaded object into the servable chain.  ``mesh`` restores
+    through ``load_pipeline(mesh=)`` (resharded onto the mesh, whatever
+    topology the file recorded) and serves on its slots.  Returns
+    ``(engine, cold_start_record)``."""
     from .checkpoint import load_numerics_baseline, load_pipeline
 
     t0 = time.perf_counter()
     with trace.span("serve.cold_load", cat="serve", path=path):
-        pipe = load_pipeline(path, device=device)
+        pipe = load_pipeline(path, device=device, mesh=mesh)
     t_load = time.perf_counter()
     if wrap is not None:
         pipe = wrap(pipe)
     engine = ServingEngine(
-        pipe, example, config=config, label=label, warmup=False, device=device
+        pipe, example, config=config, label=label, warmup=False, mesh=mesh,
+        device=device,
     )
     engine.arm_drift_baseline(load_numerics_baseline(path))
     t_build = time.perf_counter()
@@ -739,6 +900,8 @@ def load_engine(
         "warmup_seconds": round(t_warm - t_build, 4),
         "cold_start_seconds": round(t_warm - t0, 4),
     }
+    if mesh is not None:
+        cold["mesh"] = kmesh.mesh_desc(mesh)
     trace.instant("serve_cold_start", label=label, **cold)
     return engine, cold
 

@@ -196,12 +196,16 @@ def parse_mesh(spec: str | None, device="cuda") -> Mesh | None:
         )
     data = int(parts[0])
     model = int(parts[1]) if len(parts) > 1 else 1
+    return make_mesh(data=data, model=model, devices=kind_devices(device))
+
+
+def kind_devices(device="cuda") -> list:
+    """The distinct devices of ``device``'s kind: every card, or the one
+    CPU.  ``cuda`` without a card raises (``resolve_device``)."""
     dev = resolve_device(device)
-    devices = (
-        [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-        if dev.type == "cuda" else [dev]
-    )
-    return make_mesh(data=data, model=model, devices=devices)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
 
 
 def add_mesh_flag(p) -> None:

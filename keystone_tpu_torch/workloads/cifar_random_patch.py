@@ -143,6 +143,9 @@ class RandomCifarConfig:
     serve_bench: bool = False
     serve_clients: int = 4
     serve_requests: int = 256
+    #: ``--serveMesh DxM``: serve on a mesh of the device kind's devices —
+    #: the checkpoint reshards onto it and every bucket runs on its slots.
+    serve_mesh: str | None = None
     #: Cost-based auto-Cacher (core.optimize) on the conv featurizer of the
     #: ``featurize then StandardScaler`` chain: fitting pushes the images
     #: through it once and applying the fitted chain again, so a memoizing
@@ -610,6 +613,7 @@ def _maybe_serve(conf: RandomCifarConfig, test: LabeledImageBatch, results: dict
         bench=conf.serve_bench,
         clients=conf.serve_clients,
         device=conf.device,
+        mesh=serve_common.resolve_serve_mesh(conf.serve_mesh, conf.device),
     )
 
 
@@ -698,7 +702,7 @@ def main(argv=None) -> dict:
     add_mesh_flag(p)
     serve_common.add_serve_args(p)
     a = p.parse_args(argv)
-    serve_common.check_serve_args(p, a)
+    serve_common.check_serve_args(a)
     if a.trainLocation is None and a.streamTrainTar is None:
         p.error("one of --trainLocation / --streamTrainTar is required")
     if a.testLocation is None and a.streamTestTar is None:
@@ -734,6 +738,7 @@ def main(argv=None) -> dict:
         serve_bench=a.serveBench,
         serve_clients=a.serveClients,
         serve_requests=a.serveRequests,
+        serve_mesh=a.serveMesh,
         auto_cache=a.autoCache or optimize.auto_cache_env(),
         auto_tune=a.autoTune,
         auto_shard=a.autoShard,

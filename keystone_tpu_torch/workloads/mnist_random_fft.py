@@ -90,6 +90,9 @@ class MnistRandomFFTConfig:
     serve_bench: bool = False
     serve_clients: int = 4
     serve_requests: int = 256
+    #: ``--serveMesh DxM``: serve on a mesh of the device kind's devices —
+    #: the checkpoint reshards onto it and every bucket runs on its slots.
+    serve_mesh: str | None = None
     #: Cost-based auto-Cacher (core.optimize): whether the featurized
     #: training batches stay resident from the solve to the train-split
     #: eval, decided from the measured featurize seconds and their bytes
@@ -312,6 +315,7 @@ def _maybe_serve(conf: MnistRandomFFTConfig, test: LabeledData, results: dict) -
         bench=conf.serve_bench,
         clients=conf.serve_clients,
         device=conf.device,
+        mesh=serve_common.resolve_serve_mesh(conf.serve_mesh, conf.device),
     )
 
 
@@ -360,7 +364,7 @@ def main(argv=None) -> dict:
     add_mesh_flag(p)
     serve_common.add_serve_args(p)
     a = p.parse_args(argv)
-    serve_common.check_serve_args(p, a)
+    serve_common.check_serve_args(a)
     if a.blockSize <= 0 or a.blockSize % 512 != 0:
         p.error("--blockSize must be a positive multiple of 512")
     if a.trace:
@@ -381,6 +385,7 @@ def main(argv=None) -> dict:
         serve_bench=a.serveBench,
         serve_clients=a.serveClients,
         serve_requests=a.serveRequests,
+        serve_mesh=a.serveMesh,
         auto_cache=a.autoCache or optimize.auto_cache_env(),
         auto_shard=a.autoShard,
     )

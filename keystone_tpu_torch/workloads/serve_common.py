@@ -18,8 +18,9 @@ modes through here:
 
 Bucket and deadline knobs come from the ``KEYSTONE_SERVE_*`` env
 (``core.serve``); the CLI adds the client side only (``--serveClients`` /
-``--serveRequests``).  ``--serveMesh`` is a usage error: serving on a
-device mesh is not ported.
+``--serveRequests``).  ``--serveMesh DxM`` serves on a mesh of the
+``--device`` kind's devices: the artifact restores through
+``load_pipeline(mesh=)`` and every bucket runs on the mesh's slots.
 """
 
 from __future__ import annotations
@@ -66,14 +67,42 @@ def add_serve_args(p) -> None:
         "--serveMesh",
         default=None,
         metavar="DxM",
-        help="not ported: serving on a device mesh (a usage error here)",
+        help="serve on a device mesh, e.g. 2x1, over the --device kind's devices: the "
+        "checkpoint reshards onto it (whatever topology it recorded) and every bucket "
+        "runs on its slots",
     )
 
 
-def check_serve_args(p, a) -> None:
-    """``--serveMesh`` is a usage error (``p.error`` exits)."""
-    if a.serveMesh is not None:
-        p.error("--serveMesh is not ported: serving runs on one device")
+def resolve_serve_mesh(spec: str | None, device="cuda"):
+    """``--serveMesh DxM`` -> a ``Mesh`` over the first D*M distinct devices
+    of the ``--device`` kind, as ``parallel.mesh.parse_mesh`` takes them
+    (one CPU, or the cards); ``None`` passes through."""
+    if spec is None:
+        return None
+    from ..parallel.mesh import kind_devices, make_mesh
+
+    try:
+        data, model = (int(s) for s in spec.lower().split("x"))
+        if data < 1 or model < 1:
+            raise ValueError
+    except ValueError:
+        raise ValueError(f"--serveMesh {spec!r}: expected DxM with positive sizes "
+                         "(e.g. 2x1)") from None
+    devs = kind_devices(device)
+    if data * model > len(devs):
+        raise ValueError(
+            f"--serveMesh {spec}: needs {data * model} devices but this "
+            f"process has {len(devs)}"
+        )
+    return make_mesh(data=data, model=model, devices=devs[: data * model])
+
+
+def check_serve_args(a) -> None:
+    """Before any data is read: ``--serve``/``--serveBench`` need
+    ``--pipelineFile``, and their ``--serveMesh`` must fit the devices."""
+    if a.serve or a.serveBench:
+        require_pipeline_file(a.pipelineFile)
+        resolve_serve_mesh(a.serveMesh, a.device)
 
 
 def require_pipeline_file(pipeline_file: str | None) -> None:
@@ -95,30 +124,32 @@ def serve_fitted(
     clients: int = 4,
     timeout: float = 120.0,
     device="cuda",
+    mesh=None,
     log=None,
 ) -> dict:
-    """Warm-load the fitted pipeline onto ``device`` and serve ``requests``
-    through the online path; returns the JSON-able serving record (cold
-    start + engine summary + either the routed answers' record or the SLO
-    bench)."""
+    """Warm-load the fitted pipeline onto ``device`` (or the slots of
+    ``mesh``, from ``--serveMesh``) and serve ``requests`` through the
+    online path; returns the JSON-able serving record (cold start + engine
+    summary + either the routed answers' record or the SLO bench)."""
     from ..core import frontend as kfrontend
     from ..core import serve as kserve
 
     lg = log or _logger
     requests = np.asarray(requests)
     engine, cold = kserve.load_engine(
-        pipeline_file, example, label=label, wrap=wrap, device=device
+        pipeline_file, example, label=label, wrap=wrap, device=device, mesh=mesh
     )
     record: dict = {"cold_start": cold}
     lg.info(
         "%s: serving cold start %.3fs (restore %.3fs, build+capture %.3fs, "
-        "warmup %.3fs); live buckets %s",
+        "warmup %.3fs); live buckets %s%s",
         label,
         cold["cold_start_seconds"],
         cold["checkpoint_load_seconds"],
         cold["compile_seconds"],
         cold["warmup_seconds"],
         list(engine.buckets()),
+        f"; mesh {cold['mesh']}" if mesh is not None else "",
     )
     if bench:
         record["bench"] = kserve.serve_bench(
@@ -139,7 +170,7 @@ def serve_fitted(
         t0 = time.perf_counter()
         # The single-engine demo rides the same front-end tier a
         # multi-shape deployment uses: routed by shape, with router stats.
-        with kfrontend.ShapeRouter(label=f"{label}_router") as router:
+        with kfrontend.ShapeRouter(label=f"{label}_router", mesh=mesh) as router:
             key = router.add_engine(engine)
             server = router.server_for(key)
             futs = [router.submit(r) for r in requests]

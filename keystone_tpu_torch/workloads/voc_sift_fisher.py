@@ -156,6 +156,9 @@ class SIFTFisherConfig:
     serve_bench: bool = False
     serve_clients: int = 4
     serve_requests: int = 64
+    #: ``--serveMesh DxM``: serve on a mesh of the device kind's devices —
+    #: the checkpoint reshards onto it and every bucket runs on its slots.
+    serve_mesh: str | None = None
     #: Cost-based auto-Cacher (core.optimize): whether the PCA-projected
     #: training descriptors stay whole between GMM sampling and the Fisher
     #: features, decided from a timed probe through the card's admission
@@ -439,6 +442,7 @@ def _maybe_serve(conf: SIFTFisherConfig, test, results: dict) -> None:
         bench=conf.serve_bench,
         clients=conf.serve_clients,
         device=conf.device,
+        mesh=serve_common.resolve_serve_mesh(conf.serve_mesh, conf.device),
     )
     record["request_shape"] = list(requests.shape[1:])
     record["shape_buckets_total"] = len(buckets)
@@ -521,7 +525,7 @@ def main(argv=None) -> dict:
     add_mesh_flag(p)
     serve_common.add_serve_args(p)
     a = p.parse_args(argv)
-    serve_common.check_serve_args(p, a)
+    serve_common.check_serve_args(a)
     for flag in ("deviceDecode", "decodeBackend", "snapshotDir", "autoTune"):
         if getattr(a, flag) and not a.streamIngest:
             p.error(f"--{flag} needs --streamIngest")
@@ -549,6 +553,7 @@ def main(argv=None) -> dict:
         serve_bench=a.serveBench,
         serve_clients=a.serveClients,
         serve_requests=a.serveRequests,
+        serve_mesh=a.serveMesh,
         auto_cache=a.autoCache or optimize.auto_cache_env(),
         auto_shard=a.autoShard,
     )

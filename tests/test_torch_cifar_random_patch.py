@@ -120,16 +120,18 @@ def test_cli_auto_shard_records_the_placement(cifar_files, monkeypatch, tmp_path
 
 def test_cli_rejects_unported_flags(cifar_files):
     """Beside ``--mesh``, ``--autoCache`` is taken, with the predictions of
-    the ``--mesh 1`` run; ``--serveMesh`` stays a usage error."""
+    the ``--mesh 1`` run; so is ``--serveMesh``, which, as in the JAX CLI,
+    is not read without ``--serve``: the same predictions again."""
     train, test = cifar_files
     argv = ["--trainLocation", train, "--testLocation", test, *FLAGS, "--device", "cpu",
             "--mesh", "1"]
     cached = pt_cifar.main([*argv, "--autoCache"])
     assert cached["cache_plan"]["cached"] == ["conv_featurize"]
-    np.testing.assert_array_equal(cached["test_predictions"],
-                                  pt_cifar.main(argv)["test_predictions"])
-    with pytest.raises(SystemExit):
-        pt_cifar.main([*argv, "--serveMesh", "1x1"])
+    plain = pt_cifar.main(argv)["test_predictions"]
+    np.testing.assert_array_equal(cached["test_predictions"], plain)
+    served_mesh = pt_cifar.main([*argv, "--serveMesh", "1x1"])
+    assert "serving" not in served_mesh
+    np.testing.assert_array_equal(served_mesh["test_predictions"], plain)
 
 
 def test_carried_over_state_matches_jax(jax_fit):

@@ -10,6 +10,7 @@ torch nor jax.
 Tolerance: exact (``np.array_equal``): a backend changes where the pixels
 are decoded, never the pixels."""
 
+import dataclasses
 import glob
 import io
 import json
@@ -18,6 +19,7 @@ import signal
 import subprocess
 import sys
 import tarfile
+import threading
 import time
 from pathlib import Path
 
@@ -275,6 +277,25 @@ def test_hung_worker_process_trips_deadline(tar_uniform):
     assert not worker.is_alive()
 
 
+#: The killed-worker stream's own deadline: 16 small images take well
+#: under a second, a respawn a few seconds on a loaded host.
+KILLED_STREAM_DEADLINE_S = 60.0
+
+
+def _stream_state(st, got: list) -> dict:
+    """What a stuck stream is doing: the batches consumed, its stats and the
+    decode pool's workers with their pending tasks."""
+    pool = st._proc_pool
+    return {
+        "batches_consumed": len(got), "stats": dataclasses.asdict(st.stats),
+        "pool": None if pool is None else {
+            "down": pool._down, "inflight": len(pool._inflight),
+            "workers": [{"pid": w.proc.pid, "alive": w.proc.is_alive(),
+                         "exitcode": w.proc.exitcode, "pending": len(w.pending)}
+                        for w in pool._workers]},
+    }
+
+
 def test_killed_worker_is_respawned(tmp_path, rng):
     path = str(tmp_path / "kill.tar")
     _make_tar(path, [(48, 48)] * 16, rng)
@@ -282,14 +303,35 @@ def test_killed_worker_is_respawned(tmp_path, rng):
     before = counters.get("decode_worker_respawn")
     cfg = ingest.StreamConfig.from_env(decode_threads=2, decode_ahead=2, ring_capacity=1,
                                        decode_backend="process", decode_procs=2)
-    killed = False
-    with ingest.stream_batches(path, 4, config=cfg, device="cpu") as st:
-        got = []
-        for b in st:
-            if not killed:
-                os.kill(st._proc_pool.live_workers()[0].pid, signal.SIGKILL)
-                killed = True
-            got.append((b.index, b.indices.copy(), list(b.names), np.array(b.host)))
+    killed: list = []
+    got: list = []
+    errors: list = []
+    st = ingest.stream_batches(path, 4, config=cfg, device="cpu")
+
+    def consume():
+        try:
+            for b in st:
+                if not killed:
+                    pid = st._proc_pool.live_workers()[0].pid
+                    os.kill(pid, signal.SIGKILL)
+                    killed.append(pid)
+                got.append((b.index, b.indices.copy(), list(b.names), np.array(b.host)))
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    # The stream is consumed on a thread with a bounded join, so a stuck
+    # stream fails this test, named, instead of holding its worker.
+    consumer = threading.Thread(target=consume, name="killed-worker-consumer", daemon=True)
+    consumer.start()
+    consumer.join(KILLED_STREAM_DEADLINE_S)
+    if consumer.is_alive():
+        state = _stream_state(st, got)
+        st.close()
+        pytest.fail(f"the stream did not finish within {KILLED_STREAM_DEADLINE_S} s after "
+                    f"decode worker {killed} was killed: {state}")
+    st.close()
+    if errors:
+        raise errors[0]
     assert st.join(20.0)
     assert killed and counters.get("decode_worker_respawn") - before >= 1
     assert st.stats.worker_respawns >= 1

@@ -203,8 +203,18 @@ def test_cli_needs_a_card_by_default(csv_files, monkeypatch):
         pt_mnist.main(["--trainLocation", train, "--testLocation", test])
 
 
+#: What the JAX CLI does with each ``--serveMesh`` argv below: without
+#: ``--serve`` the flag is not read and the run completes; ``--serve``
+#: without ``--pipelineFile`` needs it.
+SERVE_MESH_OUTCOMES = {
+    ("--mesh", "1", "--autoCache", "--serveMesh", "1x1"): "runs",
+    ("--serveMesh", "2x1"): "runs",
+    ("--serve", "--serveMesh", "1x1"): "needs --pipelineFile",
+}
+
+
 @pytest.mark.parametrize("flags", [
-    # beside --mesh: the serving mesh (not ported), a flag without its path
+    # beside --mesh: the serving mesh, a flag without its path
     ["--mesh", "1", "--autoCache", "--serveMesh", "1x1"], ["--autoShard", "--mesh", "1",
                                                           "--pipelineFile"],
     ["--solveCheckpoint"],  # the flag needs its path
@@ -214,6 +224,14 @@ def test_cli_needs_a_card_by_default(csv_files, monkeypatch):
 ])
 def test_cli_usage_errors(csv_files, flags):
     train, test = csv_files
-    with pytest.raises(SystemExit):
-        pt_mnist.main(["--trainLocation", train, "--testLocation", test, "--device", "cpu",
-                       *flags])
+    argv = ["--trainLocation", train, "--testLocation", test, "--device", "cpu", *flags]
+    outcome = SERVE_MESH_OUTCOMES.get(tuple(flags))
+    if outcome == "runs":
+        res = pt_mnist.main([*argv, "--numFFTs", "4", "--blockSize", "512", "--lambda", "10"])
+        assert res["test_error"] == 0.0 and "serving" not in res
+    elif outcome == "needs --pipelineFile":
+        with pytest.raises(ValueError, match="--pipelineFile"):
+            pt_mnist.main(argv)
+    else:
+        with pytest.raises(SystemExit):
+            pt_mnist.main(argv)

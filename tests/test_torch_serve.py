@@ -159,6 +159,8 @@ class TestServingEngine:
             kserve.ServingEngine(_toy_pipe(*weights), np.zeros(16, np.float32))
 
     def test_mesh_is_refused_typed(self, weights):
+        """A mesh that is not the port's single-process ``Mesh`` is refused
+        typed (the JAX engine refuses one spanning processes)."""
         with pytest.raises(kserve.ServeError, match="mesh"):
             kserve.ServingEngine(_toy_pipe(*weights), np.zeros(16, np.float32),
                                  device="cpu", mesh=object())

@@ -6,8 +6,10 @@ saved), then serves requests drawn from the eager test split: the
 ``--serve`` record's answers equal the offline apply (VOC: equal, or with
 parity unverified deterministic, the reference's rule), the
 ``--serveBench`` record carries the reference's keys with both answer
-checks true, and the usage rules hold: no ``--pipelineFile`` raises,
-``--serveMesh`` is a usage error, VOC refuses ``--streamIngest``."""
+checks true, and the usage rules hold: no ``--pipelineFile`` raises, a
+``--serveMesh`` wider than the devices raises the JAX package's
+device-count ``ValueError`` (before any data is read), VOC refuses
+``--streamIngest``."""
 
 import json
 
@@ -89,12 +91,13 @@ def test_serving_without_a_pipeline_file_raises(cifar_files):
 
 @pytest.mark.parametrize("module", [pt_cifar, pt_mnist, pt_voc])
 def test_serve_mesh_is_a_usage_error(module, tmp_path):
-    with pytest.raises(SystemExit):
-        module.main(["--trainLocation", "x", "--testLocation", "y", "--labelPath", "z",
-                     "--device", "cpu", "--serveMesh", "2x1"]
-                    if module is pt_voc else
-                    ["--trainLocation", "x", "--testLocation", "y", "--device", "cpu",
-                     "--serveMesh", "2x1"])
+    """``--serve --serveMesh 2x1`` on the one CPU: the JAX CLIs'
+    ``resolve_serve_mesh`` error, raised here before the (absent) data is
+    read."""
+    argv = ["--trainLocation", "x", "--testLocation", "y", "--device", "cpu", "--serve",
+            "--pipelineFile", str(tmp_path / "servable"), "--serveMesh", "2x1"]
+    with pytest.raises(ValueError, match="needs 2 devices but this process has 1"):
+        module.main([*argv, "--labelPath", "z"] if module is pt_voc else argv)
 
 
 def test_mnist_serve_and_serve_bench(tmp_path):
