@@ -48,8 +48,12 @@ until then).  So ``map_rows(node, rows)`` runs a restored node slot by
 slot on sharded rows, and ``replicate(node, x.device)(x)`` on a tensor;
 either gives the original node's bits.
 
-Multi-process meshes (the JAX package's ``crosshost`` placement) wait for
-the distribution item of the roadmap (item 16b).
+**Across processes.**  On a mesh that spans processes
+(``parallel.mesh.mesh_spans_processes``) each process materialises only
+its own slots' windows of every array from the file (counted
+``ckpt_reshard_crosshost``), so no process stages the fleet's state on a
+device; the topology record of a save in a group of more than one process
+carries ``processes``.
 
 Public surface:
   save_pipeline(path, pipe, numerics_baseline) -> writes <stem>.npz + <stem>.json
@@ -130,13 +134,21 @@ def _current_topology() -> dict:
     ``use_mesh`` shape (its slots counted as devices), if any."""
     from ..parallel.mesh import current_mesh
 
+    from ..parallel import distributed as kdist
+
     cuda = torch.cuda.is_available()
     mesh = current_mesh()
-    return {
+    topo = {
         "platform": "gpu" if cuda else "cpu",
         "device_count": torch.cuda.device_count() if cuda else 1,
         "mesh": dict(mesh.shape) if mesh is not None else None,
     }
+    # A process group of more than one rank fingerprints its world size too
+    # (omitted single-process, so earlier checkpoints still compare equal).
+    st = kdist.group_state()
+    if st is not None and st.process_group and st.world > 1:
+        topo["processes"] = st.world
+    return topo
 
 
 def _record_spec(v) -> str:
@@ -429,18 +441,25 @@ class _Resharder:
     error halfway through.  An array above ``KEYSTONE_RESHARD_CHUNK_BYTES``
     is copied window by window from the host (``host_staged``); below it,
     in one copy to the first slot's device, which its other slots there
-    view.  Both give the same bits."""
+    view.  Both give the same bits.
+
+    On a mesh spanning processes every placement is window by window
+    (counted ``crosshost``): each process copies only its own slots'
+    windows from the host array, so its transient is bounded by its largest
+    window, and the budget is that of its own slots."""
 
     def __init__(self, mesh):
         from . import memory as kmem
+        from ..parallel.mesh import host_local_mesh, mesh_spans_processes
 
         self.mesh = mesh
+        self.crosshost = mesh_spans_processes(mesh)
         self.mesh_shape = dict(mesh.shape)
         raw = os.environ.get(RESHARD_CHUNK_ENV, "").strip()
         self.chunk_bytes = kmem.parse_bytes(raw) if raw else _DEFAULT_RESHARD_CHUNK
-        self.budget, _ = kmem.min_chip_budget(mesh)
+        self.budget, _ = kmem.min_chip_budget(host_local_mesh(mesh) if self.crosshost else mesh)
         self.stats = {"arrays": 0, "resharded": 0, "host_staged": 0, "spec_fallback": 0,
-                      "bytes": 0}
+                      "crosshost": 0, "bytes": 0}
 
     def _target_spec(self, t: torch.Tensor, recorded: str) -> str:
         from . import autoshard
@@ -484,6 +503,13 @@ class _Resharder:
             self.stats["resharded"] += 1
         nbytes = t.numel() * t.element_size()
         self.stats["bytes"] += nbytes
+        if self.crosshost:
+            # Destination-process pull: only this process's windows are
+            # copied, whatever the array's size.
+            self.stats["crosshost"] += 1
+            if nbytes > self.chunk_bytes and t.ndim:
+                self.stats["host_staged"] += 1
+            return sharding.place_staged(t)
         if nbytes > self.chunk_bytes and t.ndim:
             self.stats["host_staged"] += 1
             return sharding.place_staged(t)
@@ -526,13 +552,15 @@ def load_pipeline(path: str, device="cuda", mesh=None, report: dict | None = Non
     ``parallel.mesh.Mesh`` opts in to redistribution: every array leaf is
     laid out on the mesh's slots (``device`` is not read), as
     :class:`_Resharder` says, counted ``ckpt_reshard``; see the module
-    docstring for computing with the restored nodes.  ``report``, a dict
-    the caller passes, receives the mesh load's counts: ``arrays``,
-    ``resharded``, ``host_staged``, ``spec_fallback`` and ``bytes``."""
+    docstring for computing with the restored nodes.  On a mesh spanning
+    processes only this process's windows are placed (counted
+    ``ckpt_reshard_crosshost``).  ``report``, a dict the caller passes,
+    receives the mesh load's counts: ``arrays``, ``resharded``,
+    ``host_staged``, ``spec_fallback``, ``crosshost`` and ``bytes``."""
     if mesh is None:
         dev = resolve_device(device)
     else:
-        for d in {torch.device(d) for d in mesh.devices.flat}:
+        for d in {torch.device(mesh.devices[s]) for s in mesh.local_slots()}:
             resolve_device(d)
     _ensure_standard_registry()
     npz_path, manifest_path = checkpoint_paths(path)
@@ -597,6 +625,12 @@ def load_pipeline(path: str, device="cuda", mesh=None, report: dict | None = Non
             f"{npz_path}: {st['arrays']} array(s) ({st['bytes']} B) placed onto mesh "
             f"{mesh_desc(mesh)} [{st['resharded']} resharded, {st['host_staged']} "
             f"host-staged, {st['spec_fallback']} spec-fallback]",
+        )
+    if st["crosshost"]:
+        counters.record(
+            "ckpt_reshard_crosshost",
+            f"{npz_path}: {st['crosshost']} array(s) pulled by destination processes "
+            f"across a process-spanning mesh {mesh_desc(mesh)}",
         )
     _logger.info("loaded checkpoint %s resharded onto mesh %s (%d arrays, %d host-staged)",
                  npz_path, mesh_desc(mesh), st["arrays"], st["host_staged"])

@@ -43,7 +43,11 @@ Router state exports into ``trace.metrics`` (``router_engines`` gauge,
 ``router_engine_retired`` counters, ``router_route_overhead_us``
 histogram); every add/retire/denial is a trace instant.
 
-Not ported: ``HostFleet`` and the multi-process mesh (roadmap item 16b).
+* **Multi-host fleet** — :class:`HostFleet` fronts N host-local routers,
+  each behind a ``core.wire.WireServer``, round-robin; a member whose
+  socket dies is declared lost (``fleet_host_lost``) and the same request is
+  reissued to a survivor.  (``HostFleet.attach_collector`` waits for
+  ``core/fleetobs.py``.)
 
 Env knobs: ``KEYSTONE_ROUTER_WARM_THRESHOLD`` (default ``3``),
 ``KEYSTONE_ROUTER_MIX_WINDOW_S`` (``5``), ``KEYSTONE_ROUTER_RETIRE_AFTER_S``
@@ -938,3 +942,145 @@ class ShapeRouter:
         if kprof.enabled():
             out["profiler"] = kprof.ledger_record()
         return out
+
+
+# -- multi-host fleet front-end -----------------------------------------------
+
+
+def _endpoint(ep) -> tuple:
+    """``(host, port)`` from a tuple or a ``"host:port"`` string."""
+    if isinstance(ep, str):
+        host, _, port = ep.rpartition(":")
+        ep = (host or "127.0.0.1", int(port))
+    return str(ep[0]), int(ep[1])
+
+
+class HostFleet:
+    """The wire front-end over N HOST-LOCAL routers: one
+    :class:`~.wire.WireClient` per fleet member, requests spread
+    round-robin, and a member whose socket dies is declared lost (counted
+    ``fleet_host_lost``, postmortem-linked) with the request REISSUED to a
+    survivor — a host loss costs the fleet capacity, never an answer.
+
+    Engines never span hosts (``ServingEngine`` refuses a process-spanning
+    mesh), so scale-out is N independent ``ShapeRouter`` + ``WireServer``
+    pairs — one per host, each anchored on its
+    ``parallel.mesh.host_local_mesh`` — fronted by this class.  Predictions
+    are pure, so reissuing an in-flight request to a survivor is exact; a
+    request only fails when NO host is left (typed
+    :class:`ServingUnavailable`).
+
+    Thread-safe: each member's client socket is guarded by its own lock, so
+    concurrent callers fan out across members instead of serializing."""
+
+    def __init__(self, endpoints, *, label: str = "fleet", timeout: float = 30.0):
+        if not endpoints:
+            raise ValueError("HostFleet needs at least one endpoint")
+        self.label = label
+        self.timeout = float(timeout)
+        self._hosts = [self._member(_endpoint(ep)) for ep in endpoints]
+        self._rr = 0
+        self._rr_lock = threading.Lock()
+        self.lost_hosts = 0
+        trace.instant("fleet.up", label=label, hosts=[list(h["endpoint"]) for h in self._hosts])
+
+    @staticmethod
+    def _member(endpoint: tuple) -> dict:
+        return {"endpoint": endpoint, "client": None, "lock": threading.Lock(),
+                "alive": True, "requests": 0, "reissued": 0}
+
+    def _client(self, h):
+        from . import wire
+
+        if h["client"] is None:
+            h["client"] = wire.WireClient(h["endpoint"][0], h["endpoint"][1],
+                                          timeout=self.timeout)
+        return h["client"]
+
+    def _mark_lost(self, h, why: str) -> None:
+        if not h["alive"]:
+            return
+        h["alive"] = False
+        self.lost_hosts += 1
+        try:
+            if h["client"] is not None:
+                h["client"].close()
+        finally:
+            h["client"] = None
+        counters.record("fleet_host_lost", f"{self.label}: {h['endpoint']}: {why}")
+
+    def alive_hosts(self) -> list:
+        return [h["endpoint"] for h in self._hosts if h["alive"]]
+
+    def predict(self, arr, timeout: float | None = None):
+        """Answer one request through some live host.  A member that dies
+        mid-request (reset, closed socket, silence past the deadline) is
+        declared lost and the SAME request is reissued to the next member;
+        typed remote errors (the server answering "no") propagate — they
+        are answers, not host deaths."""
+        from . import wire
+
+        budget = timeout if timeout is not None else self.timeout
+        tried = 0
+        n = len(self._hosts)
+        while True:
+            live = [h for h in self._hosts if h["alive"]]
+            if not live:
+                raise ServingUnavailable(f"fleet {self.label!r}: all {n} host(s) lost")
+            with self._rr_lock:
+                h = live[self._rr % len(live)]
+                self._rr += 1
+            try:
+                with h["lock"]:
+                    client = self._client(h)
+                    h["requests"] += 1
+                    return client.predict(arr, timeout=budget)
+            except wire.WireRemoteError:
+                raise  # a typed answer from a live host
+            except (OSError, TimeoutError, wire.WireProtocolError) as e:
+                self._mark_lost(h, f"{type(e).__name__}: {e}")
+                tried += 1
+                if tried > n:  # pragma: no cover - every host died
+                    raise ServingUnavailable(
+                        f"fleet {self.label!r}: no host answered: {e}") from e
+                h["reissued"] += 1  # this member's loss forced a reissue
+
+    def reattach(self, endpoint) -> None:
+        """Re-admit a (restarted) member at ``endpoint`` — the scale-back-up
+        half of elasticity.  New endpoint, new member; known endpoint,
+        revived in place."""
+        endpoint = _endpoint(endpoint)
+        trace.instant("fleet.reattach", endpoint=list(endpoint))
+        for h in self._hosts:
+            if h["endpoint"] == endpoint:
+                h["alive"] = True
+                h["client"] = None
+                return
+        self._hosts.append(self._member(endpoint))
+
+    def record(self) -> dict:
+        return {
+            "label": self.label,
+            "hosts": [
+                {"endpoint": list(h["endpoint"]), "alive": h["alive"],
+                 "requests": h["requests"], "reissued": h["reissued"]}
+                for h in self._hosts
+            ],
+            "lost_hosts": self.lost_hosts,
+        }
+
+    def close(self) -> None:
+        for h in self._hosts:
+            with h["lock"]:
+                if h["client"] is not None:
+                    try:
+                        h["client"].close()
+                    except OSError:  # pragma: no cover
+                        pass
+                    h["client"] = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

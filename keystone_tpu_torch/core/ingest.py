@@ -1144,3 +1144,24 @@ def stream_batches(
     return IngestStream(path, batch_size, keep=keep, config=config, device=device,
                         tuner=tuner, num_threads=num_threads,
                         decode_ahead_slots=decode_ahead_slots, capacity=capacity)
+
+
+def host_shards(paths, rank: int | None = None, world: int | None = None):
+    """This process's slice of a tar-shard list: round-robin
+    (``paths[rank::world]``) over the SORTED names, so every member of a
+    process group derives a disjoint cover of the dataset from the same
+    listing with no coordination.  ``rank``/``world`` default from the
+    live process group (``parallel.distributed``) and collapse to
+    "everything" single-process.  Each process then streams its own shards
+    through :func:`stream_batches`; no bytes cross processes at ingest."""
+    paths = sorted(str(p) for p in paths)
+    if rank is None or world is None:
+        from ..parallel import distributed as kdist
+
+        rank = kdist.process_index() if rank is None else rank
+        world = kdist.process_count() if world is None else world
+    if world <= 1:
+        return paths
+    if not (0 <= rank < world):
+        raise ValueError(f"rank {rank} outside world {world}")
+    return paths[rank::world]

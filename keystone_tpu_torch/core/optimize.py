@@ -412,8 +412,8 @@ def release_caches(pipeline: Pipeline) -> None:
 #: memory GB/s by card name from ``core.profiler.DEVICE_RATES`` (unknown
 #: devices, the CPU included, take its defaults; only the relative ranking
 #: of candidate plans matters there).  ``ici_gbps`` is the interconnect
-#: rate of the JAX package's record, kept at its default value until the
-#: multi-card item (ROADMAP Queue 1 item 16) measures NVLink.
+#: rate of the JAX package's record, kept at its default value until a
+#: host with several cards measures NVLink.
 _DEFAULT_RATES = {**kprof.DEFAULT_RATES, "ici_gbps": 5.0}
 
 

@@ -496,11 +496,12 @@ class Cacher(Transformer):
     def __call__(self, batch):
         import torch
 
-        from ..parallel.mesh import SpecSharding
+        from ..parallel.mesh import SpecSharding, require_local
 
         if _capturing():
             return batch  # the graph owns its buffers
         if isinstance(self.sharding, SpecSharding):
+            require_local(self.sharding.mesh, f"Cacher {self.name!r}")
             if not self.sharding.holds(batch):
                 if _is_record(batch):
                     batch = batch.gather()

@@ -66,8 +66,10 @@ work there.  Each bucket is admitted per slot against
 ``core.memory.min_chip_budget``; a capture's bytes are the whole card's, and
 the slot's charge (``reported["slot_charge_bytes"]``) is the card's capture
 bytes over the mesh's slots on that card.  The eager oracle is the lowered
-chain on slot (0, 0)'s device.  A mesh spanning processes waits for the
-distribution item of the roadmap (item 16b).
+chain on slot (0, 0)'s device.  Engines never span processes: a mesh that
+does (``parallel.mesh.mesh_spans_processes``) is refused, typed, naming
+``host_local_mesh(mesh)``; scale-out across hosts is one engine per host
+behind ``core.frontend.HostFleet``.
 
 With the profiler on, the launches a graph records are tallied by name and stated
 cost (``core.profiler.graph_tally``) and each synced replay is one ledger
@@ -332,7 +334,7 @@ class ServingEngine:
 
     ``mesh`` (a ``parallel.mesh.Mesh``) serves on its slots, as the module
     docstring says; ``device`` is then slot (0, 0)'s.  A mesh that spans
-    processes is not ported (roadmap item 16b).
+    processes raises :class:`ServeError` naming ``host_local_mesh(mesh)``.
     """
 
     def __init__(
@@ -355,9 +357,17 @@ class ServingEngine:
         else:
             if not isinstance(mesh, kmesh.Mesh):
                 raise ServeError(
-                    f"serve:{label}: mesh= takes a parallel.mesh.Mesh of this process's "
-                    f"devices, not {type(mesh).__name__} (a mesh spanning processes is "
-                    "roadmap item 16b)"
+                    f"serve:{label}: mesh= takes a parallel.mesh.Mesh, not "
+                    f"{type(mesh).__name__}"
+                )
+            if kmesh.mesh_spans_processes(mesh):
+                # Serving never spans hosts: a request answered through a
+                # cross-process mesh would need every host per request (one
+                # slow peer stalls the fleet, one dead peer fails it).
+                raise ServeError(
+                    f"serve:{label}: serving mesh {kmesh.mesh_desc(mesh)} spans processes — "
+                    "anchor on host_local_mesh(mesh) instead (this host owns "
+                    f"{len(mesh.local_slots())} of the mesh's {mesh.size} slots)"
                 )
             for dev in mesh.devices.flat:
                 if kmesh.device_key(dev) not in self._replicas:

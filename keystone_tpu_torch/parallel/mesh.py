@@ -42,8 +42,24 @@ a plain tensor; the lowering moves bytes and does no arithmetic.  A
 ``Pipeline`` hands sharded rows to each node that computes on tensors
 through :func:`map_rows` (``core.pipeline``).
 
-Multi-process meshes (``mesh_spans_processes``, ``host_local_mesh``) wait
-for ``parallel/distributed.py`` (ROADMAP Queue 1 item 16).
+**Meshes that span processes.**  Each slot records the rank of the process
+that owns it (``Mesh.ranks``; None means every slot is this process's, the
+single-process mesh) and the mesh records which rank is this process
+(``Mesh.me``).  With a live ``parallel.distributed`` group of more than one
+rank, :func:`make_mesh` with no devices gathers every rank's local slots in
+rank order into one data axis (the counterpart of ``jax.devices()`` turning
+global after ``jax.distributed`` bring-up); ``make_mesh(..., ranks=, me=)``
+builds one from explicit per-slot ranks.  :func:`mesh_spans_processes` says
+whether a mesh holds another process's slots, :func:`host_local_mesh` is the
+pure-data mesh over this process's.  On a spanning mesh a ``ShardedRows`` or
+``SpecLayout`` holds tensors for this process's slots only (None for the
+others); ``addressable_shards()`` lists each of them with its index window
+of the whole, the counterpart of ``jax.Array.addressable_shards``.  Nothing
+computes across processes: every consumer that would read another process's
+slot (``gather``, ``apply``, :func:`map_rows`, :func:`unshard`,
+:func:`replicate`, :func:`padded_shard_rows` and so the solvers' mesh tiers,
+the ``Cacher``) raises the typed :class:`SpanningMeshError` naming the mesh,
+where the JAX package's GSPMD would run one program over every process.
 """
 
 from __future__ import annotations
@@ -57,6 +73,7 @@ import numpy as np
 import torch
 
 from ..utils.platform import device_scope, resolve_device
+from . import distributed as kdist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -64,10 +81,15 @@ MODEL_AXIS = "model"
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """A ``(data, model)`` grid of devices."""
+    """A ``(data, model)`` grid of devices.  ``ranks`` (an int array of the
+    grid's shape, or None for a mesh of this process alone) is each slot's
+    owning process; ``me`` is this process's rank.  A slot of another
+    process names that process's device (``cuda:0`` there)."""
 
     devices: np.ndarray  #: object array of ``torch.device``, one axis per name
     axis_names: tuple
+    ranks: np.ndarray | None = None
+    me: int = 0
 
     @property
     def shape(self) -> dict:
@@ -78,18 +100,44 @@ class Mesh:
     def size(self) -> int:
         return int(self.devices.size)
 
+    def owns(self, slot: tuple) -> bool:
+        """Is slot ``(d, m)`` this process's?"""
+        return self.ranks is None or int(self.ranks[slot]) == self.me
+
+    def local_slots(self) -> list[tuple]:
+        """This process's slots, in data-major order."""
+        return [s for s in np.ndindex(self.devices.shape) if self.owns(s)]
+
 
 def default_devices() -> list:
-    """Every CUDA card of this process, or the CPU when there is none (the
-    counterpart of ``jax.devices()``)."""
+    """This process's devices (the counterpart of ``jax.local_devices()``):
+    ``KEYSTONE_DIST_DEVICE`` that many times where ``KEYSTONE_DIST_LOCAL_SLOTS``
+    is set (a spawned worker's slots, ``parallel.distributed.worker_env``),
+    else every CUDA card, or the CPU when there is none."""
+    slots = kdist.local_slots()
+    if slots is not None:
+        return [resolve_device(slots[0])] * slots[1]
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n:
         return [torch.device("cuda", i) for i in range(n)]
     return [torch.device("cpu")]
 
 
-def make_mesh(data: int | None = None, model: int = 1, devices=None) -> Mesh:
-    """Build a (data, model) mesh.  ``data=None`` uses all remaining devices."""
+def make_mesh(data: int | None = None, model: int = 1, devices=None, *, ranks=None,
+              me: int | None = None) -> Mesh:
+    """Build a (data, model) mesh.  ``data=None`` uses all remaining devices.
+
+    ``devices=None`` takes :func:`default_devices`, or, with a live process
+    group of more than one rank (``parallel.distributed``), every rank's
+    in rank order: a mesh spanning the processes.  ``ranks`` (one per
+    device, in the same order) and ``me`` build a spanning mesh from
+    explicit owners; ``me`` defaults to this process's rank."""
+    if devices is None and ranks is None and kdist.process_count() > 1:
+        local = [str(d) for d in default_devices()]
+        per_rank = kdist.all_gather_object(local)
+        if len(per_rank) > 1:
+            devices = [torch.device(d) for part in per_rank for d in part]
+            ranks = [r for r, part in enumerate(per_rank) for _ in part]
     devices = list(devices if devices is not None else default_devices())
     n = len(devices)
     if data is None:
@@ -100,7 +148,17 @@ def make_mesh(data: int | None = None, model: int = 1, devices=None) -> Mesh:
         raise ValueError(f"mesh {data}x{model} needs {data * model} devices, have {n}")
     arr = np.empty(data * model, dtype=object)
     arr[:] = devices[: data * model]
-    return Mesh(arr.reshape(data, model), (DATA_AXIS, MODEL_AXIS))
+    owners = None
+    if ranks is not None:
+        if len(ranks) != n:
+            raise ValueError(f"{len(ranks)} slot ranks for {n} devices")
+        owners = np.asarray(ranks[: data * model], dtype=np.int64).reshape(data, model)
+    me = kdist.process_index() if me is None else int(me)
+    return Mesh(arr.reshape(data, model), (DATA_AXIS, MODEL_AXIS), owners, me)
+
+
+def _flat_ranks(mesh: Mesh):
+    return None if mesh.ranks is None else [int(r) for r in mesh.ranks.flat]
 
 
 def reduced_mesh(mesh: Mesh) -> Mesh | None:
@@ -111,7 +169,47 @@ def reduced_mesh(mesh: Mesh) -> Mesh | None:
     if mesh.shape[MODEL_AXIS] <= 1:
         return None
     devices = list(mesh.devices.flat)
-    return make_mesh(data=len(devices), model=1, devices=devices)
+    return make_mesh(data=len(devices), model=1, devices=devices, ranks=_flat_ranks(mesh),
+                     me=mesh.me)
+
+
+def mesh_spans_processes(mesh: Mesh) -> bool:
+    """Does this mesh hold slots owned by OTHER processes?  Every consumer
+    that computes, stages host memory or serves requests must know whether
+    all of the mesh is addressable from here.  Always False
+    single-process."""
+    return mesh.ranks is not None and bool((mesh.ranks != mesh.me).any())
+
+
+def host_local_mesh(mesh: Mesh | None = None) -> Mesh:
+    """The pure-data mesh over THIS process's slots.  ``mesh`` given: its
+    slots owned here, in data-major order (the serving anchor for a host in
+    a fleet — engines never span hosts), ``ValueError`` where it has none;
+    omitted: :func:`default_devices`."""
+    if mesh is None:
+        local = default_devices()
+    else:
+        local = [mesh.devices[s] for s in mesh.local_slots()]
+        if not local:
+            raise ValueError(f"mesh {mesh_desc(mesh)} has no slots on process {mesh.me}")
+    return make_mesh(data=len(local), model=1, devices=local, ranks=None)
+
+
+class SpanningMeshError(RuntimeError):
+    """A consumer that computes was handed a mesh, or a layout on one, that
+    spans processes: the port runs no program over another process's
+    slots."""
+
+
+def require_local(mesh: Mesh, what: str) -> None:
+    """Raise :class:`SpanningMeshError` naming ``mesh`` and ``what`` when
+    the mesh spans processes."""
+    if mesh is not None and mesh_spans_processes(mesh):
+        raise SpanningMeshError(
+            f"{what}: mesh {mesh_desc(mesh)} spans processes (process {mesh.me} owns "
+            f"{len(mesh.local_slots())} of its {mesh.size} slots) — nothing computes on "
+            "another process's slots; use host_local_mesh(mesh), or read this process's "
+            "windows through addressable_shards()")
 
 
 def mesh_desc(mesh: Mesh) -> str:
@@ -261,24 +359,42 @@ class ShardedRows(_LayoutRecord):
     """Rows of one array over a mesh: ``shards[d][m]`` is data block ``d``
     (``rows // data`` rows, in order) on slot ``(d, m)``'s device.  Rows at
     index >= ``nvalid`` are pad rows, zero where the record was made.
-    Slots that share a device share the tensor."""
+    Slots that share a device share the tensor.  On a mesh spanning
+    processes another process's slots hold None."""
 
     mesh: Mesh
     shards: list  #: [data][model] -> torch.Tensor
     nvalid: int
 
+    def _block(self) -> torch.Tensor:
+        """A data block this process holds."""
+        if self.mesh.ranks is None:
+            return self.shards[0][0]
+        d, m = self.mesh.local_slots()[0]
+        return self.shards[d][m]
+
     @property
     def rows(self) -> int:
         """Rows over all data blocks, pad rows included."""
+        if mesh_spans_processes(self.mesh):
+            return int(self._block().shape[0]) * len(self.shards)
         return sum(int(row[0].shape[0]) for row in self.shards)
 
     @property
     def shape(self) -> tuple:
-        return (self.rows, *self.shards[0][0].shape[1:])
+        return (self.rows, *self._block().shape[1:])
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0][0].dtype
+        return self._block().dtype
+
+    def addressable_shards(self) -> list[tuple]:
+        """``(slot, index, tensor)`` for each of this process's slots:
+        ``index`` is the slot's window of the whole (a tuple of slices)."""
+        per = int(self._block().shape[0])
+        rest = (slice(None),) * (len(self.shape) - 1)
+        return [((d, m), (slice(d * per, (d + 1) * per), *rest), self.shards[d][m])
+                for d, m in self.mesh.local_slots()]
 
     @property
     def nbytes(self) -> int:
@@ -287,6 +403,7 @@ class ShardedRows(_LayoutRecord):
 
     def data_blocks(self) -> list[torch.Tensor]:
         """One tensor per data index (model slot 0's), in data order."""
+        require_local(self.mesh, "ShardedRows.data_blocks")
         return [row[0] for row in self.shards]
 
     def gather(self, device=None) -> torch.Tensor:
@@ -303,6 +420,7 @@ class ShardedRows(_LayoutRecord):
         slots of a data block that share a device share its tensor, so
         they share ``fn``'s result too: it runs once per data block and
         device."""
+        require_local(self.mesh, "ShardedRows.apply")
         replicas: dict = {}
 
         def run(d, m, t):
@@ -340,7 +458,8 @@ def replicate(obj, device):
     shallow copy with its attributes replicated, a ``torch.device``
     attribute among them; a node that held layout records builds its
     derived state, ``_restore``, from the lowered tensors).  Anything else,
-    and anything already there, is returned as it is."""
+    and anything already there, is returned as it is.  A record on a mesh
+    spanning processes raises :class:`SpanningMeshError`."""
     if isinstance(obj, torch.Tensor):
         return on_slot(obj, device)
     if isinstance(obj, (ShardedRows, SpecLayout)):
@@ -402,8 +521,10 @@ def padded_shard_rows(x, mesh: Mesh | None = None, nvalid: int | None = None):
     nothing to raw sums, but an estimator that centres data must be told
     ``nvalid`` (pad rows become ``-mean``): the solvers' ``fit(...,
     nvalid=)`` masks them back to zero.  Without a mesh (none given and
-    none ambient) ``x`` comes back as a tensor with its row count."""
+    none ambient) ``x`` comes back as a tensor with its row count.  A mesh
+    spanning processes raises :class:`SpanningMeshError`."""
     mesh = mesh or current_mesh()
+    require_local(mesh, "padded_shard_rows")
     if isinstance(x, ShardedRows):
         if mesh is None or _same_layout(x.mesh, mesh):
             return x, x.nvalid
@@ -504,9 +625,10 @@ class SpecSharding:
         (``data@dim0``) give the ``ShardedRows`` of :func:`padded_shard_rows`
         (no pad rows: the axis must divide them); any other spec a
         :class:`SpecLayout`.  A slot on ``t``'s device holds a view of
-        ``t``; slots of one device share one tensor."""
+        ``t``; slots of one device share one tensor.  On a mesh spanning
+        processes only this process's slots are filled."""
         index = self.devices_indices_map(t.shape)
-        if self._rows():
+        if self._rows() and not mesh_spans_processes(self.mesh):
             return padded_shard_rows(t, self.mesh)[0]
         return self._assemble(tuple(int(n) for n in t.shape), index,
                               lambda idx, dev: on_slot(t[idx], dev))
@@ -521,12 +643,16 @@ class SpecSharding:
 
     def _assemble(self, shape: tuple, index: dict, piece):
         """The record whose slot ``(d, m)`` holds ``piece(index[d, m],
-        device)``, made once per distinct (device, window)."""
+        device)``, made once per distinct (device, window); another
+        process's slot holds None."""
         held: dict = {}
         shards = []
         for d, row in enumerate(self.mesh.devices):
             out_row = []
             for m, dev in enumerate(row):
+                if not self.mesh.owns((d, m)):
+                    out_row.append(None)
+                    continue
                 key = (device_key(dev), index[d, m])
                 if key not in held:
                     held[key] = piece(index[d, m], dev)
@@ -541,7 +667,8 @@ class SpecSharding:
 class SpecLayout(_LayoutRecord):
     """One tensor of global ``shape`` laid out by ``sharding``:
     ``shards[d][m]`` is the piece slot ``(d, m)`` holds, on its device
-    (``sharding.devices_indices_map(shape)[d, m]`` of the whole)."""
+    (``sharding.devices_indices_map(shape)[d, m]`` of the whole); None for
+    another process's slot."""
 
     sharding: SpecSharding
     shape: tuple
@@ -553,11 +680,17 @@ class SpecLayout(_LayoutRecord):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0][0].dtype
+        d, m = self.mesh.local_slots()[0] if self.mesh.ranks is not None else (0, 0)
+        return self.shards[d][m].dtype
 
     def index_map(self) -> dict:
         """Slot ``(d, m)`` -> the slices of the whole tensor it holds."""
         return self.sharding.devices_indices_map(self.shape)
+
+    def addressable_shards(self) -> list[tuple]:
+        """``(slot, index, tensor)`` for each of this process's slots."""
+        own = self.index_map()
+        return [(s, own[s], self.shards[s[0]][s[1]]) for s in self.mesh.local_slots()]
 
     def gather(self) -> torch.Tensor:
         """The whole tensor on slot (0, 0)'s device."""
@@ -569,6 +702,7 @@ class SpecLayout(_LayoutRecord):
         piece when it holds the window, else the pieces of the slots along
         the split axis (in the slot's own row or column of the mesh) that
         hold it, copied to the slot's device and joined in order."""
+        require_local(self.mesh, "SpecLayout.window")
         index = tuple(slice(*s.indices(int(n))) for s, n in zip(index, self.shape))
         own = self.index_map()
         dev = self.mesh.devices[slot]
@@ -607,14 +741,15 @@ def _covers(held: tuple, index: tuple, shape: tuple) -> bool:
 def slot_nbytes(record) -> np.ndarray:
     """``[data, model]``: the bytes each slot of a ``ShardedRows`` or
     :class:`SpecLayout` holds, as admission charges them (slots sharing a
-    device's tensor each counted)."""
-    return np.array([[int(t.numel()) * t.element_size() for t in row] for row in record.shards],
-                    dtype=np.int64)
+    device's tensor each counted; another process's slots 0)."""
+    return np.array([[0 if t is None else int(t.numel()) * t.element_size() for t in row]
+                     for row in record.shards], dtype=np.int64)
 
 
 def _same_layout(a: Mesh, b: Mesh) -> bool:
-    """Do two meshes put each data block on the same devices?"""
-    return a.devices.shape == b.devices.shape and all(
+    """Do two meshes put each data block on the same devices of the same
+    processes?"""
+    return a.devices.shape == b.devices.shape and _flat_ranks(a) == _flat_ranks(b) and all(
         _same_device(p, q) for p, q in zip(a.devices.flat, b.devices.flat)
     )
 
@@ -636,14 +771,16 @@ def mask_pad_rows(x, nvalid: int | None = None):
 
 def map_rows(fn, x):
     """``fn`` on ``x``; on row-sharded rows slot by slot
-    (:meth:`ShardedRows.apply`), the pad rows zeroed again."""
+    (:meth:`ShardedRows.apply`), the pad rows zeroed again.  Rows on a mesh
+    spanning processes raise :class:`SpanningMeshError`."""
     if isinstance(x, ShardedRows):
         return mask_pad_rows(x.apply(fn))
     return fn(x)
 
 
 def unshard(x):
-    """The true rows of ``x`` as one tensor (:meth:`ShardedRows.gather`);
+    """The true rows of ``x`` as one tensor (:meth:`ShardedRows.gather`;
+    rows on a mesh spanning processes raise :class:`SpanningMeshError`);
     anything else as it is."""
     return x.gather() if isinstance(x, ShardedRows) else x
 

@@ -85,6 +85,7 @@ from ..parallel.mesh import (
     on_slot,
     padded_shard_rows,
     reduced_mesh,
+    require_local,
     unshard,
 )
 from ..utils.stats import matmul_rows
@@ -958,6 +959,7 @@ class BlockLeastSquaresEstimator(LabelEstimator):
                                      label="bcd_fit")
 
         if mesh is not None:
+            require_local(mesh, "BlockLeastSquaresEstimator.fit")
             return self._mapper(
                 self._fit_mesh_ladder(features, labels, num_features, nvalid, widths, mesh,
                                       plan),

@@ -29,7 +29,7 @@ import torch
 
 from ..core.pipeline import LabelEstimator, Transformer, node
 from ..ops.sparse import CSRFeatures
-from ..parallel.mesh import DATA_AXIS, current_mesh, on_slot
+from ..parallel.mesh import DATA_AXIS, current_mesh, on_slot, require_local
 from ..utils.platform import device_scope, resolve_device
 
 
@@ -51,6 +51,7 @@ class NaiveBayesModel(Transformer):
         if isinstance(batch, CSRFeatures):
             mesh = current_mesh()
             if mesh is not None and mesh.shape[DATA_AXIS] > 1:
+                require_local(mesh, "NaiveBayesModel scoring")
                 return self._apply_csr_mesh(batch, mesh)
             return self._apply_csr(batch)
         return batch @ self.theta.T + self.pi

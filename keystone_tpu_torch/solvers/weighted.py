@@ -91,6 +91,7 @@ from ..parallel.mesh import (
     on_slot,
     padded_shard_rows,
     reduced_mesh,
+    require_local,
     unshard,
 )
 from .block import (
@@ -752,6 +753,7 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
             cond_rows = knum.design_conditioning(
                 _probe_matrix(features, widths), widths, float(self.lam), label="bwls_fit")
         if mesh is not None:
+            require_local(mesh, "BlockWeightedLeastSquaresEstimator.fit")
             models, b = self._fit_mesh_ladder(features, labels, num_features, n, widths, mesh,
                                               plan)
         else:

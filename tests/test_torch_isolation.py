@@ -13,6 +13,8 @@ from pathlib import Path
 
 import pytest
 
+from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = """
@@ -68,11 +70,36 @@ def test_port_and_smoke_import_no_jax():
                  "ops.jpeg_device", "ops.native_entropy", "core.ingest",
                  "testing.jpeg_encode", "ops.lcs", "solvers.weighted",
                  "workloads.imagenet_sift_lcs_fv", "core.serve", "core.frontend",
-                 "core.wire", "workloads.serve_common", *OBSERVABILITY):
+                 "core.wire", "workloads.serve_common", "parallel.distributed",
+                 "parallel.mesh", "workloads.multihost", *OBSERVABILITY):
         assert f"keystone_tpu_torch.{name}" in rec["imported"]
     mods = rec["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
     assert not [m for m in mods if _jax_package(m)]
+
+
+_RUN_WORKER = """
+import atexit, json, runpy, sys
+atexit.register(lambda: print(json.dumps({"modules": sorted(sys.modules)})))
+sys.argv = ["multihost", "fit-serve", "--shards-dir", %r, "--out", %r, "--device", "cpu"]
+runpy.run_module("keystone_tpu_torch.workloads.multihost", run_name="__main__")
+"""
+
+
+def test_spawned_worker_imports_no_jax(tmp_path):
+    """A multi-process worker, run as ``python -m
+    keystone_tpu_torch.workloads.multihost fit-serve`` runs it (ingest,
+    fit, checkpoint-free serve), ends with no jax and no JAX-package module
+    in its ``sys.modules``."""
+    from keystone_tpu_torch.workloads import multihost
+
+    shards = str(tmp_path / "shards")
+    multihost.make_shard_tars(shards, 1, 2)
+    out = str(tmp_path / "rec.json")
+    mods = _run(_RUN_WORKER % (shards, out))["modules"]
+    assert json.loads(Path(out).read_text())["n_images"] == 2
+    assert "keystone_tpu_torch.core.serve" in mods and "torch" in mods
+    assert not [m for m in mods if m == "jax" or m.startswith("jax.") or _jax_package(m)]
 
 
 def test_package_import_is_cheap():
