@@ -330,9 +330,9 @@ which raises (and so exits non-zero) on failure:
    it than twice the fused fit's distance plus 1e-5 of the largest weight
    (the data axis adds the row sums in another order, and the f32 solve at
    lambda 6e-5 carries that to about 1e-4 of the weights), seconds per
-   mesh; (d) NewsgroupsPipeline on phase 15's corpus through
-   ``newsgroups.run`` on ``(8, 1)``: scores ``np.array_equal`` to phase
-   15's, the same error, no hand kernel launched; (e) the three CLIs on
+   mesh; (d) NewsgroupsPipeline on (e)'s Newsgroups corpus through
+   ``newsgroups.run`` on ``(8, 1)`` and without a mesh: scores
+   ``np.array_equal``, the same error, no hand kernel launched; (e) the three CLIs on
    small inputs (VOC: 48 + 48 of phase 6's images as JPEG tars;
    ImageNet: 10 classes, 4 + 2 images each, as tars; Newsgroups: 20 + 10
    documents a class) without a mesh and with ``--mesh 1``: scores
@@ -407,7 +407,22 @@ which raises (and so exits non-zero) on failure:
    and 24 requests, one host SIGKILLed mid-flight: no request dropped, no
    answer changed, ``fleet_host_lost``, ``dist_reform`` and
    ``host_reanchor`` counted, the re-anchor's wall.  The path runs no
-   kernel of K1-K3; their counts are read around it all the same.
+   kernel of K1-K3; their counts are read around it all the same;
+35. fleet observability (``core.fleetobs`` over ``workloads.multihost``):
+   (a) ``run_obs_capture_drill`` with two ``serve-host`` subprocesses
+   serving the drill's scaler from two slots of ``cuda:0`` each, a
+   ``FleetCollector`` scraping them every 0.1 s through their serving
+   sockets, one member SIGKILLed mid-scrape; (b) the same drill in one
+   process, two wire servers on two slot pairs of ``cuda:0``, an abrupt
+   socket close standing in for the kill.  Each: fleet counters equal the
+   sum of the members' own snapshots, fleet p99 the pick of the pooled
+   samples (and within 25 % of numpy's), counters monotone across the
+   loss, ``obs_member_lost`` counted, no request dropped or changed,
+   exactly one ``obs_member_lost`` incident bundle
+   (``keystone.incident/1``) with the survivor's ring and its events
+   monotone, one member alive and one lost; the scrape, capture and drill
+   walls and the bundle's event count.  No kernel of K1-K3 runs; every
+   process's counts are summed all the same.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -1640,8 +1655,7 @@ def run_newsgroups(card: str, root: Path) -> dict:
     """Phase 15: NewsgroupsPipeline at BASELINE config 2 through the CLI on
     a synthetic tree of the 20news-bydate split's size (written under
     ``root``), then naive-Bayes scores card against CPU and at served
-    batches.  No hand kernel may launch in it.  Returns what phase 30
-    reruns on the mesh: the tree and the run's scores and error."""
+    batches.  No hand kernel may launch in it."""
     before = kernel_launches()
     rng = np.random.default_rng(17)
     t = time.perf_counter()
@@ -1696,8 +1710,6 @@ def run_newsgroups(card: str, root: Path) -> dict:
     if after != before:
         raise AssertionError(f"hand kernels launched in the Newsgroups phase: {before} -> {after}")
     log(f"Newsgroups phase: kernel launch counters unchanged {after}")
-    return {"root": root, "scores": res["test_scores"], "test_error": res["test_error"],
-            "seconds": res["seconds"]}
 
 
 def imagenet_class_params(num_classes: int = IMAGENET_CLASSES) -> tuple:
@@ -3982,7 +3994,7 @@ def scores_vs(got: np.ndarray, want: np.ndarray) -> dict:
 
 
 def run_mesh_fv(card: str, data_dir: Path, fitted: dict, phase6: dict, inet17: dict,
-                ng15: dict, bwls26: dict) -> dict:
+                bwls26: dict) -> dict:
     """Phase 30: VOCSIFTFisher, ImageNetSiftLcsFV, the class-weighted solve
     and NewsgroupsPipeline on eight slots of the card, then the three CLIs
     with ``--mesh 1`` and ``--mesh 2``.  Returns the K2 launches of its
@@ -4159,25 +4171,33 @@ def run_mesh_fv(card: str, data_dir: Path, fitted: dict, phase6: dict, inet17: d
     del x, y, want_w, want_b, exact_w, exact_b
     torch.cuda.empty_cache()
 
-    # (d) NewsgroupsPipeline on phase 15's corpus over eight data slots.
+    # (d) NewsgroupsPipeline over eight data slots against the same run
+    # without a mesh, on (e)'s small corpus: the full corpus's host text
+    # pass is phase 15's, and a second one here cost about 30 s.
+    cli_root = data_dir / "mesh_cli"
+    ng_root = cli_root / "newsgroups"
+    ngrng = np.random.default_rng(37)
+    for split, per in zip(("train", "test"), MESH_CLI_NG_PER_CLASS):
+        write_newsgroups_tree(ng_root / split, NG_CLASSES, [per] * 20, ngrng)
     before = kernel_launches()
     ngconf = newsgroups.NewsgroupsConfig(n_grams=2, common_features=100_000, device="cuda")
-    ngtrain = newsgroups_loader(str(ng15["root"] / "train"))
-    ngtest = newsgroups_loader(str(ng15["root"] / "test"))
+    ngtrain = newsgroups_loader(str(ng_root / "train"))
+    ngtest = newsgroups_loader(str(ng_root / "test"))
+    plain = newsgroups.run(ngconf, ngtrain, ngtest)
     res = newsgroups.run(ngconf, ngtrain, ngtest, mesh=meshes["8x1"])
     r = rec["newsgroups"] = {
-        "scores_equal": bool(np.array_equal(res["test_scores"], ng15["scores"])),
-        "test_error": res["test_error"], "phase15_test_error": ng15["test_error"],
+        "documents": [len(ngtrain.data), len(ngtest.data)],
+        "scores_equal": bool(np.array_equal(res["test_scores"], plain["test_scores"])),
+        "test_error": res["test_error"], "unsharded_test_error": plain["test_error"],
         "score_seconds": res["score_seconds"], "seconds": res["seconds"],
-        "phase15_seconds": ng15["seconds"], "kernel_launches_after": kernel_launches()}
+        "unsharded_seconds": plain["seconds"], "kernel_launches_after": kernel_launches()}
     log(json.dumps({"phase": "30(d) Newsgroups 8x1", "card": card, **r}))
-    if not (r["scores_equal"] and r["test_error"] == ng15["test_error"]
+    if not (r["scores_equal"] and r["test_error"] == plain["test_error"]
             and kernel_launches() == before):
         raise AssertionError(f"Newsgroups on mesh 8x1: {r} (launches before {before})")
-    del res, ngtrain, ngtest
+    del plain, res, ngtrain, ngtest
 
     # (e) The three CLIs on small inputs, without a mesh and with --mesh 1.
-    cli_root = data_dir / "mesh_cli"
     (cli_root / "voc").mkdir(parents=True)
     n = MESH_CLI_VOC
     write_voc_tars(cli_root / "voc", {
@@ -4192,10 +4212,6 @@ def run_mesh_fv(card: str, data_dir: Path, fitted: dict, phase6: dict, inet17: d
         splits[split] = LabeledImages(imagenet_images(31 + seed, lab, shapes),
                                       lab.astype(np.int32), [str(i) for i in range(len(lab))])
     write_imagenet_tars(inet_root, splits)
-    ng_root = cli_root / "newsgroups"
-    ngrng = np.random.default_rng(37)
-    for split, per in zip(("train", "test"), MESH_CLI_NG_PER_CLASS):
-        write_newsgroups_tree(ng_root / split, NG_CLASSES, [per] * 20, ngrng)
     clis = {
         "voc": (voc.main, ["--trainLocation", str(cli_root / "voc" / "train.tar"),
                            "--testLocation", str(cli_root / "voc" / "test.tar"),
@@ -4902,6 +4918,72 @@ def run_multihost(card: str, data_dir: Path) -> dict:
     return launches
 
 
+def obs_drill_line(d: dict) -> dict:
+    """The judged keys of a fleet-observability drill."""
+    inc = d.get("incident", {})
+    return {
+        "mode": d["mode"], "requests": d["requests"], "answered": d["answered"],
+        "dropped_requests": d["dropped_requests"], "mismatches": d["mismatches"],
+        "errors": d["errors"], "counter_sum_ok": d["counter_sum_ok"],
+        "counter_sum_mismatch": d.get("counter_sum_mismatch"),
+        "p99_match": d["p99_match"], "pooled_metric": d.get("pooled_metric"),
+        "p99_pool_n": d.get("p99_pool_n"), "p99_fleet": d.get("p99_fleet"),
+        "p99_oracle_pick": d.get("p99_oracle_pick"), "p99_oracle_np": d.get("p99_oracle_np"),
+        "monotone_ok": d["monotone_ok"], "obs_member_lost": d["obs_member_lost"],
+        "fleet_alive": d["fleet_alive"], "fleet_lost": d["fleet_lost"],
+        "incident_error": inc.get("error"), "incident_schema": inc.get("schema"),
+        "survivor_rings_ok": inc.get("survivor_rings_ok"),
+        "events_monotone": inc.get("events_monotone"), "n_events": inc.get("n_events"),
+        "capture_wall_s": inc.get("capture_wall_s"), "scrape_wall_s": d["scrape_wall_s"],
+        "killed_at_answered": d["killed_at_answered"], "wall_s": d["wall_s"],
+        "kernel_launches": d["kernel_launches"], "worker_rcs": d.get("worker_rcs")}
+
+
+def check_obs_drill(line: dict) -> None:
+    if not (line["counter_sum_ok"] and line["p99_match"] and line["monotone_ok"]
+            and line["obs_member_lost"] >= 1 and line["dropped_requests"] == 0
+            and line["mismatches"] == 0 and line["incident_error"] is None
+            and line["incident_schema"] == "keystone.incident/1"
+            and line["survivor_rings_ok"] and line["events_monotone"]
+            and line["fleet_alive"] == 1 and line["fleet_lost"] == 1):
+        raise AssertionError(f"fleet-observability drill: {line}")
+
+
+def run_fleet_obs(card: str, data_dir: Path) -> dict:
+    """Phase 35: fleet observability on the card.  Returns the launches by
+    kernel over the phase: this process's, plus what the subprocess
+    members counted in their own processes and reported."""
+    from keystone_tpu_torch.workloads import multihost
+
+    t_phase = time.perf_counter()
+    if not kdist.spawn_available():
+        raise AssertionError("phase 35: this host cannot spawn member processes")
+    rp.launches = rp.fused_launches = fs.launches = jd.decode_launches = 0
+    rec: dict = {"phase": "35: fleet observability", "card": card}
+    sub = multihost.run_obs_capture_drill(str(data_dir / "obs_sub"), subprocess_mode=True,
+                                          hosts=2, device="cuda", timeout_s=240.0)
+    rec["a"] = obs_drill_line(sub)
+    log(json.dumps({"phase": "35(a) obs-capture drill, 2 subprocess members", "card": card,
+                    **rec["a"]}))
+    check_obs_drill(rec["a"])
+    inproc = multihost.run_obs_capture_drill(str(data_dir / "obs_in"), subprocess_mode=False,
+                                             hosts=2, local_devices=2, device="cuda",
+                                             timeout_s=240.0)
+    rec["b"] = obs_drill_line(inproc)
+    log(json.dumps({"phase": "35(b) obs-capture drill, 2 in-process members on slot pairs",
+                    "card": card, **rec["b"]}))
+    check_obs_drill(rec["b"])
+    here = {"conv_rect_pool": rp.fused_launches + rp.launches, "fv_stats": fs.launches,
+            "decode_pixels": jd.decode_launches}
+    by_source = {"this process": here, "(a) members": sub["kernel_launches"]}
+    launches = multihost.sum_launches(by_source.values())
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"phase": "35 launches, each process counting its own", "card": card,
+                    **launches, "by_source": by_source}))
+    log(f"phase 35: {rec['seconds']:.2f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -5068,7 +5150,7 @@ def smoke(data_dir: Path) -> int:
     timit12 = run_timit(card)
     elapsed("phases 12-13")
     random_cifar_rec = run_cifar_variants(card, train_path, test_path)
-    ng15 = run_newsgroups(card, data_dir / "newsgroups")
+    run_newsgroups(card, data_dir / "newsgroups")
     elapsed("phases 14-15")
     torch.cuda.empty_cache()
     inet_launches, inet_train, inet_test, inet_fitted = run_imagenet(
@@ -5101,7 +5183,7 @@ def smoke(data_dir: Path) -> int:
     del snap24
     mesh = run_mesh(card, fitted, timit12)
     del timit12
-    mesh_fv = run_mesh_fv(card, data_dir, fitted, phase6, inet17, ng15, ladder["bwls_fused"])
+    mesh_fv = run_mesh_fv(card, data_dir, fitted, phase6, inet17, ladder["bwls_fused"])
     del inet17
     mesh_specs = run_mesh_specs(card, fitted)
     mesh_cache = run_mesh_cache_ckpt(card, fitted, phase6, cifar_tar, mesh["cifar_4x2"],
@@ -5110,6 +5192,8 @@ def smoke(data_dir: Path) -> int:
     mesh_serving = run_mesh_serving(card, fitted)
     multihost34 = run_multihost(card, data_dir)
     elapsed("phase 34")
+    fleet_obs35 = run_fleet_obs(card, data_dir)
+    elapsed("phase 35")
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -5123,7 +5207,8 @@ def smoke(data_dir: Path) -> int:
                      + optimizer["conv_rect_pool"] + placement["conv_rect_pool"]
                      + lifecycle["conv_rect_pool"] + mesh["conv_rect_pool"]
                      + mesh_specs["conv_rect_pool"] + mesh_cache["conv_rect_pool"]
-                     + mesh_serving["conv_rect_pool"] + multihost34["conv_rect_pool"]),
+                     + mesh_serving["conv_rect_pool"] + multihost34["conv_rect_pool"]
+                     + fleet_obs35["conv_rect_pool"]),
         "launches_by_path": {"random_patch_cifar": main_launches,
                              "random_cifar": random_cifar_rec["launches"],
                              "random_patch_cifar_jpeg_tar": tar_launches["conv_rect_pool"],
@@ -5137,7 +5222,8 @@ def smoke(data_dir: Path) -> int:
                              "mesh_spec_layouts": mesh_specs["conv_rect_pool"],
                              "mesh_auto_cache_and_reshard": mesh_cache["conv_rect_pool"],
                              "mesh_serving": mesh_serving["conv_rect_pool"],
-                             "multihost": multihost34["conv_rect_pool"]},
+                             "multihost": multihost34["conv_rect_pool"],
+                             "fleet_obs": fleet_obs35["conv_rect_pool"]},
         "max_abs_err": max(r["max_abs_err"] for r in [
             fused_prod, fused_prod_f32, fused_cifar48, *fused_odd, random_cifar_rec]),
         "ms": fused_prod["ms"],
@@ -5171,7 +5257,7 @@ def smoke(data_dir: Path) -> int:
                      + snaps["fv_stats"] + serving["fv_stats"] + ladder["fv_stats"]
                      + optimizer["fv_stats"] + inet_restored + placement["fv_stats"]
                      + mesh_fv["fv_stats"] + mesh_cache["fv_stats"] + mesh_serving["fv_stats"]
-                     + multihost34["fv_stats"]),
+                     + multihost34["fv_stats"] + fleet_obs35["fv_stats"]),
         "launches_by_path": {"voc_in_memory": voc_launches, "voc_jpeg_tars": tar_fv_launches,
                              "imagenet_in_memory": inet_launches,
                              "imagenet_jpeg_tars": inet_tar_fv,
@@ -5186,7 +5272,8 @@ def smoke(data_dir: Path) -> int:
                              "mesh_slots": mesh_fv["fv_stats"],
                              "voc_mesh_auto_cache": mesh_cache["fv_stats"],
                              "mesh_serving": mesh_serving["fv_stats"],
-                             "multihost": multihost34["fv_stats"]},
+                             "multihost": multihost34["fv_stats"],
+                             "fleet_obs": fleet_obs35["fv_stats"]},
         "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd, *fv_imagenet.values()]),
         "ms": fv_prod["ms"],
         "plain_ms": fv_prod["plain_ms"],
@@ -5214,7 +5301,7 @@ def smoke(data_dir: Path) -> int:
         "launches": (decode_launches + inet_tar_decode + tar_launches["decode_pixels"]
                      + restored["decode_pixels"] + snaps["decode_pixels"]
                      + optimizer["decode_pixels"] + mesh_cache["decode_pixels"]
-                     + multihost34["decode_pixels"]),
+                     + multihost34["decode_pixels"] + fleet_obs35["decode_pixels"]),
         "launches_by_path": {"voc_jpeg_tars": decode_launches,
                              "imagenet_jpeg_tars": inet_tar_decode,
                              "cifar_jpeg_tar": tar_launches["decode_pixels"],
@@ -5222,7 +5309,8 @@ def smoke(data_dir: Path) -> int:
                              "snapshots_and_backends": snaps["decode_pixels"],
                              "cifar_jpeg_tar_auto_tune": optimizer["decode_pixels"],
                              "cifar_jpeg_tar_mesh_auto_tune": mesh_cache["decode_pixels"],
-                             "multihost": multihost34["decode_pixels"]},
+                             "multihost": multihost34["decode_pixels"],
+                             "fleet_obs": fleet_obs35["decode_pixels"]},
         "max_abs_err": max(r["max_abs_err"] for r in decode_checks),
         "ms": decode_times[64]["ms"],
         "plain_ms": decode_times[64]["plain_ms"],

@@ -46,8 +46,10 @@ histogram); every add/retire/denial is a trace instant.
 * **Multi-host fleet** — :class:`HostFleet` fronts N host-local routers,
   each behind a ``core.wire.WireServer``, round-robin; a member whose
   socket dies is declared lost (``fleet_host_lost``) and the same request is
-  reissued to a survivor.  (``HostFleet.attach_collector`` waits for
-  ``core/fleetobs.py``.)
+  reissued to a survivor.  ``HostFleet.attach_collector`` registers every
+  member with a ``core.fleetobs.FleetCollector`` (the serving socket
+  doubles as the member's obs endpoint), and :meth:`HostFleet.reattach`
+  registers a re-admitted member with it.
 
 Env knobs: ``KEYSTONE_ROUTER_WARM_THRESHOLD`` (default ``3``),
 ``KEYSTONE_ROUTER_MIX_WINDOW_S`` (``5``), ``KEYSTONE_ROUTER_RETIRE_AFTER_S``
@@ -982,6 +984,7 @@ class HostFleet:
         self._rr = 0
         self._rr_lock = threading.Lock()
         self.lost_hosts = 0
+        self._collector = None
         trace.instant("fleet.up", label=label, hosts=[list(h["endpoint"]) for h in self._hosts])
 
     @staticmethod
@@ -1011,6 +1014,16 @@ class HostFleet:
 
     def alive_hosts(self) -> list:
         return [h["endpoint"] for h in self._hosts if h["alive"]]
+
+    def attach_collector(self, collector) -> None:
+        """Self-register the whole fleet with a
+        :class:`~.fleetobs.FleetCollector`: every current member becomes
+        an observed obs agent (the serving socket doubles as the obs
+        endpoint), and members re-admitted later via :meth:`reattach`
+        register too."""
+        self._collector = collector
+        for rank, h in enumerate(self._hosts):
+            collector.register(h["endpoint"], rank=rank)
 
     def predict(self, arr, timeout: float | None = None):
         """Answer one request through some live host.  A member that dies
@@ -1055,8 +1068,12 @@ class HostFleet:
             if h["endpoint"] == endpoint:
                 h["alive"] = True
                 h["client"] = None
+                if self._collector is not None:
+                    self._collector.register(endpoint)
                 return
         self._hosts.append(self._member(endpoint))
+        if self._collector is not None:
+            self._collector.register(endpoint, rank=len(self._hosts) - 1)
 
     def record(self) -> dict:
         return {

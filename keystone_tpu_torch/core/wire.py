@@ -32,9 +32,10 @@ with its hint; ``MalformedRequest`` / ``NoRouteForShape`` /
 ``ServingUnavailable`` onto ERROR frames carrying the error type.  A
 client that disconnects with requests in flight is counted
 ``wire_client_disconnect``; its requests still complete and the answers
-are discarded.  The observability frames (9, 10) need the fleet
-observability agent, which is not ported: they answer ERROR, as the
-reference's members without it do.
+are discarded.  The observability frames (9, 10) answer with
+``core.fleetobs.agent_payload`` (every wire server doubles as its
+process's obs agent); a payload that fails to build answers a typed ERROR
+frame and never touches the serving path.
 
 **Client** (:class:`WireClient`) — ``predict``/``predict_many`` honour
 RETRY_AFTER (sleep the hint, resubmit), surface ERROR frames as typed
@@ -546,11 +547,23 @@ class WireServer:
                 conn, encode_clock_reply(rid, t_client, trace.now_us())
             )
             return
+        if ftype in (T_OBS_SNAPSHOT, T_OBS_FLIGHT):
+            # Fleet observability scrape (core.fleetobs): EVERY wire
+            # server doubles as its process's obs agent — the collector
+            # reuses the serving port it already knows.  A failing
+            # payload build answers a typed ERROR frame; the serving
+            # path is never touched.
+            try:
+                from . import fleetobs
+
+                payload = fleetobs.agent_payload(
+                    "flight" if ftype == T_OBS_FLIGHT else "snapshot"
+                )
+                self._send(conn, encode_obs(ftype, rid, payload))
+            except Exception as e:  # noqa: BLE001 — typed delivery
+                self._send(conn, encode_error(rid, type(e).__name__, str(e)))
+            return
         if ftype not in (T_REQUEST, T_REQUEST_TRACED):
-            # T_OBS_SNAPSHOT / T_OBS_FLIGHT land here too: the fleet
-            # observability agent (core.fleetobs) is not ported, so this
-            # server answers them as a pre-obs member does, with an ERROR
-            # frame, and a collector scraping it degrades.
             with self._lock:
                 self.stats.protocol_errors += 1
             self._send(conn, encode_error(

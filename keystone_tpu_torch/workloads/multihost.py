@@ -1,5 +1,5 @@
-"""Multi-process fit + serve workload and the host-loss drill (counterpart
-of the fit, serve and host-loss part of keystone_tpu/workloads/multihost.py),
+"""Multi-process fit + serve workload, the host-loss drill and the
+fleet-observability drill (counterpart of keystone_tpu/workloads/multihost.py),
 as one module with three faces.
 
 * **Worker entries** (``python -m keystone_tpu_torch.workloads.multihost
@@ -9,12 +9,14 @@ as one module with three faces.
   aggregation, checkpoints it, reshards the checkpoint across processes onto
   the process-spanning mesh, and serves the fit host-locally; ``serve-host``
   is one fleet member — a host-local ``ShapeRouter`` behind a
-  ``WireServer``, driven over stdin by the fleet controller (the host-loss
-  re-anchor path).  Both run on the card unless ``--device cpu``.
+  ``WireServer`` (which is also the member's obs endpoint), driven over
+  stdin by the fleet controller (the host-loss re-anchor path).  Both run on
+  the card unless ``--device cpu``.
 * **Drivers** (:func:`run_two_process_fit_serve`,
-  :func:`run_host_loss_drill`): spawn the workers as REAL subprocesses with
-  auto-picked ports and judge the results.  The tests, the chaos
-  ``host_loss`` family and ``chip_smoke.py`` drive these two functions.
+  :func:`run_host_loss_drill`, :func:`run_obs_capture_drill`): spawn the
+  workers as REAL subprocesses with auto-picked ports and judge the
+  results.  The tests, the chaos ``host_loss`` and ``obs_capture``
+  families and ``chip_smoke.py`` drive these three functions.
 
 Bit-identity design: nothing numerical crosses processes through the
 communicator.  Each process computes per-shard moment partials with the
@@ -28,6 +30,7 @@ bit-identical by construction (``parallel.distributed.deterministic_allreduce``)
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import glob
 import io
@@ -621,6 +624,14 @@ class _WorkerIO:
     def kill(self) -> None:
         self.proc.kill()
 
+    def stats_then_kill(self, timeout_s: float) -> dict:
+        """SIGKILL the worker right after its ``stats`` reply; returns that
+        reply (its launches as of its last answer before the kill)."""
+        self.send("stats")
+        stats = self.expect("stats", timeout_s)["stats"]
+        self.kill()
+        return stats
+
     def finish(self, timeout_s: float = 20.0) -> int:
         try:
             self.proc.wait(timeout=timeout_s)
@@ -629,6 +640,29 @@ class _WorkerIO:
             self.proc.wait(timeout=5.0)
         self._err_fh.close()
         return self.proc.returncode
+
+
+def _start_serve_hosts(workers: list, tmpdir: str, tag: str, stem: str, seed: int, hosts: int,
+                       local_devices: int, device: str, timeout_s: float,
+                       trace_paths: dict | None = None) -> list:
+    """Spawn ``hosts`` ``serve-host`` members on ``device``, appending each
+    to ``workers`` as it starts (so the caller's ``finally`` reaps every
+    one), with the drill's postmortem directory; wait for every port.
+    Returns the members' endpoints."""
+    from ..parallel import distributed as kdist
+
+    for r in range(hosts):
+        env = _hermetic_env(
+            kdist.worker_env(r, hosts, "controller", local_devices=local_devices, device=device),
+            tmpdir, f"{tag}{r}", trace_path=(trace_paths or {}).get(r),
+        )
+        env["KEYSTONE_POSTMORTEM_DIR"] = os.environ["KEYSTONE_POSTMORTEM_DIR"]
+        workers.append(_WorkerIO(
+            _worker_cmd("serve-host", ["--ckpt", stem, "--seed", str(seed), "--device", device]),
+            env,
+            os.path.join(tmpdir, f"drill_{tag}{r}.err"),
+        ))
+    return [("127.0.0.1", w.expect("port", timeout_s / 2)["port"]) for w in workers]
 
 
 def _drill_params(seed: int):
@@ -658,10 +692,43 @@ def _drill_ckpt(tmpdir: str, mean, std, device) -> str:
     return stem
 
 
-def _drive_fleet(fleet, rows, results, errors, *, indices=None, threads=4):
+def _drill_oracle(tmpdir: str, seed: int, requests: int, stream: int, dev):
+    """A drill's checkpoint stem, its seeded request rows (rng stream
+    ``(seed, stream)``) and their offline answers on ``dev``."""
+    import torch
+
+    mean, std = _drill_params(seed)
+    stem = _drill_ckpt(tmpdir, mean, std, dev)
+    rows = np.asarray(np.random.default_rng((seed, stream)).normal(size=(requests, FEAT_DIM)),
+                      np.float32)
+    expected = _scaler(mean, std, dev)(torch.from_numpy(rows).to(dev)).cpu().numpy()
+    return stem, rows, expected
+
+
+@contextlib.contextmanager
+def _postmortem_dir(tmpdir: str):
+    """``KEYSTONE_POSTMORTEM_DIR`` pointed at ``tmpdir/postmortems`` for the
+    drill's duration (spawned hosts inherit it); yields the directory."""
+    pm_dir = os.path.join(tmpdir, "postmortems")
+    os.makedirs(pm_dir, exist_ok=True)
+    old_pm = os.environ.get("KEYSTONE_POSTMORTEM_DIR")
+    os.environ["KEYSTONE_POSTMORTEM_DIR"] = pm_dir
+    try:
+        yield pm_dir
+    finally:
+        if old_pm is None:
+            os.environ.pop("KEYSTONE_POSTMORTEM_DIR", None)
+        else:
+            os.environ["KEYSTONE_POSTMORTEM_DIR"] = old_pm
+
+
+def _drive_fleet(fleet, rows, results, errors, *, indices=None, threads=4, gate=None):
     """Continuous concurrent traffic: a thread pool drains an index queue
     through ``fleet.predict`` so requests are ALWAYS in flight while the
-    controller kills a host.  Returns the pool's join callable."""
+    controller kills a host.  With ``gate`` (a ``threading.Event``) each
+    client waits on it before taking its next request, so the controller
+    can hold new requests while it acts.  Returns the pool's join
+    callable."""
     import queue
     import threading
 
@@ -671,6 +738,8 @@ def _drive_fleet(fleet, rows, results, errors, *, indices=None, threads=4):
 
     def work():
         while True:
+            if gate is not None:
+                gate.wait()
             try:
                 i = idx_q.get_nowait()
             except queue.Empty:
@@ -751,8 +820,6 @@ def run_host_loss_drill(
     SIGKILLs one; ``False`` runs in-process wire servers with an abrupt
     socket close standing in for the death — the same fleet/failover/
     re-anchor code paths."""
-    import torch
-
     from ..core import frontend as kfrontend
     from ..core import trace
     from ..core.resilience import counters
@@ -764,17 +831,7 @@ def run_host_loss_drill(
     if hosts < 2:
         raise ValueError("the drill needs >= 2 hosts (one must die)")
     dev = resolve_device(device)
-
-    mean, std = _drill_params(seed)
-    stem = _drill_ckpt(tmpdir, mean, std, dev)
-    rows = np.asarray(np.random.default_rng((seed, 13)).normal(size=(requests, FEAT_DIM)),
-                      np.float32)
-    expected = _scaler(mean, std, dev)(torch.from_numpy(rows).to(dev)).cpu().numpy()
-
-    pm_dir = os.path.join(tmpdir, "postmortems")
-    os.makedirs(pm_dir, exist_ok=True)
-    old_pm = os.environ.get("KEYSTONE_POSTMORTEM_DIR")
-    os.environ["KEYSTONE_POSTMORTEM_DIR"] = pm_dir
+    stem, rows, expected = _drill_oracle(tmpdir, seed, requests, 13, dev)
     kill_rank = hosts - 1
     survivors = [r for r in range(hosts) if r != kill_rank]
     t_start = time.monotonic()
@@ -785,19 +842,13 @@ def run_host_loss_drill(
         "requests": requests,
         "device": str(dev),
     }
-    try:
+    with _postmortem_dir(tmpdir) as pm_dir:
         if subprocess_mode:
             _run_drill_subprocess(record, tmpdir, stem, seed, hosts, kill_rank, survivors, rows,
-                                  expected, local_devices, device, timeout_s, kdist, kfrontend,
-                                  counters)
+                                  expected, local_devices, device, timeout_s, kfrontend, counters)
         else:
             _run_drill_inprocess(record, stem, hosts, kill_rank, survivors, rows, expected,
                                  local_devices, dev, timeout_s, kdist, kfrontend, counters)
-    finally:
-        if old_pm is None:
-            os.environ.pop("KEYSTONE_POSTMORTEM_DIR", None)
-        else:
-            os.environ["KEYSTONE_POSTMORTEM_DIR"] = old_pm
     record["postmortems"] = sorted(os.listdir(pm_dir))
     record["wall_s"] = round(time.monotonic() - t_start, 3)
     trace.instant("host_loss_drill", mode=record["mode"], hosts=hosts,
@@ -816,40 +867,32 @@ def _judge_answers(record, results, errors, expected) -> None:
 
 def _run_drill_subprocess(
     record, tmpdir, stem, seed, hosts, kill_rank, survivors, rows, expected, local_devices,
-    device, timeout_s, kdist, kfrontend, counters,
+    device, timeout_s, kfrontend, counters,
 ) -> None:
-    pm_dir = os.environ["KEYSTONE_POSTMORTEM_DIR"]
+    import threading
+
     workers: list[_WorkerIO] = []
-    trace_paths = {}
+    trace_paths = {r: os.path.join(tmpdir, f"drill_host{r}.json") for r in range(hosts)}
     n = len(rows)
     results: list = [None] * n
     errors: list = []
     try:
-        for r in range(hosts):
-            trace_paths[r] = os.path.join(tmpdir, f"drill_host{r}.json")
-            env = _hermetic_env(
-                kdist.worker_env(r, hosts, "controller", local_devices=local_devices,
-                                 device=device),
-                tmpdir, f"host{r}", trace_path=trace_paths[r],
-            )
-            env["KEYSTONE_POSTMORTEM_DIR"] = pm_dir
-            workers.append(_WorkerIO(
-                _worker_cmd("serve-host",
-                            ["--ckpt", stem, "--seed", str(seed), "--device", device]),
-                env,
-                os.path.join(tmpdir, f"drill_host{r}.err"),
-            ))
-        up = [w.expect("port", timeout_s / 2) for w in workers]
-        endpoints = [("127.0.0.1", msg["port"]) for msg in up]
+        endpoints = _start_serve_hosts(workers, tmpdir, "host", stem, seed, hosts, local_devices,
+                                       device, timeout_s, trace_paths)
 
         with kfrontend.HostFleet(endpoints, label="drill") as fleet:
-            join = _drive_fleet(fleet, rows, results, errors)
+            gate = threading.Event()
+            gate.set()
+            join = _drive_fleet(fleet, rows, results, errors, gate=gate)
             # Mid-flight: requests are streaming when the host dies.
             _wait_answered(results, n // 3, timeout_s / 4)
-            # The doomed host's launches as of its last reply before the kill.
-            workers[kill_rank].send("stats")
-            doomed = workers[kill_rank].expect("stats", timeout_s / 4)["stats"]
-            workers[kill_rank].kill()
+            # New requests wait while the doomed host reports its launches
+            # and dies: those in flight meet the kill, and the rest cannot
+            # all drain during the report (then none would find the host
+            # dead, and the loss would go unexercised).
+            gate.clear()
+            doomed = workers[kill_rank].stats_then_kill(timeout_s / 4)
+            gate.set()
             record["killed_at_answered"] = _answered(results)
             _wait_answered(results, (2 * n) // 3, timeout_s / 2)
             # The controller's liveness verdict reaches the survivors:
@@ -961,6 +1004,302 @@ def _run_drill_inprocess(
         if own_group:
             kdist.shutdown_process_group()
     _judge_answers(record, results, errors, expected)
+
+
+# -- obs-capture drill --------------------------------------------------------
+
+
+def _pooled_p99_oracle(record, direct, fleet_hists) -> None:
+    """The collector's fleet p99 must equal the pick-rule percentile of the
+    POOLED per-member samples, and sit near the numpy linear-interpolation
+    percentile of the same pool."""
+    metric = None
+    for cand in ("serve_latency_ms", "wire_request_ms"):
+        if any(cand in (d.get("hist_windows") or {}) for d in direct.values()):
+            metric = cand
+            break
+    record["pooled_metric"] = metric
+    if metric is None:
+        record["p99_match"] = False
+        return
+    pool = sorted(float(s) for d in direct.values()
+                  for s in d["hist_windows"].get(metric, {}).get("samples", ()))
+    record["p99_pool_n"] = len(pool)
+    fleet_p99 = fleet_hists.get(metric, {}).get("p99")
+    pick = pool[min(len(pool) - 1, int(0.99 * len(pool)))] if pool else None
+    p99_np = float(np.percentile(pool, 99)) if pool else None
+    record["p99_fleet"] = fleet_p99
+    record["p99_oracle_pick"] = pick
+    record["p99_oracle_np"] = p99_np
+    record["p99_match"] = (
+        fleet_p99 is not None
+        and fleet_p99 == pick
+        and abs(fleet_p99 - p99_np) <= max(0.25 * abs(p99_np), 1e-6)
+    )
+
+
+def _counter_sum_check(record, snap, direct) -> None:
+    """Fleet counters == the sum of per-member snapshots, key for key, both
+    directions."""
+    sums: dict = {}
+    for d in direct.values():
+        stz = d.get("statusz", {})
+        for group in ("counters", "faults"):
+            for k, v in (stz.get(group) or {}).items():
+                sums[k] = sums.get(k, 0) + v
+    fleet = dict(snap.get("counters", {}))
+    for k, v in snap.get("faults", {}).items():
+        fleet[k] = fleet.get(k, 0) + v
+    mismatched = {k: (fleet.get(k), sums.get(k)) for k in set(fleet) | set(sums)
+                  if fleet.get(k, 0) != sums.get(k, 0)}
+    record["counter_sum_ok"] = not mismatched
+    if mismatched:
+        record["counter_sum_mismatch"] = {k: list(v) for k, v in sorted(mismatched.items())[:8]}
+
+
+def _judge_incident(record, bundle_path, survivor_keys) -> None:
+    """ONE bundle, every surviving member's ring present and non-empty,
+    events on one monotone clock-aligned timeline."""
+    with open(bundle_path) as fh:
+        doc = json.load(fh)
+    members = doc.get("members", {})
+    ts = [ev["ts"] for ev in doc.get("events", []) if isinstance(ev.get("ts"), (int, float))]
+    record["incident"] = {
+        "path": bundle_path,
+        "schema": doc.get("schema"),
+        "trigger": doc.get("trigger", {}).get("kind"),
+        "capture_wall_s": doc.get("capture_wall_s"),
+        "members": sorted(members),
+        "missing": doc.get("missing", []),
+        "n_events": len(doc.get("events", [])),
+        "survivor_rings_ok": all(k in members and members[k].get("events", 0) > 0
+                                 for k in survivor_keys),
+        "events_monotone": ts == sorted(ts),
+    }
+
+
+def run_obs_capture_drill(
+    tmpdir: str,
+    *,
+    hosts: int = 2,
+    requests: int = 18,
+    seed: int = 0,
+    local_devices: int = 2,
+    subprocess_mode: bool | None = None,
+    timeout_s: float = 240.0,
+    device: str = "cuda",
+) -> dict:
+    """The fleet-observability drill: serve across N members with a
+    ``core.fleetobs.FleetCollector`` attached, prove on a QUIET fleet that
+    (a) fleet counters equal the sum of per-member snapshots and (b) fleet
+    p99 comes from the pooled sample windows, then kill one member
+    mid-scrape and prove (c) the collector degrades (``obs_member_lost``),
+    stays monotone for the survivors, and writes ONE clock-aligned incident
+    bundle holding every surviving member's flight ring — while every
+    request still answers bit-equal to the offline oracle (collection must
+    not touch the serving answers).
+
+    ``subprocess_mode=True`` (default where ``spawn_available``) runs each
+    member as a REAL ``serve-host`` subprocess on ``device`` and SIGKILLs
+    one; ``False`` runs in-process wire servers on slots of ``device``
+    with an abrupt socket close standing in for the SIGKILL — the same
+    collector/merge/incident code paths.  ``record["kernel_launches"]``
+    sums the hand kernels' launches over every serving process."""
+    from ..core import frontend as kfrontend
+    from ..core import trace
+    from ..core.resilience import counters
+    from ..parallel import distributed as kdist
+    from ..utils.platform import resolve_device
+
+    if subprocess_mode is None:
+        subprocess_mode = kdist.spawn_available()
+    if hosts < 2:
+        raise ValueError("the drill needs >= 2 hosts (one must die)")
+    dev = resolve_device(device)
+    stem, rows, expected = _drill_oracle(tmpdir, seed, requests, 17, dev)
+    kill_rank = hosts - 1
+    survivors = [r for r in range(hosts) if r != kill_rank]
+    t_start = time.monotonic()
+    record: dict = {
+        "mode": "subprocess" if subprocess_mode else "inprocess",
+        "hosts": hosts,
+        "kill_rank": kill_rank,
+        "requests": requests,
+        "device": str(dev),
+        "incident_dir": os.path.join(tmpdir, "incidents"),
+    }
+    with _postmortem_dir(tmpdir) as pm_dir:
+        if subprocess_mode:
+            _run_obs_drill_subprocess(record, tmpdir, stem, seed, hosts, kill_rank, survivors,
+                                      rows, expected, local_devices, device, timeout_s,
+                                      kfrontend, counters)
+        else:
+            _run_obs_drill_inprocess(record, stem, hosts, kill_rank, survivors, rows, expected,
+                                     local_devices, dev, timeout_s, kfrontend, counters)
+    record["postmortems"] = sorted(os.listdir(pm_dir))
+    record["wall_s"] = round(time.monotonic() - t_start, 3)
+    trace.instant("obs_capture_drill", mode=record["mode"], hosts=hosts,
+                  dropped=record["dropped_requests"], mismatches=record["mismatches"],
+                  incidents=len(record.get("incidents", [])))
+    return record
+
+
+def _obs_drill_collector_phase(
+    record, col, fleet, endpoints, kill, rows, expected, survivor_keys, timeout_s, counters,
+) -> None:
+    """The collector-side drill body shared by both modes: quiet-fleet
+    merge checks, mid-scrape member death, incident + monotonicity
+    judgement.  ``kill()`` is the mode's way of killing the chosen
+    member."""
+    from ..core import wire as kwire
+
+    n = len(rows)
+    results: list = [None] * n
+    errors: list = []
+    fleet.attach_collector(col)
+    col.start()
+    # Wave 1: drive then DRAIN, so the merge checks compare a quiet fleet
+    # (counters moving under the comparison would fake a mismatch).
+    join = _drive_fleet(fleet, rows, results, errors, indices=range(n // 2))
+    if not join(timeout_s / 4):
+        raise TimeoutError("obs drill wave 1 did not drain")
+    col.stop()
+    # Quiet-fleet comparison discipline: one warm scrape FIRST (any pending
+    # collector connect/clock handshake lands now), then the direct pulls
+    # (each opens a fresh connection the member counts in the very payload
+    # it returns), then the comparison scrape — which reuses live
+    # connections and moves nothing, so both sides total the same
+    # ``wire_connections``.
+    col.scrape_once()
+    direct = {}
+    clients = [kwire.WireClient(ep[0], ep[1], timeout=10.0) for ep in endpoints]
+    try:
+        # All connections open, and each one's accept counted (a ping
+        # answers only after it), BEFORE any payload is read: in-process
+        # members share one registry, so a later connect would move the
+        # counters an earlier payload already reported.
+        for c in clients:
+            c.ping()
+        for ep, c in zip(endpoints, clients):
+            d = c.obs_snapshot()
+            if d is not None:
+                direct[f"{ep[0]}:{ep[1]}"] = d
+    finally:
+        for c in clients:
+            c.close()
+    t0 = time.monotonic()
+    snap_before = col.scrape_once()
+    record["scrape_wall_s"] = round(time.monotonic() - t0, 4)
+    _counter_sum_check(record, snap_before, direct)
+    _pooled_p99_oracle(record, direct, snap_before.get("histograms", {}))
+    lost_before = counters.get("obs_member_lost")
+    col.start()  # scraping again: the death below lands mid-cadence
+    # Wave 2: the kill lands while requests AND scrapes are in flight.
+    join = _drive_fleet(fleet, rows, results, errors, indices=range(n // 2, n))
+    kill()
+    record["killed_at_answered"] = _answered(results)
+    if not join(timeout_s / 2):
+        raise TimeoutError("obs drill wave 2 did not drain")
+    # The collector notices on its own cadence; force one pass if the
+    # window closes first (alive->dead triggers exactly once either way).
+    end = time.monotonic() + timeout_s / 4
+    while counters.get("obs_member_lost") <= lost_before and time.monotonic() < end:
+        time.sleep(0.05)
+    col.stop()
+    if counters.get("obs_member_lost") <= lost_before:
+        col.scrape_once()
+    snap_after = col.scrape_once()
+    record["obs_member_lost"] = counters.get("obs_member_lost") - lost_before
+    non_mono = {k: (v, snap_after["counters"].get(k, 0))
+                for k, v in snap_before["counters"].items()
+                if snap_after["counters"].get(k, 0) < v}
+    record["monotone_ok"] = not non_mono
+    if non_mono:
+        record["monotone_violations"] = {k: list(v) for k, v in sorted(non_mono.items())[:8]}
+    record["fleet_alive"] = snap_after["alive"]
+    record["fleet_lost"] = snap_after["lost"]
+    record["healthz"] = col.fleet_healthz()
+    record["incidents"] = list(col.incident_paths)
+    record["collector"] = col.record()
+    record["fleet"] = fleet.record()
+    _judge_answers(record, results, errors, expected)
+    bundles = [p for p in col.incident_paths if "obs_member_lost" in p]
+    if len(bundles) == 1:
+        _judge_incident(record, bundles[0], survivor_keys)
+    else:
+        record["incident"] = {"error": f"{len(bundles)} bundle(s)"}
+
+
+def _obs_collector(record):
+    from ..core import fleetobs
+
+    return fleetobs.FleetCollector(interval_s=0.1, incident_dir=record["incident_dir"],
+                                   window_s=5.0, label="obs-drill")
+
+
+def _run_obs_drill_subprocess(
+    record, tmpdir, stem, seed, hosts, kill_rank, survivors, rows, expected, local_devices,
+    device, timeout_s, kfrontend, counters,
+) -> None:
+    workers: list[_WorkerIO] = []
+    doomed: dict = {}
+
+    def kill() -> None:
+        doomed.update(workers[kill_rank].stats_then_kill(timeout_s / 4))
+
+    try:
+        endpoints = _start_serve_hosts(workers, tmpdir, "obshost", stem, seed, hosts,
+                                       local_devices, device, timeout_s)
+        survivor_keys = [f"127.0.0.1:{endpoints[r][1]}" for r in survivors]
+        with _obs_collector(record) as col, \
+                kfrontend.HostFleet(endpoints, label="obs-drill") as fleet:
+            _obs_drill_collector_phase(record, col, fleet, endpoints, kill, rows, expected,
+                                       survivor_keys, timeout_s, counters)
+        finals = {}
+        for r in survivors:
+            workers[r].send("quit")
+            finals[r] = workers[r].expect("final", timeout_s / 4)["final"]
+        record["survivor_counters"] = {r: finals[r]["counters"] for r in survivors}
+        record["kernel_launches"] = sum_launches(
+            [doomed["kernel_launches"], *(finals[r]["kernel_launches"] for r in survivors)])
+    finally:
+        record["worker_rcs"] = [w.finish() for w in workers]
+
+
+def _run_obs_drill_inprocess(
+    record, stem, hosts, kill_rank, survivors, rows, expected, local_devices, dev, timeout_s,
+    kfrontend, counters,
+) -> None:
+    from ..core.checkpoint import load_pipeline
+    from ..parallel import mesh as kmesh
+
+    launches_before = kernel_launches()
+    routers, servers = [], []
+    try:
+        meshes = [kmesh.make_mesh(data=local_devices, model=1, devices=[dev] * local_devices)
+                  for _ in range(hosts)]
+        for r in range(hosts):
+            model = load_pipeline(stem, mesh=meshes[r])
+            router, server = _host_router(lambda m=model: m, meshes[r], dev, (1, 2, 4),
+                                          f"obshost{r}")
+            routers.append(router)
+            servers.append(server)
+        endpoints = [("127.0.0.1", s.port) for s in servers]
+        survivor_keys = [f"127.0.0.1:{servers[r].port}" for r in survivors]
+        with _obs_collector(record) as col, \
+                kfrontend.HostFleet(endpoints, label="obs-drill") as fleet:
+            # The abrupt stand-in for SIGKILL: the member's sockets close
+            # under its clients; its router is simply abandoned.
+            _obs_drill_collector_phase(record, col, fleet, endpoints, servers[kill_rank].close,
+                                       rows, expected, survivor_keys, timeout_s, counters)
+        record["survivor_counters"] = {r: counters.snapshot() for r in survivors}
+        record["kernel_launches"] = {k: v - launches_before[k]
+                                     for k, v in kernel_launches().items()}
+    finally:
+        for server in servers:  # idempotent: the killed one is closed already
+            server.close()
+        for router in routers:
+            router.close()
 
 
 def main(argv=None) -> int:

@@ -42,10 +42,11 @@ for name in %r:
 print(json.dumps({"modules": sorted(sys.modules)}))
 """
 
-#: The observability base: no torch at import (numerics and logging import
-#: it inside the functions that reduce or time on a device).
+#: The observability base and the fleet plane above it: no torch at import
+#: (numerics and logging import it inside the functions that reduce or time
+#: on a device).
 OBSERVABILITY = ("core.trace", "core.telemetry", "core.resilience", "core.logging",
-                 "core.numerics")
+                 "core.numerics", "core.fleetobs")
 
 
 def _run(code: str) -> dict:

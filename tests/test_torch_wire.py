@@ -12,8 +12,9 @@
   fusion-invariant ``max(x * w, b)``), answers ``np.array_equal``.
 * The port's server: in-flight RETRY_AFTER, typed errors across the wire,
   slow loris, a client disconnecting mid-batch, the observability frames
-  answered with ERROR (the fleet observability agent is not ported)."""
+  answered with the member's obs payload (``core.fleetobs``)."""
 
+import os
 import socket
 import threading
 import time
@@ -302,13 +303,20 @@ def test_client_disconnect_mid_batch_counted_batch_completes():
 
 @pytest.mark.parametrize("client_mod", [wire, jwire])
 def test_observability_frames_answer_error(client_mod):
+    """Both observability frames answer the member's payload, not an ERROR
+    frame, to either package's client; the connection survives and no
+    protocol error is counted."""
     target = _StallTarget()
     with wire.WireServer(target, port=0) as ws:
         with client_mod.WireClient(port=ws.port, timeout=10.0) as c:
-            assert c.obs_snapshot() is None
-            assert c.obs_flight() is None
+            snap = c.obs_snapshot()
+            flight = c.obs_flight()
+            for payload in (snap, flight):
+                assert payload["schema"] == "keystone.obs/1"
+                assert payload["pid"] == os.getpid() and payload["now_us"] > 0
+            assert "statusz" in snap and isinstance(flight["flight"], list)
             assert c.ping() < 5.0  # the connection survives
-        assert ws.stats.protocol_errors == 2
+        assert ws.stats.protocol_errors == 0
 
 
 def test_protocol_violation_answers_error_and_closes():
