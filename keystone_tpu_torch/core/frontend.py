@@ -74,13 +74,13 @@ from . import numerics as knum
 from . import telemetry
 from . import trace
 from .resilience import counters
-from .serve import (
-    ServeConfig,
+from .serve import ServeConfig, ServeFuture, Server, ServingEngine
+from .serve_errors import (
+    NoRouteForShape,
+    RetryLater,
     ServeError,
-    ServeFuture,
-    Server,
-    ServingEngine,
     ServingUnavailable,
+    _env_pos_int,
 )
 
 _logger = logging.getLogger("keystone_tpu_torch.frontend")
@@ -89,35 +89,6 @@ WARM_THRESHOLD_ENV = "KEYSTONE_ROUTER_WARM_THRESHOLD"
 MIX_WINDOW_ENV = "KEYSTONE_ROUTER_MIX_WINDOW_S"
 RETIRE_AFTER_ENV = "KEYSTONE_ROUTER_RETIRE_AFTER_S"
 MAX_ENGINES_ENV = "KEYSTONE_ROUTER_MAX_ENGINES"
-
-
-class NoRouteForShape(ServeError):
-    """No live engine serves the request's shape and the router has no
-    engine factory to warm one — a permanently unroutable request."""
-
-
-class RetryLater(ServeError):
-    """Typed backpressure: the request was NOT accepted (unserved shape
-    still below the warm threshold, an engine mid-warm, or admission out
-    of headroom); retry after ``retry_after_s``.  The wire tier maps this
-    onto a RETRY_AFTER frame."""
-
-    def __init__(self, message: str, retry_after_s: float = 0.05):
-        super().__init__(message)
-        self.retry_after_s = float(retry_after_s)
-
-
-def _env_pos_int(name: str, default: int) -> int:
-    raw = os.environ.get(name, "").strip()
-    if not raw:
-        return default
-    try:
-        val = int(raw)
-    except ValueError:
-        raise ValueError(f"{name}={raw!r} is not an integer") from None
-    if val < 1:
-        raise ValueError(f"{name}={raw!r} must be >= 1")
-    return val
 
 
 def _env_pos_float(name: str, default: float) -> float:

@@ -506,6 +506,9 @@ class StreamStats:
     h2d_bytes: int = 0  #: bytes copied to the card from pinned buffers
     decode_seconds: float = 0.0  #: host decode time summed over the pool's workers
 
+    def record(self) -> dict:
+        return dataclasses.asdict(self)
+
 
 class _Ring:
     """Bounded FIFO between the producer thread and the consumer.  Every
@@ -659,7 +662,7 @@ class IngestStream:
         # The stream's live state on the /statusz page, one row per stream.
         self._statusz_name = f"stream:{os.path.basename(path)}#{next(_stream_seq)}"
         self._statusz_provider = lambda: {
-            "path": path, "batch_size": batch_size, **dataclasses.asdict(self.stats)}
+            "path": path, "batch_size": batch_size, **self.stats.record()}
         telemetry.register_statusz(self._statusz_name, self._statusz_provider)
         self._iter = self._drain()
         self._thread = threading.Thread(

@@ -103,6 +103,7 @@ from . import profiler as kprof
 from . import telemetry
 from . import trace
 from .resilience import counters
+from .serve_errors import MalformedRequest, ServeError, ServingUnavailable
 
 _logger = logging.getLogger("keystone_tpu_torch.serve")
 
@@ -124,21 +125,6 @@ _POLL_SECONDS = 0.05
 #: One graph capture at a time in the process: a capture synchronizes the
 #: card before it begins, and two captures must not overlap that.
 _CAPTURE_LOCK = threading.Lock()
-
-
-class ServeError(RuntimeError):
-    """Base of the serving subsystem's typed failures."""
-
-
-class MalformedRequest(ServeError, ValueError):
-    """A request that cannot enter a batch: wrong shape, uncastable dtype,
-    or non-finite payload.  Raised at ``submit`` (counted
-    ``serve_malformed_request``) before it can poison its batchmates."""
-
-
-class ServingUnavailable(ServeError):
-    """The endpoint cannot answer: every batch bucket OOMed away, or the
-    server was closed with requests still pending."""
 
 
 def _env_float(name: str, default: float) -> float:

@@ -57,9 +57,8 @@ from collections import deque
 import numpy as np
 
 from . import trace
-from .frontend import RetryLater, _env_pos_int
 from .resilience import counters
-from .serve import ServeError, ServingUnavailable
+from .serve_errors import RetryLater, ServeError, ServingUnavailable, _env_pos_int
 
 _logger = logging.getLogger("keystone_tpu_torch.wire")
 

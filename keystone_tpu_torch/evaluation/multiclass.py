@@ -36,6 +36,10 @@ class BinaryClassificationMetrics:
     def precision(self):
         return self.tp / (self.tp + self.fp)
 
+    @property
+    def specificity(self):
+        return self.tn / (self.fp + self.tn)
+
     def f_score(self, beta: float = 1.0) -> float:
         num = (1.0 + beta * beta) * self.tp
         denom = (1.0 + beta * beta) * self.tp + beta * beta * self.fn + self.fp

@@ -137,3 +137,10 @@ class VectorSplitter(FunctionNode):
             data[..., i : min(i + self.block_size, d)]
             for i in range(0, d, self.block_size)
         ]
+
+    def split_vector(self, vec):
+        return self(vec)
+
+    def num_blocks(self, d: int | None = None) -> int:
+        d = d or self.num_features
+        return -(-d // self.block_size)

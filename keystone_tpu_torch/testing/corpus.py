@@ -51,6 +51,10 @@ def write_newsgroups_tree(
     ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
     zipf = 1.0 / (ranks + 2.7) ** 1.07
     zipf /= zipf.sum()
+    # rng.choice(vocab_size, n, p=zipf) builds this CDF on every call and
+    # then draws exactly rng.random(n); built once, the draws are the same.
+    cdf = zipf.cumsum()
+    cdf /= cdf[-1]
     theme_rng = np.random.default_rng(vocab_size)
     # A theme mixes words of the class's family (the part before the first
     # dot, e.g. "comp") with words of its own, all of middling frequency.
@@ -68,7 +72,7 @@ def write_newsgroups_tree(
         cls_dir.mkdir(parents=True, exist_ok=True)
         for i in range(count):
             n = int(rng.integers(*doc_tokens))
-            ids = rng.choice(vocab_size, n, p=zipf)
+            ids = cdf.searchsorted(rng.random(n), side="right")
             themed = rng.random(n) < theme_share
             ids[themed] = rng.choice(themes[c], int(themed.sum()))
             tokens = words[ids].astype(object)

@@ -6,6 +6,16 @@ import numpy as np
 import torch
 
 
+def about_eq(a, b, thresh: float = 1e-8) -> bool:
+    """Tolerance comparison for scalars, vectors and matrices: elementwise
+    ``|a - b| < thresh``; a shape mismatch raises."""
+    a = np.asarray(a)
+    b = np.asarray(b)
+    if a.shape != b.shape:
+        raise ValueError(f"shape mismatch {a.shape} vs {b.shape}")
+    return bool(np.all(np.abs(a - b) < thresh))
+
+
 def classification_error(predicted, actual, k: int = 1) -> float:
     """Fraction of examples whose true label is NOT in the top-k prediction.
     ``predicted`` is [N, k] label indices (or [N] for k=1); ``actual`` [N]."""

@@ -57,7 +57,7 @@ import argparse
 import dataclasses
 import logging
 import time
-from dataclasses import asdict, dataclass
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -93,7 +93,8 @@ from ..utils.stats import normalize_rows
 from . import serve_common
 from .fv_common import stream_config_from_flags, stream_features_snapshot
 
-_log = logging.getLogger(__name__)
+# Named: under ``python -m`` __name__ is __main__, outside the package's log handler.
+_log = logging.getLogger("keystone_tpu_torch.workloads.cifar_random_patch")
 
 
 @dataclass
@@ -511,7 +512,7 @@ def run(
         )
         if conf.stream_test_tar is not None:
             test_conv, names, stats, tuner = _stream_test_features(conf, conv_pipe, dev)
-            ingest_stats = asdict(stats)
+            ingest_stats = stats.record()
             test_labels = np.asarray([cifar_tar_label(n) for n in names], np.int32)
         else:
             test_labels = test.labels

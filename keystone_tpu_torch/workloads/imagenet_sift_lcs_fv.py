@@ -51,7 +51,7 @@ from __future__ import annotations
 import argparse
 import logging
 import time
-from dataclasses import asdict, dataclass
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -89,7 +89,8 @@ from .fv_common import (
     stream_descriptor_buckets,
 )
 
-_log = logging.getLogger(__name__)
+# Named: under ``python -m`` __name__ is __main__, outside the package's log handler.
+_log = logging.getLogger("keystone_tpu_torch.workloads.imagenet_sift_lcs_fv")
 
 #: Hard cap on the GMM EM training set, whatever ``num_gmm_samples`` is.
 GMM_FIT_CAP = 1_000_000
@@ -439,7 +440,7 @@ def run(conf: ImageNetSiftLcsFVConfig, train: LabeledImages, test: LabeledImages
         # The searched placement table of the weighted block solve.
         results["placement"] = placement
     ingest = {
-        split: [asdict(s) for s in src.stream_stats]
+        split: [s.record() for s in src.stream_stats]
         for split, src in (("train", train), ("test", test))
         if isinstance(src, StreamSource)
     }

@@ -39,7 +39,8 @@ from ..parallel.mesh import add_mesh_flag, parse_mesh, use_mesh
 from ..solvers.naive_bayes import NaiveBayesEstimator
 from ..utils.platform import resolve_device, synchronize
 
-_log = logging.getLogger(__name__)
+# Named: under ``python -m`` __name__ is __main__, outside the package's log handler.
+_log = logging.getLogger("keystone_tpu_torch.workloads.newsgroups")
 
 
 @dataclass

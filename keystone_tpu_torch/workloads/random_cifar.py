@@ -40,7 +40,8 @@ from ..solvers.linear import LinearMapEstimator
 from ..utils.platform import resolve_device, synchronize
 from .cifar_random_patch import featurize_chunked
 
-_log = logging.getLogger(__name__)
+# Named: under ``python -m`` __name__ is __main__, outside the package's log handler.
+_log = logging.getLogger("keystone_tpu_torch.workloads.random_cifar")
 
 
 @dataclass

@@ -32,7 +32,8 @@ from ..core.logging import configure_logging
 from ..ops.ngram_lm import NGramsCounts, StupidBackoffEstimator, sharded_scores
 from ..ops.nlp import NGramsFeaturizer, Tokenizer, fit_word_frequency_encoder
 
-_log = logging.getLogger(__name__)
+# Named: under ``python -m`` __name__ is __main__, outside the package's log handler.
+_log = logging.getLogger("keystone_tpu_torch.workloads.stupid_backoff")
 
 
 @dataclass

@@ -46,7 +46,8 @@ from ..parallel.mesh import add_mesh_flag, map_rows, padded_shard_rows, parse_me
 from ..solvers.block import BlockLeastSquaresEstimator, BlockLinearMapper
 from ..utils.platform import resolve_device, synchronize
 
-_log = logging.getLogger(__name__)
+# Named: under ``python -m`` __name__ is __main__, outside the package's log handler.
+_log = logging.getLogger("keystone_tpu_torch.workloads.timit")
 
 
 @dataclass

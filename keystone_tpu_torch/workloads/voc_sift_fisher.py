@@ -56,7 +56,7 @@ import argparse
 import logging
 import os
 import time
-from dataclasses import asdict, dataclass
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -99,7 +99,8 @@ from .fv_common import (
     stream_descriptor_buckets,
 )
 
-_log = logging.getLogger(__name__)
+# Named: under ``python -m`` __name__ is __main__, outside the package's log handler.
+_log = logging.getLogger("keystone_tpu_torch.workloads.voc_sift_fisher")
 
 #: Images per SIFT call.  It bounds the [n, 8, Fy*4, W] intermediates (about
 #: 7.5 MB per 500x375 image in f32); the descriptors do not depend on it.
@@ -367,7 +368,7 @@ def run(conf: SIFTFisherConfig, train: MultiLabeledImages, test: MultiLabeledIma
 
     aps = MeanAveragePrecisionEvaluator(test.labels, scores, VOC_NUM_CLASSES)
     ingest_stats = {
-        split: asdict(src.stream_stats[-1])
+        split: src.stream_stats[-1].record()
         for split, src in (("train", train), ("test", test))
         if isinstance(src, StreamSource) and src.stream_stats
     }

@@ -18,11 +18,11 @@ from keystone_tpu.solvers.normal_equations import (
     bcd_least_squares_l2 as jax_bcd,
     solve_least_squares as jax_solve,
 )
-from keystone_tpu.utils.stats import about_eq
 from keystone_tpu_torch.ops.stats import StandardScaler
 from keystone_tpu_torch.parallel.collectives import psum, sharded_gram, sharded_moments
 from keystone_tpu_torch.parallel.mesh import make_mesh, padded_shard_rows
 from keystone_tpu_torch.solvers.normal_equations import bcd_least_squares_l2, solve_least_squares
+from keystone_tpu_torch.utils.stats import about_eq
 from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
 CPU = torch.device("cpu")

@@ -47,6 +47,10 @@ print(json.dumps({"modules": sorted(sys.modules)}))
 #: on a device).
 OBSERVABILITY = ("core.trace", "core.telemetry", "core.resilience", "core.logging",
                  "core.numerics", "core.fleetobs")
+#: The wire client's half, the client tool a bench spawns, and the launcher:
+#: no torch at import (a client process on a card's host creates no CUDA
+#: context; the launcher leaves torch to the workload it runs).
+CLIENT = ("core.serve_errors", "core.wire", "tools.serve_client", "__main__")
 
 
 def _run(code: str) -> dict:
@@ -72,7 +76,8 @@ def test_port_and_smoke_import_no_jax():
                  "testing.jpeg_encode", "ops.lcs", "solvers.weighted",
                  "workloads.imagenet_sift_lcs_fv", "core.serve", "core.frontend",
                  "core.wire", "workloads.serve_common", "parallel.distributed",
-                 "parallel.mesh", "workloads.multihost", *OBSERVABILITY):
+                 "parallel.mesh", "workloads.multihost", "tools.serve_bench", *OBSERVABILITY,
+                 *CLIENT):
         assert f"keystone_tpu_torch.{name}" in rec["imported"]
     mods = rec["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
@@ -123,4 +128,12 @@ def test_observability_imports_no_torch():
     for name in OBSERVABILITY:
         assert f"keystone_tpu_torch.{name}" in mods
     assert "torch" not in mods
+    assert not [m for m in mods if m == "jax" or _jax_package(m)]
+
+
+def test_client_and_launcher_import_no_torch():
+    mods = _run(_IMPORT_OBSERVABILITY % (CLIENT,))["modules"]
+    for name in CLIENT:
+        assert f"keystone_tpu_torch.{name}" in mods
+    assert not [m for m in mods if m == "torch" or m.startswith("torch.")]
     assert not [m for m in mods if m == "jax" or _jax_package(m)]

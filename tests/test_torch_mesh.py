@@ -19,7 +19,6 @@ from keystone_tpu.ops.util import VectorSplitter
 from keystone_tpu.parallel.mesh import use_mesh as jax_use_mesh
 from keystone_tpu.solvers.block import BlockLeastSquaresEstimator as JaxBLS
 from keystone_tpu.solvers.linear import LinearMapEstimator as JaxLinear
-from keystone_tpu.utils.stats import about_eq
 from keystone_tpu_torch.core import autoshard
 from keystone_tpu_torch.core import memory as kmem
 from keystone_tpu_torch.core.resilience import counters
@@ -45,6 +44,7 @@ from keystone_tpu_torch.parallel.mesh import (
 from keystone_tpu_torch.solvers import block
 from keystone_tpu_torch.solvers.block import BlockLeastSquaresEstimator
 from keystone_tpu_torch.solvers.linear import LinearMapEstimator
+from keystone_tpu_torch.utils.stats import about_eq
 from keystone_tpu_torch.workloads.cifar_random_patch import featurize_chunked
 from torch_plan_log import hermetic_plan_log, hermetic_plan_log_module  # noqa: F401
 
