@@ -443,7 +443,19 @@ which raises (and so exits non-zero) on failure:
    ``router_route_overhead_us``, ``reshard_wall_s``, ``reanchor_wall_s``,
    ``drift_to_healthy_wall_s``) and the start-up seconds of each process:
    the tool's (its wall less its record's ``seconds``), each wire client's
-   (spawn to connected socket) and the fleet's workers (``bringup_seconds``).
+   (spawn to connected socket) and the fleet's workers (``bringup_seconds``);
+37. the chaos suite on the card (``keystone_tpu_torch.testing.chaos``):
+   (a) ``python -m keystone_tpu_torch.tools.chaos_run --device cuda --trace
+   DIR`` as a process of its own (run as ``-m`` runs it, through
+   ``runpy``, under a hook that prints its K1-K3 counts and the entropy
+   backend at its exit) over the tier-1 seeds on MnistRandomFFT, every one
+   of the 27 fault families: exit 0, its record ``ok``, every outcome the
+   one a healthy system gives, no trace violation; (b) ``run_schedule``
+   in this process on ``cuda`` for RandomPatchCifar's seeds 0 (the
+   out-of-memory step-down, ``completed_equal``) and 4 (NaN-poisoned
+   training images, ``typed_error``), launching K1; (c) K3 launched in
+   (a)'s device-decode families.  Prints each family's outcome and seconds,
+   the phase's walls and which entropy backend ran.
 
 Without a CUDA card it exits with code 1 and prints no result.
 """
@@ -4934,6 +4946,7 @@ def run_multihost(card: str, data_dir: Path) -> dict:
         "mode": drill["mode"], "requests": drill["requests"], "answered": drill["answered"],
         "dropped_requests": drill["dropped_requests"], "mismatches": drill["mismatches"],
         "errors": drill["errors"], "killed_at_answered": drill["killed_at_answered"],
+        "in_flight_at_kill": drill["in_flight_at_kill"],
         "fleet_host_lost": drill["fleet"]["lost_hosts"],
         "dist_reform": min(sc.get("dist_reform", 0) for sc in survivors.values()),
         "host_reanchor": min(sc.get("host_reanchor", 0) for sc in survivors.values()),
@@ -4943,7 +4956,7 @@ def run_multihost(card: str, data_dir: Path) -> dict:
                     **rec["c"]}))
     c = rec["c"]
     if not (c["dropped_requests"] == 0 and c["mismatches"] == 0 and not c["errors"]
-            and c["fleet_host_lost"] >= 1 and c["dist_reform"] >= 1 and c["host_reanchor"] >= 1):
+            and c["in_flight_at_kill"] >= 1 and c["fleet_host_lost"] >= 1 and c["dist_reform"] >= 1 and c["host_reanchor"] >= 1):
         raise AssertionError(f"host-loss drill: {c}")
     here = {"conv_rect_pool": rp.fused_launches + rp.launches, "fv_stats": fs.launches,
             "decode_pixels": jd.decode_launches}
@@ -5170,6 +5183,89 @@ def run_entry_points(card: str, data_dir: Path, fitted: dict) -> dict:
             "fv_stats": 0, "decode_pixels": 0}
 
 
+_CHAOS_RUN = """
+import atexit, json, runpy, sys
+from keystone_tpu_torch.ops import fv_stats as fs, jpeg_device as jd, rect_pool as rp
+atexit.register(lambda: print("LAUNCHES " + json.dumps({
+    "conv_rect_pool": rp.fused_launches + rp.launches, "fv_stats": fs.launches,
+    "decode_pixels": jd.decode_launches, "entropy_backend": jd.entropy_backend()}), flush=True))
+sys.argv = ["chaos_run", *%r]
+runpy.run_module("keystone_tpu_torch.tools.chaos_run", run_name="__main__", alter_sys=True)
+"""
+
+
+def run_chaos(card: str, data_dir: Path) -> dict:
+    """Phase 37: the chaos suite on the card.  Returns the launches by
+    kernel over the phase: the tool's process's counts (read at its exit)
+    plus this process's."""
+    from keystone_tpu_torch.testing import chaos
+
+    t_phase = time.perf_counter()
+    rec: dict = {"phase": "37: the chaos suite on the card", "card": card}
+    # (a) The tool over every family, a process of its own.
+    trace_dir = data_dir / "chaos_traces"
+    rc, out, err, wall = run_process(
+        [sys.executable, "-c", _CHAOS_RUN % (["--device", "cuda", "--trace", str(trace_dir)],)],
+        entry_env(data_dir, "chaos"), 600)
+    lines = out.splitlines()
+    if not lines or not lines[0].startswith("{"):
+        raise AssertionError(f"chaos_run: exit {rc}, no record: {err[-3000:]}")
+    tool = json.loads(lines[0])
+    launched = json.loads(logged(out, r"^LAUNCHES (.*)$"))
+    backend = launched.pop("entropy_backend")
+    families = {r["fault"]["kind"]: {"seed": r["seed"], "outcome": r["outcome"],
+                                     "error_type": r["error_type"], "phase": r["phase"],
+                                     "seconds": r["seconds"]} for r in tool["results"]}
+    rec["a"] = {"exit": rc, "ok": tool["ok"], "outcomes": tool["outcomes"],
+                "trace_violations": tool["trace"]["violations"], "process_wall_s": round(wall, 3),
+                "schedules_s": round(sum(r["seconds"] for r in tool["results"]), 3),
+                "entropy_backend": backend, "launches": launched, "families": families}
+    log(json.dumps({"phase": "37(a) python -m keystone_tpu_torch.tools.chaos_run --device "
+                    "cuda --trace DIR, tier-1 seeds on MnistRandomFFT", "card": card,
+                    **rec["a"]}))
+    # Every schedule ends as a healthy system's would, its family's fault
+    # counted: a family whose injection point the card's path bypasses
+    # would end completed_equal with no fault at all.
+    bad = [r for r in tool["results"]
+           if r["outcome"] != chaos.expected_outcome(chaos.make_schedule(r["seed"]))
+           or r["counters_delta"].get(chaos.EXPECTED_COUNTER[r["fault"]["kind"]], 0) < 1]
+    if (rc != 0 or not tool["ok"] or bad or tool["trace"]["violations"]
+            or tool["seeds"] != list(chaos.TIER1_SEEDS)
+            or set(families) != set(chaos.FAMILIES)):
+        raise AssertionError(f"chaos_run on the card: exit {rc}, bad {bad}, trace "
+                             f"{tool['trace']['violations']}: {err[-2000:]}")
+    # (b) RandomPatchCifar's out-of-memory step-down and NaN guard, here.
+    rp.launches = rp.fused_launches = fs.launches = jd.decode_launches = 0
+    t_b = time.perf_counter()
+    want = {0: "completed_equal", 4: "typed_error"}
+    cifar_runs = {}
+    for seed, outcome in want.items():
+        r = chaos.run_schedule(seed, "cifar", device="cuda")
+        cifar_runs[seed] = {k: r.record()[k] for k in ("outcome", "error_type", "seconds",
+                                                       "counters_delta")}
+        if (r.outcome != outcome
+                or r.counters_delta.get(chaos.EXPECTED_COUNTER[r.fault.kind], 0) < 1):
+            raise AssertionError(f"chaos cifar seed {seed}: {r.record()}")
+    here = {"conv_rect_pool": rp.fused_launches + rp.launches, "fv_stats": fs.launches,
+            "decode_pixels": jd.decode_launches}
+    rec["b"] = {"runs": cifar_runs, "wall_s": round(time.perf_counter() - t_b, 3),
+                "launches": here}
+    log(json.dumps({"phase": "37(b) run_schedule on cuda, RandomPatchCifar seeds 0 and 4",
+                    "card": card, **rec["b"]}))
+    if here["conv_rect_pool"] < 1 or rp.launches:
+        raise AssertionError(f"chaos cifar: K1 launches {here}, rect_pool entry {rp.launches}")
+    # (c) K3 in the tool's device-decode families.
+    if launched["decode_pixels"] < 1:
+        raise AssertionError(f"chaos_run's device-decode families launched no decode: "
+                             f"{launched}")
+    launches = {k: here[k] + launched[k] for k in here}
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"phase": "37 launches, each process counting its own", "card": card,
+                    **launches, "by_source": {"this process": here, "chaos_run": launched}}))
+    log(f"phase 37: {rec['seconds']:.2f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -5383,6 +5479,8 @@ def smoke(data_dir: Path) -> int:
     elapsed("phase 35")
     entry36 = run_entry_points(card, data_dir, fitted)
     elapsed("phase 36")
+    chaos37 = run_chaos(card, data_dir)
+    elapsed("phase 37")
 
     # 16. The kernels line, the card line, the result line.
     print(json.dumps({"kernels": [{
@@ -5397,7 +5495,8 @@ def smoke(data_dir: Path) -> int:
                      + lifecycle["conv_rect_pool"] + mesh["conv_rect_pool"]
                      + mesh_specs["conv_rect_pool"] + mesh_cache["conv_rect_pool"]
                      + mesh_serving["conv_rect_pool"] + multihost34["conv_rect_pool"]
-                     + fleet_obs35["conv_rect_pool"] + entry36["conv_rect_pool"]),
+                     + fleet_obs35["conv_rect_pool"] + entry36["conv_rect_pool"]
+                     + chaos37["conv_rect_pool"]),
         "launches_by_path": {"random_patch_cifar": main_launches,
                              "random_cifar": random_cifar_rec["launches"],
                              "random_patch_cifar_jpeg_tar": tar_launches["conv_rect_pool"],
@@ -5413,7 +5512,8 @@ def smoke(data_dir: Path) -> int:
                              "mesh_serving": mesh_serving["conv_rect_pool"],
                              "multihost": multihost34["conv_rect_pool"],
                              "fleet_obs": fleet_obs35["conv_rect_pool"],
-                             "entry_points": entry36["conv_rect_pool"]},
+                             "entry_points": entry36["conv_rect_pool"],
+                             "chaos": chaos37["conv_rect_pool"]},
         "max_abs_err": max(r["max_abs_err"] for r in [
             fused_prod, fused_prod_f32, fused_cifar48, *fused_odd, random_cifar_rec]),
         "ms": fused_prod["ms"],
@@ -5447,7 +5547,7 @@ def smoke(data_dir: Path) -> int:
                      + snaps["fv_stats"] + serving["fv_stats"] + ladder["fv_stats"]
                      + optimizer["fv_stats"] + inet_restored + placement["fv_stats"]
                      + mesh_fv["fv_stats"] + mesh_cache["fv_stats"] + mesh_serving["fv_stats"]
-                     + multihost34["fv_stats"] + fleet_obs35["fv_stats"]),
+                     + multihost34["fv_stats"] + fleet_obs35["fv_stats"] + chaos37["fv_stats"]),
         "launches_by_path": {"voc_in_memory": voc_launches, "voc_jpeg_tars": tar_fv_launches,
                              "imagenet_in_memory": inet_launches,
                              "imagenet_jpeg_tars": inet_tar_fv,
@@ -5463,7 +5563,8 @@ def smoke(data_dir: Path) -> int:
                              "voc_mesh_auto_cache": mesh_cache["fv_stats"],
                              "mesh_serving": mesh_serving["fv_stats"],
                              "multihost": multihost34["fv_stats"],
-                             "fleet_obs": fleet_obs35["fv_stats"]},
+                             "fleet_obs": fleet_obs35["fv_stats"],
+                             "chaos": chaos37["fv_stats"]},
         "max_abs_err": max(r["max_abs_err"] for r in [fv_prod, *fv_odd, *fv_imagenet.values()]),
         "ms": fv_prod["ms"],
         "plain_ms": fv_prod["plain_ms"],
@@ -5491,7 +5592,8 @@ def smoke(data_dir: Path) -> int:
         "launches": (decode_launches + inet_tar_decode + tar_launches["decode_pixels"]
                      + restored["decode_pixels"] + snaps["decode_pixels"]
                      + optimizer["decode_pixels"] + mesh_cache["decode_pixels"]
-                     + multihost34["decode_pixels"] + fleet_obs35["decode_pixels"]),
+                     + multihost34["decode_pixels"] + fleet_obs35["decode_pixels"]
+                     + chaos37["decode_pixels"]),
         "launches_by_path": {"voc_jpeg_tars": decode_launches,
                              "imagenet_jpeg_tars": inet_tar_decode,
                              "cifar_jpeg_tar": tar_launches["decode_pixels"],
@@ -5500,7 +5602,8 @@ def smoke(data_dir: Path) -> int:
                              "cifar_jpeg_tar_auto_tune": optimizer["decode_pixels"],
                              "cifar_jpeg_tar_mesh_auto_tune": mesh_cache["decode_pixels"],
                              "multihost": multihost34["decode_pixels"],
-                             "fleet_obs": fleet_obs35["decode_pixels"]},
+                             "fleet_obs": fleet_obs35["decode_pixels"],
+                             "chaos": chaos37["decode_pixels"]},
         "max_abs_err": max(r["max_abs_err"] for r in decode_checks),
         "ms": decode_times[64]["ms"],
         "plain_ms": decode_times[64]["plain_ms"],

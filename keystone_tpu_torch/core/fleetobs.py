@@ -435,23 +435,31 @@ class FleetCollector:
                 payload = self._scrape_member(key, m)
                 if payload is None:
                     if was_alive and not m["alive"]:
-                        triggers.append(
-                            ("obs_member_lost", key, "member unreachable")
+                        # A loss edge fires once: it goes ahead of any
+                        # fault motion seen in the same pass.
+                        triggers.insert(
+                            0, ("obs_member_lost", key, "member unreachable")
                         )
                     continue
                 # Postmortem-family fault motion IN the member triggers
                 # fleet-wide incident capture.  The first scrape only
                 # seeds the baseline — a fault that predates this
-                # collector is not this collector's incident.
+                # collector is not this collector's incident.  A member in
+                # the collector's own process shares its fault ledger, so
+                # the collector's own ``obs_member_lost`` count shows up
+                # there: that echo is the loss already captured above, not
+                # the member's incident.
                 faults = (
                     payload.get("statusz", {}).get("faults") or {}
                 )
                 prev = m["prev_faults"]
+                echo = payload.get("pid") == os.getpid()
                 for kind, total in faults.items():
                     if (
                         m["scrapes"] > 1
                         and self._postmortem_kind(kind)
                         and total > prev.get(kind, 0)
+                        and not (echo and kind == "obs_member_lost")
                     ):
                         triggers.append(
                             (kind, key, f"{kind} {prev.get(kind, 0)} -> "

@@ -2,7 +2,10 @@
 
 ``V diag((s^2/(n-1) + 0.1)^-0.5) V^T`` from the SVD of the centered sample
 matrix, in f32.  The 0.1 shrinkage is hard-coded as in the reference; ``eps``
-is kept for API parity and unused.
+is kept for API parity and unused.  A sample matrix with a NaN or an Inf is
+refused with a counted ``FloatingPointError`` (``nonfinite_model``), the
+typed error the JAX package raises once its SVD's NaNs reach the fitted
+model; ``torch.linalg.svd`` would raise an untyped ``LinAlgError`` instead.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..core.pipeline import Estimator, Transformer, node
+from ..core.resilience import assert_all_finite
 
 
 @node(data_fields=("whitener", "means"))
@@ -33,7 +37,8 @@ class ZCAWhitenerEstimator(Estimator):
 
     def fit_single(self, mat: torch.Tensor) -> ZCAWhitener:
         means = mat.mean(dim=0)
-        centered = (mat - means).to(torch.float32)
+        centered = assert_all_finite((mat - means).to(torch.float32),
+                                     "ZCA whitener sample matrix")
         n, d = centered.shape
         # Full V^T when n < d: the null-space directions (s = 0) still get
         # the 0.1 shrinkage, i.e. a 0.1^-0.5 gain.

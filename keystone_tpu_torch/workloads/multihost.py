@@ -194,7 +194,8 @@ def sum_launches(per_process) -> dict:
 def _host_router(get_model, mesh, dev, buckets, label: str):
     """One serving host: a ``ShapeRouter`` over a ``MeshEngineFactory``
     anchored on ``mesh``, with the engine for the drill's rows, behind a
-    ``WireServer`` on a free port.  Each engine is built from
+    ``WireServer`` on a free port (through a :class:`_RequestHold`, the
+    server's ``target``).  Each engine is built from
     ``get_model()`` when it is built, so a re-anchor serves the state that
     was loaded last.  Returns ``(router, server)``."""
     from ..core import frontend as kfrontend
@@ -214,7 +215,7 @@ def _host_router(get_model, mesh, dev, buckets, label: str):
     factory = kfrontend.MeshEngineFactory(build, mesh=mesh)
     router = kfrontend.ShapeRouter(factory, label=label)
     router.add_engine(factory((FEAT_DIM,), np.float32))
-    return router, kwire.WireServer(router, port=0, label=label)
+    return router, kwire.WireServer(_RequestHold(router), port=0, label=label)
 
 
 # -- worker: fit-serve --------------------------------------------------------
@@ -347,6 +348,40 @@ def fit_serve_main(argv) -> int:
 # -- worker: serve-host -------------------------------------------------------
 
 
+class _RequestHold:
+    """A serving target that a host-loss drill can stall: after
+    ``arm(k)`` it passes k more requests to ``target`` and then holds
+    every later one unanswered until ``release()`` (or the SIGKILL the
+    drill sends), counting them in ``held``."""
+
+    def __init__(self, target):
+        import threading
+
+        self.target = target
+        self.held = 0
+        self._left: int | None = None
+        self._lock = threading.Lock()
+        self._released = threading.Event()
+
+    def arm(self, k: int) -> None:
+        with self._lock:
+            self._left = k
+
+    def release(self) -> None:
+        self._released.set()
+
+    def submit(self, arr):
+        with self._lock:
+            hold = self._left is not None and self._left <= 0
+            if hold:
+                self.held += 1
+            elif self._left is not None:
+                self._left -= 1
+        if hold:
+            self._released.wait()
+        return self.target.submit(arr)
+
+
 def serve_host_main(argv) -> int:
     ap = argparse.ArgumentParser(prog="multihost serve-host")
     ap.add_argument("--ckpt", default=None)
@@ -376,6 +411,7 @@ def serve_host_main(argv) -> int:
     state["model"] = load_model()
     router, server = _host_router(lambda: state["model"], kmesh.host_local_mesh(), dev,
                                   buckets, f"host{rank}")
+    hold = server.target
     print(json.dumps({"rank": rank, "port": server.port, "pid": os.getpid()}), flush=True)
 
     rc = 0
@@ -413,12 +449,17 @@ def serve_host_main(argv) -> int:
                     "swapped": len(info.get("swapped", [])),
                     "failed": len(info.get("failed", [])),
                 }), flush=True)
+            elif cmd == "hold_after":
+                hold.arm(int(parts[1]))
+                print(json.dumps({"holding": int(parts[1])}), flush=True)
             elif cmd == "stats":
                 print(json.dumps({"stats": {"counters": counters.snapshot(),
-                                            "kernel_launches": kernel_launches()}}), flush=True)
+                                            "kernel_launches": kernel_launches(),
+                                            "held": hold.held}}), flush=True)
     except (BrokenPipeError, KeyboardInterrupt):  # the controller died
         rc = 1
     finally:
+        hold.release()
         server.close()
         router.close()
         final = {"final": {"rank": rank, "counters": counters.snapshot(),
@@ -632,6 +673,22 @@ class _WorkerIO:
         self.kill()
         return stats
 
+    def kill_when_holding(self, timeout_s: float) -> dict:
+        """Poll the worker's ``stats`` until it holds a request unanswered
+        (``hold_after``), then SIGKILL it; returns that last reply, whose
+        ``held`` counts the requests in flight at the kill."""
+        end = time.monotonic() + timeout_s
+        while True:
+            self.send("stats")
+            stats = self.expect("stats", timeout_s)["stats"]
+            if stats["held"] >= 1:
+                self.kill()
+                return stats
+            if time.monotonic() >= end:
+                raise TimeoutError(f"worker pid {self.proc.pid} held no request within "
+                                   f"{timeout_s}s")
+            time.sleep(0.01)
+
     def finish(self, timeout_s: float = 20.0) -> int:
         try:
             self.proc.wait(timeout=timeout_s)
@@ -722,13 +779,10 @@ def _postmortem_dir(tmpdir: str):
             os.environ["KEYSTONE_POSTMORTEM_DIR"] = old_pm
 
 
-def _drive_fleet(fleet, rows, results, errors, *, indices=None, threads=4, gate=None):
+def _drive_fleet(fleet, rows, results, errors, *, indices=None, threads=4):
     """Continuous concurrent traffic: a thread pool drains an index queue
     through ``fleet.predict`` so requests are ALWAYS in flight while the
-    controller kills a host.  With ``gate`` (a ``threading.Event``) each
-    client waits on it before taking its next request, so the controller
-    can hold new requests while it acts.  Returns the pool's join
-    callable."""
+    controller kills a host.  Returns the pool's join callable."""
     import queue
     import threading
 
@@ -738,8 +792,6 @@ def _drive_fleet(fleet, rows, results, errors, *, indices=None, threads=4, gate=
 
     def work():
         while True:
-            if gate is not None:
-                gate.wait()
             try:
                 i = idx_q.get_nowait()
             except queue.Empty:
@@ -869,8 +921,6 @@ def _run_drill_subprocess(
     record, tmpdir, stem, seed, hosts, kill_rank, survivors, rows, expected, local_devices,
     device, timeout_s, kfrontend, counters,
 ) -> None:
-    import threading
-
     workers: list[_WorkerIO] = []
     trace_paths = {r: os.path.join(tmpdir, f"drill_host{r}.json") for r in range(hosts)}
     n = len(rows)
@@ -880,19 +930,18 @@ def _run_drill_subprocess(
         endpoints = _start_serve_hosts(workers, tmpdir, "host", stem, seed, hosts, local_devices,
                                        device, timeout_s, trace_paths)
 
+        # Mid-flight: the doomed host answers its first few requests, then
+        # holds every later one unanswered, so requests are outstanding on
+        # it when it is SIGKILLed (a fast host could otherwise answer all
+        # of them before the kill, and only requests sent after it would
+        # meet the loss).
+        k = max(1, n // (3 * hosts))
+        workers[kill_rank].send(f"hold_after {k}")
+        workers[kill_rank].expect("holding", timeout_s / 4)
         with kfrontend.HostFleet(endpoints, label="drill") as fleet:
-            gate = threading.Event()
-            gate.set()
-            join = _drive_fleet(fleet, rows, results, errors, gate=gate)
-            # Mid-flight: requests are streaming when the host dies.
-            _wait_answered(results, n // 3, timeout_s / 4)
-            # New requests wait while the doomed host reports its launches
-            # and dies: those in flight meet the kill, and the rest cannot
-            # all drain during the report (then none would find the host
-            # dead, and the loss would go unexercised).
-            gate.clear()
-            doomed = workers[kill_rank].stats_then_kill(timeout_s / 4)
-            gate.set()
+            join = _drive_fleet(fleet, rows, results, errors)
+            doomed = workers[kill_rank].kill_when_holding(timeout_s / 4)
+            record["in_flight_at_kill"] = doomed["held"]
             record["killed_at_answered"] = _answered(results)
             _wait_answered(results, (2 * n) // 3, timeout_s / 2)
             # The controller's liveness verdict reaches the survivors:

@@ -51,6 +51,11 @@ OBSERVABILITY = ("core.trace", "core.telemetry", "core.resilience", "core.loggin
 #: no torch at import (a client process on a card's host creates no CUDA
 #: context; the launcher leaves torch to the workload it runs).
 CLIENT = ("core.serve_errors", "core.wire", "tools.serve_client", "__main__")
+#: The chaos tool and the fault injectors: no torch at import (a decode
+#: worker that the harness spawns re-imports the tool as its main module).
+CHAOS_TOOLS = ("tools.chaos_run", "testing.faults")
+#: The chaos harness and the port's tools that had a JAX-only counterpart.
+CHAOS = ("testing.chaos", "testing.faults", "tools.chaos_run", "tools.voc_leave2out_cv")
 
 
 def _run(code: str) -> dict:
@@ -77,7 +82,7 @@ def test_port_and_smoke_import_no_jax():
                  "workloads.imagenet_sift_lcs_fv", "core.serve", "core.frontend",
                  "core.wire", "workloads.serve_common", "parallel.distributed",
                  "parallel.mesh", "workloads.multihost", "tools.serve_bench", *OBSERVABILITY,
-                 *CLIENT):
+                 *CLIENT, *CHAOS):
         assert f"keystone_tpu_torch.{name}" in rec["imported"]
     mods = rec["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
@@ -137,3 +142,28 @@ def test_client_and_launcher_import_no_torch():
         assert f"keystone_tpu_torch.{name}" in mods
     assert not [m for m in mods if m == "torch" or m.startswith("torch.")]
     assert not [m for m in mods if m == "jax" or _jax_package(m)]
+
+
+def test_chaos_tool_imports_no_torch():
+    mods = _run(_IMPORT_OBSERVABILITY % (CHAOS_TOOLS,))["modules"]
+    for name in CHAOS_TOOLS:
+        assert f"keystone_tpu_torch.{name}" in mods
+    assert not [m for m in mods if m == "torch" or m.startswith("torch.")]
+    assert not [m for m in mods if m == "jax" or _jax_package(m)]
+
+
+_RUN_CHAOS = """
+import atexit, json, runpy, sys
+atexit.register(lambda: print(json.dumps({"modules": sorted(sys.modules)})))
+sys.argv = ["chaos_run", "--device", "cpu", "--seed", "3"]
+runpy.run_module("keystone_tpu_torch.tools.chaos_run", run_name="__main__")
+"""
+
+
+def test_chaos_run_imports_no_jax():
+    """A chaos schedule run as ``python -m keystone_tpu_torch.tools.chaos_run``
+    (the harness, the workload, the ingest path) ends with no jax and no
+    JAX-package module loaded."""
+    mods = _run(_RUN_CHAOS)["modules"]
+    assert "keystone_tpu_torch.testing.chaos" in mods and "torch" in mods
+    assert not [m for m in mods if m == "jax" or m.startswith("jax.") or _jax_package(m)]

@@ -39,6 +39,7 @@ def test_host_loss_drill_subprocess_on_the_card(cuda_spawn, tmp_path):
     rec = multihost.run_host_loss_drill(str(tmp_path), subprocess_mode=True, hosts=2,
                                         requests=24, device="cuda", timeout_s=240.0)
     assert rec["dropped_requests"] == 0 and rec["mismatches"] == 0 and rec["errors"] == []
+    assert rec["in_flight_at_kill"] >= 1
     for sc in rec["survivor_counters"].values():
         assert sc.get("dist_reform", 0) >= 1 and sc.get("host_reanchor", 0) >= 1
     assert rec["fleet"]["lost_hosts"] == 1
